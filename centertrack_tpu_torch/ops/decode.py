@@ -1,0 +1,83 @@
+"""Heatmap decode: max-pool pseudo-NMS -> top-K -> head gathers
+(reference: src/lib/model/utils.py:52-87, src/lib/model/decode.py:83-182;
+JAX: centertrack_tpu/ops/decode.py).
+
+Maps are NHWC as in the JAX package. Flat peak indices are row-major
+over H*W (ind = y*W + x).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+
+def nms_heat(heat: torch.Tensor) -> torch.Tensor:
+    """Keep pixels equal to their 3x3 local max
+    (reference: utils.py:52-58). heat: (B, H, W, C)."""
+    hmax = F.max_pool2d(heat.permute(0, 3, 1, 2), 3, 1,
+                        1).permute(0, 2, 3, 1)
+    return heat * (hmax == heat).to(heat.dtype)
+
+
+def gather_feat_nhwc(fmap: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, F) at flat indices (B, K) -> (B, K, F)
+    (reference: utils.py:22-26)."""
+    b, h, w, f = fmap.shape
+    flat = fmap.reshape(b, h * w, f)
+    return torch.gather(flat, 1, ind[:, :, None].expand(-1, -1, f))
+
+
+def topk_channel(scores: torch.Tensor, k: int):
+    """Per-channel top-K over the spatial plane (reference:
+    utils.py:60-69). scores: (B, H, W, C) -> 4 x (B, C, K)."""
+    b, h, w, c = scores.shape
+    flat = scores.reshape(b, h * w, c).transpose(1, 2)
+    topk_scores, topk_inds = torch.topk(flat, k)
+    topk_ys = torch.div(topk_inds, w, rounding_mode="floor").float()
+    topk_xs = (topk_inds % w).float()
+    return topk_scores, topk_inds, topk_ys, topk_xs
+
+
+def topk(scores: torch.Tensor, k: int):
+    """Two-stage top-K: per class over H*W, then over C*K
+    (reference: utils.py:71-87). Returns (score, inds, clses, ys, xs),
+    each (B, K); inds are flat spatial indices."""
+    b, h, w, c = scores.shape
+    topk_scores, topk_inds, topk_ys, topk_xs = topk_channel(scores, k)
+    topk_score, topk_ind = torch.topk(topk_scores.reshape(b, c * k), k)
+    topk_clses = torch.div(topk_ind, k, rounding_mode="floor").int()
+
+    def gather(x):
+        return torch.gather(x.reshape(b, c * k), 1, topk_ind)
+
+    return (topk_score, gather(topk_inds), topk_clses, gather(topk_ys),
+            gather(topk_xs))
+
+
+def generic_decode(output: Dict[str, torch.Tensor],
+                   k: int = 100) -> Dict[str, torch.Tensor]:
+    """NHWC tracking head maps (hm, reg, wh, tracking) -> top-K
+    detections, each (B, K, ...) (reference: decode.py:83-182)."""
+    scores, inds, clses, ys0, xs0 = topk(nms_heat(output["hm"]), k)
+    reg = gather_feat_nhwc(output["reg"], inds)
+    xs = xs0[:, :, None] + reg[:, :, 0:1]
+    ys = ys0[:, :, None] + reg[:, :, 1:2]
+    wh = gather_feat_nhwc(output["wh"], inds).clamp(min=0.0)
+    return {
+        "scores": scores, "clses": clses.float(), "xs": xs0, "ys": ys0,
+        "cts": torch.stack([xs0, ys0], dim=2), "inds": inds,
+        "bboxes": torch.cat([xs - wh[..., 0:1] / 2, ys - wh[..., 1:2] / 2,
+                             xs + wh[..., 0:1] / 2, ys + wh[..., 1:2] / 2],
+                            dim=2),
+        "tracking": gather_feat_nhwc(output["tracking"], inds),
+    }
+
+
+def sigmoid_output(output: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Sigmoid on the heatmap (reference: src/lib/detector.py:300-308)."""
+    output = dict(output)
+    output["hm"] = torch.sigmoid(output["hm"])
+    return output
