@@ -1,7 +1,8 @@
 """Tracking-task configuration: the subset of the JAX package's
 ``Config``, ``parse_task`` and ``set_heads`` that the fused serving path
-reads (reference: src/lib/opts.py:257-388), plus the MOT17 dataset
-meta the serving benchmark uses.
+and the trainer read (reference: src/lib/opts.py:257-388; JAX:
+centertrack_tpu/config.py), plus the MOT17 dataset meta the serving
+benchmark uses.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 
-def _freeze_dict(d: Dict[str, int]) -> Tuple[Tuple[str, int], ...]:
+def _freeze_dict(d: Dict) -> Tuple[Tuple, ...]:
     return tuple(sorted(d.items()))
 
 
@@ -44,15 +45,37 @@ class Config:
     max_age: int = -1
     max_tracks: int = 256          # capacity of the on-device track state
 
+    # --- train (JAX config.py:104-121) ------------------------------------
+    optim: str = "adam"            # adam | sgd
+    lr: float = 1.25e-4
+    lr_step: Tuple[int, ...] = (60,)
+    num_epochs: int = 70
+    batch_size: int = 32
+    # split each optimizer step into N sequential micro-batches of
+    # batch_size / N; gradients sum in fp32, BN statistics advance once
+    # per micro-batch
+    grad_accum: int = 1
+
+    # --- loss weights (JAX config.py:173-188) ------------------------------
+    tracking_weight: float = 1.0
+    hm_weight: float = 1.0
+    off_weight: float = 1.0
+    wh_weight: float = 0.1
+
     # --- derived (filled by parse_task / set_heads) -----------------------
     pre_img: bool = False
     output_h: int = -1
     output_w: int = -1
     heads: Tuple[Tuple[str, int], ...] = ()
+    weights: Tuple[Tuple[str, float], ...] = ()
 
     @property
     def heads_dict(self) -> Dict[str, int]:
         return dict(self.heads)
+
+    @property
+    def weights_dict(self) -> Dict[str, float]:
+        return dict(self.weights)
 
 
 def parse_task(cfg: Config) -> Config:
@@ -86,6 +109,12 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
     heads = {"hm": num_classes, "reg": 2, "wh": 2}
     if "tracking" in cfg.task:
         heads["tracking"] = 2
+    # loss weight per head; a head weighted 0 is dropped (JAX
+    # config.py:292-303)
+    weight_of = {"hm": cfg.hm_weight, "wh": cfg.wh_weight,
+                 "reg": cfg.off_weight, "tracking": cfg.tracking_weight}
+    heads = {h: c for h, c in heads.items() if weight_of[h] != 0}
+    weights = {h: weight_of[h] for h in heads}
     head_conv = cfg.head_conv if cfg.head_conv > 0 else (
         256 if "dla" in cfg.arch else 64)
     return dataclasses.replace(
@@ -95,6 +124,7 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
         output_h=input_h // cfg.down_ratio,
         output_w=input_w // cfg.down_ratio,
         heads=_freeze_dict(heads),
+        weights=_freeze_dict(weights),
         head_conv=head_conv,
     )
 

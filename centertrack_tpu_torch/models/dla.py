@@ -69,8 +69,8 @@ class Tree(nn.Module):
             self.tree1 = Tree(levels - 1, in_channels, out_channels, stride)
             self.tree2 = Tree(levels - 1, out_channels, out_channels, 1,
                               root_dim=root_dim + out_channels)
-        # the JAX package creates the projection whenever the widths
-        # differ; only a one-level tree reads it
+        # the JAX package (like the reference) creates the projection
+        # whenever the widths differ; only a one-level tree reads it
         self.project = (ConvBNAct(in_channels, out_channels, 1, act=False)
                         if in_channels != out_channels else None)
 
@@ -78,11 +78,14 @@ class Tree(nn.Module):
         children = [] if children is None else list(children)
         bottom = (F.max_pool2d(x, self.stride, self.stride)
                   if self.stride > 1 else x)
+        residual = bottom
+        if self.project is not None and (self.levels == 1 or self.training):
+            # a deeper tree discards it, but in train mode its BatchNorm
+            # statistics advance, as in the JAX package and the reference
+            residual = self.project(bottom)
         if self.level_root:
             children.append(bottom)
         if self.levels == 1:
-            residual = bottom if self.project is None else \
-                self.project(bottom)
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)

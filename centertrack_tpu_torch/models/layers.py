@@ -3,7 +3,9 @@
 ``x.permute(0, 2, 3, 1)`` hands the DCN kernel a contiguous NHWC view.
 
 BatchNorm follows the reference's torch settings: momentum 0.1, eps 1e-5
-(reference: src/lib/model/networks/dla.py:25).
+(reference: src/lib/model/networks/dla.py:25), and updates its running
+statistics the way the JAX package's flax BatchNorm does
+(models/dla.py:266-267, 291-292; ``BatchNorm`` below).
 """
 
 from __future__ import annotations
@@ -16,8 +18,37 @@ from centertrack_tpu_torch.ops.dcn import (deform_conv2d_local,
                                            deform_conv2d_local_plain)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d whose train mode is flax's BatchNorm, as the JAX
+    package trains it: batch mean and the fast biased variance
+    E[x^2] - E[x]^2 (clipped at 0), y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias differentiated by autograd, and the running
+    statistics folded as ra = 0.9 ra + 0.1 stat with the BIASED
+    variance (``nn.BatchNorm2d`` folds in the unbiased one, n / (n - 1)
+    larger, and differentiates through its own fused backward, which
+    loses more precision in fp32 where a channel's mean dwarfs its
+    spread). Eval mode is ``nn.BatchNorm2d``'s, on the running
+    statistics."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        axes = (0, 2, 3)
+        mean = x.mean(dim=axes)
+        var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None] + \
+            self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm:
+    return BatchNorm(channels, eps=1e-5, momentum=0.1)
 
 
 class ConvBNAct(nn.Module):
@@ -68,8 +99,10 @@ class DCNLayer(nn.Module):
     src/lib/model/networks/dla.py:513; JAX: models/layers.py:113-163).
 
     ``weight`` keeps the JAX (3, 3, Cin, Cout) layout the kernel takes.
-    ``plain=True`` routes the op to its plain PyTorch version on any
-    device (used to check the kernel on the card).
+    The op is differentiable on both devices (the kernels' autograd
+    function on CUDA, autograd through the plain version on the CPU).
+    ``plain=True`` routes it to its plain PyTorch version on any device
+    (used to check the kernels on the card).
     """
 
     def __init__(self, in_channels: int, features: int, mode: str = "local",

@@ -1,10 +1,13 @@
-"""Network assembly and the weight bridge from the JAX package's
-parameter trees (reference: src/lib/model/model.py;
+"""Network assembly and the weight bridge to and from the JAX
+package's parameter trees (reference: src/lib/model/model.py;
 JAX: centertrack_tpu/models/model.py).
 
 ``CenterTrackNet.forward(x, pre_img, pre_hm)`` takes NHWC inputs and
 returns ``[dict head -> NHWC map]``, the JAX model's contract. Inside,
-the network runs NCHW in ``torch.channels_last`` memory.
+the network runs NCHW in ``torch.channels_last`` memory. ``.train()``
+and ``.eval()`` are the JAX model's ``train=`` flag: in train mode the
+BatchNorm layers normalise with batch statistics and fold them into
+their running statistics as flax does.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch.nn as nn
 
 from centertrack_tpu_torch.models.dla import DLASeg
 from centertrack_tpu_torch.models.heads import HeadSet
-from centertrack_tpu_torch.models.layers import DCNLayer
+from centertrack_tpu_torch.models.layers import DCNLayer, UpBilinear
 
 
 def _nchw(x):
@@ -122,3 +125,44 @@ def params_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unknown JAX batch stat {'/'.join(path)}")
     return sd
+
+
+def params_to_jax(model: nn.Module) -> Tuple[Dict, Dict]:
+    """The inverse of ``params_from_jax``: the model's state as the JAX
+    package's (params, batch_stats) trees of float32 numpy arrays, the
+    payload ``centertrack_tpu.models.model.save_model`` writes.
+    ``num_batches_tracked`` has no JAX counterpart and is left out."""
+    params: Dict = {}
+    batch_stats: Dict = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        if leaf in node:
+            raise ValueError(f"two tensors map to {'/'.join(path)}/{leaf}")
+        node[leaf] = np.ascontiguousarray(value, dtype=np.float32)
+
+    for key, t in model.state_dict().items():
+        *path, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        owner = model.get_submodule(".".join(path))
+        if leaf == "num_batches_tracked":
+            continue
+        if isinstance(owner, nn.BatchNorm2d):
+            names = {"weight": "scale", "bias": "bias",
+                     "running_mean": "mean", "running_var": "var"}
+            tree = params if leaf in ("weight", "bias") else batch_stats
+            put(tree, path, names[leaf], a)
+        elif isinstance(owner, UpBilinear):
+            # (C, 1, 2f, 2f), flipped -> (2f, 2f, 1, C)
+            put(params, path, "kernel",
+                a[:, :, ::-1, ::-1].transpose(2, 3, 1, 0))
+        elif isinstance(owner, nn.Conv2d) and leaf == "weight":
+            put(params, path, "kernel", a.transpose(2, 3, 1, 0))
+        elif leaf in ("weight", "bias"):
+            # conv bias, or the DCN weight/bias in their JAX layout
+            put(params, path, leaf, a)
+        else:
+            raise ValueError(f"no JAX counterpart for {key}")
+    return params, batch_stats

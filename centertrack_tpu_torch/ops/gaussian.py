@@ -1,4 +1,4 @@
-"""Gaussian radius law and the pre_hm render from tracked centers
+"""Gaussian radius law, the GT heatmap render and the pre_hm render
 (reference: src/lib/utils/image.py:105-154, src/lib/detector.py:254-290;
 JAX: centertrack_tpu/ops/gaussian.py:46-224).
 """
@@ -26,6 +26,36 @@ def gaussian_radius(height: torch.Tensor,
     c3 = (min_overlap - 1) * width * height
     r3 = (b3 + torch.sqrt((b3 ** 2 - 4 * a3 * c3).clamp(min=0.0))) / 2
     return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def render_gaussians(height: int, width: int, num_channels: int,
+                     cts_int: torch.Tensor, radii: torch.Tensor,
+                     channels: torch.Tensor, ks: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """N truncated gaussians into an (H, W, C) heatmap, max-composited
+    per channel (JAX: ops/gaussian.py:96-137). Object n adds
+    k_n * exp(-(dx^2 + dy^2) / (2 sigma^2)) for |dx|, |dy| <= r_n,
+    sigma = (2 r_n + 1) / 6, to channel ``channels[n]``; invalid objects
+    add nothing. cts_int (N, 2) integer (x, y); radii, channels (N,)
+    int; ks (N,) float; valid (N,) bool."""
+    dev = cts_int.device
+    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    dx = xs[None, None, :] - cts_int[:, 0].float()[:, None, None]
+    dy = ys[None, :, None] - cts_int[:, 1].float()[:, None, None]
+    r = radii.float()[:, None, None]
+    sigma = (2.0 * r + 1.0) / 6.0
+    g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    in_box = (dx.abs() <= r) & (dy.abs() <= r)
+    g = g * in_box * ks.float()[:, None, None] * valid.float()[:, None, None]
+    # dead objects go to an extra channel that is dropped
+    seg = torch.where(valid.bool(), channels.long(), num_channels)
+    hm = torch.zeros((num_channels + 1, height * width), dtype=torch.float32,
+                     device=dev)
+    hm.scatter_reduce_(0, seg[:, None].expand(-1, height * width),
+                       g.reshape(-1, height * width), "amax")
+    return hm[:num_channels].reshape(num_channels, height, width).permute(
+        1, 2, 0)
 
 
 # window of one splat on large maps, as in the JAX package

@@ -5,19 +5,31 @@ NVIDIA GPU: `python3 chip_smoke.py` from the root of a checkout.
 Phases, each printing one JSON line with its elapsed seconds:
 
   device   the card's name and power limit (nvidia-smi); fails without CUDA
-  build    nvcc build of the port's kernel (csrc/dcn_local.cu) into build/
+  build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
+           csrc/dcn_local_bwd.cu) into build/, all started together
   kernel   dcn_local_fwd against its plain PyTorch version at the seven
            DLA-34 neck shapes of the 544x960 path (R=1) and one R=2 case,
            with kernel, plain and cuDNN-3x3 times and the H100 bound
+  grad     dcn_local_bwd_data and dcn_local_bwd_weight (through the
+           autograd function) against autograd of the plain version, at
+           the same shapes, on random offsets (some past +/-R) and on
+           all-zero offsets (the kinks), with kernel, plain and bound times
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
-           synthetic 1080p frames, every frame fetched; the kernel must
-           launch exactly 16 times per frame; the first 3 frames are then
-           re-run with the DCN on its plain version and must agree
-  kernels  one JSON line per the port's kernel table
+           synthetic 1080p frames, every frame fetched; the forward kernel
+           must launch exactly 16 times per frame; the first 3 frames are
+           then re-run with the DCN on its plain version and must agree
+  train    the port's Trainer on the same model and checkpoint at
+           544x960, B=8, Adam: 12 steps on one fixed batch built from 9
+           consecutive synthetic frames; the loss must be finite and fall,
+           and each DCN kernel must launch 16 times per step; then one
+           B=1 step with the DCN on its plain version, whose gradients must
+           agree with the kernel path's
+  kernels  one JSON line: the port's kernel table
 
-`--profile N` adds a phase after `path`: torch.profiler over N frames,
-device time by kernel and the device's idle share.
+`--profile N` adds a phase after `path` and one after the timed steps of
+`train`: torch.profiler over N frames and over N B=8 steps, device time
+by kernel and the device's idle share.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
@@ -30,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,7 +50,14 @@ import torch
 from centertrack_tpu_torch.config import Config, MOT_META, parse_task, \
     set_heads
 from centertrack_tpu_torch.engine.fused import FusedDetector
+from centertrack_tpu_torch.engine.trainer import Trainer
+from centertrack_tpu_torch.models.model import create_model, \
+    params_from_jax, set_dcn_plain
 from centertrack_tpu_torch.ops import _build, dcn
+from centertrack_tpu_torch.ops.affine import get_affine_transform, \
+    invert_affine
+from centertrack_tpu_torch.ops.gaussian import gaussian_radius
+from centertrack_tpu_torch.ops.warp import preprocess_frame
 from centertrack_tpu_torch.utils.checkpoint import load_jax_ckpt
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -61,9 +81,31 @@ NECK_SHAPES = [
     ("s32", 17, 30, 512, 256, 1, "ida_0 proj_1"),
 ]
 REL_TOL = 1e-4   # fp32; only the summation order differs
+# fp32; grad x is summed with atomics, in an order that changes per run
+GRAD_REL_TOL = 1e-4
 PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
+SOURCES = ("dcn_local", "dcn_local_bwd")
+TRAIN_B = 8
+TRAIN_STEPS = 12
+TRAIN_TIMED = slice(2, None)    # steps 3-12
+TRAIN_LR = 1.25e-4
+TRAIN_MAX_OBJS = 16
+# kernel vs plain DCN gradients of one B=1 step from the checkpoint.
+# Each backward launch of the step is held against the plain version on
+# its own inputs at GRAD_REL_TOL. The whole step's gradients differ
+# more, because the two forwards round differently (floor-based vs
+# hat-sum bilinear, ~1e-6) and this step's gradients are that
+# sensitive: every run also takes the plain step on an image nudged by
+# NUDGE (relative) and reports how far that moves the gradients
+# (b1_plain_nudged_*), on the H100 about as far as the kernels do. So:
+# relative L2 over all gradients <= 1e-2, and per tensor
+# max|kernel - plain| <= 0.1 max|plain tensor| + 1e-5 max|any gradient|.
+PLAIN_GRAD_L2_TOL = 1e-2
+PLAIN_GRAD_TENSOR_RTOL = 0.1
+PLAIN_GRAD_FLOOR = 1e-5
+NUDGE = 1e-6
 
 
 def emit(phase, **kw):
@@ -72,18 +114,21 @@ def emit(phase, **kw):
           flush=True)
 
 
-def synth_frames(n, height=1080, width=1920, n_obj=10, seed=0):
+def synth_clip(n, height=1080, width=1920, n_obj=10, seed=0):
     """Deterministic 1080p clip in the committed checkpoints' training
     domain: moving filled rectangles with center dots on a noisy gray
     background, sized so the 1080p -> 544x960 warp lands them at the
     16-30 x 12-22 px scale the checkpoints were trained on (the same
-    generator as the JAX package's bench.py)."""
+    generator as the JAX package's bench.py). Returns the frames and,
+    per frame, each object's drawn box (n, n_obj, 4) as x1, y1, x2, y2
+    in pixels; object o keeps index o (its track id) in every frame."""
     rng = np.random.RandomState(seed)
     pos = rng.uniform([0, 0], [width - 120, height - 90], (n_obj, 2))
     vel = rng.uniform(-4, 4, (n_obj, 2))
     size = rng.uniform([32, 24], [60, 44], (n_obj, 2))
     colors = rng.randint(40, 220, (n_obj, 3))
     frames = []
+    boxes = np.zeros((n, n_obj, 4), np.float32)
     for f in range(n):
         img = rng.randint(180, 220, (height, width, 3), np.uint8)
         for o in range(n_obj):
@@ -92,10 +137,16 @@ def synth_frames(n, height=1080, width=1920, n_obj=10, seed=0):
             x = int(np.clip(x, 0, width - w))
             y = int(np.clip(y, 0, height - h))
             img[y:y + int(h), x:x + int(w)] = colors[o]
+            boxes[f, o] = (x, y, x + int(w), y + int(h))
             cy, cx = y + int(h) // 2, x + int(w) // 2
             img[max(0, cy - 3):cy + 3, max(0, cx - 3):cx + 3] = 255
         frames.append(img)
-    return frames
+    return frames, boxes
+
+
+def synth_frames(n, height=1080, width=1920, n_obj=10, seed=0):
+    """The frames of ``synth_clip``."""
+    return synth_clip(n, height, width, n_obj, seed)[0]
 
 
 def time_ms(fn, warmup, iters):
@@ -114,15 +165,51 @@ def time_ms(fn, warmup, iters):
     return statistics.median(times)
 
 
+def _bound_ms(ops, nbytes):
+    """Least H100 time for `ops` fp32 operations and `nbytes` of memory
+    traffic: the larger of the two over their peaks, and which it is."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def dcn_bound_ms(n, cin, cout):
     """Least H100 time for one clamped-DCN call: the larger of its fp32
     operations over the fp32 peak and its bytes (each input read once,
     the output written once) over the memory rate."""
     ops = 2.0 * n * 9 * cin * cout + 8.0 * n * 9 * cin  # contraction + bilinear
     nbytes = 4.0 * (n * cin + n * 27 + 9 * cin * cout + cout + n * cout)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound_ms(ops, nbytes)
+
+
+def dcn_bwd_bound_ms(n, cin, cout):
+    """Least H100 times of the two backward kernels, each ((ms, by)).
+
+    bwd_data: the G contraction (2 n 9 Cin Cout) plus, per pixel, tap
+    and channel, the sample and its two offset derivatives over the 2x2
+    support (3 x 4 FMAs), the scatter into grad x (4 FMAs) and the three
+    reductions (3 FMAs): 38 n 9 Cin; it reads x, offset, mask, weight
+    and the output grad and writes grad x, grad offset and grad mask.
+    bwd_weight: the contraction (2 n 9 Cin Cout) plus the bilinear
+    sample (8 n 9 Cin); it reads x, offset, mask and the output grad and
+    writes grad weight. Counted for non-integer offsets (at an integer
+    offset fewer corners are live and three shifts carry hat')."""
+    data = _bound_ms(2.0 * n * 9 * cin * cout + 38.0 * n * 9 * cin,
+                     4.0 * (2 * n * cin + 2 * n * 27 + 9 * cin * cout
+                            + n * cout))
+    weight = _bound_ms(2.0 * n * 9 * cin * cout + 8.0 * n * 9 * cin,
+                       4.0 * (n * cin + n * 27 + n * cout + 9 * cin * cout))
+    return data, weight
+
+
+def _launches():
+    return {"dcn_local_fwd": dcn.LAUNCHES,
+            "dcn_local_bwd_data": dcn.BWD_DATA_LAUNCHES,
+            "dcn_local_bwd_weight": dcn.BWD_WEIGHT_LAUNCHES}
+
+
+def _reset_launches():
+    dcn.LAUNCHES = dcn.BWD_DATA_LAUNCHES = dcn.BWD_WEIGHT_LAUNCHES = 0
 
 
 def phase_device():
@@ -145,23 +232,32 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
     t = time.perf_counter()
-    path = _build.build("dcn_local")
-    info = _build.build_info["dcn_local"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "smem" in ln or "spill" in ln]
-    emit("build", seconds=round(time.perf_counter() - t, 3),
-         nvcc_seconds=round(info["seconds"], 3),
-         library=os.path.relpath(path, ROOT), ptxas=ptxas)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    libs = {}
+    for name, path in paths.items():
+        info = _build.build_info[name]
+        libs[name] = {
+            "nvcc_seconds": round(info["seconds"], 3),
+            "library": os.path.relpath(path, ROOT),
+            "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                      if "registers" in ln or "smem" in ln or "spill" in ln]}
+    emit("build", seconds=round(time.perf_counter() - t, 3), libraries=libs)
+
+
+def _cases():
+    """The neck shapes at R=1 and one R=2 check."""
+    return [(*s, 1) for s in NECK_SHAPES] + \
+        [("s4", 136, 240, 64, 64, 0, "R=2 check", 2)]
 
 
 def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
-    cases = [(*s, 1) for s in NECK_SHAPES] + \
-        [("s4", 136, 240, 64, 64, 0, "R=2 check", 2)]
     rows = []
-    for name, h, w, cin, cout, per_frame, layers, r in cases:
+    for name, h, w, cin, cout, per_frame, layers, r in _cases():
         x = torch.randn(1, h, w, cin, generator=gen, device=dev)
         spread = r + 1.5   # offsets past +/-R exercise the clamp
         offset = (torch.rand(1, h, w, 18, generator=gen, device=dev) * 2
@@ -204,6 +300,86 @@ def phase_kernel():
     return rows
 
 
+def _rel_errs(got, ref, names):
+    out = {}
+    for name, a, b in zip(names, got, ref):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"non-finite kernel grad {name}")
+        err = (a - b).abs().max().item()
+        out[name] = (err, err / max(b.abs().max().item(), 1e-30))
+    return out
+
+
+def phase_grad():
+    """The backward kernels through DCNLocal against autograd of the
+    plain version on the same inputs and output grad."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+    names = ("x", "offset", "mask", "weight", "bias")
+    rows = []
+    for name, h, w, cin, cout, per_frame, layers, r in _cases():
+        x = torch.randn(1, h, w, cin, generator=gen, device=dev)
+        spread = r + 1.5
+        offsets = {
+            "random": (torch.rand(1, h, w, 18, generator=gen, device=dev)
+                       * 2 - 1) * spread,
+            "zero": torch.zeros(1, h, w, 18, device=dev)}
+        mask = torch.rand(1, h, w, 9, generator=gen, device=dev)
+        weight = torch.randn(3, 3, cin, cout, generator=gen,
+                             device=dev) * 0.05
+        bias = torch.randn(cout, generator=gen, device=dev)
+        g = torch.randn(1, h, w, cout, generator=gen, device=dev)
+        errs = {}
+        for kind, offset in offsets.items():
+            ins = [t.clone().requires_grad_() for t in
+                   (x, offset, mask, weight, bias)]
+            dcn.deform_conv2d_local(*ins, r).backward(g)
+            pins = [t.clone().requires_grad_() for t in
+                    (x, offset, mask, weight, bias)]
+            dcn.deform_conv2d_local_plain(*pins, r).backward(g)
+            torch.cuda.synchronize()
+            errs[kind] = _rel_errs([t.grad for t in ins],
+                                   [t.grad for t in pins], names)
+            bad = {k: v for k, v in errs[kind].items()
+                   if v[1] > GRAD_REL_TOL}
+            if bad:
+                raise RuntimeError(
+                    f"DCN backward {name} {cin}->{cout} R={r} {kind} "
+                    f"offsets: rel err {bad} > {GRAD_REL_TOL}")
+        offset = offsets["random"]
+        data_ms = time_ms(lambda: dcn.launch_bwd_data(
+            x, offset, mask, weight, g, r), 3, 20)
+        weight_ms = time_ms(lambda: dcn.launch_bwd_weight(
+            x, offset, mask, g, cout, r), 3, 20)
+        pins = [t.clone().requires_grad_() for t in
+                (x, offset, mask, weight)]
+        pout = dcn.deform_conv2d_local_plain(*pins, None, r)
+        plain_data_ms = time_ms(lambda: torch.autograd.grad(
+            pout, pins[:3], g, retain_graph=True), 1, 3)
+        plain_weight_ms = time_ms(lambda: torch.autograd.grad(
+            pout, pins[3:], g, retain_graph=True), 1, 3)
+        del pout, pins
+        (data_b, data_by), (weight_b, weight_by) = dcn_bwd_bound_ms(
+            h * w, cin, cout)
+        row = {"map": name, "hw": [h, w], "cin": cin, "cout": cout, "R": r,
+               "launches_per_step_and_image": per_frame, "layers": layers,
+               "data_max_abs_err": max(e[k][0] for e in errs.values()
+                                       for k in ("x", "offset", "mask")),
+               "weight_max_abs_err": max(e["weight"][0]
+                                         for e in errs.values()),
+               "rel_err": {kind: {k: v[1] for k, v in e.items()}
+                           for kind, e in errs.items()},
+               "tol_rel": GRAD_REL_TOL,
+               "data_ms": data_ms, "data_plain_ms": plain_data_ms,
+               "data_bound_ms": data_b, "data_bound_by": data_by,
+               "weight_ms": weight_ms, "weight_plain_ms": plain_weight_ms,
+               "weight_bound_ms": weight_b, "weight_bound_by": weight_by,
+               "library_ms": None}
+        rows.append(row)
+        emit("grad", **row)
+    return rows
+
+
 def phase_path():
     cfg = set_heads(parse_task(Config(
         task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
@@ -212,7 +388,7 @@ def phase_path():
     frames = synth_frames(PATH_FRAMES, seed=0)
     det = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda")
 
-    dcn.LAUNCHES = 0
+    _reset_launches()
     times, n_dets, packed = [], [], []
     for f in frames:
         t = time.perf_counter()
@@ -224,11 +400,14 @@ def phase_path():
             packed.append(res.cpu().numpy())
         if res.shape != (cfg.K, 13) or not torch.isfinite(res).all():
             raise RuntimeError(f"bad packed result {tuple(res.shape)}")
-    launches = dcn.LAUNCHES
+    counts = _launches()
+    launches = counts["dcn_local_fwd"]
     live = int(det.track_state.valid.sum())
-    if launches != 16 * PATH_FRAMES:
-        raise RuntimeError(f"dcn_local_fwd launched {launches} times over "
-                           f"{PATH_FRAMES} frames, expected 16 per frame")
+    if counts != {"dcn_local_fwd": 16 * PATH_FRAMES,
+                  "dcn_local_bwd_data": 0, "dcn_local_bwd_weight": 0}:
+        raise RuntimeError(f"DCN launches over {PATH_FRAMES} frames: "
+                           f"{counts}, expected 16 forward per frame and "
+                           f"no backward")
     if sum(n_dets) == 0:
         raise RuntimeError("no detection above out_thresh in any frame")
 
@@ -267,30 +446,317 @@ def phase_path():
     return row, det, frames, cfg
 
 
-def phase_profile(det, frames, cfg, n):
-    """torch.profiler over n steady frames: device time by kernel and
-    the share of the wall time the device was busy."""
+def _profile(run_once, n, phase, unit):
+    """torch.profiler over n calls of run_once (each ends on the host):
+    device time by kernel and the share of the wall time the device was
+    busy, per ``unit``."""
     from torch.profiler import ProfilerActivity, profile
-    det.reset_tracking()
-    for f in frames[:3]:
-        FusedDetector.fetch(det.run(f), cfg.out_thresh)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for f in frames[3:3 + n]:
-            FusedDetector.fetch(det.run(f), cfg.out_thresh)
+        for _ in range(n):
+            run_once()
         wall_ms = 1e3 * (time.perf_counter() - t)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
-    emit("profile", frames=n, wall_ms_per_frame=wall_ms / n,
-         device_busy_ms_per_frame=busy_ms / n,
-         device_idle_share=1 - busy_ms / wall_ms,
-         device_kernels_per_frame=sum(e.count for e in events) / n,
-         top=[{"name": e.key[:80], "calls_per_frame": e.count / n,
-               "ms_per_frame": e.self_device_time_total / 1e3 / n}
-              for e in top])
+    emit(phase, **{unit + "s": n, f"wall_ms_per_{unit}": wall_ms / n,
+                   f"device_busy_ms_per_{unit}": busy_ms / n,
+                   "device_idle_share": 1 - busy_ms / wall_ms,
+                   f"device_kernels_per_{unit}": sum(e.count
+                                                     for e in events) / n,
+                   "top": [{"name": e.key[:80],
+                            f"calls_per_{unit}": e.count / n,
+                            f"ms_per_{unit}":
+                                e.self_device_time_total / 1e3 / n}
+                           for e in top]})
+
+
+def phase_profile(det, frames, cfg, n):
+    """torch.profiler over n steady frames: device time by kernel and
+    the share of the wall time the device was busy."""
+    det.reset_tracking()
+    for f in frames[:3]:
+        FusedDetector.fetch(det.run(f), cfg.out_thresh)
+    steady = iter(frames[3:3 + n])
+    _profile(lambda: FusedDetector.fetch(det.run(next(steady)),
+                                         cfg.out_thresh),
+             n, "profile", "frame")
+
+
+class _RecordBackward:
+    """While active, keeps a copy of the inputs and outputs of every
+    backward kernel launch, to hold each against the plain version's
+    autograd on the same inputs afterwards (``check``)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._data, self._weight = dcn.launch_bwd_data, dcn.launch_bwd_weight
+
+        def data(x, offset, mask, weight, g, r):
+            out = self._data(x, offset, mask, weight, g, r)
+            self.calls.append(("data", [t.clone() for t in
+                                        (x, offset, mask, weight, g)],
+                               r, [t.clone() for t in out]))
+            return out
+
+        def weight(x, offset, mask, g, cout, r):
+            out = self._weight(x, offset, mask, g, cout, r)
+            self.calls.append(("weight", [t.clone() for t in
+                                          (x, offset, mask, g)],
+                               r, [out.clone()]))
+            return out
+
+        dcn.launch_bwd_data, dcn.launch_bwd_weight = data, weight
+        return self
+
+    def __exit__(self, *exc):
+        dcn.launch_bwd_data, dcn.launch_bwd_weight = self._data, self._weight
+
+    def check(self):
+        """Worst rel err over the recorded launches; raises past
+        GRAD_REL_TOL."""
+        worst = 0.0
+        for kind, ins, r, outs in self.calls:
+            if kind == "data":
+                ts = [t.clone().requires_grad_() for t in ins[:4]]
+                g, wrt, names = ins[4], ts[:3], ("x", "offset", "mask")
+            else:
+                x, offset, mask, g = ins
+                ts = [x, offset, mask, torch.zeros(
+                    3, 3, x.shape[3], g.shape[3], device=x.device,
+                    requires_grad=True)]
+                wrt, names = ts[3:], ("weight",)
+            out = dcn.deform_conv2d_local_plain(*ts, None, r)
+            ref = torch.autograd.grad(out, wrt, g)
+            for name, (err, rel) in _rel_errs(outs, ref, names).items():
+                if rel > GRAD_REL_TOL:
+                    raise RuntimeError(
+                        f"in the train step, {kind} launch on "
+                        f"{tuple(ins[0].shape)}: {name} rel err {rel} > "
+                        f"{GRAD_REL_TOL}")
+                worst = max(worst, rel)
+        return worst
+
+
+def _boxes_to(boxes, trans, width, height):
+    """(N, 4) boxes through a 2x3 affine, clipped to the map."""
+    tl = boxes[:, :2] @ trans[:, :2].T + trans[:, 2]
+    br = boxes[:, 2:] @ trans[:, :2].T + trans[:, 2]
+    out = np.concatenate([tl, br], 1).astype(np.float32)
+    out[:, [0, 2]] = np.clip(out[:, [0, 2]], 0, width - 1)
+    out[:, [1, 3]] = np.clip(out[:, [1, 3]], 0, height - 1)
+    return out
+
+
+def _radius(box):
+    """Reference radius max(0, int(gaussian_radius(ceil h, ceil w)))."""
+    hw = torch.from_numpy(np.ceil(box[:, [3, 2]] - box[:, [1, 0]]))
+    return torch.floor(gaussian_radius(hw[:, 0], hw[:, 1])).clamp(
+        min=0).numpy().astype(np.int32)
+
+
+def train_batch(cfg, frames, boxes, device):
+    """The descriptor batch GenericDataset would emit (no augmentation)
+    for the pairs (frame i -> frame i + 1): image = frame i + 1 and
+    pre_img = frame i, both through the port's preprocess_frame; GT
+    from the boxes of frame i + 1 at the output stride; pre_hm splats
+    and tracking offsets from the boxes of frame i."""
+    h0, w0 = frames[0].shape[:2]
+    c = np.array([w0 / 2.0, h0 / 2.0], np.float32)
+    s = max(h0, w0) * 1.0
+    trans_in = get_affine_transform(c, s, 0, [cfg.input_w, cfg.input_h])
+    trans_out = get_affine_transform(c, s, 0, [cfg.output_w, cfg.output_h])
+    inv_in = torch.as_tensor(invert_affine(trans_in).astype(np.float32),
+                             device=device)
+    mean = torch.as_tensor(MOT_META.mean, device=device)
+    std = torch.as_tensor(MOT_META.std, device=device)
+    images = [preprocess_frame(torch.as_tensor(f).to(device), inv_in,
+                               cfg.input_h, cfg.input_w, mean, std)[0]
+              for f in frames]
+    n, m = len(frames) - 1, TRAIN_MAX_OBJS
+    out = {"image": torch.stack(images[1:]), "pre_img": torch.stack(
+        images[:-1])}
+    arrays = {
+        "ind": np.zeros((n, m), np.int64), "cat": np.zeros((n, m), np.int64),
+        "mask": np.zeros((n, m), np.float32),
+        "hm_cts": np.zeros((n, m, 2), np.int32),
+        "hm_radii": np.zeros((n, m), np.int32),
+        "hm_valid": np.zeros((n, m), bool),
+        "ignore_boxes": np.zeros((n, 1, 4), np.float32),
+        "ignore_cat": np.zeros((n, 1), np.int32),
+        "ignore_valid": np.zeros((n, 1), bool),
+        "pre_cts_int": np.zeros((n, 2 * m, 2), np.int32),
+        "pre_radii": np.zeros((n, 2 * m), np.int32),
+        "pre_ks": np.zeros((n, 2 * m), np.float32),
+        "pre_valid": np.zeros((n, 2 * m), bool)}
+    for head in ("reg", "wh", "tracking"):
+        arrays[head] = np.zeros((n, m, 2), np.float32)
+        arrays[head + "_mask"] = np.zeros((n, m, 2), np.float32)
+    for i in range(n):
+        k = boxes.shape[1]
+        ob = _boxes_to(boxes[i + 1], trans_out, cfg.output_w, cfg.output_h)
+        wh = ob[:, 2:] - ob[:, :2]
+        live = (wh > 0).all(1)
+        ct = (ob[:, :2] + ob[:, 2:]) / 2
+        ct_int = ct.astype(np.int32)
+        pb = _boxes_to(boxes[i], trans_in, cfg.input_w, cfg.input_h)
+        pre_live = ((pb[:, 2:] - pb[:, :2]) > 0).all(1)
+        pre_ct = (pb[:, :2] + pb[:, 2:]) / 2
+        arrays["ind"][i, :k] = ct_int[:, 1] * cfg.output_w + ct_int[:, 0]
+        arrays["mask"][i, :k] = live
+        arrays["hm_cts"][i, :k] = ct_int
+        arrays["hm_radii"][i, :k] = _radius(ob)
+        arrays["hm_valid"][i, :k] = live
+        arrays["reg"][i, :k] = ct - ct_int
+        arrays["wh"][i, :k] = wh
+        arrays["tracking"][i, :k] = pre_ct / cfg.down_ratio - ct_int
+        for head, ok in (("reg", live), ("wh", live),
+                         ("tracking", live & pre_live)):
+            arrays[head + "_mask"][i, :k] = ok[:, None]
+        arrays["pre_cts_int"][i, :k] = pre_ct.astype(np.int32)
+        arrays["pre_radii"][i, :k] = _radius(pb)
+        arrays["pre_ks"][i, :k] = 1.0
+        arrays["pre_valid"][i, :k] = pre_live
+    out.update({k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+    return out
+
+
+def _fresh_model(cfg, params, batch_stats, plain=False):
+    model = create_model(cfg, "cuda")
+    model.load_state_dict(params_from_jax(params, batch_stats), strict=True)
+    set_dcn_plain(model, plain)
+    return model
+
+
+def phase_train(n_profile=0):
+    """``n_profile`` > 0 adds a torch.profiler pass over that many
+    B=8 steps after the timed ones."""
+    cfg = set_heads(parse_task(Config(
+        task="tracking", pre_hm=True, dla_node="dcn_local1",
+        batch_size=TRAIN_B, lr=TRAIN_LR)), MOT_META)
+    params, batch_stats = load_jax_ckpt(CKPT)
+    frames, boxes = synth_clip(TRAIN_B + 1, seed=1)
+    batch = train_batch(cfg, frames, boxes, "cuda")
+    trainer = Trainer(cfg, _fresh_model(cfg, params, batch_stats), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        step = trainer.train_step(batch, TRAIN_LR)
+        losses.append({k: float(v) for k, v in step.items()})
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    counts = _launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    tot = [l["tot"] for l in losses]
+    if not all(np.isfinite(v) for l in losses for v in l.values()):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if not tot[-1] < tot[0]:
+        raise RuntimeError(f"loss did not fall over {TRAIN_STEPS} steps: "
+                           f"{tot}")
+    want = {k: 16 * TRAIN_STEPS for k in counts}
+    if counts != want:
+        raise RuntimeError(f"DCN launches over {TRAIN_STEPS} steps: "
+                           f"{counts}, expected {want}")
+    if n_profile:
+        _profile(lambda: float(trainer.train_step(batch, TRAIN_LR)["tot"]),
+                 n_profile, "train_profile", "step")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # one B=1 step from the checkpoint, kernels against the plain DCN,
+    # and the plain DCN once more on a nudged image (the sensitivity)
+    one = {k: v[:1] for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    nudged = dict(one, image=one["image"] * (1 + NUDGE * torch.randn(
+        one["image"].shape, generator=gen, device="cuda")))
+    grads, b1 = {}, {}
+    for key, plain, b in (("kernel", False, one), ("plain", True, one),
+                          ("plain_nudged", True, nudged)):
+        model = _fresh_model(cfg, params, batch_stats, plain)
+        t1 = Trainer(cfg, model, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launches()
+        with _RecordBackward() as rec:
+            t = time.perf_counter()
+            loss = float(t1.train_step(b, TRAIN_LR)["tot"])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+        b1[key] = {"ms": ms, "loss": loss,
+                   "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                   "launches": {k: v - before[k]
+                                for k, v in _launches().items()}}
+        if not plain:
+            # every backward launch of the step, held against the plain
+            # version's autograd on its own inputs
+            b1[key]["launches_checked"] = len(rec.calls)
+            b1[key]["launch_worst_rel_err"] = rec.check()
+        grads[key] = {n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None}
+        del t1, model, rec
+        torch.cuda.empty_cache()
+    if b1["kernel"]["launches"] != {k: 16 for k in counts}:
+        raise RuntimeError(f"DCN launches of the B=1 kernel step: "
+                           f"{b1['kernel']['launches']}, expected 16 each")
+    for key in ("plain", "plain_nudged"):
+        if any(b1[key]["launches"].values()):
+            raise RuntimeError(f"the plain-DCN step launched kernels: "
+                               f"{b1[key]['launches']}")
+    ref = grads["plain"]
+    if set(grads["kernel"]) != set(ref):
+        raise RuntimeError("kernel and plain steps differ in which "
+                           "parameters get a gradient")
+
+    def rel_l2(other):
+        num = sum(((other[n] - ref[n]) ** 2).sum().item() for n in ref)
+        return (num / sum((g ** 2).sum().item() for g in ref.values())) ** .5
+
+    floor = PLAIN_GRAD_FLOOR * max(g.abs().max().item()
+                                   for g in ref.values())
+    shares, nudged_rel = {}, {}
+    for n, g in ref.items():
+        err = (grads["kernel"][n] - g).abs().max().item()
+        tol = PLAIN_GRAD_TENSOR_RTOL * g.abs().max().item() + floor
+        if not err <= tol:
+            raise RuntimeError(f"kernel vs plain DCN gradient of {n}: max "
+                               f"abs err {err} > {tol}")
+        shares[n] = err / tol
+        if g.abs().max().item() > floor:
+            nudged_rel[n] = ((grads["plain_nudged"][n] - g).abs().max()
+                             / g.abs().max()).item()
+    l2, l2_nudged = rel_l2(grads["kernel"]), rel_l2(grads["plain_nudged"])
+    if not l2 <= PLAIN_GRAD_L2_TOL:
+        raise RuntimeError(f"kernel vs plain DCN gradients: relative L2 "
+                           f"{l2} > {PLAIN_GRAD_L2_TOL}")
+    worst = max(shares, key=shares.get)
+    row = {"input": [cfg.input_h, cfg.input_w], "batch": TRAIN_B,
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "optim": cfg.optim,
+           "loss_tot": tot, "loss_first": losses[0], "loss_last": losses[-1],
+           "ms_per_step": times,
+           "ms_per_step_median_3_12": statistics.median(times[TRAIN_TIMED]),
+           "img_per_s": TRAIN_B * 1e3 / statistics.median(
+               times[TRAIN_TIMED]),
+           "peak_memory_mb": peak_mb, "dcn_launches": counts,
+           "dcn_launches_per_step": {k: v / TRAIN_STEPS
+                                     for k, v in counts.items()},
+           "b1_kernel_step": b1["kernel"], "b1_plain_step": b1["plain"],
+           "b1_grad_tensors": len(ref),
+           "b1_grad_rel_l2": l2, "b1_plain_nudged_rel_l2": l2_nudged,
+           "b1_plain_nudged_worst_tensor_rel": max(nudged_rel.values()),
+           "b1_grad_worst_tensor": worst,
+           "b1_grad_worst_share_of_tol": shares[worst],
+           "b1_grad_tol": {"rel_l2": PLAIN_GRAD_L2_TOL,
+                           "tensor_rtol": PLAIN_GRAD_TENSOR_RTOL,
+                           "floor_of_global_max": PLAIN_GRAD_FLOOR,
+                           "nudge": NUDGE}}
+    emit("train", **row)
+    return row
 
 
 def _out_of_time(signum, frame):
@@ -298,7 +764,8 @@ def _out_of_time(signum, frame):
 
 
 def main(argv):
-    """``--profile N`` adds a torch.profiler pass over N frames."""
+    """``--profile N`` adds torch.profiler passes over N frames and N
+    training steps."""
     n_profile = int(argv[argv.index("--profile") + 1]) \
         if "--profile" in argv else 0
     signal.signal(signal.SIGALRM, _out_of_time)
@@ -306,13 +773,24 @@ def main(argv):
     dev = phase_device()
     phase_build()
     rows = phase_kernel()
+    grad_rows = phase_grad()
     path, det, frames, cfg = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
+    del det
+    torch.cuda.empty_cache()
+    train = phase_train(n_profile)
 
     neck = [r for r in rows if r["launches_per_frame"]]
     per_frame = lambda key: sum(r[key] * r["launches_per_frame"]
                                 for r in neck)
+    gneck = [r for r in grad_rows if r["launches_per_step_and_image"]]
+    per_image = lambda key: sum(r[key] * r["launches_per_step_and_image"]
+                                for r in gneck)
+    bwd_source = "centertrack_tpu_torch/csrc/dcn_local_bwd.cu"
+    bwd_replaces = "centertrack_tpu/ops/dcn_pallas_shift.py:161"
+    bwd_also = ["centertrack_tpu/ops/dcn_pallas_halo.py:190"]
+    launches = train["dcn_launches"]
     kernels = [{
         "name": "dcn_local_fwd", "route": "cuda",
         "source": "centertrack_tpu_torch/csrc/dcn_local.cu",
@@ -320,7 +798,9 @@ def main(argv):
         "also_replaces": ["centertrack_tpu/ops/dcn_pallas_grid.py:126",
                           "centertrack_tpu/ops/dcn_pallas_shift.py:110",
                           "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
-        "launches": path["dcn_launches"],
+        "launches": launches["dcn_local_fwd"],
+        "launches_by_path": {"serving": path["dcn_launches"],
+                             "train": launches["dcn_local_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
         "ms": per_frame("ms"), "plain_ms": per_frame("plain_ms"),
@@ -329,6 +809,24 @@ def main(argv):
                                          for r in neck) else "bytes"),
         "library_ms": None,
     }]
+    for kname, key in (("dcn_local_bwd_data", "data"),
+                       ("dcn_local_bwd_weight", "weight")):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": bwd_source,
+            "replaces": bwd_replaces, "also_replaces": bwd_also,
+            "launches": launches[kname],
+            "launches_by_path": {"serving": 0, "train": launches[kname]},
+            "max_abs_err": max(r[key + "_max_abs_err"] for r in grad_rows),
+            "per": "one 544x960 image of a training step: the 16 launches "
+                   "of the neck shapes at B=1",
+            "ms": per_image(key + "_ms"),
+            "plain_ms": per_image(key + "_plain_ms"),
+            "bound_ms": per_image(key + "_bound_ms"),
+            "bound_by": ("operations" if all(
+                r[key + "_bound_by"] == "operations" for r in gneck)
+                else "bytes"),
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - T0, nvidia_smi=dev[
         "nvidia_smi"])

@@ -102,3 +102,70 @@ def test_profile_phase_runs_on_a_small_detector(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["phase"] == "profile" and row["frames"] == 2
     assert row["wall_ms_per_frame"] > 0
+
+
+def test_synth_clip_returns_the_frames_and_the_drawn_boxes():
+    frames, boxes = chip_smoke.synth_clip(3, height=120, width=200,
+                                          n_obj=3, seed=5)
+    for a, b in zip(frames, chip_smoke.synth_frames(3, height=120,
+                                                    width=200, n_obj=3,
+                                                    seed=5)):
+        np.testing.assert_array_equal(a, b)
+    assert boxes.shape == (3, 3, 4)
+    # the last object is drawn last: its box is its colour but for the
+    # white centre dot
+    for f, img in enumerate(frames):
+        x1, y1, x2, y2 = boxes[f, -1].astype(int)
+        patch = img[y1:y2, x1:x2].reshape(-1, 3)
+        colours, counts = np.unique(patch, axis=0, return_counts=True)
+        assert len(colours) == 2 and (colours == 255).all(1).any()
+        assert counts.max() > 0.8 * len(patch)
+
+
+def test_dcn_bwd_bound_counts_operations_and_bytes():
+    n, cin, cout = 136 * 240, 64, 64
+    (d_ms, d_by), (w_ms, w_by) = chip_smoke.dcn_bwd_bound_ms(n, cin, cout)
+    assert d_by == w_by == "operations"
+    assert d_ms == pytest.approx(1e3 * (2 * n * 9 * cin * cout
+                                        + 38 * n * 9 * cin)
+                                 / chip_smoke.PEAK_FP32_FLOPS)
+    assert w_ms == pytest.approx(chip_smoke.dcn_bound_ms(n, cin, cout)[0])
+    (d1, by1), (w1, wby1) = chip_smoke.dcn_bwd_bound_ms(n, 1, 1)
+    assert by1 == wby1 == "bytes"
+    assert d1 == pytest.approx(1e3 * 4 * (2 * n + 54 * n + 9 + n)
+                               / chip_smoke.PEAK_BYTES_S)
+
+
+def test_train_batch_feeds_a_training_step():
+    """The smoke's descriptor batch at 96x160 on the CPU: the keys the
+    JAX dataset emits, GT peaks at the object centres, finite losses
+    from one Trainer step."""
+    from centertrack_tpu_torch.config import Config, parse_task, set_heads
+    from centertrack_tpu_torch.data.render import render_batch
+    from centertrack_tpu_torch.engine.trainer import Trainer
+    from centertrack_tpu_torch.models.model import (create_model,
+                                                    params_from_jax)
+    from centertrack_tpu_torch.utils.checkpoint import load_jax_ckpt
+
+    class Meta:
+        num_categories = 1
+        default_resolution = [96, 160]
+
+    cfg = set_heads(parse_task(Config(task="tracking", pre_hm=True,
+                                      dla_node="dcn_local1")), Meta)
+    frames, boxes = chip_smoke.synth_clip(3, height=192, width=320,
+                                          n_obj=4, seed=1)
+    batch = chip_smoke.train_batch(cfg, frames, boxes, "cpu")
+    from test_trainer import tiny_batch
+    assert set(batch) == set(tiny_batch())
+    assert batch["image"].shape == (2, 96, 160, 3)
+    live = batch["mask"] > 0
+    assert live.sum() == 8
+    hm = render_batch(batch, cfg)["hm"]
+    for i in range(2):
+        for ind in batch["ind"][i][live[i]]:
+            assert hm[i].reshape(-1)[ind] == 1.0
+    model = create_model(cfg, "cpu")
+    model.load_state_dict(params_from_jax(*load_jax_ckpt(chip_smoke.CKPT)))
+    losses = Trainer(cfg, model, "cpu").train_step(batch, 1e-4)
+    assert all(np.isfinite(float(v)) for v in losses.values())
