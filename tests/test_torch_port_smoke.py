@@ -169,3 +169,72 @@ def test_train_batch_feeds_a_training_step():
     model.load_state_dict(params_from_jax(*load_jax_ckpt(chip_smoke.CKPT)))
     losses = Trainer(cfg, model, "cpu").train_step(batch, 1e-4)
     assert all(np.isfinite(float(v)) for v in losses.values())
+
+
+def _standin_launchers(monkeypatch, wrong=None):
+    """The three DCN launchers replaced by CPU stand-ins built from the
+    plain version; the one named ``wrong`` returns a result 1e-3 off."""
+    import torch
+
+    from centertrack_tpu_torch.ops import dcn
+
+    def vjp(x, offset, mask, weight, g, r):
+        ts = [t.detach().requires_grad_() for t in (x, offset, mask,
+                                                    weight)]
+        with torch.enable_grad():   # backward runs with grad mode off
+            out = dcn.deform_conv2d_local_plain(*ts, None, r)
+        return torch.autograd.grad(out, ts, g)
+
+    def off(kind, ts):
+        return tuple(t * (1 + 1e-3) for t in ts) if kind == wrong else ts
+
+    monkeypatch.setattr(dcn, "launch_fwd", lambda *a: off(
+        "fwd", (dcn.deform_conv2d_local_plain(*a),))[0])
+    monkeypatch.setattr(dcn, "launch_bwd_data", lambda *a: off(
+        "data", vjp(*a)[:3]))
+    monkeypatch.setattr(dcn, "launch_bwd_weight", lambda x, o, m, g, c, r:
+                        off("weight", (vjp(x, o, m, torch.zeros(
+                            3, 3, x.shape[3], c), g, r)[3],))[0])
+    return dcn
+
+
+@pytest.mark.parametrize("wrong", [None, "fwd", "data", "weight"])
+def test_record_launches_holds_each_launch_against_the_plain_version(
+        monkeypatch, wrong):
+    """_RecordLaunches around DCNLocal (launchers stood in on the CPU):
+    one launch of each kernel is recorded and passes; a launch whose
+    result is 1e-3 off (past REL_TOL and GRAD_REL_TOL) fails."""
+    import torch
+    dcn = _standin_launchers(monkeypatch, wrong)
+    rng = np.random.RandomState(0)
+    ts = [torch.from_numpy(a.astype(np.float32)).requires_grad_() for a in (
+        rng.randn(2, 5, 6, 4), rng.uniform(-2.5, 2.5, (2, 5, 6, 18)),
+        rng.rand(2, 5, 6, 9), rng.randn(3, 3, 4, 3), rng.randn(3))]
+    with chip_smoke._RecordLaunches() as rec:
+        dcn.DCNLocal.apply(*ts, 1).backward(torch.ones(2, 5, 6, 3))
+    assert [c[0] for c in rec.calls] == ["fwd", "data", "weight"]
+    if wrong is None:
+        worst = rec.check(1)
+        assert set(worst) == {"fwd", "data", "weight"}
+        assert max(worst.values()) < 1e-6
+    else:
+        with pytest.raises(RuntimeError, match="rel err"):
+            rec.check(1)
+
+
+def test_record_launches_requires_every_launch(monkeypatch):
+    """A launch count other than the one asked for fails the check, so a
+    route that bypasses the patched launchers cannot pass it unseen."""
+    import torch
+    dcn = _standin_launchers(monkeypatch)
+    x = torch.randn(1, 4, 4, 2)
+    with chip_smoke._RecordLaunches() as rec:
+        dcn.DCNLocal.apply(x, torch.zeros(1, 4, 4, 18), torch.ones(1, 4, 4, 9),
+                           torch.randn(3, 3, 2, 2), None, 1)
+    assert [c[0] for c in rec.calls] == ["fwd"]
+    with pytest.raises(RuntimeError, match="expected 1 of each"):
+        rec.check(1)
+    with chip_smoke._RecordLaunches() as rec:
+        pass
+    with pytest.raises(RuntimeError, match="expected 16 of each"):
+        rec.check(16)

@@ -180,6 +180,30 @@ def test_batchnorm_eval_uses_running_stats():
     assert torch.equal(bn.running_mean, before)
 
 
+def test_bn_cost_tool_times_and_checks_both_variants():
+    """The BatchNorm cost script on the CPU at 32x32 (no kernels): both
+    variants timed twice, both float32 steps held against the float64
+    one with finite errors, and the port's formula back in place
+    afterwards, also after an error inside the swap."""
+    import torch.nn as nn
+
+    from centertrack_tpu_torch.tools import bn_cost
+    formula = BatchNorm.forward
+    ms, row = bn_cost.main(["--device", "cpu", "--size", "32", "32",
+                            "--steps", "1", "--batch", "2"])
+    assert BatchNorm.forward is formula
+    assert {k: len(v) for k, v in ms.items()} == {"formula": 2, "fused": 2}
+    assert all(t > 0 for v in ms.values() for t in v)
+    for variant in ("formula", "fused"):
+        assert np.isfinite(row[variant]["rel_l2"])
+        assert row[variant]["worst_leaf"].endswith(("weight", "bias"))
+    with pytest.raises(ZeroDivisionError):
+        with bn_cost.fused_batchnorm():
+            assert BatchNorm.forward is nn.BatchNorm2d.forward
+            1 / 0
+    assert BatchNorm.forward is formula
+
+
 # --- rendering -----------------------------------------------------------
 
 @pytest.mark.parametrize("num_channels", [1, 3])
