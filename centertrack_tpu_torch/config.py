@@ -13,6 +13,11 @@ from typing import Dict, Tuple
 import numpy as np
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+# the spellings the JAX package's ops/warp.warp_precision_for accepts
+WARP_PRECISIONS = ("auto", "highest", "default", "fast")
+
+
 def _freeze_dict(d: Dict) -> Tuple[Tuple, ...]:
     return tuple(sorted(d.items()))
 
@@ -21,12 +26,25 @@ def _freeze_dict(d: Dict) -> Tuple[Tuple, ...]:
 class Config:
     task: str = ""
 
-    # --- model (the port serves float32) ---------------------------------
+    # --- system ----------------------------------------------------------
+    seed: int = 317                # seeds create_model's initialisation
+
+    # --- model -----------------------------------------------------------
+    # dtype of the network's compute: 'float32' or 'bfloat16' (parameters
+    # stay float32; JAX config.py:57)
+    compute_dtype: str = "float32"
+    # matmul precision of the separable input warp (ops/warp.py):
+    # 'auto' rounds its operands to bf16 when compute_dtype is bfloat16,
+    # as the TPU's one-pass DEFAULT does, else 'highest' (float32);
+    # 'highest' | 'default' ('fast' is an alias) force one mode
+    # (JAX config.py:84)
+    warp_precision: str = "auto"
     arch: str = "dla_34"
     dla_node: str = "dcn"          # dcn_local1 | dcn_local | conv here
     head_conv: int = -1            # -1 => 256 for dla, 64 otherwise
     down_ratio: int = 4
     num_classes: int = -1
+    prior_bias: float = -4.6       # initial bias of the hm head's out conv
 
     # --- input (-1: the dataset's default resolution) ---------------------
     input_h: int = -1
@@ -68,6 +86,15 @@ class Config:
     output_w: int = -1
     heads: Tuple[Tuple[str, int], ...] = ()
     weights: Tuple[Tuple[str, float], ...] = ()
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{'|'.join(COMPUTE_DTYPES)}, got "
+                             f"{self.compute_dtype!r}")
+        if self.warp_precision not in WARP_PRECISIONS:
+            raise ValueError(f"warp_precision must be auto|highest|default, "
+                             f"got {self.warp_precision!r}")
 
     @property
     def heads_dict(self) -> Dict[str, int]:

@@ -32,7 +32,8 @@ from centertrack_tpu_torch.ops.affine import (get_affine_transform,
                                               invert_affine)
 from centertrack_tpu_torch.ops.decode import generic_decode, sigmoid_output
 from centertrack_tpu_torch.ops.gaussian import gaussian_radius, render_pre_hm
-from centertrack_tpu_torch.ops.warp import preprocess_frame
+from centertrack_tpu_torch.ops.warp import (preprocess_frame,
+                                            warp_precision_for)
 
 
 def _affine_pts(pts: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -47,6 +48,13 @@ class FusedDetector:
     ``params``/``batch_stats`` are the JAX package's trees (as read by
     utils.checkpoint.load_jax_ckpt). ``plain_dcn=True`` runs the DCN
     layers through their plain PyTorch version instead of the kernel.
+
+    ``cfg.compute_dtype`` sets the network's dtype. Everything around it
+    runs as in the JAX ``one_frame``: the warp at
+    ``warp_precision_for(cfg)``, the float32 input and pre_hm cast to
+    the compute dtype by the network, float32 head maps (bf16-quantised
+    at bf16), so the decode, the thresholds, the track state and the
+    packed row are float32 at either dtype.
     """
 
     def __init__(self, cfg, params, batch_stats, dataset_meta,
@@ -65,6 +73,7 @@ class FusedDetector:
         self.std = torch.as_tensor(
             np.asarray(dataset_meta.std, np.float32).reshape(3),
             device=self.device)
+        self.warp_precision = warp_precision_for(cfg)
         self.capacity = cfg.max_tracks
         self._trans = {}
         self.reset_tracking()
@@ -127,7 +136,8 @@ class FusedDetector:
             self._transforms(height, width)
         frame = torch.as_tensor(image).to(self.device)
         images = preprocess_frame(frame, inv_trans_input, cfg.input_h,
-                                  cfg.input_w, self.mean, self.std)
+                                  cfg.input_w, self.mean, self.std,
+                                  self.warp_precision)
         if self.pre_images is None:
             self.pre_images = images
         state = self.track_state
@@ -135,7 +145,7 @@ class FusedDetector:
 
         out = self.model(images, self.pre_images if cfg.pre_img else None,
                          pre_hm if cfg.pre_hm else None)[-1]
-        dets = generic_decode(sigmoid_output(out), cfg.K)
+        dets = generic_decode(sigmoid_output(out), cfg.K, cfg.num_classes)
 
         # output grid -> image coordinates
         scores = dets["scores"][0]

@@ -65,6 +65,11 @@ class Trainer:
 
     def __init__(self, cfg, model, device="cuda"):
         self.device = torch.device(device)
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                "bf16 training is not ported yet: it needs the bf16 DCN "
+                "backward kernels (ROADMAP Queue A, bf16 training); train "
+                "with compute_dtype='float32'")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' asked for but no GPU is "
                                "available; pass device='cpu' to run on the "

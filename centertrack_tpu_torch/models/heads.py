@@ -1,7 +1,9 @@
 """Output heads (reference: src/lib/model/networks/base_model.py:24-65;
 JAX: centertrack_tpu/models/heads.py).
 
-Each head is 3x3 conv(head_conv) -> ReLU -> 1x1 out conv.
+Each head is 3x3 conv(head_conv) -> ReLU -> 1x1 out conv, computed in
+the dtype of its input; its map is returned in float32, as the JAX
+HeadSet casts it (models/heads.py:64).
 """
 
 from __future__ import annotations
@@ -12,15 +14,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from centertrack_tpu_torch.models.layers import Conv2d
+
 
 class Head(nn.Module):
     def __init__(self, in_channels: int, out_features: int, head_conv: int):
         super().__init__()
-        self.conv_0 = nn.Conv2d(in_channels, head_conv, 3, 1, 1)
-        self.out = nn.Conv2d(head_conv, out_features, 1)
+        self.conv_0 = Conv2d(in_channels, head_conv, 3, 1, 1)
+        self.out = Conv2d(head_conv, out_features, 1)
 
     def forward(self, x):
-        return self.out(F.relu(self.conv_0(x)))
+        return self.out(F.relu(self.conv_0(x))).float()
 
 
 class HeadSet(nn.ModuleDict):

@@ -6,6 +6,15 @@ BatchNorm follows the reference's torch settings: momentum 0.1, eps 1e-5
 (reference: src/lib/model/networks/dla.py:25), and updates its running
 statistics the way the JAX package's flax BatchNorm does
 (models/dla.py:266-267, 291-292; ``BatchNorm`` below).
+
+Compute dtype. Parameters are float32. Every layer computes in the
+dtype of its input, casting its float32 kernel and bias to it, as
+flax's ``nn.Conv(dtype=...)`` casts them (``cast_param``); the network
+casts its inputs to the compute dtype once
+(models/model.CenterTrackNet), so a bfloat16 network runs every conv,
+UpBilinear, DCN and BatchNorm in bf16. In eval mode BatchNorm takes
+bf16, normalises in float32 with its float32 statistics and returns
+bf16, as flax's ``BatchNorm(dtype=bf16)`` does.
 """
 
 from __future__ import annotations
@@ -16,6 +25,25 @@ import torch.nn.functional as F
 
 from centertrack_tpu_torch.ops.dcn import (deform_conv2d_local,
                                            deform_conv2d_local_plain)
+
+
+def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
+    """The float32 parameter ``name`` of ``module`` in ``dtype``. Where
+    no gradient is recorded the cast is kept and reused until the
+    parameter changes (another storage or an in-place update), so that
+    a bf16 network casts each weight once and not at every frame, as
+    the JAX package's jit folds its casts."""
+    p = getattr(module, name)
+    if p is None or p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    key = (p.data_ptr(), p._version, dtype)
+    casts = module.__dict__.setdefault("_casts", {})
+    hit = casts.get(name)
+    if hit is None or hit[0] != key:
+        hit = casts[name] = (key, p.detach().to(dtype))
+    return hit[1]
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -32,6 +60,8 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x):
         if not self.training:
+            # at bf16, F.batch_norm normalises in float32 with the float32
+            # statistics and rounds the result to bf16 once
             return super().forward(x)
         axes = (0, 2, 3)
         mean = x.mean(dim=axes)
@@ -51,14 +81,23 @@ def batch_norm(channels: int) -> BatchNorm:
     return BatchNorm(channels, eps=1e-5, momentum=0.1)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the dtype of its input: the float32 kernel and
+    bias are cast to it."""
+
+    def forward(self, x):
+        return self._conv_forward(x, cast_param(self, "weight", x.dtype),
+                                  cast_param(self, "bias", x.dtype))
+
+
 class ConvBNAct(nn.Module):
     """Conv -> BatchNorm -> optional ReLU."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  stride: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel, stride,
-                              (kernel - 1) // 2, bias=False)
+        self.conv = Conv2d(in_channels, features, kernel, stride,
+                           (kernel - 1) // 2, bias=False)
         self.bn = batch_norm(features)
         self.act = act
 
@@ -87,7 +126,8 @@ class UpBilinear(nn.Module):
         self.weight = nn.Parameter(torch.zeros(channels, 1, k, k))
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, stride=self.factor,
+        return F.conv_transpose2d(x, cast_param(self, "weight", x.dtype),
+                                  stride=self.factor,
                                   padding=self.factor // 2,
                                   groups=self.weight.shape[0])
 
@@ -99,8 +139,12 @@ class DCNLayer(nn.Module):
     src/lib/model/networks/dla.py:513; JAX: models/layers.py:113-163).
 
     ``weight`` keeps the JAX (3, 3, Cin, Cout) layout the kernel takes.
-    The op is differentiable on both devices (the kernels' autograd
-    function on CUDA, autograd through the plain version on the CPU).
+    At float32 the op is differentiable on both devices (the kernels'
+    autograd function on CUDA, autograd through the plain version on the
+    CPU); at bf16 it runs forward only on CUDA (``dcn_local_fwd_bf16``),
+    with the offsets, the mask (the sigmoid of the bf16 mask channels),
+    the weight and the bias in bf16, as the JAX layer hands them to its
+    op (models/layers.py:150-155).
     ``plain=True`` routes it to its plain PyTorch version on any device
     (used to check the kernels on the card).
     """
@@ -113,7 +157,7 @@ class DCNLayer(nn.Module):
                 f"DCN mode {mode!r}: only the clamped 'local' op is ported; "
                 f"the exact DCNv2 ('gather') is queued in ROADMAP.md as a "
                 f"later hand-written kernel")
-        self.conv_offset_mask = nn.Conv2d(in_channels, 27, 3, 1, 1)
+        self.conv_offset_mask = Conv2d(in_channels, 27, 3, 1, 1)
         self.weight = nn.Parameter(torch.zeros(3, 3, in_channels, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.max_offset = max_offset
@@ -125,5 +169,6 @@ class DCNLayer(nn.Module):
         mask = torch.sigmoid(om[..., 18:]).contiguous()
         xh = x.permute(0, 2, 3, 1).contiguous()
         op = deform_conv2d_local_plain if self.plain else deform_conv2d_local
-        out = op(xh, offset, mask, self.weight, self.bias, self.max_offset)
+        out = op(xh, offset, mask, cast_param(self, "weight", x.dtype),
+                 cast_param(self, "bias", x.dtype), self.max_offset)
         return out.permute(0, 3, 1, 2)

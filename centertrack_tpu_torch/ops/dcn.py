@@ -18,6 +18,16 @@ over (B, H, W). A CPU tensor goes to ``deform_conv2d_local_plain``, the
 plain PyTorch version that the tests hold against JAX and that the chip
 smoke holds the kernels against; autograd differentiates it.
 
+bfloat16. The five tensors are all float32 or all bfloat16. A bf16
+CUDA call goes to ``dcn_local_fwd_bf16`` (``csrc/dcn_local_bf16.cu``),
+forward only: the bf16 backward kernels are not written yet (ROADMAP
+Queue A, bf16 training), so a bf16 CUDA input that needs a gradient
+raises, and nothing upcasts it to the float32 kernels. At bf16 the op
+rounds where the Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the
+sample is taken in float32 from the bf16 inputs, masked, rounded to
+bf16, contracted with the bf16 weight with float32 accumulation, the
+bias added in float32, and the sum rounded to bf16.
+
 Derivative convention. The op is piecewise linear in the offsets, with
 kinks at integer offsets (where training starts: the offset conv is
 zero-initialised) and at the clamp. The JAX package's gradient is
@@ -49,6 +59,7 @@ from centertrack_tpu_torch.ops import _build
 
 # launches of each kernel in this process; read and reset by callers
 LAUNCHES = 0             # dcn_local_fwd
+BF16_LAUNCHES = 0        # dcn_local_fwd_bf16
 BWD_DATA_LAUNCHES = 0    # dcn_local_bwd_data
 BWD_WEIGHT_LAUNCHES = 0  # dcn_local_bwd_weight
 
@@ -56,6 +67,7 @@ BWD_WEIGHT_LAUNCHES = 0  # dcn_local_bwd_weight
 # launcher ends with the stream
 _SIGNATURES = {
     "dcn_local_fwd": ("dcn_local", 6, 6),
+    "dcn_local_fwd_bf16": ("dcn_local_bf16", 6, 6),
     "dcn_local_bwd_data": ("dcn_local_bwd", 8, 6),
     "dcn_local_bwd_weight": ("dcn_local_bwd", 6, 7),
 }
@@ -97,9 +109,12 @@ def _check(x, offset, mask, weight, bias, max_offset):
         if t.device != x.device:
             raise ValueError(f"dcn_local: {name} on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"dcn_local: {name} is {t.dtype}, the kernel "
-                            f"takes float32")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"dcn_local: {name} is {t.dtype}, the kernels "
+                            f"take float32 or bfloat16")
+        if t.dtype != x.dtype:
+            raise TypeError(f"dcn_local: {name} is {t.dtype}, x is "
+                            f"{x.dtype}: the five tensors share one dtype")
         if not t.is_contiguous():
             raise ValueError(f"dcn_local: {name} is not contiguous")
     if x.dim() != 4:
@@ -149,6 +164,21 @@ def launch_fwd(x, offset, mask, weight, bias, max_offset):
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         b, h, w, cin, cout, max_offset, _stream(x)), "dcn_local_fwd")
     LAUNCHES += 1
+    return out
+
+
+def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
+    """``dcn_local_fwd_bf16`` on checked bf16 CUDA tensors -> bf16
+    (B, H, W, Cout)."""
+    global BF16_LAUNCHES
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    _ok(_kernel("dcn_local_fwd_bf16")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        b, h, w, cin, cout, max_offset, _stream(x)), "dcn_local_fwd_bf16")
+    BF16_LAUNCHES += 1
     return out
 
 
@@ -203,6 +233,8 @@ class DCNLocal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_offset):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(BF16_GRAD)
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.max_offset = max_offset
         ctx.has_bias = bias is not None
@@ -227,21 +259,39 @@ class DCNLocal(torch.autograd.Function):
         return grad_x, grad_offset, grad_mask, grad_w, grad_b, None
 
 
-def route(device: torch.device):
+BF16_GRAD = ("dcn_local: a bfloat16 input that needs a gradient; the "
+             "bf16 backward kernels are not written yet (ROADMAP Queue A, "
+             "bf16 training). Train in float32.")
+
+
+def route(device: torch.device, dtype: torch.dtype = torch.float32,
+          needs_grad: bool = False):
     """What ``deform_conv2d_local`` calls for tensors on ``device``: the
-    plain version on the CPU, the kernels' autograd function on CUDA."""
-    return deform_conv2d_local_plain if device.type == "cpu" else \
-        DCNLocal.apply
+    plain version on the CPU; on CUDA the kernels' autograd function at
+    float32, and ``dcn_local_fwd_bf16`` at bfloat16, which raises if a
+    gradient is needed."""
+    if device.type == "cpu":
+        return deform_conv2d_local_plain
+    if dtype == torch.bfloat16:
+        if needs_grad:
+            raise NotImplementedError(BF16_GRAD)
+        return launch_fwd_bf16
+    return DCNLocal.apply
 
 
 def deform_conv2d_local(x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor | None = None,
                         max_offset: int = 2) -> torch.Tensor:
-    """Clamped DCN, differentiable: the kernels on a CUDA tensor, the
-    plain PyTorch version on a CPU tensor."""
+    """Clamped DCN: the kernels on a CUDA tensor (differentiable at
+    float32, forward only at bfloat16), the plain PyTorch version on a
+    CPU tensor."""
     _check(x, offset, mask, weight, bias, max_offset)
-    return route(x.device)(x, offset, mask, weight, bias, max_offset)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, offset, mask, weight, bias))
+    return route(x.device, x.dtype, needs_grad)(x, offset, mask, weight,
+                                                bias, max_offset)
 
 
 class _Hat(torch.autograd.Function):
@@ -290,7 +340,17 @@ def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
     (2R+1)^2 integer shifts of its clamped support, weighted by
     separable hat functions max(0, 1 - |d|), then masked and contracted
     with the tap's (Cin, Cout) weight. Autograd through it is JAX's vjp
-    (``_Hat``, ``_Clip``)."""
+    (``_Hat``, ``_Clip``).
+
+    At bfloat16 it computes in float32 on the bf16 values and rounds
+    where ``dcn_local_fwd_bf16`` and the Pallas kernels do: the masked
+    sample to bf16 before the contraction (whose products of bf16
+    values are exact in float32), the result to bf16 at the end."""
+    low = x.dtype == torch.bfloat16
+    if low:
+        x, offset, mask, weight = (t.float() for t in (x, offset, mask,
+                                                       weight))
+        bias = None if bias is None else bias.float()
     b, h, w, cin = x.shape
     cout = weight.shape[3]
     r = max_offset
@@ -312,7 +372,10 @@ def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
                                  pad + bb:pad + bb + w, :]
                     sampled = sampled + shifted * (wy * wx)[..., None]
             sampled = sampled * mask[..., t:t + 1]
+            if low:
+                sampled = sampled.to(torch.bfloat16).float()
             out = out + sampled.reshape(-1, cin) @ weight[i, j]
     if bias is not None:
         out = out + bias
-    return out.reshape(b, h, w, cout)
+    out = out.reshape(b, h, w, cout)
+    return out.to(torch.bfloat16) if low else out

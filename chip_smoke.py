@@ -6,10 +6,12 @@ Phases, each printing one JSON line with its elapsed seconds:
 
   device   the card's name and power limit (nvidia-smi); fails without CUDA
   build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
-           csrc/dcn_local_bwd.cu) into build/, all started together
-  kernel   dcn_local_fwd against its plain PyTorch version at the seven
-           DLA-34 neck shapes of the 544x960 path (R=1) and one R=2 case,
-           with kernel, plain and cuDNN-3x3 times and the H100 bound
+           csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu) into build/,
+           all started together
+  kernel   dcn_local_fwd and dcn_local_fwd_bf16 against their plain
+           PyTorch versions at the seven DLA-34 neck shapes of the
+           544x960 path (R=1) and one R=2 case, with kernel, plain and
+           cuDNN-3x3 times and the H100 bound
   grad     dcn_local_bwd_data and dcn_local_bwd_weight (through the
            autograd function) against autograd of the plain version, at
            the same shapes, on random offsets (some past +/-R) and on
@@ -19,6 +21,11 @@ Phases, each printing one JSON line with its elapsed seconds:
            synthetic 1080p frames, every frame fetched; the forward kernel
            must launch exactly 16 times per frame; the first 3 frames are
            then re-run with the DCN on its plain version and must agree
+  path_bf16  the same 30 frames, checkpoint and detector at
+           compute_dtype="bfloat16": dcn_local_fwd_bf16 must launch
+           exactly 16 times per frame and no float32 DCN kernel at all;
+           the first 3 frames re-run with the plain bf16 DCN must agree;
+           the rows are compared with the float32 path's
   train    the port's Trainer on the same model and checkpoint at
            544x960, B=8, Adam: 12 steps on one fixed batch built from 9
            consecutive synthetic frames; the loss must be finite and fall,
@@ -29,9 +36,10 @@ Phases, each printing one JSON line with its elapsed seconds:
            on its plain version, whose gradients must agree
   kernels  one JSON line: the port's kernel table
 
-`--profile N` adds a phase after `path` and one after the timed steps of
-`train`: torch.profiler over N frames and over N B=8 steps, device time
-by kernel and the device's idle share.
+`--profile N` adds a phase after `path`, one after `path_bf16` and one
+after the timed steps of `train`: torch.profiler over N frames (of each
+path) and over N B=8 steps, device time by kernel and the device's idle
+share.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
@@ -68,8 +76,9 @@ BUDGET_S = 1100
 T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 # (map, H, W, Cin, Cout, launches per frame, layers) at 544x960, R=1
@@ -83,12 +92,29 @@ NECK_SHAPES = [
     ("s32", 17, 30, 512, 256, 1, "ida_0 proj_1"),
 ]
 REL_TOL = 1e-4   # fp32; only the summation order differs
+# bf16 kernel against the plain bf16 version: the same bf16 sample, the
+# float32 sum in another order, one rounding to bf16, so an element may
+# flip by an ulp; elements that cancel to near zero carry the sums'
+# float32 error, a small share of the largest output. Each element:
+# |kernel - plain| <= BF16_ULPS ulps of |plain| + BF16_REL_OF_MAX max|plain|
+BF16_ULPS = 2
+BF16_REL_OF_MAX = 1e-3
 # fp32; grad x is summed with atomics, in an order that changes per run
 GRAD_REL_TOL = 1e-4
 PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
-SOURCES = ("dcn_local", "dcn_local_bwd")
+SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16")
+# the forward kernel each compute dtype's serving path launches
+PATH_KERNEL = {"float32": "dcn_local_fwd", "bfloat16": "dcn_local_fwd_bf16"}
+# the kernel path's rows against the plain-DCN path's over PLAIN_FRAMES
+# frames: the same track ids and scores within this. float32: both
+# forwards agree to ~1e-6; bf16: a kernel launch may flip single
+# outputs by an ulp, and later bf16 layers carry that on
+PLAIN_SCORE_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# two paths' rows are the same detection when their centres lie within
+# one output pixel of the 544x960 path on a 1080p frame
+MATCH_PX = 8.0
 TRAIN_B = 8
 TRAIN_STEPS = 12
 TRAIN_TIMED = slice(2, None)    # steps 3-12
@@ -182,6 +208,37 @@ def dcn_bound_ms(n, cin, cout):
     return _bound_ms(ops, nbytes)
 
 
+def dcn_bound_ms_bf16(n, cin, cout):
+    """Least H100 time for one bf16 clamped-DCN call: the contraction at
+    the dense bf16 tensor-core peak plus the bilinear sampling (in
+    float32) at the fp32 peak, against its bf16 bytes (each input read
+    once, the output written once) over the memory rate; the larger, and
+    which it is."""
+    t_ops = (2.0 * n * 9 * cin * cout / PEAK_BF16_FLOPS
+             + 8.0 * n * 9 * cin / PEAK_FP32_FLOPS)
+    t_bytes = 2.0 * (n * cin + n * 27 + 9 * cin * cout + cout
+                     + n * cout) / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at each |t| (2^(e - 7) for |t| in [2^e, 2^(e+1)))."""
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def bf16_agreement(out, ref):
+    """(max abs err, elements more than one ulp apart, elements past the
+    BF16_ULPS / BF16_REL_OF_MAX tolerance) of a bf16 result against its
+    plain version."""
+    err = (out.float() - ref.float()).abs()
+    ulp = bf16_ulp(ref)
+    tol = BF16_ULPS * ulp + BF16_REL_OF_MAX * ref.float().abs().max()
+    return (err.max().item(), int((err > ulp).sum()),
+            int((err > tol).sum()))
+
+
 def dcn_bwd_bound_ms(n, cin, cout):
     """Least H100 times of the two backward kernels, each ((ms, by)).
 
@@ -202,14 +259,20 @@ def dcn_bwd_bound_ms(n, cin, cout):
     return data, weight
 
 
+FP32_KERNELS = ("dcn_local_fwd", "dcn_local_bwd_data",
+                "dcn_local_bwd_weight")
+
+
 def _launches():
     return {"dcn_local_fwd": dcn.LAUNCHES,
             "dcn_local_bwd_data": dcn.BWD_DATA_LAUNCHES,
-            "dcn_local_bwd_weight": dcn.BWD_WEIGHT_LAUNCHES}
+            "dcn_local_bwd_weight": dcn.BWD_WEIGHT_LAUNCHES,
+            "dcn_local_fwd_bf16": dcn.BF16_LAUNCHES}
 
 
 def _reset_launches():
     dcn.LAUNCHES = dcn.BWD_DATA_LAUNCHES = dcn.BWD_WEIGHT_LAUNCHES = 0
+    dcn.BF16_LAUNCHES = 0
 
 
 def phase_device():
@@ -300,6 +363,51 @@ def phase_kernel():
     return rows
 
 
+def phase_kernel_bf16():
+    """dcn_local_fwd_bf16 against the plain bf16 version on the same
+    bf16 inputs, at the same cases as the float32 kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev, bf16 = "cuda", torch.bfloat16
+    rows = []
+    for name, h, w, cin, cout, per_frame, layers, r in _cases():
+        x = torch.randn(1, h, w, cin, generator=gen, device=dev).to(bf16)
+        offset = ((torch.rand(1, h, w, 18, generator=gen, device=dev) * 2
+                   - 1) * (r + 1.5)).to(bf16)
+        mask = torch.rand(1, h, w, 9, generator=gen, device=dev).to(bf16)
+        weight = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+                  * 0.05).to(bf16)
+        bias = torch.randn(cout, generator=gen, device=dev).to(bf16)
+        out = dcn.deform_conv2d_local(x, offset, mask, weight, bias, r)
+        ref = dcn.deform_conv2d_local_plain(x, offset, mask, weight, bias, r)
+        torch.cuda.synchronize()
+        if out.dtype != bf16 or not torch.isfinite(out).all():
+            raise RuntimeError(f"dcn_local_fwd_bf16 {name} {cin}->{cout}: "
+                               f"{out.dtype} output, or not finite")
+        err, past_ulp, past_tol = bf16_agreement(out, ref)
+        if past_tol:
+            raise RuntimeError(
+                f"dcn_local_fwd_bf16 {name} {cin}->{cout} R={r}: "
+                f"{past_tol} elements past {BF16_ULPS} ulps + "
+                f"{BF16_REL_OF_MAX} max|ref| (max abs err {err})")
+        k_ms = time_ms(lambda: dcn.deform_conv2d_local(
+            x, offset, mask, weight, bias, r), 3, 20)
+        p_ms = time_ms(lambda: dcn.deform_conv2d_local_plain(
+            x, offset, mask, weight, bias, r), 1, 5)
+        bound, bound_by = dcn_bound_ms_bf16(h * w, cin, cout)
+        row = {"kernel": "dcn_local_fwd_bf16", "map": name, "hw": [h, w],
+               "cin": cin, "cout": cout, "R": r,
+               "launches_per_frame": per_frame, "layers": layers,
+               "max_abs_err": err, "max_abs_ref": ref.float().abs().max()
+               .item(), "elements": out.numel(),
+               "elements_past_1_ulp": past_ulp,
+               "tol": {"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX},
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+               "bound_by": bound_by, "library_ms": None}
+        rows.append(row)
+        emit("kernel", **row)
+    return rows
+
+
 def _rel_errs(got, ref, names):
     out = {}
     for name, a, b in zip(names, got, ref):
@@ -380,76 +488,164 @@ def phase_grad():
     return rows
 
 
-def phase_path():
+def _kept_rows(packed, out_thresh, margin, collapse_ties):
+    """The rows above ``out_thresh``, without those within ``margin`` of
+    it; with ``collapse_ties``, a row whose score equals the previous
+    row's is left out."""
+    rows = [d for d in FusedDetector.fetch(torch.from_numpy(packed),
+                                           out_thresh)
+            if abs(d["score"] - out_thresh) > margin]
+    if collapse_ties:
+        rows = [d for i, d in enumerate(rows)
+                if i == 0 or d["score"] != rows[i - 1]["score"]]
+    return rows
+
+
+def rows_against(packed, ref_packed, out_thresh, margin=0.0,
+                 collapse_ties=False):
+    """Per frame, the rows above ``out_thresh`` of one path against
+    another's, each row paired with the nearest unpaired row of the
+    other within MATCH_PX of its centre, in score order: the rows left
+    unpaired, the largest score and box differences of the pairs, the
+    pairs whose track ids are equal, and whether the ids map one to one
+    over all frames (the other path may number its tracks otherwise).
+    ``margin`` and ``collapse_ties`` as in ``_kept_rows``: at bf16 a
+    score may land on either side of the threshold, and two
+    neighbouring peaks whose bf16 logits tie exactly both pass the 3x3
+    max-pool NMS."""
+    counts, unpaired, pairs, same_ids = [], 0, 0, 0
+    score, box, id_map = 0.0, 0.0, {}
+    for a, b in zip(packed, ref_packed):
+        ra = _kept_rows(a, out_thresh, margin, collapse_ties)
+        rb = _kept_rows(b, out_thresh, margin, collapse_ties)
+        counts.append([len(ra), len(rb)])
+        free = list(rb)
+        for da in ra:
+            dist = [float(np.abs(da["ct"] - db["ct"]).max()) for db in free]
+            if not dist or min(dist) > MATCH_PX:
+                unpaired += 1
+                continue
+            db = free.pop(int(np.argmin(dist)))
+            pairs += 1
+            same_ids += da["tracking_id"] == db["tracking_id"]
+            id_map.setdefault(da["tracking_id"], set()).add(
+                db["tracking_id"])
+            score = max(score, abs(da["score"] - db["score"]))
+            box = max(box, float(np.abs(da["bbox"] - db["bbox"]).max()))
+        unpaired += len(free)
+    mapped = [next(iter(v)) for v in id_map.values() if len(v) == 1]
+    return {"rows_per_frame": counts, "rows_unpaired": unpaired,
+            "pairs": pairs, "pairs_same_track_id": same_ids,
+            "track_ids_one_to_one": (len(mapped) == len(id_map) ==
+                                     len(set(mapped))),
+            "max_score_diff": score, "max_bbox_diff_px": box}
+
+
+def phase_path(dtype="float32", ref_packed=None):
+    """The serving path at ``dtype`` over PATH_FRAMES frames; with
+    ``ref_packed`` (the float32 path's rows) its rows are compared with
+    those. Returns (row, detector, frames, cfg, packed rows)."""
+    phase = "path" if dtype == "float32" else "path_bf16"
+    kernel = PATH_KERNEL[dtype]
     cfg = set_heads(parse_task(Config(
         task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
-        max_age=3, dla_node="dcn_local1")), MOT_META)
+        max_age=3, dla_node="dcn_local1", compute_dtype=dtype)), MOT_META)
     params, batch_stats = load_jax_ckpt(CKPT)
     frames = synth_frames(PATH_FRAMES, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     det = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda")
 
     _reset_launches()
-    times, n_dets, packed = [], [], []
+    times, n_dets, packed, states = [], [], [], []
     for f in frames:
+        if len(states) < PLAIN_FRAMES:
+            states.append((det.track_state, det.pre_images))
         t = time.perf_counter()
         res = det.run(f)
         items = FusedDetector.fetch(res, cfg.out_thresh)
         times.append(1e3 * (time.perf_counter() - t))
         n_dets.append(len(items))
-        if len(packed) < PLAIN_FRAMES:
-            packed.append(res.cpu().numpy())
+        packed.append(res.cpu().numpy())
         if res.shape != (cfg.K, 13) or not torch.isfinite(res).all():
             raise RuntimeError(f"bad packed result {tuple(res.shape)}")
     counts = _launches()
-    launches = counts["dcn_local_fwd"]
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = counts[kernel]
     live = int(det.track_state.valid.sum())
-    if counts != {"dcn_local_fwd": 16 * PATH_FRAMES,
-                  "dcn_local_bwd_data": 0, "dcn_local_bwd_weight": 0}:
-        raise RuntimeError(f"DCN launches over {PATH_FRAMES} frames: "
-                           f"{counts}, expected 16 forward per frame and "
-                           f"no backward")
+    want = {k: 16 * PATH_FRAMES if k == kernel else 0 for k in counts}
+    if counts != want:
+        raise RuntimeError(f"DCN launches over {PATH_FRAMES} frames at "
+                           f"{dtype}: {counts}, expected {want}")
     if sum(n_dets) == 0:
         raise RuntimeError("no detection above out_thresh in any frame")
 
-    # same frames, DCN on the plain PyTorch version, from a fresh state
+    # same frames, DCN on the plain PyTorch version. float32: from a
+    # fresh state, the two paths must stay together. bf16: each frame
+    # from the kernel path's own state before it, since one flipped ulp
+    # can make two neighbouring peaks tie and add a track; and every
+    # kernel launch of the first frame is held against the plain
+    # version on its own inputs
     plain = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda",
                           plain_dcn=True)
-    plain_times, worst_score, worst_box = [], 0.0, 0.0
+    low = dtype != "float32"
+    plain_times, plain_packed = [], []
     for i, f in enumerate(frames[:PLAIN_FRAMES]):
+        if low:
+            plain.track_state, plain.pre_images = states[i]
         t = time.perf_counter()
-        a = FusedDetector.fetch(plain.run(f), cfg.out_thresh)
+        res = plain.run(f)
+        FusedDetector.fetch(res, cfg.out_thresh)
         plain_times.append(1e3 * (time.perf_counter() - t))
-        b = FusedDetector.fetch(torch.from_numpy(packed[i]), cfg.out_thresh)
-        if [d["tracking_id"] for d in a] != [d["tracking_id"] for d in b]:
-            raise RuntimeError(f"frame {i}: track ids differ between the "
-                               f"kernel and the plain DCN")
-        for da, db in zip(a, b):
-            worst_score = max(worst_score, abs(da["score"] - db["score"]))
-            worst_box = max(worst_box,
-                            float(np.abs(da["bbox"] - db["bbox"]).max()))
-    if worst_score > 1e-3:
-        raise RuntimeError(f"kernel vs plain DCN: score diff {worst_score}")
-    if dcn.LAUNCHES != launches:
+        plain_packed.append(res.cpu().numpy())
+    launch_worst = None
+    if low:
+        det.track_state, det.pre_images = states[0]
+        with _RecordLaunches(("bf16",)) as rec:
+            det.run(frames[0])
+        launch_worst = rec.check(16)["bf16"]
+    margin = PLAIN_SCORE_TOL[dtype] if low else 0.0
+    vs_plain = rows_against(packed[:PLAIN_FRAMES], plain_packed,
+                            cfg.out_thresh, margin, collapse_ties=low)
+    if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or \
+            vs_plain["pairs_same_track_id"] != vs_plain["pairs"]:
+        raise RuntimeError(f"rows or track ids differ between the kernel "
+                           f"and the plain DCN at {dtype}: {vs_plain}")
+    if vs_plain["max_score_diff"] > PLAIN_SCORE_TOL[dtype]:
+        raise RuntimeError(f"kernel vs plain DCN at {dtype}: score diff "
+                           f"{vs_plain['max_score_diff']} > "
+                           f"{PLAIN_SCORE_TOL[dtype]}")
+    if _launches()[kernel] != launches + (16 if low else 0):
         raise RuntimeError("the plain-DCN run launched the kernel")
-    row = {"frames": PATH_FRAMES, "input": [cfg.input_h, cfg.input_w],
+    row = {"compute_dtype": dtype, "kernel": kernel,
+           "frames": PATH_FRAMES, "input": [cfg.input_h, cfg.input_w],
+           "warp_precision": det.warp_precision,
            "ms_per_frame_median": statistics.median(times[PATH_WARMUP:]),
            "ms_per_frame_first": times[0],
            "dets_per_frame": n_dets, "live_tracks_end": live,
            "dcn_launches": launches,
            "plain_dcn_frames": PLAIN_FRAMES,
            "plain_dcn_ms_per_frame": plain_times,
-           "plain_vs_kernel_max_score_diff": worst_score,
-           "plain_vs_kernel_max_bbox_diff_px": worst_box,
-           "max_memory_allocated_mb":
-               torch.cuda.max_memory_allocated() / 2 ** 20}
-    emit("path", **row)
-    return row, det, frames, cfg
+           "plain_vs_kernel_max_score_diff": vs_plain["max_score_diff"],
+           "plain_vs_kernel_max_bbox_diff_px": vs_plain["max_bbox_diff_px"],
+           "plain_vs_kernel_score_tol": PLAIN_SCORE_TOL[dtype],
+           "plain_vs_kernel_rows": vs_plain["rows_per_frame"],
+           "plain_vs_kernel_pairs": vs_plain["pairs"],
+           "first_frame_launch_worst_rel_err": launch_worst,
+           "max_memory_allocated_mb": peak_mb}
+    if ref_packed is not None:
+        row["vs_float32_path"] = rows_against(
+            packed, ref_packed, cfg.out_thresh, margin, collapse_ties=low)
+    emit(phase, **row)
+    return row, det, frames, cfg, packed
 
 
 def _profile(run_once, n, phase, unit):
     """torch.profiler over n calls of run_once (each ends on the host):
-    device time by kernel and the share of the wall time the device was
-    busy, per ``unit``."""
+    device time by kernel, the share of the wall time the device was
+    busy, and the host operators with the most self CPU time (inflated
+    by the profiler's own cost, but in the same proportion for both
+    dtypes), per ``unit``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -461,6 +657,9 @@ def _profile(run_once, n, phase, unit):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:12]
     emit(phase, **{unit + "s": n, f"wall_ms_per_{unit}": wall_ms / n,
                    f"device_busy_ms_per_{unit}": busy_ms / n,
                    "device_idle_share": 1 - busy_ms / wall_ms,
@@ -470,10 +669,15 @@ def _profile(run_once, n, phase, unit):
                             f"calls_per_{unit}": e.count / n,
                             f"ms_per_{unit}":
                                 e.self_device_time_total / 1e3 / n}
-                           for e in top]})
+                           for e in top],
+                   "host_top": [{"name": e.key[:80],
+                                 f"calls_per_{unit}": e.count / n,
+                                 f"self_cpu_ms_per_{unit}":
+                                     e.self_cpu_time_total / 1e3 / n}
+                                for e in host]})
 
 
-def phase_profile(det, frames, cfg, n):
+def phase_profile(det, frames, cfg, n, phase="profile"):
     """torch.profiler over n steady frames: device time by kernel and
     the share of the wall time the device was busy."""
     det.reset_tracking()
@@ -482,16 +686,20 @@ def phase_profile(det, frames, cfg, n):
     steady = iter(frames[3:3 + n])
     _profile(lambda: FusedDetector.fetch(det.run(next(steady)),
                                          cfg.out_thresh),
-             n, "profile", "frame")
+             n, phase, "frame")
 
 
 class _RecordLaunches:
     """While active, keeps a copy of the inputs and outputs of every
-    launch of the three DCN kernels, to hold each against the plain
-    version on the same inputs afterwards (``check``)."""
+    launch of the DCN kernels of ``kinds`` (the three float32 kernels by
+    default, or "bf16"), to hold each against the plain version on the
+    same inputs afterwards (``check``)."""
 
-    LAUNCHERS = {"fwd": "launch_fwd", "data": "launch_bwd_data",
-                 "weight": "launch_bwd_weight"}
+    ALL = {"fwd": "launch_fwd", "data": "launch_bwd_data",
+           "weight": "launch_bwd_weight", "bf16": "launch_fwd_bf16"}
+
+    def __init__(self, kinds=("fwd", "data", "weight")):
+        self.LAUNCHERS = {k: self.ALL[k] for k in kinds}
 
     def __enter__(self):
         self.calls = []
@@ -518,8 +726,9 @@ class _RecordLaunches:
     def check(self, per_kind):
         """Requires ``per_kind`` recorded launches of each kernel and
         holds each against the plain version on its own inputs (forward
-        at REL_TOL, backward at GRAD_REL_TOL). Returns the worst rel err
-        per kernel."""
+        at REL_TOL, backward at GRAD_REL_TOL, bf16 forward at BF16_ULPS
+        ulps + BF16_REL_OF_MAX max|ref| per element). Returns the worst
+        rel err (max abs err over max|ref|) per kernel."""
         counts = {k: sum(c[0] == k for c in self.calls)
                   for k in self.LAUNCHERS}
         if counts != {k: per_kind for k in self.LAUNCHERS}:
@@ -527,6 +736,18 @@ class _RecordLaunches:
                                f"{per_kind} of each kernel")
         worst = dict.fromkeys(self.LAUNCHERS, 0.0)
         for kind, args, outs in self.calls:
+            if kind == "bf16":
+                with torch.no_grad():
+                    ref = dcn.deform_conv2d_local_plain(*args)
+                err, _, past_tol = bf16_agreement(outs[0], ref)
+                if past_tol:
+                    raise RuntimeError(
+                        f"launch_fwd_bf16 on {tuple(args[0].shape)} in a "
+                        f"serving frame: {past_tol} elements past the "
+                        f"tolerance (max abs err {err})")
+                worst[kind] = max(worst[kind],
+                                  err / ref.float().abs().max().item())
+                continue
             if kind == "fwd":
                 with torch.no_grad():
                     ref = [dcn.deform_conv2d_local_plain(*args)]
@@ -671,7 +892,8 @@ def phase_train(n_profile=0):
     if not tot[-1] < tot[0]:
         raise RuntimeError(f"loss did not fall over {TRAIN_STEPS} steps: "
                            f"{tot}")
-    want = {k: 16 * TRAIN_STEPS for k in counts}
+    want = {k: 16 * TRAIN_STEPS if k in FP32_KERNELS else 0
+            for k in counts}
     if counts != want:
         raise RuntimeError(f"DCN launches over {TRAIN_STEPS} steps: "
                            f"{counts}, expected {want}")
@@ -711,7 +933,8 @@ def phase_train(n_profile=0):
                       if p.grad is not None}
         del t1, model, rec
         torch.cuda.empty_cache()
-    if b1["kernel"]["launches"] != {k: 16 for k in counts}:
+    if b1["kernel"]["launches"] != {k: 16 if k in FP32_KERNELS else 0
+                                    for k in counts}:
         raise RuntimeError(f"DCN launches of the B=1 kernel step: "
                            f"{b1['kernel']['launches']}, expected 16 each")
     if any(b1["plain"]["launches"].values()):
@@ -775,17 +998,24 @@ def main(argv):
     dev = phase_device()
     phase_build()
     rows = phase_kernel()
+    bf16_rows = phase_kernel_bf16()
     grad_rows = phase_grad()
-    path, det, frames, cfg = phase_path()
+    path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
+    del det
+    torch.cuda.empty_cache()
+    path_bf16, det, frames, cfg, _ = phase_path("bfloat16", packed)
+    if n_profile:
+        phase_profile(det, frames, cfg, n_profile, "profile_bf16")
     del det
     torch.cuda.empty_cache()
     train = phase_train(n_profile)
 
     neck = [r for r in rows if r["launches_per_frame"]]
-    per_frame = lambda key: sum(r[key] * r["launches_per_frame"]
-                                for r in neck)
+    per_frame = lambda key, rs=neck: sum(r[key] * r["launches_per_frame"]
+                                         for r in rs)
+    bf16_neck = [r for r in bf16_rows if r["launches_per_frame"]]
     gneck = [r for r in grad_rows if r["launches_per_step_and_image"]]
     per_image = lambda key: sum(r[key] * r["launches_per_step_and_image"]
                                 for r in gneck)
@@ -802,6 +1032,7 @@ def main(argv):
                           "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
         "launches": launches["dcn_local_fwd"],
         "launches_by_path": {"serving": path["dcn_launches"],
+                             "serving_bf16": 0,
                              "train": launches["dcn_local_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
@@ -810,6 +1041,26 @@ def main(argv):
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                          for r in neck) else "bytes"),
         "library_ms": None,
+    }, {
+        "name": "dcn_local_fwd_bf16", "route": "cuda",
+        "source": "centertrack_tpu_torch/csrc/dcn_local_bf16.cu",
+        "replaces": "centertrack_tpu/ops/dcn_pallas.py:115",
+        "also_replaces": ["centertrack_tpu/ops/dcn_pallas_grid.py:126",
+                          "centertrack_tpu/ops/dcn_pallas_shift.py:110",
+                          "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
+        "at": "bfloat16 inputs",
+        "launches": path_bf16["dcn_launches"],
+        "launches_by_path": {"serving": 0,
+                             "serving_bf16": path_bf16["dcn_launches"],
+                             "train": 0},
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
+        "per": "one 544x960 frame: the 16 launches of the neck shapes",
+        "ms": per_frame("ms", bf16_neck),
+        "plain_ms": per_frame("plain_ms", bf16_neck),
+        "bound_ms": per_frame("bound_ms", bf16_neck),
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in bf16_neck) else "bytes"),
+        "library_ms": None,
     }]
     for kname, key in (("dcn_local_bwd_data", "data"),
                        ("dcn_local_bwd_weight", "weight")):
@@ -817,7 +1068,8 @@ def main(argv):
             "name": kname, "route": "cuda", "source": bwd_source,
             "replaces": bwd_replaces, "also_replaces": bwd_also,
             "launches": launches[kname],
-            "launches_by_path": {"serving": 0, "train": launches[kname]},
+            "launches_by_path": {"serving": 0, "serving_bf16": 0,
+                                 "train": launches[kname]},
             "max_abs_err": max(r[key + "_max_abs_err"] for r in grad_rows),
             "per": "one 544x960 image of a training step: the 16 launches "
                    "of the neck shapes at B=1",

@@ -102,6 +102,8 @@ def test_profile_phase_runs_on_a_small_detector(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["phase"] == "profile" and row["frames"] == 2
     assert row["wall_ms_per_frame"] > 0
+    assert row["host_top"] and all(
+        h["self_cpu_ms_per_frame"] >= 0 for h in row["host_top"])
 
 
 def test_synth_clip_returns_the_frames_and_the_drawn_boxes():
@@ -238,3 +240,147 @@ def test_record_launches_requires_every_launch(monkeypatch):
         pass
     with pytest.raises(RuntimeError, match="expected 16 of each"):
         rec.check(16)
+
+
+def test_dcn_bound_bf16_adds_tensor_and_sampling_work_against_bytes():
+    """Contraction at the bf16 tensor-core peak plus sampling at the fp32
+    peak, against bf16 bytes; the 16 neck launches of a 544x960 frame
+    come to 0.049 ms, every one bound by operations."""
+    n, cin, cout = 136 * 240, 64, 64
+    ms, by = chip_smoke.dcn_bound_ms_bf16(n, cin, cout)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * (
+        2 * n * 9 * cin * cout / chip_smoke.PEAK_BF16_FLOPS
+        + 8 * n * 9 * cin / chip_smoke.PEAK_FP32_FLOPS))
+    ms1, by1 = chip_smoke.dcn_bound_ms_bf16(n, 1, 1)
+    assert by1 == "bytes"
+    assert ms1 == pytest.approx(
+        1e3 * 2 * (n + 27 * n + 9 + 1 + n) / chip_smoke.PEAK_BYTES_S)
+    frame = [chip_smoke.dcn_bound_ms_bf16(h * w, ci, co)
+             for _, h, w, ci, co, k, _ in chip_smoke.NECK_SHAPES
+             for _ in range(k)]
+    assert {b for _, b in frame} == {"operations"}
+    assert sum(m for m, _ in frame) == pytest.approx(0.0491, abs=1e-4)
+
+
+def test_bf16_agreement_counts_ulps_and_the_tolerance():
+    """bf16_ulp is the spacing of bf16 at each value; bf16_agreement
+    counts elements more than one ulp apart and those past
+    BF16_ULPS ulps + BF16_REL_OF_MAX max|ref|."""
+    import torch
+    ref = torch.tensor([1.0, 3.0, -6.0, 100.0, 0.01]).bfloat16()
+    np.testing.assert_array_equal(
+        chip_smoke.bf16_ulp(ref).numpy(),
+        [2.0 ** -7, 2.0 ** -6, 2.0 ** -5, 2.0 ** -1, 2.0 ** -14])
+    ulp = chip_smoke.bf16_ulp(ref)
+    # one ulp off everywhere: nothing past either bound
+    err, past_ulp, past_tol = chip_smoke.bf16_agreement(
+        (ref.float() + ulp).bfloat16(), ref)
+    assert (past_ulp, past_tol) == (0, 0) and err == 0.5
+    # 0.05 off at 0.01: past one ulp, within 1e-3 * 100 = 0.1
+    off = ref.float().clone()
+    off[4] += 0.05
+    _, past_ulp, past_tol = chip_smoke.bf16_agreement(off.bfloat16(), ref)
+    assert (past_ulp, past_tol) == (1, 0)
+    # three ulps off at 3.0 (> 2 ulps + 0.1): past the tolerance
+    off = ref.float().clone()
+    off[1] += 0.2
+    _, past_ulp, past_tol = chip_smoke.bf16_agreement(off.bfloat16(), ref)
+    assert (past_ulp, past_tol) == (1, 1)
+
+
+def test_rows_against_compares_paths_frame_by_frame():
+    """The comparison of the bf16 path's rows with the float32 path's,
+    on two 96x160 detectors on the CPU over three frames: the rows of a
+    path against themselves agree exactly; bf16 against float32 counts
+    the frames and bounds the differences."""
+    from centertrack_tpu_torch.config import Config, parse_task, set_heads
+    from centertrack_tpu_torch.engine.fused import FusedDetector
+    from centertrack_tpu_torch.utils.checkpoint import load_jax_ckpt
+
+    class Meta:
+        num_categories = 1
+        default_resolution = [96, 160]
+        mean = chip_smoke.MOT_META.mean
+        std = chip_smoke.MOT_META.std
+
+    frames = chip_smoke.synth_frames(3, height=192, width=320, n_obj=4)
+    packed = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = set_heads(parse_task(Config(
+            task="tracking", pre_hm=True, max_age=3, dla_node="dcn_local1",
+            compute_dtype=dtype)), Meta)
+        det = FusedDetector(cfg, *load_jax_ckpt(chip_smoke.CKPT), Meta,
+                            device="cpu")
+        packed[dtype] = [det.run(f).numpy() for f in frames]
+    same = chip_smoke.rows_against(packed["float32"], packed["float32"],
+                                   cfg.out_thresh)
+    assert same["rows_unpaired"] == 0 and same["pairs"] >= 5
+    assert same["pairs_same_track_id"] == same["pairs"]
+    assert same["track_ids_one_to_one"]
+    assert same["max_score_diff"] == same["max_bbox_diff_px"] == 0
+    vs = chip_smoke.rows_against(packed["bfloat16"], packed["float32"],
+                                 cfg.out_thresh)
+    assert len(vs["rows_per_frame"]) == 3 and vs["pairs"] >= 5
+    assert 0 < vs["max_score_diff"] < 0.1
+
+
+@pytest.mark.parametrize("wrong", [False, True])
+def test_record_launches_holds_bf16_launches_to_the_bf16_tolerance(
+        monkeypatch, wrong):
+    """_RecordLaunches(("bf16",)) around bf16 calls whose launcher is a
+    CPU stand-in built from the plain version: exact launches pass; a
+    launch 3% off (past 2 ulps + 1e-3 max|ref|) fails."""
+    import torch
+
+    from centertrack_tpu_torch.ops import dcn
+
+    def launch(*a):
+        out = dcn.deform_conv2d_local_plain(*a)
+        return (out.float() * 1.03).bfloat16() if wrong else out
+
+    monkeypatch.setattr(dcn, "launch_fwd_bf16", launch)
+    rng = np.random.RandomState(1)
+    ts = [torch.from_numpy(a.astype(np.float32)).bfloat16() for a in (
+        rng.randn(1, 5, 6, 4), rng.uniform(-2.5, 2.5, (1, 5, 6, 18)),
+        rng.rand(1, 5, 6, 9), rng.randn(3, 3, 4, 3), rng.randn(3))]
+    with chip_smoke._RecordLaunches(("bf16",)) as rec:
+        for _ in range(2):
+            dcn.route(torch.device("cuda"), torch.bfloat16)(*ts, 1)
+    assert dcn.launch_fwd_bf16 is launch
+    if wrong:
+        with pytest.raises(RuntimeError, match="past the tolerance"):
+            rec.check(2)
+    else:
+        assert rec.check(2) == {"bf16": 0.0}
+
+
+def test_rows_against_leaves_out_near_threshold_rows_and_tied_peaks():
+    """Rows are paired by centre, not by rank. A bf16 path whose rows
+    carry an extra peak tied exactly with its neighbour, and a score
+    just above the threshold that the other path has just below: with a
+    margin and ties collapsed they agree; a renumbered track keeps the
+    ids one to one."""
+    def packed(rows):
+        p = np.zeros((6, 13), np.float32)
+        for i, (score, tid, x) in enumerate(rows):
+            p[i, 0], p[i, 10], p[i, 2] = score, tid, x
+            p[i, 6:10] = (x - 5, 0, x + 5, 10)
+        return p
+
+    a = packed([(0.9, 1, 100), (0.5, 2, 300), (0.5, 3, 308),
+                (0.305, 4, 500)])
+    b = packed([(0.501, 2, 301), (0.901, 1, 100), (0.297, 0, 500)])
+    strict = chip_smoke.rows_against([a], [b], 0.3)
+    assert strict["rows_per_frame"] == [[4, 2]]
+    assert strict["rows_unpaired"] == 2 and strict["pairs"] == 2
+    loose = chip_smoke.rows_against([a], [b], 0.3, 1e-2, collapse_ties=True)
+    assert loose["rows_per_frame"] == [[2, 2]]
+    assert loose["rows_unpaired"] == 0
+    assert loose["pairs"] == loose["pairs_same_track_id"] == 2
+    assert loose["max_score_diff"] == pytest.approx(1e-3, rel=1e-3)
+    assert loose["max_bbox_diff_px"] == 1
+    renumbered = packed([(0.901, 7, 100), (0.501, 9, 301)])
+    other = chip_smoke.rows_against([a], [renumbered], 0.3, 1e-2, True)
+    assert other["pairs_same_track_id"] == 0
+    assert other["track_ids_one_to_one"]
