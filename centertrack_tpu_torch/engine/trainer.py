@@ -9,6 +9,13 @@ One optimisation step:
      kernels on the card)
   -> Adam / SGD update.
 
+At ``compute_dtype="bfloat16"`` the network computes in bf16 (its DCN
+layers through the bf16 kernels, forward and backward) while the
+parameters, their gradients, the optimizer state, the head maps, the
+rendered targets and the losses stay float32, as the JAX Trainer's
+step at bf16 keeps them: each layer's cast of a float32 parameter to
+bf16 passes the gradient back as float32.
+
 The batch is the descriptor dict that the JAX package's GenericDataset
 emits (numpy arrays or tensors with a leading batch dimension: image,
 pre_img, ind, cat, mask, hm_cts, hm_radii, hm_valid, ignore_*, pre_*,
@@ -65,11 +72,6 @@ class Trainer:
 
     def __init__(self, cfg, model, device="cuda"):
         self.device = torch.device(device)
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "bf16 training is not ported yet: it needs the bf16 DCN "
-                "backward kernels (ROADMAP Queue A, bf16 training); train "
-                "with compute_dtype='float32'")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' asked for but no GPU is "
                                "available; pass device='cpu' to run on the "

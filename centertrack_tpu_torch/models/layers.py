@@ -12,9 +12,10 @@ dtype of its input, casting its float32 kernel and bias to it, as
 flax's ``nn.Conv(dtype=...)`` casts them (``cast_param``); the network
 casts its inputs to the compute dtype once
 (models/model.CenterTrackNet), so a bfloat16 network runs every conv,
-UpBilinear, DCN and BatchNorm in bf16. In eval mode BatchNorm takes
-bf16, normalises in float32 with its float32 statistics and returns
-bf16, as flax's ``BatchNorm(dtype=bf16)`` does.
+UpBilinear, DCN and BatchNorm in bf16. BatchNorm takes bf16, normalises
+in float32 (in train mode with float32 statistics of the batch, in eval
+mode with its float32 running statistics) and returns bf16, as flax's
+``BatchNorm(dtype=bf16)`` does.
 """
 
 from __future__ import annotations
@@ -56,7 +57,16 @@ class BatchNorm(nn.BatchNorm2d):
     larger, and differentiates through its own fused backward, which
     loses more precision in fp32 where a channel's mean dwarfs its
     spread). Eval mode is ``nn.BatchNorm2d``'s, on the running
-    statistics."""
+    statistics.
+
+    At bfloat16 (flax ``BatchNorm(dtype=bf16)``, whose
+    ``force_float32_reductions`` holds by default) the statistics are
+    float32 reductions of the bf16 input, y is computed in float32 and
+    rounded to bf16 once, and the running statistics fold in float32.
+    The input is cast to float32 twice, once for the statistics and
+    once for y, as flax casts it in ``_compute_stats`` and promotes it
+    in ``_normalize``, so that the two bf16 input gradients add as
+    JAX's do."""
 
     def forward(self, x):
         if not self.training:
@@ -64,17 +74,18 @@ class BatchNorm(nn.BatchNorm2d):
             # statistics and rounds the result to bf16 once
             return super().forward(x)
         axes = (0, 2, 3)
-        mean = x.mean(dim=axes)
-        var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+        xs = x.float()
+        mean = xs.mean(dim=axes)
+        var = ((xs * xs).mean(dim=axes) - mean * mean).clamp(min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean[:, None, None]) * mul[:, None, None] + \
+        y = (x.float() - mean[:, None, None]) * mul[:, None, None] + \
             self.bias[:, None, None]
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        return y
+        return y.to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm:
@@ -139,12 +150,11 @@ class DCNLayer(nn.Module):
     src/lib/model/networks/dla.py:513; JAX: models/layers.py:113-163).
 
     ``weight`` keeps the JAX (3, 3, Cin, Cout) layout the kernel takes.
-    At float32 the op is differentiable on both devices (the kernels'
-    autograd function on CUDA, autograd through the plain version on the
-    CPU); at bf16 it runs forward only on CUDA (``dcn_local_fwd_bf16``),
-    with the offsets, the mask (the sigmoid of the bf16 mask channels),
-    the weight and the bias in bf16, as the JAX layer hands them to its
-    op (models/layers.py:150-155).
+    The op is differentiable at float32 and bf16 on both devices (the
+    kernels' autograd function on CUDA, autograd through the plain
+    version on the CPU); at bf16 the offsets, the mask (the sigmoid of
+    the bf16 mask channels), the weight and the bias are bf16, as the
+    JAX layer hands them to its op (models/layers.py:150-155).
     ``plain=True`` routes it to its plain PyTorch version on any device
     (used to check the kernels on the card).
     """

@@ -9,7 +9,7 @@ dilation 1; offsets are clipped to +/-max_offset and sampled with
 exact bilinear interpolation, zeros outside the map.
 
 ``deform_conv2d_local`` is the wrapper of the hand-written Hopper
-kernels: a CUDA tensor always goes to ``DCNLocal``, a
+kernels: a float32 CUDA tensor goes to ``DCNLocal``, a
 ``torch.autograd.Function`` whose forward launches ``dcn_local_fwd``
 (``csrc/dcn_local.cu``) and whose backward launches
 ``dcn_local_bwd_data`` (grad x, offset, mask) and ``dcn_local_bwd_weight``
@@ -19,14 +19,20 @@ plain PyTorch version that the tests hold against JAX and that the chip
 smoke holds the kernels against; autograd differentiates it.
 
 bfloat16. The five tensors are all float32 or all bfloat16. A bf16
-CUDA call goes to ``dcn_local_fwd_bf16`` (``csrc/dcn_local_bf16.cu``),
-forward only: the bf16 backward kernels are not written yet (ROADMAP
-Queue A, bf16 training), so a bf16 CUDA input that needs a gradient
-raises, and nothing upcasts it to the float32 kernels. At bf16 the op
-rounds where the Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the
-sample is taken in float32 from the bf16 inputs, masked, rounded to
-bf16, contracted with the bf16 weight with float32 accumulation, the
-bias added in float32, and the sum rounded to bf16.
+CUDA call runs the bf16 kernels and is never upcast to the float32
+ones: without a gradient it is ``dcn_local_fwd_bf16``
+(``csrc/dcn_local_bf16.cu``); with one it is ``DCNLocal`` at bf16,
+whose forward launches ``dcn_local_fwd_bf16`` and whose backward
+launches ``dcn_local_bwd_data_bf16`` and ``dcn_local_bwd_weight_bf16``
+(``csrc/dcn_local_bwd_bf16.cu``). At bf16 the forward rounds where the
+Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the sample is taken
+in float32 from the bf16 inputs, masked, rounded to bf16, contracted
+with the bf16 weight with float32 accumulation, the bias added in
+float32, and the sum rounded to bf16. The backward is the float32 vjp
+of that function on the bf16 values, with its two roundings passed
+through as a cast's transpose passes a cotangent, and each gradient
+rounded to bf16 once; the weight gradient contracts the bf16 sample
+the forward contracted.
 
 Derivative convention. The op is piecewise linear in the offsets, with
 kinks at integer offsets (where training starts: the offset conv is
@@ -62,6 +68,8 @@ LAUNCHES = 0             # dcn_local_fwd
 BF16_LAUNCHES = 0        # dcn_local_fwd_bf16
 BWD_DATA_LAUNCHES = 0    # dcn_local_bwd_data
 BWD_WEIGHT_LAUNCHES = 0  # dcn_local_bwd_weight
+BWD_DATA_BF16_LAUNCHES = 0    # dcn_local_bwd_data_bf16
+BWD_WEIGHT_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_bf16
 
 # symbol -> (source in csrc/, pointer arguments, int arguments); every
 # launcher ends with the stream
@@ -70,6 +78,8 @@ _SIGNATURES = {
     "dcn_local_fwd_bf16": ("dcn_local_bf16", 6, 6),
     "dcn_local_bwd_data": ("dcn_local_bwd", 8, 6),
     "dcn_local_bwd_weight": ("dcn_local_bwd", 6, 7),
+    "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", 9, 6),
+    "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 7),
 }
 _launchers = {}
 
@@ -139,12 +149,12 @@ def _check(x, offset, mask, weight, bias, max_offset):
 
 
 def _check_grad(grad_out, x, cout):
-    """The output gradient the backward kernels take: float32,
+    """The output gradient the backward kernels take: x's dtype,
     contiguous (B, H, W, Cout) on x's device."""
     want = (*x.shape[:3], cout)
-    if grad_out.device != x.device or grad_out.dtype != torch.float32:
+    if grad_out.device != x.device or grad_out.dtype != x.dtype:
         raise TypeError(f"dcn_local backward: grad is {grad_out.dtype} on "
-                        f"{grad_out.device}, the kernels take float32 on "
+                        f"{grad_out.device}, the kernels take {x.dtype} on "
                         f"{x.device}")
     if tuple(grad_out.shape) != want:
         raise ValueError(f"dcn_local backward: grad must be {want}, got "
@@ -226,19 +236,61 @@ def launch_bwd_weight(x, offset, mask, grad_out, cout, max_offset):
     return grad_w
 
 
+def launch_bwd_data_bf16(x, offset, mask, weight, grad_out, max_offset):
+    """``dcn_local_bwd_data_bf16`` on bf16 CUDA tensors -> bf16 (grad x,
+    grad offset, grad mask). grad x is summed in a float32 scratch and
+    rounded once."""
+    global BWD_DATA_BF16_LAUNCHES
+    _check_grad(grad_out, x, weight.shape[3])
+    b, h, w, cin = x.shape
+    grad_acc = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+    grad_x = torch.empty_like(x)
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    _ok(_kernel("dcn_local_bwd_data_bf16")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        grad_out.data_ptr(), grad_acc.data_ptr(), grad_x.data_ptr(),
+        grad_offset.data_ptr(), grad_mask.data_ptr(), b, h, w, cin,
+        weight.shape[3], max_offset, _stream(x)), "dcn_local_bwd_data_bf16")
+    BWD_DATA_BF16_LAUNCHES += 1
+    return grad_x, grad_offset, grad_mask
+
+
+def launch_bwd_weight_bf16(x, offset, mask, grad_out, cout, max_offset):
+    """``dcn_local_bwd_weight_bf16`` on bf16 CUDA tensors -> bf16 grad
+    weight (3, 3, Cin, Cout), reduced over float32 partials."""
+    global BWD_WEIGHT_BF16_LAUNCHES
+    _check_grad(grad_out, x, cout)
+    b, h, w, cin = x.shape
+    splits = weight_splits(b * h * w, cin, cout)
+    grad_w = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    partial = torch.empty((splits, 9, cin, cout), device=x.device,
+                          dtype=torch.float32)
+    _ok(_kernel("dcn_local_bwd_weight_bf16")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+        grad_out.data_ptr(), grad_w.data_ptr(), partial.data_ptr(),
+        b, h, w, cin, cout, max_offset, splits, _stream(x)),
+        "dcn_local_bwd_weight_bf16")
+    BWD_WEIGHT_BF16_LAUNCHES += 1
+    return grad_w
+
+
 class DCNLocal(torch.autograd.Function):
-    """The kernels' route: forward ``dcn_local_fwd``, backward
-    ``dcn_local_bwd_data`` + ``dcn_local_bwd_weight`` + a bias sum.
+    """The kernels' route, by the inputs' dtype: at float32 forward
+    ``dcn_local_fwd``, backward ``dcn_local_bwd_data`` +
+    ``dcn_local_bwd_weight``; at bfloat16 forward ``dcn_local_fwd_bf16``,
+    backward ``dcn_local_bwd_data_bf16`` + ``dcn_local_bwd_weight_bf16``;
+    the bias grad is a float32 sum over (B, H, W) in the bias's dtype.
     Inputs are checked by ``deform_conv2d_local``."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_offset):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(BF16_GRAD)
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.max_offset = max_offset
         ctx.has_bias = bias is not None
-        return launch_fwd(x, offset, mask, weight, bias, max_offset)
+        low = x.dtype == torch.bfloat16
+        return (launch_fwd_bf16 if low else launch_fwd)(
+            x, offset, mask, weight, bias, max_offset)
 
     @staticmethod
     @once_differentiable
@@ -247,34 +299,29 @@ class DCNLocal(torch.autograd.Function):
         r = ctx.max_offset
         g = grad_out.contiguous()
         need = ctx.needs_input_grad
+        low = x.dtype == torch.bfloat16
         grad_x = grad_offset = grad_mask = grad_w = grad_b = None
         if need[0] or need[1] or need[2]:
-            grad_x, grad_offset, grad_mask = launch_bwd_data(
+            grad_x, grad_offset, grad_mask = (
+                launch_bwd_data_bf16 if low else launch_bwd_data)(
                 x, offset, mask, weight, g, r)
         if need[3]:
-            grad_w = launch_bwd_weight(x, offset, mask, g, weight.shape[3],
-                                       r)
+            grad_w = (launch_bwd_weight_bf16 if low else launch_bwd_weight)(
+                x, offset, mask, g, weight.shape[3], r)
         if ctx.has_bias and need[4]:
-            grad_b = g.sum(dim=(0, 1, 2))
+            grad_b = g.float().sum(dim=(0, 1, 2)).to(g.dtype)
         return grad_x, grad_offset, grad_mask, grad_w, grad_b, None
-
-
-BF16_GRAD = ("dcn_local: a bfloat16 input that needs a gradient; the "
-             "bf16 backward kernels are not written yet (ROADMAP Queue A, "
-             "bf16 training). Train in float32.")
 
 
 def route(device: torch.device, dtype: torch.dtype = torch.float32,
           needs_grad: bool = False):
     """What ``deform_conv2d_local`` calls for tensors on ``device``: the
-    plain version on the CPU; on CUDA the kernels' autograd function at
-    float32, and ``dcn_local_fwd_bf16`` at bfloat16, which raises if a
-    gradient is needed."""
+    plain version on the CPU; on CUDA the kernels' autograd function,
+    except a bfloat16 call that needs no gradient, which launches
+    ``dcn_local_fwd_bf16`` alone."""
     if device.type == "cpu":
         return deform_conv2d_local_plain
-    if dtype == torch.bfloat16:
-        if needs_grad:
-            raise NotImplementedError(BF16_GRAD)
+    if dtype == torch.bfloat16 and not needs_grad:
         return launch_fwd_bf16
     return DCNLocal.apply
 
@@ -284,8 +331,7 @@ def deform_conv2d_local(x: torch.Tensor, offset: torch.Tensor,
                         bias: torch.Tensor | None = None,
                         max_offset: int = 2) -> torch.Tensor:
     """Clamped DCN: the kernels on a CUDA tensor (differentiable at
-    float32, forward only at bfloat16), the plain PyTorch version on a
-    CPU tensor."""
+    float32 and bfloat16), the plain PyTorch version on a CPU tensor."""
     _check(x, offset, mask, weight, bias, max_offset)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad
@@ -331,6 +377,22 @@ class _Clip(torch.autograd.Function):
         return g * slope, None
 
 
+class _RoundBF16(torch.autograd.Function):
+    """Rounds float32 values to bf16 (kept in float32) and passes the
+    gradient through unrounded, as the transpose of a cast passes a
+    cotangent: the plain bf16 version's sample rounding, so that its
+    autograd rounds each gradient once, at the bf16 inputs' casts, as
+    the bf16 backward kernels do."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
                               mask: torch.Tensor, weight: torch.Tensor,
                               bias: torch.Tensor | None = None,
@@ -345,7 +407,12 @@ def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
     At bfloat16 it computes in float32 on the bf16 values and rounds
     where ``dcn_local_fwd_bf16`` and the Pallas kernels do: the masked
     sample to bf16 before the contraction (whose products of bf16
-    values are exact in float32), the result to bf16 at the end."""
+    values are exact in float32), the result to bf16 at the end. Its
+    autograd is the bf16 backward kernels' function: the float32 vjp
+    through ``_Hat`` and ``_Clip``, the sample's rounding passed through
+    (``_RoundBF16``), the weight gradient contracting the rounded
+    sample, and each gradient rounded to bf16 once, by the backward of
+    the inputs' casts to float32."""
     low = x.dtype == torch.bfloat16
     if low:
         x, offset, mask, weight = (t.float() for t in (x, offset, mask,
@@ -373,7 +440,7 @@ def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
                     sampled = sampled + shifted * (wy * wx)[..., None]
             sampled = sampled * mask[..., t:t + 1]
             if low:
-                sampled = sampled.to(torch.bfloat16).float()
+                sampled = _RoundBF16.apply(sampled)
             out = out + sampled.reshape(-1, cin) @ weight[i, j]
     if bias is not None:
         out = out + bias

@@ -6,8 +6,8 @@ Phases, each printing one JSON line with its elapsed seconds:
 
   device   the card's name and power limit (nvidia-smi); fails without CUDA
   build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
-           csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu) into build/,
-           all started together
+           csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu,
+           csrc/dcn_local_bwd_bf16.cu) into build/, all started together
   kernel   dcn_local_fwd and dcn_local_fwd_bf16 against their plain
            PyTorch versions at the seven DLA-34 neck shapes of the
            544x960 path (R=1) and one R=2 case, with kernel, plain and
@@ -16,6 +16,10 @@ Phases, each printing one JSON line with its elapsed seconds:
            autograd function) against autograd of the plain version, at
            the same shapes, on random offsets (some past +/-R) and on
            all-zero offsets (the kinks), with kernel, plain and bound times
+  grad_bf16  dcn_local_bwd_data_bf16 and dcn_local_bwd_weight_bf16
+           against autograd of the plain bf16 version at the same shapes
+           and offsets, every element within the bf16 forward's
+           tolerance, with kernel, plain and bound times
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame fetched; the forward kernel
@@ -34,12 +38,18 @@ Phases, each printing one JSON line with its elapsed seconds:
            plain version on its own inputs; then one B=1 step with the
            kernels (its launches held the same way) and one with the DCN
            on its plain version, whose gradients must agree
+  train_bf16  the same at compute_dtype="bfloat16": each bf16 DCN kernel
+           (forward, bwd data, bwd weight) launches 16 times per step and
+           no float32 one; every launch of a 13th step is held against
+           the plain bf16 version; the B=1 kernel step's gradients must
+           lie no further from a plain bf16 step's than twice that
+           step's distance from a plain float32 step
   kernels  one JSON line: the port's kernel table
 
 `--profile N` adds a phase after `path`, one after `path_bf16` and one
-after the timed steps of `train`: torch.profiler over N frames (of each
-path) and over N B=8 steps, device time by kernel and the device's idle
-share.
+after the timed steps of `train` and of `train_bf16`: torch.profiler
+over N frames (of each path) and over N B=8 steps (of each dtype),
+device time by kernel and the device's idle share.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
@@ -104,7 +114,8 @@ GRAD_REL_TOL = 1e-4
 PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
-SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16")
+SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16",
+           "dcn_local_bwd_bf16")
 # the forward kernel each compute dtype's serving path launches
 PATH_KERNEL = {"float32": "dcn_local_fwd", "bfloat16": "dcn_local_fwd_bf16"}
 # the kernel path's rows against the plain-DCN path's over PLAIN_FRAMES
@@ -132,6 +143,13 @@ TRAIN_MAX_OBJS = 16
 PLAIN_GRAD_L2_TOL = 1e-2
 PLAIN_GRAD_TENSOR_RTOL = 0.1
 PLAIN_GRAD_FLOOR = 1e-5
+# bf16: the B=1 kernel step against the plain bf16 step. Both are bf16
+# steps that differ only in where the DCN layers' float32 sums fall
+# before their roundings, so each lies about as far from the plain
+# float32 step (distance d, measured in the same run) as the other;
+# two such steps with independent rounding errors are about sqrt(2) d
+# apart. Tolerance: relative L2 over all gradients <= 2 d.
+BF16_GRAD_L2_OF_FP32_DIST = 2.0
 
 
 def emit(phase, **kw):
@@ -259,20 +277,49 @@ def dcn_bwd_bound_ms(n, cin, cout):
     return data, weight
 
 
-FP32_KERNELS = ("dcn_local_fwd", "dcn_local_bwd_data",
-                "dcn_local_bwd_weight")
+def dcn_bwd_bound_ms_bf16(n, cin, cout):
+    """Least H100 times of the two bf16 backward kernels, each ((ms,
+    by)): the operations of ``dcn_bwd_bound_ms``, the contraction at the
+    dense bf16 tensor-core peak and the bilinear work at the fp32 peak,
+    against their bf16 bytes (each input read once, each output written
+    once) over the memory rate; the larger, and which it is."""
+    def bound(contraction, bilinear, elems):
+        t_ops = contraction / PEAK_BF16_FLOPS + bilinear / PEAK_FP32_FLOPS
+        t_bytes = 2.0 * elems / PEAK_BYTES_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+    contraction = 2.0 * n * 9 * cin * cout
+    data = bound(contraction, 38.0 * n * 9 * cin,
+                 2 * n * cin + 2 * n * 27 + 9 * cin * cout + n * cout)
+    weight = bound(contraction, 8.0 * n * 9 * cin,
+                   n * cin + n * 27 + n * cout + 9 * cin * cout)
+    return data, weight
+
+
+# the DCN kernels a training step launches, by compute dtype, and the
+# _RecordLaunches kinds that record them
+TRAIN_KERNELS = {
+    "float32": ("dcn_local_fwd", "dcn_local_bwd_data",
+                "dcn_local_bwd_weight"),
+    "bfloat16": ("dcn_local_fwd_bf16", "dcn_local_bwd_data_bf16",
+                 "dcn_local_bwd_weight_bf16")}
+TRAIN_KINDS = {"float32": ("fwd", "data", "weight"),
+               "bfloat16": ("bf16", "data_bf16", "weight_bf16")}
 
 
 def _launches():
     return {"dcn_local_fwd": dcn.LAUNCHES,
             "dcn_local_bwd_data": dcn.BWD_DATA_LAUNCHES,
             "dcn_local_bwd_weight": dcn.BWD_WEIGHT_LAUNCHES,
-            "dcn_local_fwd_bf16": dcn.BF16_LAUNCHES}
+            "dcn_local_fwd_bf16": dcn.BF16_LAUNCHES,
+            "dcn_local_bwd_data_bf16": dcn.BWD_DATA_BF16_LAUNCHES,
+            "dcn_local_bwd_weight_bf16": dcn.BWD_WEIGHT_BF16_LAUNCHES}
 
 
 def _reset_launches():
     dcn.LAUNCHES = dcn.BWD_DATA_LAUNCHES = dcn.BWD_WEIGHT_LAUNCHES = 0
     dcn.BF16_LAUNCHES = 0
+    dcn.BWD_DATA_BF16_LAUNCHES = dcn.BWD_WEIGHT_BF16_LAUNCHES = 0
 
 
 def phase_device():
@@ -488,6 +535,89 @@ def phase_grad():
     return rows
 
 
+def _bf16_grad_ref(x, offset, mask, weight, g, r):
+    """Autograd of the plain bf16 version: bf16 grads of x, offset,
+    mask and weight."""
+    ts = [t.clone().requires_grad_() for t in (x, offset, mask, weight)]
+    return torch.autograd.grad(dcn.deform_conv2d_local_plain(
+        *ts, None, r), ts, g)
+
+
+def phase_grad_bf16():
+    """dcn_local_bwd_data_bf16 and dcn_local_bwd_weight_bf16 against
+    autograd of the plain bf16 version on the same bf16 inputs and
+    output grad, every element within BF16_ULPS ulps + BF16_REL_OF_MAX
+    max|plain|, at random and all-zero offsets."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev, bf16 = "cuda", torch.bfloat16
+    names = ("x", "offset", "mask", "weight")
+    rows = []
+    for name, h, w, cin, cout, per_frame, layers, r in _cases():
+        x = torch.randn(1, h, w, cin, generator=gen, device=dev).to(bf16)
+        offsets = {
+            "random": ((torch.rand(1, h, w, 18, generator=gen, device=dev)
+                        * 2 - 1) * (r + 1.5)).to(bf16),
+            "zero": torch.zeros(1, h, w, 18, device=dev, dtype=bf16)}
+        mask = torch.rand(1, h, w, 9, generator=gen, device=dev).to(bf16)
+        weight = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+                  * 0.05).to(bf16)
+        g = torch.randn(1, h, w, cout, generator=gen, device=dev).to(bf16)
+        errs = {}
+        for kind, offset in offsets.items():
+            got = (*dcn.launch_bwd_data_bf16(x, offset, mask, weight, g, r),
+                   dcn.launch_bwd_weight_bf16(x, offset, mask, g, cout, r))
+            ref = _bf16_grad_ref(x, offset, mask, weight, g, r)
+            torch.cuda.synchronize()
+            errs[kind] = {}
+            for n, a, b in zip(names, got, ref):
+                if a.dtype != bf16 or not torch.isfinite(a).all():
+                    raise RuntimeError(f"bf16 DCN backward {name} grad {n}: "
+                                       f"{a.dtype}, or not finite")
+                err, past_ulp, past_tol = bf16_agreement(a, b)
+                if past_tol:
+                    raise RuntimeError(
+                        f"bf16 DCN backward {name} {cin}->{cout} R={r} "
+                        f"{kind} offsets: grad {n}: {past_tol} elements "
+                        f"past {BF16_ULPS} ulps + {BF16_REL_OF_MAX} "
+                        f"max|plain| (max abs err {err})")
+                errs[kind][n] = {"max_abs_err": err,
+                                 "max_abs_ref": b.float().abs().max().item(),
+                                 "elements_past_1_ulp": past_ulp,
+                                 "elements": a.numel()}
+        offset = offsets["random"]
+        data_ms = time_ms(lambda: dcn.launch_bwd_data_bf16(
+            x, offset, mask, weight, g, r), 3, 20)
+        weight_ms = time_ms(lambda: dcn.launch_bwd_weight_bf16(
+            x, offset, mask, g, cout, r), 3, 20)
+        pins = [t.clone().requires_grad_() for t in
+                (x, offset, mask, weight)]
+        pout = dcn.deform_conv2d_local_plain(*pins, None, r)
+        plain_data_ms = time_ms(lambda: torch.autograd.grad(
+            pout, pins[:3], g, retain_graph=True), 1, 3)
+        plain_weight_ms = time_ms(lambda: torch.autograd.grad(
+            pout, pins[3:], g, retain_graph=True), 1, 3)
+        del pout, pins
+        (data_b, data_by), (weight_b, weight_by) = dcn_bwd_bound_ms_bf16(
+            h * w, cin, cout)
+        row = {"map": name, "hw": [h, w], "cin": cin, "cout": cout, "R": r,
+               "launches_per_step_and_image": per_frame, "layers": layers,
+               "data_max_abs_err": max(e[k]["max_abs_err"]
+                                       for e in errs.values()
+                                       for k in names[:3]),
+               "weight_max_abs_err": max(e["weight"]["max_abs_err"]
+                                         for e in errs.values()),
+               "agreement": errs,
+               "tol": {"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX},
+               "data_ms": data_ms, "data_plain_ms": plain_data_ms,
+               "data_bound_ms": data_b, "data_bound_by": data_by,
+               "weight_ms": weight_ms, "weight_plain_ms": plain_weight_ms,
+               "weight_bound_ms": weight_b, "weight_bound_by": weight_by,
+               "library_ms": None}
+        rows.append(row)
+        emit("grad_bf16", **row)
+    return rows
+
+
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
     """The rows above ``out_thresh``, without those within ``margin`` of
     it; with ``collapse_ties``, a row whose score equals the previous
@@ -692,11 +822,14 @@ def phase_profile(det, frames, cfg, n, phase="profile"):
 class _RecordLaunches:
     """While active, keeps a copy of the inputs and outputs of every
     launch of the DCN kernels of ``kinds`` (the three float32 kernels by
-    default, or "bf16"), to hold each against the plain version on the
-    same inputs afterwards (``check``)."""
+    default; "bf16", "data_bf16" and "weight_bf16" are the bf16 ones),
+    to hold each against the plain version on the same inputs
+    afterwards (``check``)."""
 
     ALL = {"fwd": "launch_fwd", "data": "launch_bwd_data",
-           "weight": "launch_bwd_weight", "bf16": "launch_fwd_bf16"}
+           "weight": "launch_bwd_weight", "bf16": "launch_fwd_bf16",
+           "data_bf16": "launch_bwd_data_bf16",
+           "weight_bf16": "launch_bwd_weight_bf16"}
 
     def __init__(self, kinds=("fwd", "data", "weight")):
         self.LAUNCHERS = {k: self.ALL[k] for k in kinds}
@@ -726,9 +859,9 @@ class _RecordLaunches:
     def check(self, per_kind):
         """Requires ``per_kind`` recorded launches of each kernel and
         holds each against the plain version on its own inputs (forward
-        at REL_TOL, backward at GRAD_REL_TOL, bf16 forward at BF16_ULPS
-        ulps + BF16_REL_OF_MAX max|ref| per element). Returns the worst
-        rel err (max abs err over max|ref|) per kernel."""
+        at REL_TOL, backward at GRAD_REL_TOL, the bf16 kernels at
+        BF16_ULPS ulps + BF16_REL_OF_MAX max|ref| per element). Returns
+        the worst rel err (max abs err over max|ref|) per kernel."""
         counts = {k: sum(c[0] == k for c in self.calls)
                   for k in self.LAUNCHERS}
         if counts != {k: per_kind for k in self.LAUNCHERS}:
@@ -736,17 +869,26 @@ class _RecordLaunches:
                                f"{per_kind} of each kernel")
         worst = dict.fromkeys(self.LAUNCHERS, 0.0)
         for kind, args, outs in self.calls:
-            if kind == "bf16":
-                with torch.no_grad():
-                    ref = dcn.deform_conv2d_local_plain(*args)
-                err, _, past_tol = bf16_agreement(outs[0], ref)
-                if past_tol:
-                    raise RuntimeError(
-                        f"launch_fwd_bf16 on {tuple(args[0].shape)} in a "
-                        f"serving frame: {past_tol} elements past the "
-                        f"tolerance (max abs err {err})")
-                worst[kind] = max(worst[kind],
-                                  err / ref.float().abs().max().item())
+            if kind in ("bf16", "data_bf16", "weight_bf16"):
+                if kind == "bf16":
+                    with torch.no_grad():
+                        ref = [dcn.deform_conv2d_local_plain(*args)]
+                elif kind == "data_bf16":
+                    ref = _bf16_grad_ref(*args)[:3]
+                else:
+                    x, offset, mask, g, cout, r = args
+                    w = torch.zeros(3, 3, x.shape[3], cout, device=x.device,
+                                    dtype=x.dtype)
+                    ref = _bf16_grad_ref(x, offset, mask, w, g, r)[3:]
+                for out, rf in zip(outs, ref):
+                    err, _, past_tol = bf16_agreement(out, rf)
+                    if past_tol:
+                        raise RuntimeError(
+                            f"{self.LAUNCHERS[kind]} on "
+                            f"{tuple(args[0].shape)}: {past_tol} elements "
+                            f"past the tolerance (max abs err {err})")
+                    worst[kind] = max(worst[kind], err / max(
+                        rf.float().abs().max().item(), 1e-30))
                 continue
             if kind == "fwd":
                 with torch.no_grad():
@@ -864,12 +1006,57 @@ def _fresh_model(cfg, params, batch_stats, plain=False):
     return model
 
 
-def phase_train(n_profile=0):
+def _train_cfg(dtype):
+    return set_heads(parse_task(Config(
+        task="tracking", pre_hm=True, dla_node="dcn_local1",
+        batch_size=TRAIN_B, lr=TRAIN_LR, compute_dtype=dtype)), MOT_META)
+
+
+def _b1_step(cfg, params, batch_stats, one, plain, kinds=None):
+    """One B=1 training step from the checkpoint, DCN on the kernels or
+    on its plain version; with ``kinds`` every DCN launch is recorded
+    and held against the plain version. Returns (the step's record, its
+    gradients)."""
+    model = _fresh_model(cfg, params, batch_stats, plain)
+    t1 = Trainer(cfg, model, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    with _RecordLaunches(kinds or ()) as rec:
+        t = time.perf_counter()
+        loss = float(t1.train_step(one, TRAIN_LR)["tot"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+    rec_row = {"ms": ms, "loss": loss,
+               "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "launches": {k: v - before[k]
+                            for k, v in _launches().items()}}
+    if kinds:
+        rec_row["launch_worst_rel_err"] = rec.check(16)
+    grads = {n: p.grad.detach().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    if any(g.dtype != torch.float32 for g in grads.values()):
+        raise RuntimeError("a float32 parameter got a non-float32 gradient")
+    del t1, model, rec
+    torch.cuda.empty_cache()
+    return rec_row, grads
+
+
+def _rel_l2(grads, ref):
+    if set(grads) != set(ref):
+        raise RuntimeError("two steps differ in which parameters get a "
+                           "gradient")
+    return (sum(((grads[n] - g) ** 2).sum().item() for n, g in ref.items())
+            / sum((g ** 2).sum().item() for g in ref.values())) ** .5
+
+
+def phase_train(n_profile=0, dtype="float32"):
     """``n_profile`` > 0 adds a torch.profiler pass over that many
     B=8 steps after the timed ones."""
-    cfg = set_heads(parse_task(Config(
-        task="tracking", pre_hm=True, dla_node="dcn_local1",
-        batch_size=TRAIN_B, lr=TRAIN_LR)), MOT_META)
+    phase = "train" if dtype == "float32" else "train_bf16"
+    low = dtype != "float32"
+    cfg = _train_cfg(dtype)
+    kernels, kinds = TRAIN_KERNELS[dtype], TRAIN_KINDS[dtype]
     params, batch_stats = load_jax_ckpt(CKPT)
     frames, boxes = synth_clip(TRAIN_B + 1, seed=1)
     batch = train_batch(cfg, frames, boxes, "cuda")
@@ -888,62 +1075,77 @@ def phase_train(n_profile=0):
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     tot = [l["tot"] for l in losses]
     if not all(np.isfinite(v) for l in losses for v in l.values()):
-        raise RuntimeError(f"non-finite training loss: {losses}")
+        raise RuntimeError(f"non-finite training loss at {dtype}: {losses}")
     if not tot[-1] < tot[0]:
-        raise RuntimeError(f"loss did not fall over {TRAIN_STEPS} steps: "
-                           f"{tot}")
-    want = {k: 16 * TRAIN_STEPS if k in FP32_KERNELS else 0
-            for k in counts}
+        raise RuntimeError(f"loss did not fall over {TRAIN_STEPS} steps at "
+                           f"{dtype}: {tot}")
+    want = {k: 16 * TRAIN_STEPS if k in kernels else 0 for k in counts}
     if counts != want:
-        raise RuntimeError(f"DCN launches over {TRAIN_STEPS} steps: "
-                           f"{counts}, expected {want}")
+        raise RuntimeError(f"DCN launches over {TRAIN_STEPS} steps at "
+                           f"{dtype}: {counts}, expected {want}")
+    if any(p.dtype != torch.float32 or (p.grad is not None and
+                                        p.grad.dtype != torch.float32)
+           for p in trainer.model.parameters()):
+        raise RuntimeError("a parameter or its gradient is not float32")
     # one more B=8 step, every launch held against the plain version
-    with _RecordLaunches() as rec:
+    with _RecordLaunches(kinds) as rec:
         trainer.train_step(batch, TRAIN_LR)
     b8_worst = rec.check(16)
     del rec
     if n_profile:
         _profile(lambda: float(trainer.train_step(batch, TRAIN_LR)["tot"]),
-                 n_profile, "train_profile", "step")
+                 n_profile, phase + "_profile", "step")
     del trainer
     torch.cuda.empty_cache()
 
     # one B=1 step from the checkpoint, kernels against the plain DCN
     one = {k: v[:1] for k, v in batch.items()}
-    grads, b1 = {}, {}
-    for key, plain in (("kernel", False), ("plain", True)):
-        model = _fresh_model(cfg, params, batch_stats, plain)
-        t1 = Trainer(cfg, model, "cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = _launches()
-        with _RecordLaunches() as rec:
-            t = time.perf_counter()
-            loss = float(t1.train_step(one, TRAIN_LR)["tot"])
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t)
-        b1[key] = {"ms": ms, "loss": loss,
-                   "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
-                   "launches": {k: v - before[k]
-                                for k, v in _launches().items()}}
-        if not plain:
-            b1[key]["launch_worst_rel_err"] = rec.check(16)
-        grads[key] = {n: p.grad.detach().clone()
-                      for n, p in model.named_parameters()
-                      if p.grad is not None}
-        del t1, model, rec
-        torch.cuda.empty_cache()
-    if b1["kernel"]["launches"] != {k: 16 if k in FP32_KERNELS else 0
+    b1, grads = {}, {}
+    b1["kernel"], grads["kernel"] = _b1_step(cfg, params, batch_stats, one,
+                                             False, kinds)
+    b1["plain"], grads["plain"] = _b1_step(cfg, params, batch_stats, one,
+                                           True)
+    if b1["kernel"]["launches"] != {k: 16 if k in kernels else 0
                                     for k in counts}:
-        raise RuntimeError(f"DCN launches of the B=1 kernel step: "
-                           f"{b1['kernel']['launches']}, expected 16 each")
+        raise RuntimeError(f"DCN launches of the B=1 kernel step at "
+                           f"{dtype}: {b1['kernel']['launches']}, expected "
+                           f"16 of each of {kernels}")
     if any(b1["plain"]["launches"].values()):
         raise RuntimeError(f"the plain-DCN step launched kernels: "
                            f"{b1['plain']['launches']}")
     ref = grads["plain"]
-    if set(grads["kernel"]) != set(ref):
-        raise RuntimeError("kernel and plain steps differ in which "
-                           "parameters get a gradient")
+    l2 = _rel_l2(grads["kernel"], ref)
+    row = {"compute_dtype": dtype, "input": [cfg.input_h, cfg.input_w],
+           "batch": TRAIN_B, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "optim": cfg.optim,
+           "loss_tot": tot, "loss_first": losses[0], "loss_last": losses[-1],
+           "ms_per_step": times,
+           "ms_per_step_median_3_12": statistics.median(times[TRAIN_TIMED]),
+           "img_per_s": TRAIN_B * 1e3 / statistics.median(
+               times[TRAIN_TIMED]),
+           "peak_memory_mb": peak_mb, "dcn_launches": counts,
+           "dcn_launches_per_step": {k: v / TRAIN_STEPS
+                                     for k, v in counts.items()},
+           "b8_step13_launch_worst_rel_err": b8_worst,
+           "b1_kernel_step": b1["kernel"], "b1_plain_step": b1["plain"],
+           "b1_grad_tensors": len(ref), "b1_grad_rel_l2": l2}
+    if low:
+        # the yardstick: the plain bf16 step against the plain fp32 step
+        b1["plain_fp32"], fp32 = _b1_step(_train_cfg("float32"), params,
+                                          batch_stats, one, True)
+        dist = _rel_l2(ref, fp32)
+        tol = BF16_GRAD_L2_OF_FP32_DIST * dist
+        if not l2 <= tol:
+            raise RuntimeError(
+                f"bf16 kernel vs plain DCN gradients: relative L2 {l2} > "
+                f"{BF16_GRAD_L2_OF_FP32_DIST} x {dist} (the plain bf16 "
+                f"step's distance from the plain float32 step)")
+        row.update({"b1_plain_fp32_step": b1["plain_fp32"],
+                    "b1_plain_bf16_vs_fp32_rel_l2": dist,
+                    "b1_grad_tol": {"rel_l2": tol, "of_bf16_vs_fp32":
+                                    BF16_GRAD_L2_OF_FP32_DIST}})
+        emit(phase, **row)
+        return row
 
     floor = PLAIN_GRAD_FLOOR * max(g.abs().max().item()
                                    for g in ref.values())
@@ -955,32 +1157,16 @@ def phase_train(n_profile=0):
             raise RuntimeError(f"kernel vs plain DCN gradient of {n}: max "
                                f"abs err {err} > {tol}")
         shares[n] = err / tol
-    l2 = (sum(((grads["kernel"][n] - g) ** 2).sum().item()
-              for n, g in ref.items())
-          / sum((g ** 2).sum().item() for g in ref.values())) ** .5
     if not l2 <= PLAIN_GRAD_L2_TOL:
         raise RuntimeError(f"kernel vs plain DCN gradients: relative L2 "
                            f"{l2} > {PLAIN_GRAD_L2_TOL}")
     worst = max(shares, key=shares.get)
-    row = {"input": [cfg.input_h, cfg.input_w], "batch": TRAIN_B,
-           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "optim": cfg.optim,
-           "loss_tot": tot, "loss_first": losses[0], "loss_last": losses[-1],
-           "ms_per_step": times,
-           "ms_per_step_median_3_12": statistics.median(times[TRAIN_TIMED]),
-           "img_per_s": TRAIN_B * 1e3 / statistics.median(
-               times[TRAIN_TIMED]),
-           "peak_memory_mb": peak_mb, "dcn_launches": counts,
-           "dcn_launches_per_step": {k: v / TRAIN_STEPS
-                                     for k, v in counts.items()},
-           "b8_step13_launch_worst_rel_err": b8_worst,
-           "b1_kernel_step": b1["kernel"], "b1_plain_step": b1["plain"],
-           "b1_grad_tensors": len(ref), "b1_grad_rel_l2": l2,
-           "b1_grad_worst_tensor": worst,
-           "b1_grad_worst_share_of_tol": shares[worst],
-           "b1_grad_tol": {"rel_l2": PLAIN_GRAD_L2_TOL,
-                           "tensor_rtol": PLAIN_GRAD_TENSOR_RTOL,
-                           "floor_of_global_max": PLAIN_GRAD_FLOOR}}
-    emit("train", **row)
+    row.update({"b1_grad_worst_tensor": worst,
+                "b1_grad_worst_share_of_tol": shares[worst],
+                "b1_grad_tol": {"rel_l2": PLAIN_GRAD_L2_TOL,
+                                "tensor_rtol": PLAIN_GRAD_TENSOR_RTOL,
+                                "floor_of_global_max": PLAIN_GRAD_FLOOR}})
+    emit(phase, **row)
     return row
 
 
@@ -1000,6 +1186,7 @@ def main(argv):
     rows = phase_kernel()
     bf16_rows = phase_kernel_bf16()
     grad_rows = phase_grad()
+    grad_bf16_rows = phase_grad_bf16()
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
@@ -1011,18 +1198,26 @@ def main(argv):
     del det
     torch.cuda.empty_cache()
     train = phase_train(n_profile)
+    train_bf16 = phase_train(n_profile, "bfloat16")
 
     neck = [r for r in rows if r["launches_per_frame"]]
     per_frame = lambda key, rs=neck: sum(r[key] * r["launches_per_frame"]
                                          for r in rs)
     bf16_neck = [r for r in bf16_rows if r["launches_per_frame"]]
     gneck = [r for r in grad_rows if r["launches_per_step_and_image"]]
-    per_image = lambda key: sum(r[key] * r["launches_per_step_and_image"]
-                                for r in gneck)
-    bwd_source = "centertrack_tpu_torch/csrc/dcn_local_bwd.cu"
+    gneck_bf16 = [r for r in grad_bf16_rows
+                  if r["launches_per_step_and_image"]]
+    per_image = lambda key, rs=gneck: sum(
+        r[key] * r["launches_per_step_and_image"] for r in rs)
     bwd_replaces = "centertrack_tpu/ops/dcn_pallas_shift.py:161"
     bwd_also = ["centertrack_tpu/ops/dcn_pallas_halo.py:190"]
     launches = train["dcn_launches"]
+    launches_bf16 = train_bf16["dcn_launches"]
+    by_path = lambda name: {
+        "serving": path["dcn_launches"] if name == "dcn_local_fwd" else 0,
+        "serving_bf16": (path_bf16["dcn_launches"]
+                         if name == "dcn_local_fwd_bf16" else 0),
+        "train": launches[name], "train_bf16": launches_bf16[name]}
     kernels = [{
         "name": "dcn_local_fwd", "route": "cuda",
         "source": "centertrack_tpu_torch/csrc/dcn_local.cu",
@@ -1031,9 +1226,7 @@ def main(argv):
                           "centertrack_tpu/ops/dcn_pallas_shift.py:110",
                           "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
         "launches": launches["dcn_local_fwd"],
-        "launches_by_path": {"serving": path["dcn_launches"],
-                             "serving_bf16": 0,
-                             "train": launches["dcn_local_fwd"]},
+        "launches_by_path": by_path("dcn_local_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
         "ms": per_frame("ms"), "plain_ms": per_frame("plain_ms"),
@@ -1050,9 +1243,7 @@ def main(argv):
                           "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
         "at": "bfloat16 inputs",
         "launches": path_bf16["dcn_launches"],
-        "launches_by_path": {"serving": 0,
-                             "serving_bf16": path_bf16["dcn_launches"],
-                             "train": 0},
+        "launches_by_path": by_path("dcn_local_fwd_bf16"),
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
         "ms": per_frame("ms", bf16_neck),
@@ -1062,25 +1253,36 @@ def main(argv):
                                          for r in bf16_neck) else "bytes"),
         "library_ms": None,
     }]
-    for kname, key in (("dcn_local_bwd_data", "data"),
-                       ("dcn_local_bwd_weight", "weight")):
-        kernels.append({
-            "name": kname, "route": "cuda", "source": bwd_source,
+    for kname, key, rows_, neck_, src, at, n in (
+            ("dcn_local_bwd_data", "data", grad_rows, gneck,
+             "dcn_local_bwd.cu", None, launches),
+            ("dcn_local_bwd_weight", "weight", grad_rows, gneck,
+             "dcn_local_bwd.cu", None, launches),
+            ("dcn_local_bwd_data_bf16", "data", grad_bf16_rows, gneck_bf16,
+             "dcn_local_bwd_bf16.cu", "bfloat16 inputs", launches_bf16),
+            ("dcn_local_bwd_weight_bf16", "weight", grad_bf16_rows,
+             gneck_bf16, "dcn_local_bwd_bf16.cu", "bfloat16 inputs",
+             launches_bf16)):
+        row = {
+            "name": kname, "route": "cuda",
+            "source": "centertrack_tpu_torch/csrc/" + src,
             "replaces": bwd_replaces, "also_replaces": bwd_also,
-            "launches": launches[kname],
-            "launches_by_path": {"serving": 0, "serving_bf16": 0,
-                                 "train": launches[kname]},
-            "max_abs_err": max(r[key + "_max_abs_err"] for r in grad_rows),
+            "launches": n[kname],
+            "launches_by_path": by_path(kname),
+            "max_abs_err": max(r[key + "_max_abs_err"] for r in rows_),
             "per": "one 544x960 image of a training step: the 16 launches "
                    "of the neck shapes at B=1",
-            "ms": per_image(key + "_ms"),
-            "plain_ms": per_image(key + "_plain_ms"),
-            "bound_ms": per_image(key + "_bound_ms"),
+            "ms": per_image(key + "_ms", neck_),
+            "plain_ms": per_image(key + "_plain_ms", neck_),
+            "bound_ms": per_image(key + "_bound_ms", neck_),
             "bound_by": ("operations" if all(
-                r[key + "_bound_by"] == "operations" for r in gneck)
+                r[key + "_bound_by"] == "operations" for r in neck_)
                 else "bytes"),
             "library_ms": None,
-        })
+        }
+        if at:
+            row["at"] = at
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - T0, nvidia_smi=dev[
         "nvidia_smi"])

@@ -4,8 +4,9 @@ CPU, on inputs made from numpy seeds: the plain bf16 clamped DCN against
 the Pallas kernels (interpret mode) and XLA, the layers, the whole
 network on JAX's initial weights, the tie order of top-K, the warp's
 bf16 precision, FusedDetector over three frames; the DCN wrapper's bf16
-route (a stand-in launcher: the CUDA kernel runs only on the card, where
-chip_smoke.py holds it against the plain version); and the two faults
+routes (stand-in launchers: the CUDA kernels run only on the card, where
+chip_smoke.py holds them against the plain version); a bf16 Trainer
+step on the CPU; and the two faults
 repaired with this slice: decode without the ``reg`` head (C1) and an
 unloaded model being JAX's initial network (C2). Each tolerance is
 stated beside its test."""
@@ -221,19 +222,38 @@ def test_bf16_cuda_route_launches_dcn_local_fwd_bf16(monkeypatch):
 
 
 def test_bf16_cuda_input_that_needs_a_gradient_raises(monkeypatch):
-    """A bf16 CUDA call that needs a gradient raises NotImplementedError
-    naming the ROADMAP item, before any launch; DCNLocal (the float32
-    kernels' autograd function) refuses bf16 and never upcasts it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcn.route(torch.device("cuda"), torch.bfloat16, needs_grad=True)
+    """A bf16 CUDA call that needs a gradient goes to DCNLocal, the
+    kernels' autograd function, which runs the bf16 kernels
+    (dcn_local_fwd_bf16, then dcn_local_bwd_data_bf16 and
+    dcn_local_bwd_weight_bf16): when a launch fails it raises, in the
+    forward and in the backward, and nothing falls back to the plain
+    version or upcasts to the float32 kernels (ctypes calls stood in
+    here)."""
+    fn = dcn.route(torch.device("cuda"), torch.bfloat16, needs_grad=True)
+    assert fn.__self__ is dcn.DCNLocal
+    failing = set()
+    monkeypatch.setattr(dcn, "_kernel", lambda symbol: (
+        lambda *argv: 719 if symbol in failing else 0))
+    monkeypatch.setattr(dcn, "_stream", lambda t: 0)
+    for name in ("launch_fwd", "launch_bwd_data", "launch_bwd_weight",
+                 "deform_conv2d_local_plain"):
+        monkeypatch.setattr(dcn, name, lambda *a: pytest.fail(
+            "the float32 kernels or the plain version were reached"))
     args = [t.requires_grad_() for t in
             map(_bf16, _dcn_inputs(7, 1, 5, 6, 4, 8, 1))]
-    monkeypatch.setattr(dcn, "launch_fwd", lambda *a: pytest.fail(
-        "the float32 kernel was reached"))
+    failing.add("dcn_local_fwd_bf16")
     before = dcn.BF16_LAUNCHES
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dcn.DCNLocal.apply(*args, 1)
+    with pytest.raises(RuntimeError, match="dcn_local_fwd_bf16 launch "
+                                           "failed: CUDA error 719"):
+        fn(*args, 1)
     assert dcn.BF16_LAUNCHES == before
+    failing.clear()
+    failing.add("dcn_local_bwd_data_bf16")
+    out = fn(*args, 1)
+    assert out.dtype == torch.bfloat16 and dcn.BF16_LAUNCHES == before + 1
+    with pytest.raises(RuntimeError, match="dcn_local_bwd_data_bf16 launch "
+                                           "failed"):
+        out.backward(torch.ones_like(out))
 
 
 @pytest.mark.parametrize("grad_mode, requires_grad, want", [
@@ -753,7 +773,54 @@ def test_fused_detector_without_reg_matches_jax():
     assert _compare_frames(det, jdet, cfg, frames, 1e-4, 1e-2) >= 3
 
 
+def _tiny_train_batch(seed=0):
+    """A one-image descriptor batch at SmallMeta's 64x96 input (16x24
+    output), with two objects and one ignore box."""
+    rng = np.random.RandomState(seed)
+    cts = np.array([[[5, 4], [17, 11]]], np.int32)
+    return {
+        "image": rng.randn(1, 64, 96, 3).astype(np.float32),
+        "pre_img": rng.randn(1, 64, 96, 3).astype(np.float32),
+        "ind": (cts[..., 1] * 24 + cts[..., 0]).astype(np.int64),
+        "cat": np.zeros((1, 2), np.int64),
+        "mask": np.ones((1, 2), np.float32),
+        "hm_cts": cts, "hm_radii": np.array([[1, 2]], np.int32),
+        "hm_valid": np.ones((1, 2), bool),
+        "ignore_boxes": np.array([[[1.5, 2.0, 4.9, 3.2]]], np.float32),
+        "ignore_cat": np.array([[-1]], np.int32),
+        "ignore_valid": np.ones((1, 1), bool),
+        "pre_cts_int": cts * 4 + 1, "pre_radii": np.array([[2, 3]],
+                                                          np.int32),
+        "pre_ks": np.ones((1, 2), np.float32),
+        "pre_valid": np.ones((1, 2), bool),
+        **{k: rng.rand(1, 2, 2).astype(np.float32) + 1
+           for k in ("reg", "wh", "tracking")},
+        **{k + "_mask": np.ones((1, 2, 2), np.float32)
+           for k in ("reg", "wh", "tracking")}}
+
+
 def test_trainer_refuses_a_bf16_config():
+    """A bf16 Trainer refuses "cuda" where no GPU is present, as a float32
+    one does, and on the CPU it trains: one step gives finite float32
+    losses, float32 gradients on the float32 parameters and moves them,
+    and launches no DCN kernel (the plain bf16 version takes a CPU
+    tensor)."""
     cfg, _ = _net_cfgs(compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        Trainer(cfg, create_model(cfg, "cpu"), device="cpu")
+    model = create_model(cfg, "cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no GPU"):
+            Trainer(cfg, model)
+    trainer = Trainer(cfg, model, device="cpu")
+    w0 = model.heads["hm"].out.weight.detach().clone()
+    counts = (dcn.LAUNCHES, dcn.BF16_LAUNCHES, dcn.BWD_DATA_BF16_LAUNCHES,
+              dcn.BWD_WEIGHT_BF16_LAUNCHES)
+    losses = trainer.train_step(_tiny_train_batch(), 1e-3)
+    assert set(losses) == {"tot", "hm", "reg", "wh", "tracking"}
+    assert all(v.dtype == torch.float32 and torch.isfinite(v)
+               for v in losses.values())
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    assert grads and all(g.dtype == torch.float32 for g in grads)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert not torch.equal(model.heads["hm"].out.weight, w0)
+    assert (dcn.LAUNCHES, dcn.BF16_LAUNCHES, dcn.BWD_DATA_BF16_LAUNCHES,
+            dcn.BWD_WEIGHT_BF16_LAUNCHES) == counts

@@ -384,3 +384,82 @@ def test_rows_against_leaves_out_near_threshold_rows_and_tied_peaks():
     other = chip_smoke.rows_against([a], [renumbered], 0.3, 1e-2, True)
     assert other["pairs_same_track_id"] == 0
     assert other["track_ids_one_to_one"]
+
+
+def test_dcn_bwd_bound_bf16_counts_tensor_and_fp32_work_against_bytes():
+    """The backward kernels' operations at bf16: the contraction at the
+    bf16 tensor-core peak, the bilinear work (38 and 8 per sampled
+    value) at the fp32 peak, against bf16 bytes; the 16 neck launches of
+    a 544x960 image come to 0.126 ms (data) and 0.049 ms (weight), every
+    one bound by operations."""
+    n, cin, cout = 136 * 240, 64, 64
+    (d_ms, d_by), (w_ms, w_by) = chip_smoke.dcn_bwd_bound_ms_bf16(
+        n, cin, cout)
+    assert d_by == w_by == "operations"
+    contraction = 2 * n * 9 * cin * cout / chip_smoke.PEAK_BF16_FLOPS
+    assert d_ms == pytest.approx(1e3 * (
+        contraction + 38 * n * 9 * cin / chip_smoke.PEAK_FP32_FLOPS))
+    assert w_ms == pytest.approx(chip_smoke.dcn_bound_ms_bf16(
+        n, cin, cout)[0])
+    (d1, by1), (w1, wby1) = chip_smoke.dcn_bwd_bound_ms_bf16(n, 1, 1)
+    assert by1 == wby1 == "bytes"
+    assert d1 == pytest.approx(1e3 * 2 * (2 * n + 54 * n + 9 + n)
+                               / chip_smoke.PEAK_BYTES_S)
+    assert w1 == pytest.approx(1e3 * 2 * (n + 27 * n + n + 9)
+                               / chip_smoke.PEAK_BYTES_S)
+    image = [chip_smoke.dcn_bwd_bound_ms_bf16(h * w, ci, co)
+             for _, h, w, ci, co, k, _ in chip_smoke.NECK_SHAPES
+             for _ in range(k)]
+    assert {b for pair in image for _, b in pair} == {"operations"}
+    assert sum(d for (d, _), _ in image) == pytest.approx(0.1259, abs=1e-4)
+    assert sum(w for _, (w, _) in image) == pytest.approx(0.0491, abs=1e-4)
+
+
+@pytest.mark.parametrize("wrong", [None, "bf16", "data_bf16",
+                                   "weight_bf16"])
+def test_record_launches_holds_the_bf16_backward_kernels(monkeypatch,
+                                                         wrong):
+    """_RecordLaunches over the three bf16 kinds around DCNLocal at bf16,
+    its launchers stood in on the CPU by the plain bf16 version: one
+    launch of each is recorded and passes; a launch 3% off (past 2 ulps
+    + 1e-3 max|ref|) fails."""
+    import torch
+
+    from centertrack_tpu_torch.ops import dcn
+
+    def off(kind, ts):
+        return tuple((t.float() * 1.03).bfloat16() if kind == wrong else t
+                     for t in ts)
+
+    def vjp(x, offset, mask, weight, g, r):
+        ts = [t.detach().requires_grad_() for t in (x, offset, mask,
+                                                    weight)]
+        with torch.enable_grad():
+            out = dcn.deform_conv2d_local_plain(*ts, None, r)
+        return torch.autograd.grad(out, ts, g)
+
+    monkeypatch.setattr(dcn, "launch_fwd_bf16", lambda *a: off(
+        "bf16", (dcn.deform_conv2d_local_plain(*a),))[0])
+    monkeypatch.setattr(dcn, "launch_bwd_data_bf16", lambda *a: off(
+        "data_bf16", vjp(*a)[:3]))
+    monkeypatch.setattr(dcn, "launch_bwd_weight_bf16",
+                        lambda x, o, m, g, c, r: off("weight_bf16", (vjp(
+                            x, o, m, torch.zeros(3, 3, x.shape[3], c,
+                                                 dtype=x.dtype), g, r)[3],
+                        ))[0])
+    rng = np.random.RandomState(2)
+    ts = [torch.from_numpy(a.astype(np.float32)).bfloat16().requires_grad_()
+          for a in (rng.randn(2, 5, 6, 4), rng.uniform(-2.5, 2.5,
+                                                       (2, 5, 6, 18)),
+                    rng.rand(2, 5, 6, 9), rng.randn(3, 3, 4, 3),
+                    rng.randn(3))]
+    kinds = chip_smoke.TRAIN_KINDS["bfloat16"]
+    with chip_smoke._RecordLaunches(kinds) as rec:
+        dcn.DCNLocal.apply(*ts, 1).backward(
+            torch.from_numpy(rng.randn(2, 5, 6, 3)).bfloat16())
+    assert [c[0] for c in rec.calls] == list(kinds)
+    if wrong is None:
+        assert set(rec.check(1)) == set(kinds)
+    else:
+        with pytest.raises(RuntimeError, match="past the tolerance"):
+            rec.check(1)
