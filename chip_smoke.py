@@ -7,7 +7,16 @@ Phases, each printing one JSON line with its elapsed seconds:
   device   the card's name and power limit (nvidia-smi); fails without CUDA
   build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
            csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu,
-           csrc/dcn_local_bwd_bf16.cu) into build/, all started together
+           csrc/dcn_local_bwd_bf16.cu, csrc/probes.cu) into build/, all
+           started together
+  probes   the 13 toolchain-probe kernels of csrc/probes.cu (the JAX
+           package's tools/pallas_probe.py P0-P6 and pallas_probe2.py
+           P10-P15) against their plain versions on seeded and on
+           all-ones inputs, one launch counted per call, with kernel,
+           plain and library times, the bound and an empty kernel's
+           launch; then the two ported probe tools' main on the card,
+           each probe kernel launching once and P7/P8 launching
+           dcn_local_fwd_bf16
   kernel   dcn_local_fwd and dcn_local_fwd_bf16 against their plain
            PyTorch versions at the seven DLA-34 neck shapes of the
            544x960 path (R=1) and one R=2 case, with kernel, plain and
@@ -55,6 +64,8 @@ The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
 """
 
+import contextlib
+import io
 import json
 import os
 import signal
@@ -73,11 +84,12 @@ from centertrack_tpu_torch.engine.fused import FusedDetector
 from centertrack_tpu_torch.engine.trainer import Trainer
 from centertrack_tpu_torch.models.model import create_model, \
     params_from_jax, set_dcn_plain
-from centertrack_tpu_torch.ops import _build, dcn
+from centertrack_tpu_torch.ops import _build, dcn, probes
 from centertrack_tpu_torch.ops.affine import get_affine_transform, \
     invert_affine
 from centertrack_tpu_torch.ops.gaussian import gaussian_radius
 from centertrack_tpu_torch.ops.warp import preprocess_frame
+from centertrack_tpu_torch.tools import pallas_probe, pallas_probe2
 from centertrack_tpu_torch.utils.checkpoint import load_jax_ckpt
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -115,7 +127,7 @@ PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
 SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16",
-           "dcn_local_bwd_bf16")
+           "dcn_local_bwd_bf16", "probes")
 # the forward kernel each compute dtype's serving path launches
 PATH_KERNEL = {"float32": "dcn_local_fwd", "bfloat16": "dcn_local_fwd_bf16"}
 # the kernel path's rows against the plain-DCN path's over PLAIN_FRAMES
@@ -355,6 +367,233 @@ def phase_build():
             "ptxas": [ln.strip() for ln in info["log"].splitlines()
                       if "registers" in ln or "smem" in ln or "spill" in ln]}
     emit("build", seconds=round(time.perf_counter() - t, 3), libraries=libs)
+
+
+# ---- the toolchain probes (csrc/probes.cu) ---------------------------
+
+PROBE_SEED = 8
+PROBE_ITERS = 100
+# a spin kernel of this many cycles (about 1 ms) before each timed call,
+# so that the call is queued on the device before its start event runs
+# and the events time the device, not the host's launch
+PROBE_SPIN_CYCLES = 2_000_000
+_PROBE1 = "centertrack_tpu/tools/pallas_probe.py:"
+_PROBE2 = "centertrack_tpu/tools/pallas_probe2.py:"
+PROBE_REPLACES = {
+    "p0_copy": _PROBE1 + "44", "p1_fma12": _PROBE1 + "64",
+    "p2_fma30": _PROBE1 + "64", "p3_tap_loop": _PROBE1 + "107",
+    "p4_sublane_slice": _PROBE1 + "118", "p5_lane_slice": _PROBE1 + "128",
+    "p6_gather": _PROBE1 + "139", "p10_aligned": _PROBE2 + "48",
+    "p11_leading_offset": _PROBE2 + "69",
+    "p12_sublane_offset": _PROBE2 + "90", "p13_value_slice": _PROBE2 + "113",
+    "p14_4d_leading": _PROBE2 + "137", "p15_dynamic_leading": _PROBE2 + "161"}
+_WINDOW_OUT = probes.RT * probes.CT * probes.C
+# float32 operations of one probe call (P6, a gather, has none): P1/P2
+# n multiply-adds per output and the identity product; P3 per pixel 9
+# taps x (9 hat products + 64 channels x (9 multiply-adds + the mask)),
+# and the 9 (64 x 64) contractions; P10-P15 one operation per term and
+# output element (P15: program 1's three terms, the output's)
+PROBE_OPS = {
+    "p0_copy": 16 * 128, "p1_fma12": 2 * 12 * 2048 + 2 * 16 * 128 * 128,
+    "p2_fma30": 2 * 30 * 2048 + 2 * 16 * 128 * 128,
+    "p3_tap_loop": 1024 * (9 * (9 + 64 * 19) + 2 * 9 * 64 * 64),
+    "p4_sublane_slice": 8 * 128 * 8, "p5_lane_slice": 16 * 128,
+    "p6_gather": 0, "p10_aligned": _WINDOW_OUT,
+    "p11_leading_offset": 3 * _WINDOW_OUT,
+    "p12_sublane_offset": 3 * _WINDOW_OUT,
+    "p13_value_slice": 3 * _WINDOW_OUT, "p14_4d_leading": 15 * _WINDOW_OUT,
+    "p15_dynamic_leading": 3 * _WINDOW_OUT}
+
+
+def probe_reads(name, inputs):
+    """Masks of the input elements that probe ``name``'s output depends
+    on: P3's stack only the slabs its clamped shift index reaches, P4's
+    and P5's the union of their two slices, P6's table the rows its
+    valid indices select, P10-P15 the union of their windows (P15's:
+    program 1's, the output's); all of every other input (P1/P2's 12
+    and 30 terms cycle over all 8 slabs)."""
+    masks = [torch.ones(t.shape, dtype=torch.bool) for t in inputs]
+    if name in ("p0_copy", "p1_fma12", "p2_fma30"):
+        return masks
+    first = masks[0]
+    first.zero_()
+    if name in probes.WINDOWS:
+        window = first[0] if first.dim() == 5 else first
+        for s, r, c in probes.WINDOWS[name]:
+            window[s, r:r + probes.RT, c:c + probes.CT] = True
+    elif name == "p3_tap_loop":
+        first[sorted({probes.p3_shift(t, a, b) for t in range(9)
+                      for a in range(3) for b in range(3)})] = True
+    elif name == "p4_sublane_slice":
+        first[1:9] = first[3:11] = True
+    elif name == "p5_lane_slice":
+        first[:, 3:131] = first[:, 5:133] = True
+    elif name == "p6_gather":
+        rows = first.shape[0]
+        idx = inputs[1].cpu().long()
+        idx = torch.where(idx < 0, idx + rows, idx)
+        first[idx[(idx >= 0) & (idx < rows)]] = True
+    return masks
+
+
+def probe_bound_ms(name, inputs):
+    """Least H100 time of one call of probe ``name`` on ``inputs``: its
+    float32 operations (PROBE_OPS) over the fp32 peak against its bytes
+    over the memory rate, each input element the output depends on
+    (``probe_reads``) read once and the output written once; the
+    larger, and which it is."""
+    nbytes = sum(int(m.sum()) * t.element_size()
+                 for m, t in zip(probe_reads(name, inputs), inputs))
+    shape, dtype = probes.SPECS[name][1:]
+    nbytes += int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    return _bound_ms(PROBE_OPS[name], nbytes)
+
+
+def probe_agreement(name, out, ref):
+    """Hold a probe's result against its plain version: P3 within
+    BF16_ULPS ulps + BF16_REL_OF_MAX max|ref| per element (its
+    contractions may sum in another order), every other probe bit for
+    bit (P1/P2 keep the JAX probe's order of roundings; NaN rows of P6
+    included). Raises on a mismatch; returns the max abs error (over
+    finite elements) and whether the two are equal bit for bit."""
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        raise RuntimeError(f"probe {name}: {out.dtype} {tuple(out.shape)}, "
+                           f"the plain version {ref.dtype} "
+                           f"{tuple(ref.shape)}")
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    same = torch.equal(out.contiguous().view(bits[out.dtype]),
+                       ref.contiguous().view(bits[ref.dtype]))
+    both = torch.isfinite(out.float()) & torch.isfinite(ref.float())
+    err = ((out.float() - ref.float()).abs()[both].max().item()
+           if both.any() else 0.0)
+    if name == "p3_tap_loop":
+        _, _, past_tol = bf16_agreement(out, ref)
+        ok, crit = not past_tol, f"{BF16_ULPS} ulps + {BF16_REL_OF_MAX} max"
+    else:
+        ok, crit = same, "bits"
+    if not ok:
+        raise RuntimeError(f"probe {name}: kernel and plain version differ "
+                           f"(criterion {crit}; max abs err {err}, bit "
+                           f"equal {same})")
+    return {"max_abs_err": err, "bit_equal": same, "criterion": crit}
+
+
+def queued_us(fn, iters=PROBE_ITERS, warmup=5):
+    """Median device time of one call of ``fn`` in microseconds: each
+    call waits behind a spin kernel, so its CUDA events bracket the
+    device's work and not the host's launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        torch.cuda._sleep(PROBE_SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def host_us(fn, iters=PROBE_ITERS):
+    """Median host time of one call of ``fn`` and a synchronise, in
+    microseconds: what one launch costs its caller end to end."""
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return 1e6 * statistics.median(times)
+
+
+def _probe_library(name, inputs):
+    """One PyTorch call computing the probe's function, or None."""
+    x = inputs[0]
+    return {
+        "p0_copy": lambda: torch.mul(x, 2.0),
+        "p4_sublane_slice": lambda: torch.add(x[1:9], x[3:11]),
+        "p5_lane_slice": lambda: torch.add(x[:, 3:131], x[:, 5:133]),
+        "p6_gather": lambda: torch.index_select(x, 0, inputs[1]),
+        "p10_aligned": lambda: torch.mul(x[0, :8, :240], 2.0),
+    }.get(name)
+
+
+def phase_probes():
+    """Each probe kernel against its plain version, timed; then the two
+    probe tools' entry points with the launch counts set to 0 just
+    before them and read just after."""
+    rows = {}
+    for name in probes.NAMES:
+        cases = {"seeded": probes.seeded_inputs(name, PROBE_SEED, "cuda"),
+                 "ones": probes.default_inputs(name, "cuda")}
+        if name == "p6_gather":   # every index in range: the timed case
+            table = cases["seeded"][0]
+            cases["in_range"] = [table, torch.randint(
+                0, table.shape[0], (256,), dtype=torch.int32,
+                generator=torch.Generator().manual_seed(PROBE_SEED)
+            ).to(table.device)]
+        checks = {}
+        for case, inputs in cases.items():
+            before = probes.LAUNCHES[name]
+            out = probes.run(name, *inputs)
+            torch.cuda.synchronize()
+            counted = probes.LAUNCHES[name] - before
+            if counted != 1:
+                raise RuntimeError(f"probe {name}: {counted} launches "
+                                   f"counted for one call")
+            checks[case] = probe_agreement(name, out,
+                                           probes.PLAIN[name](*inputs))
+        timed = cases["in_range" if name == "p6_gather" else "seeded"]
+        library = _probe_library(name, timed)
+        bound, bound_by = probe_bound_ms(name, timed)
+        row = {"kernel": "probe_" + name,
+               "replaces": PROBE_REPLACES[name], "checks": checks,
+               "us": queued_us(lambda: probes.run(name, *timed)),
+               "plain_us": queued_us(lambda: probes.PLAIN[name](*timed)),
+               "library_us": library and queued_us(library),
+               "host_us_per_call": host_us(
+                   lambda: probes.run(name, *timed)),
+               "bound_us": 1e3 * bound, "bound_by": bound_by}
+        rows[name] = row
+        emit("probe", **row)
+    empty = {"us": queued_us(probes.launch_empty),
+             "host_us_per_call": host_us(probes.launch_empty)}
+
+    # the entry points: each probe kernel once, P7/P8 through the DCN
+    for name in probes.NAMES:
+        probes.LAUNCHES[name] = 0
+    _reset_launches()
+    text = {}
+    for tool in (pallas_probe, pallas_probe2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = tool.main([])
+        torch.cuda.synchronize()
+        text[tool.__name__] = buf.getvalue()
+        if rc:
+            raise RuntimeError(f"{tool.__name__}.main failed on the card:\n"
+                               f"{buf.getvalue()}")
+    launches = dict(probes.LAUNCHES)
+    dcn_launches = _launches()
+    want_dcn = {k: 2 if k == "dcn_local_fwd_bf16" else 0
+                for k in dcn_launches}
+    if launches != dict.fromkeys(probes.NAMES, 1) or dcn_launches != \
+            want_dcn:
+        raise RuntimeError(f"probe tools' launches: {launches} and "
+                           f"{dcn_launches}, expected one of each probe "
+                           f"kernel and {want_dcn}")
+    report = json.loads(text[pallas_probe.__name__].strip()
+                        .splitlines()[-1])
+    out2 = text[pallas_probe2.__name__]
+    report.update(json.loads(out2[out2.index("{"):]))
+    emit("probes", empty_kernel=empty, entry_points=report,
+         launches=launches, dcn_launches=dcn_launches)
+    return rows, launches, dcn_launches
 
 
 def _cases():
@@ -1183,6 +1422,7 @@ def main(argv):
     signal.alarm(BUDGET_S)
     dev = phase_device()
     phase_build()
+    probe_rows, probe_launches, probe_dcn_launches = phase_probes()
     rows = phase_kernel()
     bf16_rows = phase_kernel_bf16()
     grad_rows = phase_grad()
@@ -1217,7 +1457,8 @@ def main(argv):
         "serving": path["dcn_launches"] if name == "dcn_local_fwd" else 0,
         "serving_bf16": (path_bf16["dcn_launches"]
                          if name == "dcn_local_fwd_bf16" else 0),
-        "train": launches[name], "train_bf16": launches_bf16[name]}
+        "train": launches[name], "train_bf16": launches_bf16[name],
+        "probes": probe_dcn_launches[name]}
     kernels = [{
         "name": "dcn_local_fwd", "route": "cuda",
         "source": "centertrack_tpu_torch/csrc/dcn_local.cu",
@@ -1283,6 +1524,21 @@ def main(argv):
         if at:
             row["at"] = at
         kernels.append(row)
+    for name, r in probe_rows.items():
+        kernels.append({
+            "name": r["kernel"], "route": "cuda",
+            "source": "centertrack_tpu_torch/csrc/probes.cu",
+            "replaces": r["replaces"],
+            "launches": probe_launches[name],
+            "launches_by_path": {"probes": probe_launches[name]},
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in r["checks"].values()),
+            "per": "one call of the probe",
+            "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+            "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+            "library_ms": (None if r["library_us"] is None
+                           else r["library_us"] / 1e3),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - T0, nvidia_smi=dev[
         "nvidia_smi"])
