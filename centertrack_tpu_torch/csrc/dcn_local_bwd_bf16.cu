@@ -24,27 +24,6 @@
 // vjp rounds at every bf16 op instead, so it lies further from the
 // float32 vjp than this does.
 //
-//   dcn_local_bwd_data_bf16: grad x, grad offset, grad mask. One block
-//   per tile of DP pixels and one tap, as in the float32 kernel. Per
-//   chunk of 32 input channels the block forms G_t(p, c) = sum_o g(p, o)
-//   w[t, c, o] on the tensor cores (wmma 16x16x16, bf16 in, float32
-//   accumulators; the products of two bf16 values are exact in float32),
-//   parks G in shared memory, and then, one warp per pixel and one lane
-//   per channel, walks the tap's (up to 3 x 3) support to accumulate
-//   grad mask, grad dy and grad dx (reduced by warp shuffles in a fixed
-//   order, rounded once) and scatters m hat hat G into a float32 copy of
-//   grad x with atomicAdd. A second kernel rounds that copy to bf16 in
-//   one pass: a bf16 atomicAdd would round at every add.
-//
-//   dcn_local_bwd_weight_bf16: grad w[t] = sum_p A_t(p)^T g(p), with A_t
-//   rebuilt exactly as the forward built it (the same corner order, the
-//   same float32 roundings, no fused multiply-adds), so the contraction
-//   sees the bf16 values the forward contracted. The pixels are split
-//   over `splits` blocks per (64 x 64) tile and tap; each block
-//   contracts its chunks of 32 pixels on the tensor cores and writes a
-//   float32 partial tile; a second kernel sums the partials in split
-//   order (deterministic) and rounds once.
-//
 // What bounds them on the H100: the two contractions (2 * 9 * Cin * Cout
 // operations per pixel each) at the dense bf16 tensor-core peak
 // (989 TFLOP/s), the bilinear work (38 * 9 * Cin float32 operations per
@@ -52,15 +31,57 @@
 // float32 peak (67 TFLOP/s), against the bf16 bytes each must move at
 // 3.35 TB/s; at the DLA-34 neck shapes the float32 bilinear work is the
 // larger (chip_smoke.py dcn_bwd_bound_ms_bf16). Nothing of size pixels x
-// channels x taps goes to device memory. What the design leaves exposed:
-// the gathers of x and the g/w staging are not pipelined, grad x goes
-// through float32 atomics, and the small maps give few blocks; cp.async
-// or TMA staging and wgmma are the next steps.
+// channels x taps goes to device memory.
+//
+//   dcn_local_bwd_data_bf16: grad x, grad offset, grad mask. A block (one
+//   warpgroup, 128 threads) takes a 4 x 16 tile of pixels of one image.
+//   It copies the tile's output grad g (64 x Cout) global -> shared by
+//   cp.async once and keeps it, with the tile's offsets and mask. Its K
+//   loop runs over steps (Cin chunk of 64, tap), chunk-major; per chunk
+//   the tile's x window with a halo of R + 1 (every position a clamped
+//   offset's support reaches) is copied by cp.async, zero-filled outside
+//   the map and past Cin, and the taps' weight slices stream through two
+//   slots, step s + 1's copy in flight while step s works. Per step:
+//     - G_t = g w[t]^T (64 pixels x 64 channels) on the tensor cores, a
+//       wgmma m64n64k16 per 16 output channels, float32 accumulators in
+//       registers (the products of two bf16 values are exact in float32);
+//     - each thread walks the support of its two pixels for its 16
+//       channels, straight from its accumulator fragment (the weight
+//       slice's columns are permuted so that the fragment holds runs of
+//       4 consecutive channels): it reads x from the window, sums G x
+//       against hat hat, hat' hat and hat hat' for grad mask, grad dy and
+//       grad dx (over its channels, then its quad by shuffles, then over
+//       chunks in a fixed order), and adds m hat hat G into a float32
+//       grad-x tile of the window's extent in shared memory. One integer
+//       shift moves the tile's pixels to distinct positions, so the
+//       shifts are walked in 2R + 1 rounds in which the four warps write
+//       four distinct window rows: plain read-modify-writes, in a fixed
+//       order, no atomics.
+//   At the end of each chunk the grad-x tile goes to a float32 scratch by
+//   global atomicAdd (neighbouring tiles' halos overlap), once per block
+//   and chunk, not once per support corner, and a second kernel rounds
+//   the scratch to bf16 once. Small maps split the K loop over blocks
+//   (`splits`, ops/dcn.bwd_data_bf16_plan, so that each launch has at
+//   least two blocks per SM): grad x needs nothing more (it is summed by
+//   atomics), grad offset and grad mask go to float32 partials per split
+//   that a third kernel sums in split order and rounds once; without a
+//   split the block rounds and writes them itself. The window's and the
+//   grad-x tile's pixel pitches are padded so that the pixels of a
+//   warp's accesses start in distinct bank groups.
+//
+//   dcn_local_bwd_weight_bf16: grad w[t] = sum_p A_t(p)^T g(p), with A_t
+//   rebuilt exactly as the forward built it (the same corner order, the
+//   same float32 roundings, no fused multiply-adds), so the contraction
+//   sees the bf16 values the forward contracted. The pixels are split
+//   over `splits` blocks per (64 x 64) tile and tap; each block
+//   contracts its chunks of 32 pixels on the tensor cores (wmma
+//   16x16x16) and writes a float32 partial tile; a second kernel sums
+//   the partials in split order (deterministic) and rounds once. Its
+//   gathers are not pipelined and it does not use wgmma yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,13 +89,19 @@ using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 using namespace nvcuda;
 
-constexpr int DP = 64;    // bwd_data: pixels per block
-constexpr int DK = 32;    // bwd_data: input channels per chunk (one warp)
-constexpr int DO = 32;    // bwd_data: output channels per staged chunk
-constexpr int DNT = 256;  // bwd_data: threads (8 warps)
-constexpr int DPW = DP / (DNT / 32);  // pixels per warp
-constexpr int LDG = DO + 8;  // bf16 pitch of the g and w chunks (80 B)
-constexpr int LDC = DK + 4;  // float32 pitch of the G tile
+constexpr int DTH = 4;         // bwd_data: tile rows
+constexpr int DTW = 16;        // bwd_data: tile columns
+constexpr int DTP = DTH * DTW; // bwd_data: pixels per block (wgmma M)
+constexpr int DCK = 64;        // bwd_data: input channels per chunk (N)
+constexpr int DNT = 128;       // bwd_data: threads, one warpgroup
+// bytes of a window pixel (64 bf16 and 16 of padding) and of a grad-x
+// tile pixel (64 float32 and 16 of padding): with these pitches the
+// pixels of a quarter- or half-warp's loads and stores start in distinct
+// bank groups
+constexpr int XPIX_B = DCK * 2 + 32;
+constexpr int GXPIX_B = DCK * 4 + 64;
+constexpr int OM_B = DTP * 27 * 4;       // the tile's offsets and mask
+constexpr int SUMS_B = 3 * 9 * DTP * 4;  // grad mask, dy, dx sums
 
 constexpr int WC = 64;    // bwd_weight: input channels per block
 constexpr int WO = 64;    // bwd_weight: output channels per block
@@ -84,6 +111,33 @@ constexpr int WNT = 256;  // bwd_weight: 8 warps, 4 rows of 16 input
 constexpr int LDS = WC + 8;  // bf16 pitch of the sample chunk (144 B)
 constexpr int LDW = WO + 8;  // bf16 pitch of the g chunk (144 B)
 constexpr int LDT = WO + 4;  // float32 pitch of the result tile
+
+// Cout padded to the wgmma K step
+__host__ __device__ constexpr int kpad(int cout) {
+  return (cout + 15) / 16 * 16;
+}
+
+__host__ __device__ constexpr int window_pixels(int R) {
+  return (DTH + 2 * (R + 1)) * (DTW + 2 * (R + 1));
+}
+
+// g tile, two weight slots, x window, grad-x tile, offsets and mask,
+// sums
+__host__ __device__ constexpr int data_smem_bytes(int cout, int R) {
+  return DTP * kpad(cout) * 2 + 2 * DCK * kpad(cout) * 2 +
+         window_pixels(R) * (XPIX_B + GXPIX_B) + OM_B + SUMS_B;
+}
+
+// The wgmma N column that holds input channel c (0..63) of a chunk: the
+// accumulator fragment's columns 8 j + 2 (lane % 4) + e, j = 2 m + jl,
+// hold channels 16 m + 4 (lane % 4) + 2 jl + e, four consecutive
+// channels per pair of 8-column groups.
+__device__ __forceinline__ int fragment_column(int c) {
+  const int m = c >> 4;
+  const int l4 = (c >> 2) & 3;
+  const int jl = (c >> 1) & 1;
+  return 8 * (2 * m + jl) + 2 * l4 + (c & 1);
+}
 
 __device__ __forceinline__ float hat(float u) {
   return fmaxf(0.f, 1.f - fabsf(u));
@@ -119,194 +173,401 @@ __device__ __forceinline__ bool aligned4(const void* q) {
   return (reinterpret_cast<uintptr_t>(q) & 3) == 0;
 }
 
+struct DataArgs {
+  const bf16* x;
+  const bf16* offset;
+  const bf16* mask;
+  const bf16* weight;
+  const bf16* grad_out;
+  float* grad_x_acc;
+  bf16* grad_offset;
+  bf16* grad_mask;
+  float* partial;
+  int64_t npix;
+  int H, W, Cin, Cout, R;
+  int tiles_x, tiles_y, nsteps, splits;
+};
+
+// The data kernel, for max offsets R up to RM: the support walk's shift
+// loops are unrolled over [-RM, RM], shifts past R skipped.
+template <int RM>
 __global__ void __launch_bounds__(DNT)
-dcn_local_bwd_data_bf16_kernel(const bf16* __restrict__ x,
-                               const bf16* __restrict__ offset,
-                               const bf16* __restrict__ mask,
-                               const bf16* __restrict__ weight,
-                               const bf16* __restrict__ grad_out,
-                               float* __restrict__ grad_x_acc,
-                               bf16* __restrict__ grad_offset,
-                               bf16* __restrict__ grad_mask,
-                               int npix, int H, int W, int Cin, int Cout,
-                               int Ri) {
-  // per pixel: the 3 candidate rows / cols of the support (-1 where the
-  // shift is outside [-R, R] or the map), their hat and hat' weights,
-  // the mask and the two clip' factors (as in dcn_local_bwd.cu)
-  __shared__ int s_row[DP][3];
-  __shared__ int s_col[DP][3];
-  __shared__ float s_wy[DP][3], s_gy[DP][3], s_wx[DP][3], s_gx[DP][3];
-  __shared__ float s_m[DP], s_cy[DP], s_cx[DP];
-  __shared__ __align__(32) bf16 s_g[DP][LDG];
-  __shared__ __align__(32) bf16 s_w[DK][LDG];
-  __shared__ __align__(32) float s_G[DP][LDC];
-
+dcn_local_bwd_data_bf16_kernel(const DataArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout, Ri = a.R;
   const float R = (float)Ri;
+  const int KP = kpad(Cout);
+  const int SBO = KP * 16;  // g tile and weight slots: bytes between
+                            // 8-row groups
+  const int h = Ri + 1;
+  const int WH = DTH + 2 * h;
+  const int WW = DTW + 2 * h;
+  const int WPIX = WH * WW;
+  unsigned char* s_g = smem;                         // DTP x KP, K-major
+  unsigned char* s_w = s_g + DTP * KP * 2;           // 2 x (DCK x KP)
+  unsigned char* s_win = s_w + 2 * DCK * KP * 2;     // WPIX x XPIX_B
+  float* s_gx = reinterpret_cast<float*>(s_win + WPIX * XPIX_B);
+  float* s_om = s_gx + WPIX * (GXPIX_B / 4);  // [DTP][27]: dy, dx, mask
+  float* sums = s_om + DTP * 27;    // [3][9][DTP]: grad mask, dy, dx
+
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int tile = blockIdx.x;
+  const int txi = tile % a.tiles_x;
+  const int tyi = (tile / a.tiles_x) % a.tiles_y;
+  const int b = tile / (a.tiles_x * a.tiles_y);
+  const int y0 = tyi * DTH;
+  const int x0 = txi * DTW;
+  const int split = blockIdx.z;
+  const int s_begin = (int)((int64_t)split * a.nsteps / a.splits);
+  const int s_end = (int)((int64_t)(split + 1) * a.nsteps / a.splits);
+  const bool x_al = Cin % 8 == 0 && hopper::aligned16(a.x);
+  const bool w_al = Cout % 8 == 0 && hopper::aligned16(a.weight);
+  const bool g_al = Cout % 8 == 0 && hopper::aligned16(a.grad_out);
+  const bool acc_al = Cin % 4 == 0 && hopper::aligned16(a.grad_x_acc);
+
+  for (int e = tid; e < WPIX * GXPIX_B / 16; e += DNT)
+    reinterpret_cast<float4*>(s_gx)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < 27 * DTP; e += DNT) {
+    sums[e] = 0.f;
+    // the tile's offsets and mask, once; 0 past the map
+    const int p = e / 27;
+    const int k = e - 27 * p;
+    const int y = y0 + p / DTW;
+    const int xx = x0 + p % DTW;
+    float v = 0.f;
+    if (y < H && xx < W) {
+      const int64_t n = ((int64_t)b * H + y) * W + xx;
+      v = f32(k < 18 ? a.offset[n * 18 + k] : a.mask[n * 9 + k - 18]);
+    }
+    s_om[e] = v;
+  }
+  // the tile's output grad, once: (pixel, 8 channels) pieces
+  for (int e = tid; e < DTP * (KP / 8); e += DNT) {
+    const int p = e / (KP / 8);
+    const int q = e - p * (KP / 8);
+    const int y = y0 + p / DTW;
+    const int xx = x0 + p % DTW;
+    const bool in = y < H && xx < W;
+    const int64_t n = ((int64_t)b * H + y) * W + xx;
+    hopper::copy8(s_g + (p >> 3) * SBO + q * 128 + (p & 7) * 16,
+                  in ? a.grad_out + n * Cout + 8 * q : a.grad_out,
+                  in ? Cout - 8 * q : 0, g_al);
+  }
+
+  const auto load_window = [&](int chunk) {
+    const int c0 = chunk * DCK;
+    for (int e = tid; e < WPIX * 8; e += DNT) {
+      const int pos = e >> 3;
+      const int q = e & 7;
+      const int wr = pos / WW;
+      const int yy = y0 - h + wr;
+      const int xc = x0 - h + (pos - wr * WW);
+      const int ch = c0 + 8 * q;
+      const bool in = yy >= 0 && yy < H && xc >= 0 && xc < W;
+      hopper::copy8(s_win + pos * XPIX_B + 16 * q,
+                    in ? a.x + (((int64_t)b * H + yy) * W + xc) * Cin + ch
+                       : a.x,
+                    in ? Cin - ch : 0, x_al);
+    }
+  };
+  // step s's B = w[t]^T (K = output channel, N = input channel of the
+  // chunk), K-major: (input channel, 8 output channels) pieces; input
+  // channel c goes to B column fragment_column(c), so that each thread's
+  // accumulator fragment holds 4 consecutive channels per pair of
+  // 8-column groups
+  const auto load_weights = [&](int s, int slot) {
+    const int chunk = s / 9;
+    const int t = s - 9 * chunk;
+    unsigned char* dst = s_w + slot * DCK * KP * 2;
+    const bf16* wtap = a.weight + (int64_t)t * Cin * Cout;
+    for (int e = tid; e < DCK * (KP / 8); e += DNT) {
+      const int c = e / (KP / 8);
+      const int q = e - c * (KP / 8);
+      const int ch = chunk * DCK + c;
+      const bool in = ch < Cin;
+      const int n = fragment_column(c);
+      hopper::copy8(dst + (n >> 3) * SBO + q * 128 + (n & 7) * 16,
+                    in ? wtap + (int64_t)ch * Cout + 8 * q : a.weight,
+                    in ? Cout - 8 * q : 0, w_al);
+    }
+  };
+  // grad-x tile -> grad_x_acc (global atomics), zeroing the tile
+  const auto flush = [&](int chunk) {
+    const int c0 = chunk * DCK;
+    for (int e = tid; e < WPIX * (DCK / 4); e += DNT) {
+      const int pos = e >> 4;
+      const int q = e & 15;
+      float4* src = reinterpret_cast<float4*>(
+          reinterpret_cast<unsigned char*>(s_gx) + pos * GXPIX_B + 16 * q);
+      const float4 v = *src;
+      *src = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int wr = pos / WW;
+      const int yy = y0 - h + wr;
+      const int xc = x0 - h + (pos - wr * WW);
+      if (yy < 0 || yy >= H || xc < 0 || xc >= W) continue;
+      const int ch = c0 + 4 * q;
+      if (ch >= Cin || (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f))
+        continue;
+      float* dst = a.grad_x_acc + (((int64_t)b * H + yy) * W + xc) * Cin + ch;
+      if (acc_al && ch + 4 <= Cin) {
+        atomicAdd(reinterpret_cast<float4*>(dst), v);
+      } else {
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (ch + i < Cin) atomicAdd(dst + i, vs[i]);
+      }
+    }
+  };
+
+  DCN_PHASES_BEGIN;  // phase 0: the tile's staging and each step's tail
+  load_window(s_begin / 9);
+  load_weights(s_begin, 0);
+  hopper::cp_async_commit();
+
   const int warp = tid >> 5;
-  const int wm = warp % 4;   // G rows (pixels) 16 wm .. 16 wm + 15
-  const int wn = warp / 4;   // G cols (channels) 16 wn .. 16 wn + 15
-  const int p0 = blockIdx.x * DP;
-  const int t = blockIdx.y;
-  const int ty = t / 3 - 1;
-  const int tx = t % 3 - 1;
-  const int HW = H * W;
-  const bool g_paired = Cout % 2 == 0 && aligned4(grad_out);
-
-  if (tid < DP) {
-    const int p = tid;
-    const int n = p0 + p;
-    float m = 0.f, cy = 0.f, cx = 0.f;
-    float dyc = 0.f, dxc = 0.f;
-    int b = 0, y = 0, xx = 0;
-    if (n < npix) {
-      b = n / HW;
-      const int rem = n - b * HW;
-      y = rem / W;
-      xx = rem - y * W;
-      const float dy = f32(offset[(int64_t)n * 18 + 2 * t]);
-      const float dx = f32(offset[(int64_t)n * 18 + 2 * t + 1]);
-      dyc = fminf(fmaxf(dy, -R), R);
-      dxc = fminf(fmaxf(dx, -R), R);
-      cy = clip_grad(dy, R);
-      cx = clip_grad(dx, R);
-      m = f32(mask[(int64_t)n * 9 + t]);
+  const int lane = tid & 31;
+  const int l4 = lane & 3;
+  float G[32];
+  for (int s = s_begin; s < s_end; ++s) {
+    const int i = s - s_begin;
+    const int chunk = s / 9;
+    const int t = s - 9 * chunk;
+    const int ty = t / 3 - 1;
+    const int tx = t % 3 - 1;
+    const bool chunk_ends = s + 1 == s_end || (s + 1) / 9 != chunk;
+    DCN_PHASE(0);
+    hopper::cp_async_wait_all();
+    hopper::fence_async_shared();
+    __syncthreads();  // step s's copies visible; step s - 1's walk and
+                      // product done, so its weight slot is free
+    DCN_PHASE(1);     // phase 1: copy wait and barrier
+    if (!chunk_ends) {
+      load_weights(s + 1, (i + 1) & 1);
+      hopper::cp_async_commit();
     }
-    const float tyd = (float)ty + dyc;
-    const float txd = (float)tx + dxc;
-    const int fy = (int)rintf(tyd) - ty;
-    const int fx = (int)rintf(txd) - tx;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const int ky = fy - 1 + q;
-      const int kx = fx - 1 + q;
-      const float uy = tyd - (float)(ty + ky);
-      const float ux = txd - (float)(tx + kx);
-      const int yy = y + ty + ky;
-      const int xc = xx + tx + kx;
-      const bool oky = n < npix && ky >= -Ri && ky <= Ri && yy >= 0 &&
-                       yy < H;
-      const bool okx = n < npix && kx >= -Ri && kx <= Ri && xc >= 0 &&
-                       xc < W;
-      s_row[p][q] = oky ? b * HW + yy * W : -1;
-      s_col[p][q] = okx ? xc : -1;
-      s_wy[p][q] = oky ? hat(uy) : 0.f;
-      s_gy[p][q] = oky ? hat_grad(uy) : 0.f;
-      s_wx[p][q] = okx ? hat(ux) : 0.f;
-      s_gx[p][q] = okx ? hat_grad(ux) : 0.f;
-    }
-    s_m[p] = m;
-    s_cy[p] = cy;
-    s_cx[p] = cx;
-  }
 
-  float acc_m[DPW], acc_y[DPW], acc_x[DPW];
+    // G_t = g w[t]^T on the tensor cores
 #pragma unroll
-  for (int i = 0; i < DPW; ++i) {
-    acc_m[i] = 0.f;
-    acc_y[i] = 0.f;
-    acc_x[i] = 0.f;
-  }
-  const bf16* wtap = weight + (int64_t)t * Cin * Cout;
+    for (int k = 0; k < 32; ++k) G[k] = 0.f;
+    hopper::fence_acc(G);
+    hopper::wgmma_fence();
+    const unsigned char* slot = s_w + (i & 1) * DCK * KP * 2;
+    for (int ks = 0; ks < KP / 16; ++ks)
+      hopper::wgmma_m64n64k16<0>(G, hopper::desc(s_g + ks * 256, 128, SBO),
+                                 hopper::desc(slot + ks * 256, 128, SBO), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_acc(G);
+    DCN_PHASE(2);  // phase 2: G on the tensor cores
 
-  for (int c0 = 0; c0 < Cin; c0 += DK) {
-    // G_t(p, c0 + k) = sum_o g(p, o) w[t, c0 + k, o] on the tensor cores
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> accG;
-    wmma::fill_fragment(accG, 0.f);
-    for (int o0 = 0; o0 < Cout; o0 += DO) {
-      __syncthreads();  // previous chunk consumed (and the setup done)
-      for (int e = tid; e < DP * DO / 2; e += DNT) {
-        const int op = e % (DO / 2);
-        const int p = e / (DO / 2);
-        const int n = p0 + p;
-        const int o = o0 + 2 * op;
-        float2 v = make_float2(0.f, 0.f);
-        if (n < npix)
-          v = load2(grad_out + (int64_t)n * Cout + o, Cout - o, g_paired);
-        *reinterpret_cast<bf162*>(&s_g[p][2 * op]) =
-            __floats2bfloat162_rn(v.x, v.y);
-      }
-      for (int e = tid; e < DK * DO / 2; e += DNT) {
-        const int op = e % (DO / 2);
-        const int k = e / (DO / 2);
-        const int o = o0 + 2 * op;
-        float2 v = make_float2(0.f, 0.f);
-        if (c0 + k < Cin)
-          v = load2(wtap + (int64_t)(c0 + k) * Cout + o, Cout - o, g_paired &&
-                    aligned4(weight));
-        *reinterpret_cast<bf162*>(&s_w[k][2 * op]) =
-            __floats2bfloat162_rn(v.x, v.y);
-      }
-      __syncthreads();
+    // The support walk. This thread holds G for two pixels (tile row
+    // `warp`, columns lane / 4 and lane / 4 + 8) and, per pixel, the 16
+    // channels 16 m + 4 (lane % 4) + (0..3), m = 0..3: G[4 j + 2 hh + e]
+    // with j = 2 m + (0, 1). Per pixel: the tap's clamped offset, the
+    // hat and hat' weights of each shift in [-R, R] on each axis (0 for
+    // a shift outside the 3 candidates around the offset), and the mask,
+    // as in dcn_local_bwd.cu.
+    float wya[2][2 * RM + 1], gya[2][2 * RM + 1];
+    float wxa[2][2 * RM + 1], gxa[2][2 * RM + 1], m2[2];
+    float am[2] = {0.f, 0.f}, ay[2] = {0.f, 0.f}, ax[2] = {0.f, 0.f};
 #pragma unroll
-      for (int k = 0; k < DO; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        wmma::load_matrix_sync(a, &s_g[16 * wm][k], LDG);
-        // B(o, c) = w[t, c, o] = s_w[c][o]: column-major with pitch LDG
-        wmma::load_matrix_sync(bw, &s_w[16 * wn][k], LDG);
-        wmma::mma_sync(accG, a, bw, accG);
+    for (int hh = 0; hh < 2; ++hh) {
+      const float* om = s_om + (16 * warp + (lane >> 2) + 8 * hh) * 27;
+      const float dyc = fminf(fmaxf(om[2 * t], -R), R);
+      const float dxc = fminf(fmaxf(om[2 * t + 1], -R), R);
+      m2[hh] = om[18 + t];
+      const float tyd = (float)ty + dyc;
+      const float txd = (float)tx + dxc;
+      const int fy = (int)rintf(tyd) - ty;
+      const int fx = (int)rintf(txd) - tx;
+#pragma unroll
+      for (int k = -RM; k <= RM; ++k) {
+        // shift k is candidate k - f + 1 of 0..2 when |k - f| <= 1
+        const bool cy = k >= fy - 1 && k <= fy + 1 && k >= -Ri && k <= Ri;
+        const bool cx = k >= fx - 1 && k <= fx + 1 && k >= -Ri && k <= Ri;
+        const float uy = tyd - (float)(ty + k);
+        const float ux = txd - (float)(tx + k);
+        wya[hh][k + RM] = cy ? hat(uy) : 0.f;
+        gya[hh][k + RM] = cy ? hat_grad(uy) : 0.f;
+        wxa[hh][k + RM] = cx ? hat(ux) : 0.f;
+        gxa[hh][k + RM] = cx ? hat_grad(ux) : 0.f;
       }
     }
-    wmma::store_matrix_sync(&s_G[16 * wm][16 * wn], accG, LDC,
-                            wmma::mem_row_major);
-    __syncthreads();
-    const int c = c0 + lane;
-    if (c >= Cin) continue;  // lanes past Cin: G = 0, nothing to add
+    // Every integer shift (ky, kx) moves the tile's pixels to distinct
+    // window positions, so one shift's grad-x updates never collide.
+    // Round k gives warp w (tile row w) the shift row
+    // ky = (k + w) mod (2R + 1) - R: within a round the warps write
+    // distinct window rows (2R + 1 is odd), a barrier separates the
+    // rounds, and within a warp a __syncwarp separates the kx iterations
+    // (a lane reads next the positions its neighbour wrote), so grad x is
+    // summed in shared memory by plain read-modify-writes, in a fixed
+    // order, without atomics. A shift no
+    // pixel of the warp needs is skipped; otherwise every lane runs it,
+    // a pixel that does not need it with weights that are 0.
+    const int nshift = 2 * Ri + 1;
+    for (int k = 0; k < nshift; ++k) {
+      if (k > 0) __syncthreads();  // the previous round's writes are done
+      const int ky = (k + warp) % nshift - Ri;
+      const int row = warp + h + ty + ky;
+      float wyk[2], gyk[2];
 #pragma unroll
-    for (int i = 0; i < DPW; ++i) {
-      const int p = warp + 8 * i;
-      const float G = s_G[p][lane];
-      const float mG = s_m[p] * G;
-      float S = 0.f, Sy = 0.f, Sx = 0.f;
+      for (int hh = 0; hh < 2; ++hh) {
+        wyk[hh] = 0.f;
+        gyk[hh] = 0.f;
 #pragma unroll
-      for (int qy = 0; qy < 3; ++qy) {
-        const int row = s_row[p][qy];
-        const float wy = s_wy[p][qy];
-        const float gy = s_gy[p][qy];
-        if (row < 0 || (wy == 0.f && gy == 0.f)) continue;
-#pragma unroll
-        for (int qx = 0; qx < 3; ++qx) {
-          const int col = s_col[p][qx];
-          const float wx = s_wx[p][qx];
-          const float gx = s_gx[p][qx];
-          if (col < 0 || (wx == 0.f && gx == 0.f)) continue;
-          const int64_t at = (int64_t)(row + col) * Cin + c;
-          const float v = f32(x[at]);
-          S = fmaf(wy * wx, v, S);
-          Sy = fmaf(gy * wx, v, Sy);
-          Sx = fmaf(wy * gx, v, Sx);
-          const float wk = wy * wx;
-          if (wk != 0.f) atomicAdd(grad_x_acc + at, wk * mG);
+        for (int q = 0; q <= 2 * RM; ++q) {
+          wyk[hh] = q == ky + RM ? wya[hh][q] : wyk[hh];
+          gyk[hh] = q == ky + RM ? gya[hh][q] : gyk[hh];
         }
       }
-      acc_m[i] = fmaf(G, S, acc_m[i]);
-      acc_y[i] = fmaf(G, Sy, acc_y[i]);
-      acc_x[i] = fmaf(G, Sx, acc_x[i]);
+#pragma unroll
+      for (int kx = -RM; kx <= RM; ++kx) {
+        if (kx < -Ri || kx > Ri) continue;
+        float wkm[2], gyx[2], wgx[2], wk[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          wk[hh] = wyk[hh] * wxa[hh][kx + RM];
+          wkm[hh] = wk[hh] * m2[hh];
+          gyx[hh] = gyk[hh] * wxa[hh][kx + RM];
+          wgx[hh] = wyk[hh] * gxa[hh][kx + RM];
+        }
+        if (!__any_sync(0xffffffffu, wk[0] != 0.f || gyx[0] != 0.f ||
+                                         wgx[0] != 0.f || wk[1] != 0.f ||
+                                         gyx[1] != 0.f || wgx[1] != 0.f))
+          continue;
+        // both pixels at once: their positions lie 8 columns apart
+        const int pos0 = row * WW + (lane >> 2) + h + tx + kx;
+        uint2 xv[2][4];
+        float4 acc[2][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pos = pos0 + 8 * hh;
+          const unsigned char* xp = s_win + pos * XPIX_B + 8 * l4;
+          const unsigned char* gp = reinterpret_cast<const unsigned char*>(
+              s_gx) + pos * GXPIX_B + 16 * l4;
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm) {
+            xv[hh][mm] = *reinterpret_cast<const uint2*>(xp + 32 * mm);
+            acc[hh][mm] = *reinterpret_cast<const float4*>(gp + 64 * mm);
+          }
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pos = pos0 + 8 * hh;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm) {
+            const float2 v0 = __bfloat1622float2(
+                *reinterpret_cast<const bf162*>(&xv[hh][mm].x));
+            const float2 v1 = __bfloat1622float2(
+                *reinterpret_cast<const bf162*>(&xv[hh][mm].y));
+            const float g0 = G[8 * mm + 2 * hh];
+            const float g1 = G[8 * mm + 2 * hh + 1];
+            const float g2 = G[8 * mm + 4 + 2 * hh];
+            const float g3 = G[8 * mm + 4 + 2 * hh + 1];
+            d[mm] = fmaf(g0, v0.x, d[mm]);
+            d[mm] = fmaf(g1, v0.y, d[mm]);
+            d[mm] = fmaf(g2, v1.x, d[mm]);
+            d[mm] = fmaf(g3, v1.y, d[mm]);
+            acc[hh][mm].x = fmaf(wkm[hh], g0, acc[hh][mm].x);
+            acc[hh][mm].y = fmaf(wkm[hh], g1, acc[hh][mm].y);
+            acc[hh][mm].z = fmaf(wkm[hh], g2, acc[hh][mm].z);
+            acc[hh][mm].w = fmaf(wkm[hh], g3, acc[hh][mm].w);
+            *reinterpret_cast<float4*>(
+                reinterpret_cast<unsigned char*>(s_gx) + pos * GXPIX_B +
+                16 * l4 + 64 * mm) = acc[hh][mm];
+          }
+          const float dot = (d[0] + d[1]) + (d[2] + d[3]);
+          am[hh] = fmaf(wk[hh], dot, am[hh]);
+          ay[hh] = fmaf(gyx[hh], dot, ay[hh]);
+          ax[hh] = fmaf(wgx[hh], dot, ax[hh]);
+        }
+        // the next shift's loads read what the neighbouring lanes just
+        // stored
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float vm = am[hh], vy = ay[hh], vx = ax[hh];
+#pragma unroll
+      for (int k = 1; k < 4; k <<= 1) {
+        vm += __shfl_xor_sync(0xffffffffu, vm, k);
+        vy += __shfl_xor_sync(0xffffffffu, vy, k);
+        vx += __shfl_xor_sync(0xffffffffu, vx, k);
+      }
+      if (l4 == 0) {
+        const int p = 16 * warp + (lane >> 2) + 8 * hh;
+        sums[t * DTP + p] += vm;
+        sums[(9 + t) * DTP + p] += vy;
+        sums[(18 + t) * DTP + p] += vx;
+      }
+    }
+
+    DCN_PHASE(3);  // phase 3: the support walk and its sums
+    if (chunk_ends) {
+      __syncthreads();  // the chunk's walks are done
+      DCN_PHASE(4);     // phase 4: barrier before the flush
+      flush(chunk);
+      DCN_PHASE(5);     // phase 5: the flush
+      if (s + 1 < s_end) {
+        load_window(chunk + 1);
+        load_weights(s + 1, (i + 1) & 1);
+        hopper::cp_async_commit();
+      }
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < DPW; ++i) {
-    float a = acc_m[i], ay = acc_y[i], ax = acc_x[i];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, s);
-      ay += __shfl_xor_sync(0xffffffffu, ay, s);
-      ax += __shfl_xor_sync(0xffffffffu, ax, s);
-    }
-    const int p = warp + 8 * i;
-    const int n = p0 + p;
-    if (lane == 0 && n < npix) {
-      const float m = s_m[p];
-      grad_mask[(int64_t)n * 9 + t] = __float2bfloat16_rn(a);
-      grad_offset[(int64_t)n * 18 + 2 * t] =
-          __float2bfloat16_rn(m * s_cy[p] * ay);
-      grad_offset[(int64_t)n * 18 + 2 * t + 1] =
-          __float2bfloat16_rn(m * s_cx[p] * ax);
+  DCN_PHASE(0);
+  DCN_PHASES_END;
+  __syncthreads();
+  // grad mask = sum G S, grad dy = m clip'(dy) sum G S_y, grad dx alike
+  for (int e = tid; e < 9 * DTP; e += DNT) {
+    const int t = e / DTP;
+    const int p = e - t * DTP;
+    const int y = y0 + p / DTW;
+    const int xx = x0 + p % DTW;
+    if (y >= H || xx >= W) continue;
+    const int64_t n = ((int64_t)b * H + y) * W + xx;
+    const float* om = s_om + p * 27;
+    const float m = om[18 + t];
+    const float gm = sums[t * DTP + p];
+    const float gdy = m * clip_grad(om[2 * t], R) * sums[(9 + t) * DTP + p];
+    const float gdx =
+        m * clip_grad(om[2 * t + 1], R) * sums[(18 + t) * DTP + p];
+    if (a.splits > 1) {
+      float* dst = a.partial + ((int64_t)split * a.npix + n) * 27 + 3 * t;
+      dst[0] = gdy;
+      dst[1] = gdx;
+      dst[2] = gm;
+    } else {
+      a.grad_offset[n * 18 + 2 * t] = __float2bfloat16_rn(gdy);
+      a.grad_offset[n * 18 + 2 * t + 1] = __float2bfloat16_rn(gdx);
+      a.grad_mask[n * 9 + t] = __float2bfloat16_rn(gm);
     }
   }
+}
+
+// grad offset and grad mask = bf16(sum over the splits of the partials,
+// in split order); one thread per (pixel, tap)
+__global__ void dcn_local_bwd_data_bf16_reduce_kernel(
+    const float* __restrict__ partial, bf16* __restrict__ grad_offset,
+    bf16* __restrict__ grad_mask, int64_t npix, int splits) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= npix * 9) return;
+  const int64_t n = e / 9;
+  const int t = (int)(e - n * 9);
+  float gdy = 0.f, gdx = 0.f, gm = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    const float* src = partial + ((int64_t)k * npix + n) * 27 + 3 * t;
+    gdy += src[0];
+    gdx += src[1];
+    gm += src[2];
+  }
+  grad_offset[n * 18 + 2 * t] = __float2bfloat16_rn(gdy);
+  grad_offset[n * 18 + 2 * t + 1] = __float2bfloat16_rn(gdx);
+  grad_mask[e] = __float2bfloat16_rn(gm);
 }
 
 // grad_x[e] = bf16(grad_x_acc[e]), two elements per thread
@@ -481,36 +742,72 @@ __global__ void dcn_local_bwd_weight_bf16_reduce_kernel(
   grad_w[e] = __float2bfloat16_rn(s);
 }
 
+template <int RM>
+int launch_data(const DataArgs& a, dim3 grid, int smem, cudaStream_t s) {
+  static int smem_set = 0;  // the dynamic shared memory allowed so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcn_local_bwd_data_bf16_kernel<RM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dcn_local_bwd_data_bf16_kernel<RM><<<grid, DNT, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Both launchers run on `stream`, allocate nothing, do not synchronise,
 // and return cudaGetLastError() as an int (0 = ok). All tensors are
 // contiguous, in the forward's layouts; grad_out is (B, H, W, Cout) bf16.
 
-// grad_x_acc is B * H * W * Cin floats of scratch (zeroed here);
-// grad_x (B, H, W, Cin), grad_offset (B, H, W, 18) and grad_mask
-// (B, H, W, 9) are bf16 and fully written.
-extern "C" int dcn_local_bwd_data_bf16(const bf16* x, const bf16* offset,
-                                       const bf16* mask, const bf16* weight,
-                                       const bf16* grad_out,
-                                       float* grad_x_acc, bf16* grad_x,
-                                       bf16* grad_offset, bf16* grad_mask,
-                                       int B, int H, int W, int Cin,
-                                       int Cout, int R, void* stream) {
+// The plan (ops/dcn.bwd_data_bf16_plan) comes in as tile_h, tile_w,
+// chunk, splits and the dynamic shared memory in bytes; each is checked
+// against this file's constants and the shapes, and a mismatch returns
+// cudaErrorInvalidValue before any launch; so does R past 4, the widest
+// walk instantiated (ops/dcn.BF16_DATA_MAX_OFFSET). grad_x_acc is
+// B * H * W * Cin floats of scratch (zeroed here); `partial` holds
+// splits * B * H * W * 27 floats when splits > 1 and may be null
+// otherwise; grad_x
+// (B, H, W, Cin), grad_offset (B, H, W, 18) and grad_mask (B, H, W, 9)
+// are bf16 and fully written.
+extern "C" int dcn_local_bwd_data_bf16(
+    const bf16* x, const bf16* offset, const bf16* mask, const bf16* weight,
+    const bf16* grad_out, float* grad_x_acc, bf16* grad_x, bf16* grad_offset,
+    bf16* grad_mask, float* partial, int B, int H, int W, int Cin, int Cout,
+    int R, int tile_h, int tile_w, int chunk, int splits, int smem,
+    void* stream) {
   const int npix = B * H * W;
   if (npix <= 0 || Cin <= 0) return (int)cudaSuccess;
-  if (Cout <= 0) return (int)cudaErrorInvalidValue;
+  const int nsteps = 9 * ((Cin + DCK - 1) / DCK);
+  if (Cout <= 0 || tile_h != DTH || tile_w != DTW || chunk != DCK || R < 1 ||
+      R > 4 || splits < 1 || splits > nsteps ||
+      smem != data_smem_bytes(Cout, R) || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int64_t count = (int64_t)npix * Cin;
   cudaError_t err = cudaMemsetAsync(grad_x_acc, 0, count * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((npix + DP - 1) / DP, 9);
-  dcn_local_bwd_data_bf16_kernel<<<grid, DNT, 0, s>>>(
-      x, offset, mask, weight, grad_out, grad_x_acc, grad_offset, grad_mask,
-      npix, H, W, Cin, Cout, R);
-  err = cudaGetLastError();
+  const DataArgs a{x, offset, mask, weight, grad_out, grad_x_acc,
+                   grad_offset, grad_mask, partial, npix, H, W, Cin, Cout,
+                   R, (W + DTW - 1) / DTW, (H + DTH - 1) / DTH, nsteps,
+                   splits};
+  const dim3 grid(B * a.tiles_y * a.tiles_x, 1, splits);
+  err = (cudaError_t)(R == 1   ? launch_data<1>(a, grid, smem, s)
+                      : R == 2 ? launch_data<2>(a, grid, smem, s)
+                               : launch_data<4>(a, grid, smem, s));
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
+  if (splits > 1) {
+    const int64_t items = (int64_t)npix * 9;
+    dcn_local_bwd_data_bf16_reduce_kernel<<<(unsigned)((items + threads - 1)
+                                                       / threads),
+                                            threads, 0, s>>>(
+        partial, grad_offset, grad_mask, npix, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const int64_t pairs = (count + 1) / 2;
   round_to_bf16_kernel<<<(unsigned)((pairs + threads - 1) / threads),
                          threads, 0, s>>>(grad_x_acc, grad_x, count);

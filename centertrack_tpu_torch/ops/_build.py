@@ -4,10 +4,10 @@
 Each source in ``centertrack_tpu_torch/csrc`` exposes a plain
 ``extern "C"`` launcher. At first use it is compiled for ``sm_90a`` into
 ``<repo>/build/torch_kernels/<name>-<hash>.so``, keyed by a hash of the
-source and the flags, written under a temporary name and moved into
-place, so concurrent builds never see a half-written library. The
-compile runs under a timeout; a later process finds the library and
-loads it without compiling.
+source, the shared headers (``csrc/*.cuh``) and the flags, written under
+a temporary name and moved into place, so concurrent builds never see a
+half-written library. The compile runs under a timeout; a later process
+finds the library and loads it without compiling.
 """
 
 from __future__ import annotations
@@ -53,6 +53,10 @@ def find_nvcc() -> str:
 def library_path(name: str) -> str:
     with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
         digest = hashlib.sha256(f.read())
+    for header in sorted(os.listdir(CSRC_DIR)):
+        if header.endswith(".cuh"):
+            with open(os.path.join(CSRC_DIR, header), "rb") as f:
+                digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

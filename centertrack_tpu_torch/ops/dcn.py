@@ -24,15 +24,17 @@ ones: without a gradient it is ``dcn_local_fwd_bf16``
 (``csrc/dcn_local_bf16.cu``); with one it is ``DCNLocal`` at bf16,
 whose forward launches ``dcn_local_fwd_bf16`` and whose backward
 launches ``dcn_local_bwd_data_bf16`` and ``dcn_local_bwd_weight_bf16``
-(``csrc/dcn_local_bwd_bf16.cu``). At bf16 the forward rounds where the
-Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the sample is taken
-in float32 from the bf16 inputs, masked, rounded to bf16, contracted
-with the bf16 weight with float32 accumulation, the bias added in
-float32, and the sum rounded to bf16. The backward is the float32 vjp
-of that function on the bf16 values, with its two roundings passed
-through as a cast's transpose passes a cotangent, and each gradient
-rounded to bf16 once; the weight gradient contracts the bf16 sample
-the forward contracted.
+(``csrc/dcn_local_bwd_bf16.cu``); ``fwd_bf16_plan`` and
+``bwd_data_bf16_plan`` give the first two their launch plans (pixel
+tile, K splits, shared memory, scratch). At bf16 the forward rounds
+where the Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the sample
+is taken in float32 from the bf16 inputs, masked, rounded to bf16,
+contracted with the bf16 weight with float32 accumulation, the bias
+added in float32, and the sum rounded to bf16. The backward is the
+float32 vjp of that function on the bf16 values, with its two roundings
+passed through as a cast's transpose passes a cotangent, and each
+gradient rounded to bf16 once; the weight gradient contracts the bf16
+sample the forward contracted.
 
 Derivative convention. The op is piecewise linear in the offsets, with
 kinks at integer offsets (where training starts: the offset conv is
@@ -56,6 +58,7 @@ difference, and DCNv2's floor-based backward the forward difference.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -75,16 +78,27 @@ BWD_WEIGHT_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_bf16
 # launcher ends with the stream
 _SIGNATURES = {
     "dcn_local_fwd": ("dcn_local", 6, 6),
-    "dcn_local_fwd_bf16": ("dcn_local_bf16", 6, 6),
+    "dcn_local_fwd_bf16": ("dcn_local_bf16", 7, 12),
     "dcn_local_bwd_data": ("dcn_local_bwd", 8, 6),
     "dcn_local_bwd_weight": ("dcn_local_bwd", 6, 7),
-    "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", 9, 6),
+    "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", 10, 11),
     "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 7),
 }
 _launchers = {}
 
 # blocks the weight-grad kernel aims for: four per SM of an H100
 TARGET_BLOCKS = 4 * 132
+
+# The bf16 forward and data-gradient kernels (csrc/dcn_local_bf16.cu,
+# csrc/dcn_local_bwd_bf16.cu): a block takes a 4 x 16 tile of output
+# pixels (one wgmma M tile of 64) and walks K in steps of (a chunk of 64
+# input channels, a tap); each checks the plan it is given.
+BF16_TILE = (4, 16)
+BF16_CHUNK = 64
+# dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
+# the largest max_offset the data kernel's support walk is unrolled for
+BF16_DATA_MAX_OFFSET = 4
 
 
 def _kernel(symbol: str):
@@ -177,17 +191,125 @@ def launch_fwd(x, offset, mask, weight, bias, max_offset):
     return out
 
 
+def _k_splits(blocks: int, steps: int) -> int:
+    """K splits of a bf16 kernel launch: none when its pixel tiles give
+    ``TARGET_BLOCKS // 2`` blocks (two per SM), else enough to reach
+    that, at most one split per K step."""
+    want = TARGET_BLOCKS // 2
+    return 1 if blocks >= want else min(steps, -(-want // blocks))
+
+
+def _k_ranges(steps: int, splits: int) -> tuple:
+    """The K steps [begin, end) of each split, as the kernels cut them:
+    split z takes z * steps // splits up to (z + 1) * steps // splits."""
+    return tuple((z * steps // splits, (z + 1) * steps // splits)
+                 for z in range(splits))
+
+
+def _bf16_tiles(b: int, h: int, w: int) -> int:
+    th, tw = BF16_TILE
+    return b * -(-h // th) * -(-w // tw)
+
+
+def _window_pixels(max_offset: int) -> int:
+    """Pixels of a tile's x window: the tile and a halo of R + 1, every
+    position a clamped offset's bilinear support reaches."""
+    th, tw = BF16_TILE
+    halo = max_offset + 1
+    return (th + 2 * halo) * (tw + 2 * halo)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
+                  max_offset: int) -> dict:
+    """Launch plan of ``dcn_local_fwd_bf16``: output channels per block
+    (``n_tile``: 64, 128 or 256, the wgmma N), the K splits, the blocks,
+    the dynamic shared memory (A tile, two weight slots, one x window per
+    Cin chunk up to two, the corner table) and the float32 scratch of the
+    split partials. Raises ValueError when a block's shared memory would
+    not fit. Cached per shape: callers read it and never change it."""
+    th, tw = BF16_TILE
+    ck = BF16_CHUNK
+    n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    col_tiles = -(-cout // n_tile)
+    tiles = _bf16_tiles(b, h, w)
+    steps = 9 * max(1, -(-cin // ck))
+    splits = _k_splits(tiles * col_tiles, steps)
+    table = 9 * 4 * th * tw * (2 + 4) + 9 * th * tw * 4
+    smem = (th * tw * ck * 2 + 2 * ck * n_tile * 2
+            + min(2, steps // 9) * _window_pixels(max_offset) * ck * 2
+            + table)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"dcn_local_fwd_bf16: a block would need {smem} bytes of shared "
+            f"memory at max_offset={max_offset}, Cout={cout}; the limit is "
+            f"{SMEM_LIMIT}")
+    return {"tile": BF16_TILE, "chunk": ck, "n_tile": n_tile,
+            "col_tiles": col_tiles, "tiles": tiles, "steps": steps,
+            "splits": splits, "k_ranges": _k_ranges(steps, splits),
+            "blocks": tiles * col_tiles * splits, "smem_bytes": smem,
+            "scratch": splits * b * h * w * cout if splits > 1 else 0}
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
+                       max_offset: int) -> dict:
+    """Launch plan of ``dcn_local_bwd_data_bf16``: the K splits, the
+    blocks, the dynamic shared memory (the output-grad tile and two
+    weight slots over Cout padded to 16, the x window and its float32
+    grad-x tile, the tile's offsets and mask, the sums) and the float32
+    scratch: the grad-x accumulator and, when split, the grad offset /
+    mask partials. Raises ValueError when it would not fit, or when
+    max_offset passes ``BF16_DATA_MAX_OFFSET``. Cached per shape:
+    callers read it and never change it."""
+    if max_offset > BF16_DATA_MAX_OFFSET:
+        raise ValueError(
+            f"dcn_local_bwd_data_bf16: max_offset={max_offset}; the kernel "
+            f"takes max_offset up to {BF16_DATA_MAX_OFFSET}")
+    th, tw = BF16_TILE
+    ck = BF16_CHUNK
+    kp = -(-cout // 16) * 16
+    tiles = _bf16_tiles(b, h, w)
+    steps = 9 * max(1, -(-cin // ck))
+    splits = _k_splits(tiles, steps)
+    smem = (th * tw * kp * 2 + 2 * ck * kp * 2
+            + _window_pixels(max_offset) * (ck * (2 + 4) + 32 + 64)
+            + th * tw * 27 * 4 + 3 * 9 * th * tw * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"dcn_local_bwd_data_bf16: a block would need {smem} bytes of "
+            f"shared memory at max_offset={max_offset}, Cout={cout}; the "
+            f"limit is {SMEM_LIMIT}")
+    npix = b * h * w
+    return {"tile": BF16_TILE, "chunk": ck, "tiles": tiles, "steps": steps,
+            "splits": splits, "k_ranges": _k_ranges(steps, splits),
+            "blocks": tiles * splits, "smem_bytes": smem,
+            "grad_acc": npix * cin,
+            "scratch": splits * npix * 27 if splits > 1 else 0}
+
+
+def _plan_ints(plan: dict, *keys: str) -> tuple:
+    return (*plan["tile"], plan["chunk"], *(plan[k] for k in keys),
+            plan["smem_bytes"])
+
+
 def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
     """``dcn_local_fwd_bf16`` on checked bf16 CUDA tensors -> bf16
-    (B, H, W, Cout)."""
+    (B, H, W, Cout), by ``fwd_bf16_plan``."""
     global BF16_LAUNCHES
     b, h, w, cin = x.shape
     cout = weight.shape[3]
+    plan = fwd_bf16_plan(b, h, w, cin, cout, max_offset)
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    partial = (torch.empty(plan["scratch"], device=x.device,
+                           dtype=torch.float32) if plan["scratch"] else None)
     _ok(_kernel("dcn_local_fwd_bf16")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, h, w, cin, cout, max_offset, _stream(x)), "dcn_local_fwd_bf16")
+        None if partial is None else partial.data_ptr(),
+        b, h, w, cin, cout, max_offset,
+        *_plan_ints(plan, "n_tile", "splits"), _stream(x)),
+        "dcn_local_fwd_bf16")
     BF16_LAUNCHES += 1
     return out
 
@@ -238,20 +360,25 @@ def launch_bwd_weight(x, offset, mask, grad_out, cout, max_offset):
 
 def launch_bwd_data_bf16(x, offset, mask, weight, grad_out, max_offset):
     """``dcn_local_bwd_data_bf16`` on bf16 CUDA tensors -> bf16 (grad x,
-    grad offset, grad mask). grad x is summed in a float32 scratch and
-    rounded once."""
+    grad offset, grad mask), by ``bwd_data_bf16_plan``. grad x is summed
+    in a float32 scratch and rounded once."""
     global BWD_DATA_BF16_LAUNCHES
     _check_grad(grad_out, x, weight.shape[3])
     b, h, w, cin = x.shape
+    plan = bwd_data_bf16_plan(b, h, w, cin, weight.shape[3], max_offset)
     grad_acc = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+    partial = (torch.empty(plan["scratch"], device=x.device,
+                           dtype=torch.float32) if plan["scratch"] else None)
     grad_x = torch.empty_like(x)
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
     _ok(_kernel("dcn_local_bwd_data_bf16")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_acc.data_ptr(), grad_x.data_ptr(),
-        grad_offset.data_ptr(), grad_mask.data_ptr(), b, h, w, cin,
-        weight.shape[3], max_offset, _stream(x)), "dcn_local_bwd_data_bf16")
+        grad_offset.data_ptr(), grad_mask.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, h, w, cin,
+        weight.shape[3], max_offset, *_plan_ints(plan, "splits"),
+        _stream(x)), "dcn_local_bwd_data_bf16")
     BWD_DATA_BF16_LAUNCHES += 1
     return grad_x, grad_offset, grad_mask
 

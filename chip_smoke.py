@@ -19,16 +19,21 @@ Phases, each printing one JSON line with its elapsed seconds:
            dcn_local_fwd_bf16
   kernel   dcn_local_fwd and dcn_local_fwd_bf16 against their plain
            PyTorch versions at the seven DLA-34 neck shapes of the
-           544x960 path (R=1) and one R=2 case, with kernel, plain and
-           cuDNN-3x3 times and the H100 bound
+           544x960 path (R=1) and one R=2 case, and the bf16 kernel also
+           at one R=3 case, every neck shape at B=8 and one ragged shape
+           (17x30, 72->40), with kernel, device (queued behind a spin
+           kernel), plain and cuDNN-3x3 times, the H100 bound and, at
+           bf16, the launch plan (tile, N tile, splits, blocks, shared
+           memory)
   grad     dcn_local_bwd_data and dcn_local_bwd_weight (through the
            autograd function) against autograd of the plain version, at
            the same shapes, on random offsets (some past +/-R) and on
            all-zero offsets (the kinks), with kernel, plain and bound times
   grad_bf16  dcn_local_bwd_data_bf16 and dcn_local_bwd_weight_bf16
-           against autograd of the plain bf16 version at the same shapes
-           and offsets, every element within the bf16 forward's
-           tolerance, with kernel, plain and bound times
+           against autograd of the plain bf16 version at the bf16
+           forward's cases and the same offsets, every element within the
+           bf16 forward's tolerance, with kernel, device, plain and bound
+           times and the data kernel's launch plan
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame fetched; the forward kernel
@@ -602,6 +607,16 @@ def _cases():
         [("s4", 136, 240, 64, 64, 0, "R=2 check", 2)]
 
 
+def _conv3x3_ms(x, weight, bias):
+    """One cuDNN 3x3 convolution of the DCN call's shape and dtype: a
+    yardstick of a dense contraction there, used nowhere in the port."""
+    xc = x.permute(0, 3, 1, 2)
+    wc = weight.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return time_ms(lambda: torch.nn.functional.conv2d(
+        xc, wc, bias, padding=1), 3, 20)
+
+
 def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -631,11 +646,7 @@ def phase_kernel():
             x, offset, mask, weight, bias, r), 3, 20)
         p_ms = time_ms(lambda: dcn.deform_conv2d_local_plain(
             x, offset, mask, weight, bias, r), 1, 5)
-        xc = x.permute(0, 3, 1, 2)
-        wc = weight.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        conv_ms = time_ms(lambda: torch.nn.functional.conv2d(
-            xc, wc, bias, padding=1), 3, 20)
+        conv_ms = _conv3x3_ms(x, weight, bias)
         bound, bound_by = dcn_bound_ms(h * w, cin, cout)
         row = {"map": name, "hw": [h, w], "cin": cin, "cout": cout, "R": r,
                "launches_per_frame": per_frame, "layers": layers,
@@ -649,20 +660,50 @@ def phase_kernel():
     return rows
 
 
+def _bf16_cases():
+    """(map, B, H, W, Cin, Cout, launches per image, layers, R) of the
+    bf16 kernels' checks: ``_cases()`` at B=1, one R=3 case (the data
+    kernel's widest support walk, built for R up to 4), every neck shape
+    at B=8 (the training step's batch) and one ragged shape, whose
+    tiles, Cin chunk and N tile are all partly past the map."""
+    return ([(n, 1, h, w, ci, co, k, lay, r)
+             for n, h, w, ci, co, k, lay, r in _cases()]
+            + [("s4", 1, 136, 240, 64, 64, 0, "R=3 check", 3)]
+            + [(n, TRAIN_B, h, w, ci, co, k, lay, 1)
+               for n, h, w, ci, co, k, lay in NECK_SHAPES]
+            + [("ragged", 1, 17, 30, 72, 40, 0, "ragged check", 1)])
+
+
+def bf16_dcn_inputs(gen, b, h, w, cin, cout, r):
+    """Seeded bf16 inputs of one DCN call on the card: x, offset
+    (spread past +/-R, so the clamp and the kinks run), mask, weight,
+    bias and an output gradient."""
+    def draw(f, *shape):
+        return f(*shape, generator=gen, device="cuda")
+    bf16 = torch.bfloat16
+    return (draw(torch.randn, b, h, w, cin).to(bf16),
+            ((draw(torch.rand, b, h, w, 18) * 2 - 1) * (r + 1.5)).to(bf16),
+            draw(torch.rand, b, h, w, 9).to(bf16),
+            (draw(torch.randn, 3, 3, cin, cout) * 0.05).to(bf16),
+            draw(torch.randn, cout).to(bf16),
+            draw(torch.randn, b, h, w, cout).to(bf16))
+
+
+def _plan_row(plan):
+    return {k: plan[k] for k in ("tile", "n_tile", "splits", "blocks",
+                                 "smem_bytes") if k in plan}
+
+
 def phase_kernel_bf16():
     """dcn_local_fwd_bf16 against the plain bf16 version on the same
-    bf16 inputs, at the same cases as the float32 kernel."""
+    bf16 inputs, at the float32 kernel's cases, an R=3 case, every neck
+    shape at B=8 and a ragged shape."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    dev, bf16 = "cuda", torch.bfloat16
+    bf16 = torch.bfloat16
     rows = []
-    for name, h, w, cin, cout, per_frame, layers, r in _cases():
-        x = torch.randn(1, h, w, cin, generator=gen, device=dev).to(bf16)
-        offset = ((torch.rand(1, h, w, 18, generator=gen, device=dev) * 2
-                   - 1) * (r + 1.5)).to(bf16)
-        mask = torch.rand(1, h, w, 9, generator=gen, device=dev).to(bf16)
-        weight = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
-                  * 0.05).to(bf16)
-        bias = torch.randn(cout, generator=gen, device=dev).to(bf16)
+    for name, b, h, w, cin, cout, per_frame, layers, r in _bf16_cases():
+        x, offset, mask, weight, bias, _ = bf16_dcn_inputs(
+            gen, b, h, w, cin, cout, r)
         out = dcn.deform_conv2d_local(x, offset, mask, weight, bias, r)
         ref = dcn.deform_conv2d_local_plain(x, offset, mask, weight, bias, r)
         torch.cuda.synchronize()
@@ -672,23 +713,30 @@ def phase_kernel_bf16():
         err, past_ulp, past_tol = bf16_agreement(out, ref)
         if past_tol:
             raise RuntimeError(
-                f"dcn_local_fwd_bf16 {name} {cin}->{cout} R={r}: "
+                f"dcn_local_fwd_bf16 {name} B={b} {cin}->{cout} R={r}: "
                 f"{past_tol} elements past {BF16_ULPS} ulps + "
                 f"{BF16_REL_OF_MAX} max|ref| (max abs err {err})")
+        ref_max = ref.float().abs().max().item()
+        del ref
         k_ms = time_ms(lambda: dcn.deform_conv2d_local(
             x, offset, mask, weight, bias, r), 3, 20)
+        device_ms = queued_us(lambda: dcn.deform_conv2d_local(
+            x, offset, mask, weight, bias, r), 20) / 1e3
         p_ms = time_ms(lambda: dcn.deform_conv2d_local_plain(
             x, offset, mask, weight, bias, r), 1, 5)
-        bound, bound_by = dcn_bound_ms_bf16(h * w, cin, cout)
-        row = {"kernel": "dcn_local_fwd_bf16", "map": name, "hw": [h, w],
-               "cin": cin, "cout": cout, "R": r,
+        bound, bound_by = dcn_bound_ms_bf16(b * h * w, cin, cout)
+        row = {"kernel": "dcn_local_fwd_bf16", "map": name, "batch": b,
+               "hw": [h, w], "cin": cin, "cout": cout, "R": r,
                "launches_per_frame": per_frame, "layers": layers,
-               "max_abs_err": err, "max_abs_ref": ref.float().abs().max()
-               .item(), "elements": out.numel(),
+               "plan": _plan_row(dcn.fwd_bf16_plan(b, h, w, cin, cout, r)),
+               "max_abs_err": err, "max_abs_ref": ref_max,
+               "elements": out.numel(),
                "elements_past_1_ulp": past_ulp,
                "tol": {"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX},
-               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-               "bound_by": bound_by, "library_ms": None}
+               "ms": k_ms, "device_ms": device_ms, "plain_ms": p_ms,
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+               "conv3x3_cudnn_ms_other_function": _conv3x3_ms(x, weight,
+                                                              bias)}
         rows.append(row)
         emit("kernel", **row)
     return rows
@@ -786,21 +834,16 @@ def phase_grad_bf16():
     """dcn_local_bwd_data_bf16 and dcn_local_bwd_weight_bf16 against
     autograd of the plain bf16 version on the same bf16 inputs and
     output grad, every element within BF16_ULPS ulps + BF16_REL_OF_MAX
-    max|plain|, at random and all-zero offsets."""
+    max|plain|, at random and all-zero offsets, at the forward's
+    cases."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    dev, bf16 = "cuda", torch.bfloat16
+    bf16 = torch.bfloat16
     names = ("x", "offset", "mask", "weight")
     rows = []
-    for name, h, w, cin, cout, per_frame, layers, r in _cases():
-        x = torch.randn(1, h, w, cin, generator=gen, device=dev).to(bf16)
-        offsets = {
-            "random": ((torch.rand(1, h, w, 18, generator=gen, device=dev)
-                        * 2 - 1) * (r + 1.5)).to(bf16),
-            "zero": torch.zeros(1, h, w, 18, device=dev, dtype=bf16)}
-        mask = torch.rand(1, h, w, 9, generator=gen, device=dev).to(bf16)
-        weight = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
-                  * 0.05).to(bf16)
-        g = torch.randn(1, h, w, cout, generator=gen, device=dev).to(bf16)
+    for name, bsz, h, w, cin, cout, per_frame, layers, r in _bf16_cases():
+        x, offset, mask, weight, _, g = bf16_dcn_inputs(
+            gen, bsz, h, w, cin, cout, r)
+        offsets = {"random": offset, "zero": torch.zeros_like(offset)}
         errs = {}
         for kind, offset in offsets.items():
             got = (*dcn.launch_bwd_data_bf16(x, offset, mask, weight, g, r),
@@ -815,8 +858,8 @@ def phase_grad_bf16():
                 err, past_ulp, past_tol = bf16_agreement(a, b)
                 if past_tol:
                     raise RuntimeError(
-                        f"bf16 DCN backward {name} {cin}->{cout} R={r} "
-                        f"{kind} offsets: grad {n}: {past_tol} elements "
+                        f"bf16 DCN backward {name} B={bsz} {cin}->{cout} "
+                        f"R={r} {kind} offsets: grad {n}: {past_tol} elements "
                         f"past {BF16_ULPS} ulps + {BF16_REL_OF_MAX} "
                         f"max|plain| (max abs err {err})")
                 errs[kind][n] = {"max_abs_err": err,
@@ -826,6 +869,8 @@ def phase_grad_bf16():
         offset = offsets["random"]
         data_ms = time_ms(lambda: dcn.launch_bwd_data_bf16(
             x, offset, mask, weight, g, r), 3, 20)
+        data_device_ms = queued_us(lambda: dcn.launch_bwd_data_bf16(
+            x, offset, mask, weight, g, r), 20) / 1e3
         weight_ms = time_ms(lambda: dcn.launch_bwd_weight_bf16(
             x, offset, mask, g, cout, r), 3, 20)
         pins = [t.clone().requires_grad_() for t in
@@ -837,9 +882,12 @@ def phase_grad_bf16():
             pout, pins[3:], g, retain_graph=True), 1, 3)
         del pout, pins
         (data_b, data_by), (weight_b, weight_by) = dcn_bwd_bound_ms_bf16(
-            h * w, cin, cout)
-        row = {"map": name, "hw": [h, w], "cin": cin, "cout": cout, "R": r,
+            bsz * h * w, cin, cout)
+        row = {"map": name, "batch": bsz, "hw": [h, w], "cin": cin,
+               "cout": cout, "R": r,
                "launches_per_step_and_image": per_frame, "layers": layers,
+               "data_plan": _plan_row(dcn.bwd_data_bf16_plan(
+                   bsz, h, w, cin, cout, r)),
                "data_max_abs_err": max(e[k]["max_abs_err"]
                                        for e in errs.values()
                                        for k in names[:3]),
@@ -847,7 +895,8 @@ def phase_grad_bf16():
                                          for e in errs.values()),
                "agreement": errs,
                "tol": {"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX},
-               "data_ms": data_ms, "data_plain_ms": plain_data_ms,
+               "data_ms": data_ms, "data_device_ms": data_device_ms,
+               "data_plain_ms": plain_data_ms,
                "data_bound_ms": data_b, "data_bound_by": data_by,
                "weight_ms": weight_ms, "weight_plain_ms": plain_weight_ms,
                "weight_bound_ms": weight_b, "weight_bound_by": weight_by,
@@ -1443,10 +1492,16 @@ def main(argv):
     neck = [r for r in rows if r["launches_per_frame"]]
     per_frame = lambda key, rs=neck: sum(r[key] * r["launches_per_frame"]
                                          for r in rs)
-    bf16_neck = [r for r in bf16_rows if r["launches_per_frame"]]
+    bf16_neck = [r for r in bf16_rows
+                 if r["launches_per_frame"] and r["batch"] == 1]
+    bf16_neck8 = [r for r in bf16_rows
+                  if r["launches_per_frame"] and r["batch"] == TRAIN_B]
     gneck = [r for r in grad_rows if r["launches_per_step_and_image"]]
     gneck_bf16 = [r for r in grad_bf16_rows
-                  if r["launches_per_step_and_image"]]
+                  if r["launches_per_step_and_image"] and r["batch"] == 1]
+    gneck_bf16_8 = [r for r in grad_bf16_rows
+                    if r["launches_per_step_and_image"]
+                    and r["batch"] == TRAIN_B]
     per_image = lambda key, rs=gneck: sum(
         r[key] * r["launches_per_step_and_image"] for r in rs)
     bwd_replaces = "centertrack_tpu/ops/dcn_pallas_shift.py:161"
@@ -1488,6 +1543,7 @@ def main(argv):
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
         "ms": per_frame("ms", bf16_neck),
+        "ms_per_image_at_b8": per_frame("ms", bf16_neck8) / TRAIN_B,
         "plain_ms": per_frame("plain_ms", bf16_neck),
         "bound_ms": per_frame("bound_ms", bf16_neck),
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
@@ -1523,6 +1579,8 @@ def main(argv):
         }
         if at:
             row["at"] = at
+            row["ms_per_image_at_b8"] = per_image(
+                key + "_ms", gneck_bf16_8) / TRAIN_B
         kernels.append(row)
     for name, r in probe_rows.items():
         kernels.append({

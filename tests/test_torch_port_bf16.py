@@ -192,9 +192,12 @@ def test_cpu_bf16_takes_the_plain_version_and_launches_nothing():
 def test_bf16_cuda_route_launches_dcn_local_fwd_bf16(monkeypatch):
     """The CUDA route of a bf16 call without gradient is the bf16
     launcher: it calls the symbol dcn_local_fwd_bf16 with the inputs'
-    pointers, a fresh bf16 output and the sizes of its _SIGNATURES
-    entry, and counts the launch (the ctypes call is a stand-in here);
-    the float32 kernel is never reached."""
+    pointers, a fresh bf16 output, the float32 scratch of the split
+    partials, and the sizes followed by the launch plan of
+    ``fwd_bf16_plan`` (tile, chunk, N tile, splits, shared memory), as
+    many as its _SIGNATURES entry says, and counts the launch (the
+    ctypes call is a stand-in here); the float32 kernel is never
+    reached."""
     args = list(map(_bf16, _dcn_inputs(6, 1, 7, 9, 8, 16, 1)))
     calls = []
 
@@ -203,6 +206,7 @@ def test_bf16_cuda_route_launches_dcn_local_fwd_bf16(monkeypatch):
             _, n_ptr, n_int = dcn._SIGNATURES[symbol]
             assert len(argv) == n_ptr + n_int + 1
             calls.append((symbol, argv[:5], argv[n_ptr:n_ptr + n_int]))
+            assert isinstance(argv[6], int) and argv[6]  # split partials
             return 0
         return launch
 
@@ -215,9 +219,12 @@ def test_bf16_cuda_route_launches_dcn_local_fwd_bf16(monkeypatch):
     before = (dcn.LAUNCHES, dcn.BF16_LAUNCHES)
     out = fn(*args, 1)
     assert (dcn.LAUNCHES, dcn.BF16_LAUNCHES) == (before[0], before[1] + 1)
+    plan = dcn.fwd_bf16_plan(1, 7, 9, 8, 16, 1)
+    assert plan["splits"] == 9 and plan["n_tile"] == 64
     assert calls == [("dcn_local_fwd_bf16",
                       tuple(t.data_ptr() for t in args),
-                      (1, 7, 9, 8, 16, 1))]
+                      (1, 7, 9, 8, 16, 1, 4, 16, 64, 64, 9,
+                       plan["smem_bytes"]))]
     assert out.dtype == torch.bfloat16 and out.shape == (1, 7, 9, 16)
 
 

@@ -359,7 +359,9 @@ def test_bf16_autograd_function_calls_the_bf16_kernels(monkeypatch):
     replaced by a recorder: forward and backward reach
     dcn_local_fwd_bf16, dcn_local_bwd_data_bf16 and
     dcn_local_bwd_weight_bf16 with the inputs' pointers, fresh outputs
-    and the sizes of their _SIGNATURES entries; each bumps its own
+    and the sizes of their _SIGNATURES entries (the forward and the data
+    kernel followed by their launch plans: tile, chunk, the forward's N
+    tile, splits, shared memory); each bumps its own
     counter; no float32 kernel is reached; the gradients come back bf16
     in the inputs' shapes, the bias grad a float32 sum rounded once."""
     ins, g = _wiring_inputs()
@@ -396,9 +398,14 @@ def test_bf16_autograd_function_calls_the_bf16_kernels(monkeypatch):
     assert [c[0] for c in calls] == ["dcn_local_fwd_bf16",
                                      "dcn_local_bwd_data_bf16",
                                      "dcn_local_bwd_weight_bf16"]
-    assert calls[0][1][:5] == tuple(ptr) and calls[0][2] == sizes
+    fwd = dcn.fwd_bf16_plan(1, 6, 7, 4, 5, 1)
+    data = dcn.bwd_data_bf16_plan(1, 6, 7, 4, 5, 1)
+    assert calls[0][1][:5] == tuple(ptr)
+    assert calls[0][2] == (*sizes, 4, 16, 64, 64, fwd["splits"],
+                           fwd["smem_bytes"])
     assert calls[1][1][:5] == (*ptr[:4], g.data_ptr())
-    assert calls[1][2] == sizes
+    assert calls[1][2] == (*sizes, 4, 16, 64, data["splits"],
+                           data["smem_bytes"])
     assert calls[2][1][:4] == (*ptr[:3], g.data_ptr())
     assert calls[2][2] == (*sizes, splits)
     for t in ts:
