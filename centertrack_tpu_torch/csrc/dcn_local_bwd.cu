@@ -1,4 +1,4 @@
-// Clamped-offset modulated 3x3 deformable convolution, backward, fp32,
+// Clamped-offset modulated 3x3 deformable convolution, backward, float32,
 // for Hopper (sm_90a). The forward is csrc/dcn_local.cu; the layouts and
 // the function are the same:
 //
@@ -35,56 +35,109 @@
 //
 // Two entry points:
 //
-//   dcn_local_bwd_data: grad x, grad offset, grad mask. One block per
-//   tile of DP pixels and one tap. Per chunk of 32 input channels it
-//   forms G_t(p, c) = sum_o g(p, o) w[t, c, o] in registers (the
-//   forward's contraction turned around; g and the weight slice are
-//   staged in shared memory), then, one warp per pixel and one lane per
-//   channel, reads the (up to 3 x 3) shifted x values of the tap's
-//   support and accumulates
-//     grad mask_t(p)  = sum_c G S_t,
-//     grad dy_t(p)    = m clip'(dy) sum_c G sum_k hat'(.) hat(.) x,
-//     grad dx_t(p)    likewise,
-//   and adds m hat hat G into grad x at the (<= 4) bilinear corners with
-//   fp32 atomicAdd. grad x therefore sums in an order that changes from
-//   run to run (rounding-level differences only); grad offset and grad
-//   mask are owned by one block each and are reduced in a fixed order
-//   (warp shuffles).
+//   dcn_local_bwd_data: grad x, grad offset, grad mask, with the
+//   contraction on the tensor cores in 3xTF32 (hopper.cuh: each operand
+//   split into TF32 hi and lo parts, hi*hi + hi*lo + lo*hi summed in
+//   float32, float32's accuracy). A block takes a 4 x 16 tile of pixels
+//   of one image, with one warpgroup, or two that split each chunk's
+//   channels where a block has an SM to itself (by shared memory): the
+//   walk below is bound by the latency of its chains of shared-memory
+//   read-modify-writes, and the second warpgroup doubles the warps that
+//   hide it, on the same shared memory. It copies the tile's
+//   output grad g (64 x Cout) global -> shared by cp.async once, splits
+//   it into hi and lo in place, and keeps it, with the tile's offsets and
+//   mask. Its K loop runs over steps (Cin chunk of CK = 32, 16 or 8
+//   channels, by ops/dcn.bwd_data_fp32_plan so that shared memory fits;
+//   tap), chunk-major; per chunk the tile's x window with a halo of R + 1
+//   (every position a clamped offset's support reaches) is copied by
+//   cp.async, zero-filled outside the map and past Cin, and each tap's
+//   weight slice, hi and lo, is copied into a weight slot once the
+//   previous step's product is done, so it flies during that step's
+//   walk. The weight is split into TF32 hi and lo once per call by a
+//   small kernel into a scratch (`wsplit`, (2, 9, Cin, Cout padded to
+//   8)); w[t]^T is K-major in w's own layout. Per step:
+//     - G_t = g w[t]^T (64 pixels x CK channels), three wgmma m64nNWk8
+//       per 8 output channels and warpgroup (NW = its CK / 2 channels),
+//       float32 accumulators in registers;
+//     - each thread walks the support of its two pixels for its NW / 4
+//       channels, straight from its accumulator fragment (the weight
+//       slice's columns are permuted so that the fragment holds NW / 4
+//       consecutive channels): it reads x from the window, sums G x
+//       against hat hat, hat' hat and hat hat' for grad mask, grad dy and
+//       grad dx (over its channels, then its quad by shuffles, then over
+//       chunks in a fixed order), and adds m hat hat G into a float32
+//       grad-x tile of the window's extent in shared memory. One integer
+//       shift moves the tile's pixels to distinct positions, so the
+//       shifts are walked in 2R + 1 rounds in which the four warps write
+//       four distinct window rows, with a __syncwarp between shifts:
+//       plain read-modify-writes, in a fixed order, no atomics. At
+//       max_offset 1 the walk is built with its 9 shifts unrolled.
+//   At the end of each chunk the grad-x tile is added into grad x by
+//   global atomicAdd (neighbouring tiles' halos overlap), once per block
+//   and chunk, not once per support corner, so grad x sums in an order
+//   that changes from run to run (rounding-level differences only).
+//   Small maps split the K loop over blocks (`splits`, for the fewest
+//   waves of blocks at two or more blocks per SM): grad offset and grad
+//   mask go
+//   to float32 partials per split that a second kernel sums in split
+//   order; without a split the block writes them itself. The window's and
+//   the grad-x tile's pixel pitches are padded so that the pixels of a
+//   warp's accesses start in distinct bank groups.
 //
 //   dcn_local_bwd_weight: grad w[t] = sum_p (m_t S_t(p))^T g(p), with
 //   S_t rebuilt from x as the forward builds it. A reduction over all
 //   B*H*W pixels: the pixels are split over `splits` blocks, each writes
 //   its (64 x 64) partial tile to a scratch slice, and a second kernel
 //   sums the slices in a fixed order (deterministic). splits = 1 writes
-//   the result directly.
+//   the result directly. It runs on the CUDA cores.
 //
-// What bounds them on the H100: together about twice the forward's fp32
-// operations (the G contraction and the grad w contraction are each as
-// large as the forward's), plus the bilinear work of the support; the
-// bytes are larger than the forward's (g read twice, x read up to 9
-// times per tap through L2, grad x written by atomics), but at the
-// DLA-34 neck shapes the ratio of operations to bytes stays well above
-// the fp32 ridge of about 20, so they are bound by fp32 operations on
-// the CUDA cores, as the forward is. The design keeps every
-// intermediate (G, the samples, the hat weights) in registers and
-// shared memory: nothing of size pixels x channels x taps goes to
-// device memory. Tensor cores (TF32/bf16 wgmma) are for a later change.
+// What bounds them on the H100. bwd_data: the G contraction (2 * 9 * Cin
+// * Cout operations per pixel, three times at the dense TF32 peak,
+// 494.7 TFLOP/s) and the bilinear work (38 * 9 * Cin float32 operations
+// per pixel at the float32 peak, 67 TFLOP/s), against the float32 bytes
+// it must move at 3.35 TB/s; at the DLA-34 neck shapes the operations
+// take longer (chip_smoke.py dcn_bwd_bound_ms_3xtf32). In practice the
+// support walk's chains of shared-memory read-modify-writes decide its
+// time. bwd_weight:
+// its contraction and sampling at the float32 peak (dcn_bwd_bound_ms).
+// Nothing of size pixels x channels x taps goes to device memory.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int DP = 64;    // bwd_data: pixels per block
-constexpr int DK = 32;    // bwd_data: input channels per chunk (one warp)
-constexpr int DO = 32;    // bwd_data: output channels per staged chunk
-constexpr int DNT = 256;  // bwd_data: threads (8 warps)
-constexpr int DPW = DP / (DNT / 32);  // pixels per warp
+constexpr int DTH = 4;          // bwd_data: tile rows
+constexpr int DTW = 16;         // bwd_data: tile columns
+constexpr int DTP = DTH * DTW;  // bwd_data: pixels per block (wgmma M)
+constexpr int MAX_R = 8;        // bwd_data: the largest max_offset planned
+constexpr int OM_B = DTP * 27 * 4;       // the tile's offsets and mask
+constexpr int SUMS_B = 3 * 9 * DTP * 4;  // grad mask, dy, dx sums
 
 constexpr int WC = 64;    // bwd_weight: input channels per block
 constexpr int WO = 64;    // bwd_weight: output channels per block
 constexpr int WP = 32;    // bwd_weight: pixels per shared-memory chunk
 constexpr int WNT = 256;  // bwd_weight: threads, 16 x 16, 4 x 4 each
+
+// Cout padded to the wgmma K step of 8
+__host__ __device__ constexpr int kpad(int cout) { return (cout + 7) / 8 * 8; }
+
+__host__ __device__ constexpr int window_pixels(int R) {
+  return (DTH + 2 * (R + 1)) * (DTW + 2 * (R + 1));
+}
+
+// bytes of a window or grad-x pixel of a ck-channel chunk: padded by 16
+// at ck >= 16, so that the pixels of a quarter- or half-warp's accesses
+// start in distinct bank groups (at 8 they already do)
+__host__ __device__ constexpr int pitch(int ck) {
+  return ck * 4 + (ck >= 16 ? 16 : 0);
+}
+
+// g hi and lo, one weight slot of hi and lo, x window, grad-x tile,
+// offsets and mask, sums
+__host__ __device__ constexpr int data_smem_bytes(int cout, int R, int ck) {
+  return 2 * DTP * kpad(cout) * 4 + 2 * ck * kpad(cout) * 4 +
+         2 * window_pixels(R) * pitch(ck) + OM_B + SUMS_B;
+}
 
 // hat(u) and its derivative with JAX's rules at the kinks (see above)
 __device__ __forceinline__ float hat(float u) {
@@ -93,9 +146,8 @@ __device__ __forceinline__ float hat(float u) {
 
 __device__ __forceinline__ float hat_grad(float u) {
   const float a = fabsf(u);
-  if (a < 1.f) return u >= 0.f ? -1.f : 1.f;
-  if (a == 1.f) return u > 0.f ? -0.5f : 0.5f;
-  return 0.f;
+  const float s = u >= 0.f ? -1.f : 1.f;
+  return a < 1.f ? s : (a == 1.f ? 0.5f * s : 0.f);
 }
 
 __device__ __forceinline__ float clip_grad(float d, float R) {
@@ -104,182 +156,519 @@ __device__ __forceinline__ float clip_grad(float d, float R) {
   return 0.f;
 }
 
-__global__ void __launch_bounds__(DNT)
-dcn_local_bwd_data_kernel(const float* __restrict__ x,
-                          const float* __restrict__ offset,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ weight,
-                          const float* __restrict__ grad_out,
-                          float* __restrict__ grad_x,
-                          float* __restrict__ grad_offset,
-                          float* __restrict__ grad_mask,
-                          int npix, int H, int W, int Cin, int Cout,
-                          int Ri) {
-  // per pixel of the tile: the 3 candidate rows / cols of the support
-  // (flat pixel index of the row start b*H*W + yy*W, and the column xx;
-  // -1 where the shift is outside [-R, R] or outside the map), their hat
-  // and hat' weights, the mask and the two clip' factors
-  __shared__ int s_row[DP][3];
-  __shared__ int s_col[DP][3];
-  __shared__ float s_wy[DP][3], s_gy[DP][3], s_wx[DP][3], s_gx[DP][3];
-  __shared__ float s_m[DP], s_cy[DP], s_cx[DP];
-  __shared__ float s_g[DP][DO + 1];
-  __shared__ float s_w[DK][DO + 1];
+// The wgmma N column that holds input channel c (0..N-1) of a
+// warpgroup's N channels: thread quad lane q (lane % 4) holds columns
+// 8 j + 2 q + e of its accumulator fragment, j < N / 8, e < 2; channel
+// CPT q + 2 j + e goes there, so that each thread holds CPT = N / 4
+// consecutive channels.
+template <int N>
+__device__ __forceinline__ int fragment_column(int c) {
+  constexpr int CPT = N / 4;
+  const int q = c / CPT;
+  const int r = c - q * CPT;
+  return 8 * (r >> 1) + 2 * q + (r & 1);
+}
 
+// n consecutive float32 of shared memory at p (16-byte aligned when n is
+// a multiple of 4, else 8-byte aligned) into v, and back
+template <int n>
+__device__ __forceinline__ void load_run(const unsigned char* p,
+                                         float (&v)[n]) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int u = 0; u < n; u += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + 4 * u);
+      v[u] = q.x;
+      v[u + 1] = q.y;
+      v[u + 2] = q.z;
+      v[u + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < n; u += 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + 4 * u);
+      v[u] = q.x;
+      v[u + 1] = q.y;
+    }
+  }
+}
+
+template <int n>
+__device__ __forceinline__ void store_run(unsigned char* p,
+                                          const float (&v)[n]) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int u = 0; u < n; u += 4)
+      *reinterpret_cast<float4*>(p + 4 * u) =
+          make_float4(v[u], v[u + 1], v[u + 2], v[u + 3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < n; u += 2)
+      *reinterpret_cast<float2*>(p + 4 * u) = make_float2(v[u], v[u + 1]);
+  }
+}
+
+struct DataArgs {
+  const float* x;
+  const float* offset;
+  const float* mask;
+  const float* wsplit;
+  const float* grad_out;
+  float* grad_x;
+  float* grad_offset;
+  float* grad_mask;
+  float* partial;
+  int64_t npix;
+  int H, W, Cin, Cout, R;
+  int tiles_x, tiles_y, nsteps, splits;
+};
+
+// The data kernel for chunks of CK input channels. Each of its NWG
+// warpgroups (1 or 2) takes NW = CK / NWG of them (its wgmma N, at least
+// 8) for every pixel of the tile: the warpgroups share the tile's shared
+// memory and touch distinct channels of it, so they need a common barrier
+// only around the product's weight slot and the chunk's flush. R1 = 1
+// builds the walk for max_offset 1 (the DLA-34 dcn_local1 neck), its
+// shifts unrolled; R1 = 0 for any max_offset.
+template <int CK, int NWG, int R1>
+__global__ void __launch_bounds__(128 * NWG)
+dcn_local_bwd_data_kernel(const DataArgs a) {
+  constexpr int DNT = 128 * NWG;  // threads
+  constexpr int NW = CK / NWG;    // channels of a warpgroup
+  constexpr int CPT = NW / 4;     // channels per thread and pixel in the walk
+  constexpr int P = pitch(CK);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout, Ri = a.R;
   const float R = (float)Ri;
+  const int KP = kpad(Cout);
+  const int SBO = KP * 32;  // g tile and weight slot: bytes between
+                            // 8-row groups
+  const int h = Ri + 1;
+  const int WH = DTH + 2 * h;
+  const int WW = DTW + 2 * h;
+  const int WPIX = WH * WW;
+  unsigned char* s_g = smem;                   // DTP x KP, hi then lo
+  unsigned char* s_w = s_g + 2 * DTP * KP * 4; // CK x KP, hi then lo
+  unsigned char* s_win = s_w + 2 * CK * KP * 4;  // WPIX x P
+  unsigned char* s_gx = s_win + WPIX * P;        // WPIX x P, float32
+  float* s_om = reinterpret_cast<float*>(s_gx + WPIX * P);  // [DTP][27]
+  float* sums = s_om + DTP * 27;    // [3][9][DTP]: grad mask, dy, dx
+
   const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int txi = tile % a.tiles_x;
+  const int tyi = (tile / a.tiles_x) % a.tiles_y;
+  const int b = tile / (a.tiles_x * a.tiles_y);
+  const int y0 = tyi * DTH;
+  const int x0 = txi * DTW;
+  const int split = blockIdx.z;
+  const int s_begin = (int)((int64_t)split * a.nsteps / a.splits);
+  const int s_end = (int)((int64_t)(split + 1) * a.nsteps / a.splits);
+  const bool x_al = Cin % 4 == 0 && hopper::aligned16(a.x);
+  const bool g_al = Cout % 4 == 0 && hopper::aligned16(a.grad_out);
+  const bool acc_al = Cin % 4 == 0 && hopper::aligned16(a.grad_x);
+
+  for (int e = tid; e < WPIX * P / 16; e += DNT)
+    reinterpret_cast<float4*>(s_gx)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < 27 * DTP; e += DNT) {
+    sums[e] = 0.f;
+    // the tile's offsets and mask, once; 0 past the map
+    const int p = e / 27;
+    const int k = e - 27 * p;
+    const int y = y0 + p / DTW;
+    const int xx = x0 + p % DTW;
+    float v = 0.f;
+    if (y < H && xx < W) {
+      const int64_t n = ((int64_t)b * H + y) * W + xx;
+      v = k < 18 ? a.offset[n * 18 + k] : a.mask[n * 9 + k - 18];
+    }
+    s_om[e] = v;
+  }
+  // the tile's output grad, once: (pixel, 4 channels) pieces, K-major
+  for (int e = tid; e < DTP * (KP / 4); e += DNT) {
+    const int p = e / (KP / 4);
+    const int q = e - p * (KP / 4);
+    const int y = y0 + p / DTW;
+    const int xx = x0 + p % DTW;
+    const bool in = y < H && xx < W;
+    const int64_t n = ((int64_t)b * H + y) * W + xx;
+    hopper::copy4(s_g + (p >> 3) * SBO + q * 128 + (p & 7) * 16,
+                  in ? a.grad_out + n * Cout + 4 * q : a.grad_out,
+                  in ? Cout - 4 * q : 0, g_al);
+  }
+
+  const auto load_window = [&](int chunk) {
+    const int c0 = chunk * CK;
+    for (int e = tid; e < WPIX * (CK / 4); e += DNT) {
+      const int pos = e / (CK / 4);
+      const int q = e - pos * (CK / 4);
+      const int wr = pos / WW;
+      const int yy = y0 - h + wr;
+      const int xc = x0 - h + (pos - wr * WW);
+      const int ch = c0 + 4 * q;
+      const bool in = yy >= 0 && yy < H && xc >= 0 && xc < W;
+      hopper::copy4(s_win + pos * P + 16 * q,
+                    in ? a.x + (((int64_t)b * H + yy) * W + xc) * Cin + ch
+                       : a.x,
+                    in ? Cin - ch : 0, x_al);
+    }
+  };
+  // step s's B = w[t]^T (K = output channel, N = input channel of the
+  // chunk), hi and lo, K-major: (input channel, 4 output channels)
+  // pieces of the split weight; input channel c, channel c % NW of
+  // warpgroup c / NW, goes to B column NW (c / NW) + fragment_column(c % NW)
+  // piece e = (hl CK + c) QP + q of a slice: hl, c and q are stepped
+  // from this thread's first piece, without a division per piece
+  const int QP = KP / 4;  // pieces of a weight row
+  const int row0 = tid / QP, q0 = tid - row0 * QP;
+  const int drow = DNT / QP, dq = DNT - drow * QP;
+  const auto load_weights = [&](int s) {
+    const int chunk = s / 9;
+    const int t = s - 9 * chunk;
+    int row = row0, q = q0;  // row = hl CK + c
+    while (row < 2 * CK) {
+      const int hl = row >= CK;
+      const int c = row - hl * CK;
+      const int ch = chunk * CK + c;
+      const bool in = ch < Cin;
+      const int n = c / NW * NW + fragment_column<NW>(c % NW);
+      hopper::cp_async16(
+          s_w + hl * CK * KP * 4 + (n >> 3) * SBO + q * 128 + (n & 7) * 16,
+          in ? a.wsplit + (((int64_t)hl * 9 + t) * Cin + ch) * KP + 4 * q
+             : a.wsplit,
+          in ? 16 : 0);
+      row += drow;
+      q += dq;
+      if (q >= QP) {
+        q -= QP;
+        ++row;
+      }
+    }
+  };
+  // grad-x tile -> grad_x (global atomics), zeroing the tile
+  const auto flush = [&](int chunk) {
+    const int c0 = chunk * CK;
+    for (int e = tid; e < WPIX * (CK / 4); e += DNT) {
+      const int pos = e / (CK / 4);
+      const int q = e - pos * (CK / 4);
+      float4* src = reinterpret_cast<float4*>(s_gx + pos * P + 16 * q);
+      const float4 v = *src;
+      *src = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int wr = pos / WW;
+      const int yy = y0 - h + wr;
+      const int xc = x0 - h + (pos - wr * WW);
+      if (yy < 0 || yy >= H || xc < 0 || xc >= W) continue;
+      const int ch = c0 + 4 * q;
+      if (ch >= Cin || (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f))
+        continue;
+      float* dst = a.grad_x + (((int64_t)b * H + yy) * W + xc) * Cin + ch;
+      if (acc_al && ch + 4 <= Cin) {
+        atomicAdd(reinterpret_cast<float4*>(dst), v);
+      } else {
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (ch + i < Cin) atomicAdd(dst + i, vs[i]);
+      }
+    }
+  };
+
+  DCN_PHASES_BEGIN;  // phase 0: the tile's staging and each step's tail
+  load_window(s_begin / 9);
+  load_weights(s_begin);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait_all();
+  __syncthreads();
+  // g -> its TF32 hi part in place and its lo part beside it
+  for (int e = tid; e < DTP * KP / 4; e += DNT) {
+    float4* gp = reinterpret_cast<float4*>(s_g) + e;
+    const float4 v = *gp;
+    const float4 hi = hopper::tf32_hi(v);
+    *gp = hi;
+    reinterpret_cast<float4*>(s_g + DTP * KP * 4)[e] = hopper::tf32_lo(v, hi);
+  }
+
+  const int wg = tid >> 7;           // warpgroup: channels NW wg ..
+  const int warp = (tid >> 5) & 3;   // tile row
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int p0 = blockIdx.x * DP;
-  const int t = blockIdx.y;
-  const int ty = t / 3 - 1;
-  const int tx = t % 3 - 1;
-  const int HW = H * W;
-
-  if (tid < DP) {
-    const int p = tid;
-    const int n = p0 + p;
-    float m = 0.f, cy = 0.f, cx = 0.f;
-    float dyc = 0.f, dxc = 0.f;
-    int b = 0, y = 0, xx = 0;
-    if (n < npix) {
-      b = n / HW;
-      const int rem = n - b * HW;
-      y = rem / W;
-      xx = rem - y * W;
-      const float dy = offset[(int64_t)n * 18 + 2 * t];
-      const float dx = offset[(int64_t)n * 18 + 2 * t + 1];
-      dyc = fminf(fmaxf(dy, -R), R);
-      dxc = fminf(fmaxf(dx, -R), R);
-      cy = clip_grad(dy, R);
-      cx = clip_grad(dx, R);
-      m = mask[(int64_t)n * 9 + t];
+  const int l4 = lane & 3;
+  float G[NW / 2];
+#pragma unroll
+  for (int k = 0; k < NW / 2; ++k) G[k] = 0.f;
+  // The sums of grad mask, dy and dx of this thread's two pixels (its
+  // quad's lane 0) at a step: warpgroup 0 adds them at the end of its
+  // walk, warpgroup 1 after the next block-wide barrier, so they are
+  // summed in a fixed order: by step, then by warpgroup.
+  float pend[2][3];
+  int pend_t = -1;
+  const auto add_sums = [&](int tap, const float (&v)[2][3]) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = 16 * warp + (lane >> 2) + 8 * hh;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) sums[(9 * k + tap) * DTP + p] += v[hh][k];
     }
-    const float tyd = (float)ty + dyc;
-    const float txd = (float)tx + dxc;
-    // candidate shifts: every k with |u| <= 1 is in {f - 1, f, f + 1}
-    // for f the nearest integer to ty + dy_c - ty (as rounded in u, the
-    // others are at least 1.5 away)
-    const int fy = (int)rintf(tyd) - ty;
-    const int fx = (int)rintf(txd) - tx;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const int ky = fy - 1 + q;
-      const int kx = fx - 1 + q;
-      const float uy = tyd - (float)(ty + ky);
-      const float ux = txd - (float)(tx + kx);
-      const int yy = y + ty + ky;
-      const int xc = xx + tx + kx;
-      const bool oky = n < npix && ky >= -Ri && ky <= Ri && yy >= 0 &&
-                       yy < H;
-      const bool okx = n < npix && kx >= -Ri && kx <= Ri && xc >= 0 &&
-                       xc < W;
-      s_row[p][q] = oky ? b * HW + yy * W : -1;
-      s_col[p][q] = okx ? xc : -1;
-      s_wy[p][q] = oky ? hat(uy) : 0.f;
-      s_gy[p][q] = oky ? hat_grad(uy) : 0.f;
-      s_wx[p][q] = okx ? hat(ux) : 0.f;
-      s_gx[p][q] = okx ? hat_grad(ux) : 0.f;
+  };
+  for (int s = s_begin; s < s_end; ++s) {
+    const int chunk = s / 9;
+    const int t = s - 9 * chunk;
+    const int ty = t / 3 - 1;
+    const int tx = t % 3 - 1;
+    const bool chunk_ends = s + 1 == s_end || (s + 1) / 9 != chunk;
+    DCN_PHASE(0);
+    hopper::cp_async_wait_all();
+    hopper::fence_async_shared();
+    __syncthreads();  // step s's copies (and g's split) visible; step
+                      // s - 1's walk done
+    DCN_PHASE(1);     // phase 1: copy wait and barrier
+    if (pend_t >= 0) {
+      add_sums(pend_t, pend);
+      pend_t = -1;
     }
-    s_m[p] = m;
-    s_cy[p] = cy;
-    s_cx[p] = cx;
-  }
 
-  // this thread's pixels are warp + 8 i, its channel c0 + lane
-  float acc_m[DPW], acc_y[DPW], acc_x[DPW];
-#pragma unroll
-  for (int i = 0; i < DPW; ++i) {
-    acc_m[i] = 0.f;
-    acc_y[i] = 0.f;
-    acc_x[i] = 0.f;
-  }
-  const float* wtap = weight + (int64_t)t * Cin * Cout;
+    // G_t = g w[t]^T on the tensor cores, 3xTF32: this warpgroup's NW
+    // columns. The first K step overwrites G; each next one moves the
+    // four descriptors 256 bytes on (16 in their address field).
+    hopper::fence_acc(G);
+    hopper::wgmma_fence();
+    {
+      const unsigned char* s_wg = s_w + wg * (NW / 8) * SBO;
+      uint64_t d_ghi = hopper::desc(s_g, 128, SBO);
+      uint64_t d_glo = hopper::desc(s_g + DTP * KP * 4, 128, SBO);
+      uint64_t d_whi = hopper::desc(s_wg, 128, SBO);
+      uint64_t d_wlo = hopper::desc(s_wg + CK * KP * 4, 128, SBO);
+      for (int ks = 0; ks < KP / 8; ++ks) {
+        hopper::wgmma_3xtf32<NW>(G, d_ghi, d_glo, d_whi, d_wlo, ks > 0);
+        d_ghi += 16;
+        d_glo += 16;
+        d_whi += 16;
+        d_wlo += 16;
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_acc(G);
+    __syncthreads();  // the whole product is done: the weight slot is free
+    DCN_PHASE(2);     // phase 2: G on the tensor cores
+    if (!chunk_ends) {
+      load_weights(s + 1);  // flies during the walk
+      hopper::cp_async_commit();
+    }
 
-  for (int c0 = 0; c0 < Cin; c0 += DK) {
-    const int c = c0 + lane;
-    // G_t(p, c) = sum_o g(p, o) w[t, c, o]
-    float G[DPW];
+    // The support walk. This thread holds G for two pixels (tile row
+    // `warp`, columns lane / 4 and lane / 4 + 8) and, per pixel, the CPT
+    // channels NW wg + CPT l4 + i: G[4 (i / 2) + 2 hh + i % 2]. Per pixel: the
+    // tap's clamped offset and the mask, and per shift the hat and hat'
+    // weights on each axis (0 away from the offset).
+    float tyd[2], txd[2], m2[2];
+    float am[2] = {0.f, 0.f}, ay[2] = {0.f, 0.f}, ax[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < DPW; ++i) G[i] = 0.f;
-    for (int o0 = 0; o0 < Cout; o0 += DO) {
-      __syncthreads();  // previous chunk consumed (and the setup done)
-      for (int e = tid; e < DP * DO; e += DNT) {
-        const int o = e % DO;
-        const int p = e / DO;
-        const int n = p0 + p;
-        s_g[p][o] = (n < npix && o0 + o < Cout)
-                        ? grad_out[(int64_t)n * Cout + o0 + o]
-                        : 0.f;
-      }
-      for (int e = tid; e < DK * DO; e += DNT) {
-        const int o = e % DO;
-        const int k = e / DO;
-        s_w[k][o] = (c0 + k < Cin && o0 + o < Cout)
-                        ? wtap[(int64_t)(c0 + k) * Cout + o0 + o]
-                        : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int o = 0; o < DO; ++o) {
-        const float wv = s_w[lane][o];
+    for (int hh = 0; hh < 2; ++hh) {
+      const float* om = s_om + (16 * warp + (lane >> 2) + 8 * hh) * 27;
+      tyd[hh] = (float)ty + fminf(fmaxf(om[2 * t], -R), R);
+      txd[hh] = (float)tx + fminf(fmaxf(om[2 * t + 1], -R), R);
+      m2[hh] = om[18 + t];
+    }
+    // Every integer shift (ky, kx) moves the tile's pixels to distinct
+    // window positions, so one shift's grad-x updates never collide.
+    // Round k gives warp w (tile row w) the shift row
+    // ky = (k + w) mod (2R + 1) - R: within a round the warps write
+    // distinct window rows (2R + 1 is odd), a barrier separates the
+    // rounds, and within a warp a __syncwarp separates the kx iterations
+    // (a lane reads next the positions its neighbour wrote), so grad x is
+    // summed in shared memory by plain read-modify-writes, in a fixed
+    // order, without atomics. Every lane runs every shift, a pixel that
+    // does not need it with weights that are 0 (skipping the shifts no
+    // pixel of a warp needs costs more than it saves). The warpgroups
+    // write distinct channels, so each synchronises its rounds on its own
+    // barrier.
+    const int RW = R1 ? 1 : Ri;  // the walk's max_offset
+    const int nshift = 2 * RW + 1;
 #pragma unroll
-        for (int i = 0; i < DPW; ++i) {
-          G[i] = fmaf(s_g[warp + 8 * i][o], wv, G[i]);
+    for (int k = 0; k < nshift; ++k) {
+      if (k > 0)  // the previous round's writes are done
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      const int ky = (k + warp) % nshift - RW;
+      const int row = warp + h + ty + ky;
+      float wyk[2], gyk[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float uy = tyd[hh] - (float)(ty + ky);
+        wyk[hh] = hat(uy);
+        gyk[hh] = hat_grad(uy);
+      }
+#pragma unroll
+      for (int kx = -RW; kx <= RW; ++kx) {
+        float wkm[2], gyx[2], wgx[2], wk[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float ux = txd[hh] - (float)(tx + kx);
+          const float wx = hat(ux);
+          wk[hh] = wyk[hh] * wx;
+          wkm[hh] = wk[hh] * m2[hh];
+          gyx[hh] = gyk[hh] * wx;
+          wgx[hh] = wyk[hh] * hat_grad(ux);
         }
+        // both pixels at once (their positions lie 8 columns apart): all
+        // loads, then the sums, then the stores
+        const int pos0 = row * WW + (lane >> 2) + h + tx + kx;
+        const int off0 = pos0 * P + 4 * (NW * wg + CPT * l4);
+        float xv[2][CPT], acc[2][CPT];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          load_run<CPT>(s_win + off0 + 8 * hh * P, xv[hh]);
+          load_run<CPT>(s_gx + off0 + 8 * hh * P, acc[hh]);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+          for (int u = 0; u < CPT; u += 2) {
+            const float g0 = G[4 * (u >> 1) + 2 * hh];
+            const float g1 = G[4 * (u >> 1) + 2 * hh + 1];
+            d0 = fmaf(g0, xv[hh][u], d0);
+            d1 = fmaf(g1, xv[hh][u + 1], d1);
+            acc[hh][u] = fmaf(wkm[hh], g0, acc[hh][u]);
+            acc[hh][u + 1] = fmaf(wkm[hh], g1, acc[hh][u + 1]);
+          }
+          const float d = d0 + d1;
+          am[hh] = fmaf(wk[hh], d, am[hh]);
+          ay[hh] = fmaf(gyx[hh], d, ay[hh]);
+          ax[hh] = fmaf(wgx[hh], d, ax[hh]);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          store_run<CPT>(s_gx + off0 + 8 * hh * P, acc[hh]);
+        // the next shift's loads read what the neighbouring lanes just
+        // stored
+        __syncwarp();
       }
     }
-    if (c >= Cin) continue;  // lanes past Cin: G = 0, nothing to add
+    float v[2][3];
 #pragma unroll
-    for (int i = 0; i < DPW; ++i) {
-      const int p = warp + 8 * i;
-      const float mG = s_m[p] * G[i];
-      float S = 0.f, Sy = 0.f, Sx = 0.f;
+    for (int hh = 0; hh < 2; ++hh) {
+      v[hh][0] = am[hh];
+      v[hh][1] = ay[hh];
+      v[hh][2] = ax[hh];
 #pragma unroll
-      for (int qy = 0; qy < 3; ++qy) {
-        const int row = s_row[p][qy];
-        const float wy = s_wy[p][qy];
-        const float gy = s_gy[p][qy];
-        if (row < 0 || (wy == 0.f && gy == 0.f)) continue;
+      for (int k = 1; k < 4; k <<= 1)
 #pragma unroll
-        for (int qx = 0; qx < 3; ++qx) {
-          const int col = s_col[p][qx];
-          const float wx = s_wx[p][qx];
-          const float gx = s_gx[p][qx];
-          if (col < 0 || (wx == 0.f && gx == 0.f)) continue;
-          const int64_t at = (int64_t)(row + col) * Cin + c;
-          const float v = x[at];
-          S = fmaf(wy * wx, v, S);
-          Sy = fmaf(gy * wx, v, Sy);
-          Sx = fmaf(wy * gx, v, Sx);
-          const float wk = wy * wx;
-          if (wk != 0.f) atomicAdd(grad_x + at, wk * mG);
-        }
+        for (int q = 0; q < 3; ++q)
+          v[hh][q] += __shfl_xor_sync(0xffffffffu, v[hh][q], k);
+    }
+    if (l4 == 0) {
+      if (wg == 0) {
+        add_sums(t, v);
+      } else {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) pend[hh][q] = v[hh][q];
+        pend_t = t;
       }
-      acc_m[i] = fmaf(G[i], S, acc_m[i]);
-      acc_y[i] = fmaf(G[i], Sy, acc_y[i]);
-      acc_x[i] = fmaf(G[i], Sx, acc_x[i]);
+    }
+
+    DCN_PHASE(3);  // phase 3: the support walk and its sums
+    if (chunk_ends) {
+      __syncthreads();  // the chunk's walks are done
+      DCN_PHASE(4);     // phase 4: barrier before the flush
+      flush(chunk);
+      DCN_PHASE(5);     // phase 5: the flush
+      if (s + 1 < s_end) {
+        load_window(chunk + 1);
+        load_weights(s + 1);
+        hopper::cp_async_commit();
+      }
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < DPW; ++i) {
-    float a = acc_m[i], ay = acc_y[i], ax = acc_x[i];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, s);
-      ay += __shfl_xor_sync(0xffffffffu, ay, s);
-      ax += __shfl_xor_sync(0xffffffffu, ax, s);
-    }
-    const int p = warp + 8 * i;
-    const int n = p0 + p;
-    if (lane == 0 && n < npix) {
-      const float m = s_m[p];
-      grad_mask[(int64_t)n * 9 + t] = a;
-      grad_offset[(int64_t)n * 18 + 2 * t] = m * s_cy[p] * ay;
-      grad_offset[(int64_t)n * 18 + 2 * t + 1] = m * s_cx[p] * ax;
+  DCN_PHASE(0);
+  DCN_PHASES_END;
+  __syncthreads();
+  if (pend_t >= 0) add_sums(pend_t, pend);
+  __syncthreads();
+  // grad mask = sum G S, grad dy = m clip'(dy) sum G S_y, grad dx alike
+  for (int e = tid; e < 9 * DTP; e += DNT) {
+    const int t = e / DTP;
+    const int p = e - t * DTP;
+    const int y = y0 + p / DTW;
+    const int xx = x0 + p % DTW;
+    if (y >= H || xx >= W) continue;
+    const int64_t n = ((int64_t)b * H + y) * W + xx;
+    const float* om = s_om + p * 27;
+    const float m = om[18 + t];
+    const float gm = sums[t * DTP + p];
+    const float gdy = m * clip_grad(om[2 * t], R) * sums[(9 + t) * DTP + p];
+    const float gdx =
+        m * clip_grad(om[2 * t + 1], R) * sums[(18 + t) * DTP + p];
+    if (a.splits > 1) {
+      float* dst = a.partial + ((int64_t)split * a.npix + n) * 27 + 3 * t;
+      dst[0] = gdy;
+      dst[1] = gdx;
+      dst[2] = gm;
+    } else {
+      a.grad_offset[n * 18 + 2 * t] = gdy;
+      a.grad_offset[n * 18 + 2 * t + 1] = gdx;
+      a.grad_mask[n * 9 + t] = gm;
     }
   }
+}
+
+// grad offset and grad mask = sum over the splits of the partials, in
+// split order; one thread per (pixel, tap)
+__global__ void dcn_local_bwd_data_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ grad_offset,
+    float* __restrict__ grad_mask, int64_t npix, int splits) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= npix * 9) return;
+  const int64_t n = e / 9;
+  const int t = (int)(e - n * 9);
+  float gdy = 0.f, gdx = 0.f, gm = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    const float* src = partial + ((int64_t)k * npix + n) * 27 + 3 * t;
+    gdy += src[0];
+    gdx += src[1];
+    gm += src[2];
+  }
+  grad_offset[n * 18 + 2 * t] = gdy;
+  grad_offset[n * 18 + 2 * t + 1] = gdx;
+  grad_mask[e] = gm;
+}
+
+// wsplit[hl][t][c][o] = the hi (hl = 0) or lo (1) TF32 part of w[t][c][o],
+// o padded to KP with zeros
+__global__ void dcn_local_bwd_split_weight_kernel(const float* __restrict__ w,
+                                                  float* __restrict__ wsplit,
+                                                  int64_t rows, int Cout,
+                                                  int KP) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= rows * KP) return;
+  const int64_t row = e / KP;
+  const int o = (int)(e - row * KP);
+  const float v = o < Cout ? w[row * Cout + o] : 0.f;
+  const float hi = hopper::tf32_rna(v);
+  wsplit[e] = hi;
+  wsplit[rows * KP + e] = hopper::tf32_rna(v - hi);
+}
+
+template <int CK, int NWG, int R1>
+int launch_data_r(const DataArgs& a, dim3 grid, int smem, cudaStream_t s) {
+  static int smem_set = 0;  // the dynamic shared memory allowed so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcn_local_bwd_data_kernel<CK, NWG, R1>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dcn_local_bwd_data_kernel<CK, NWG, R1><<<grid, 128 * NWG, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int CK, int NWG>
+int launch_data(const DataArgs& a, dim3 grid, int smem, cudaStream_t s) {
+  return a.R == 1 ? launch_data_r<CK, NWG, 1>(a, grid, smem, s)
+                  : launch_data_r<CK, NWG, 0>(a, grid, smem, s);
 }
 
 __global__ void __launch_bounds__(WNT)
@@ -425,21 +814,64 @@ __global__ void dcn_local_bwd_weight_reduce_kernel(
 // Both launchers run on `stream`, allocate nothing, do not synchronise,
 // and return cudaGetLastError() as an int (0 = ok).
 
-// grad_x must be zero-filled by the caller (it is accumulated with
-// atomics); grad_offset (B, H, W, 18) and grad_mask (B, H, W, 9) are
+// The plan (ops/dcn.bwd_data_fp32_plan) comes in as tile_h, tile_w,
+// chunk (32, 16 or 8), warpgroups (1, or 2 from chunk 16), splits and
+// the dynamic shared memory in bytes;
+// each is checked against this file's constants and the shapes, and a
+// mismatch returns cudaErrorInvalidValue before any launch; so does R
+// past 8. grad_x must be zero-filled by the caller (each block adds its
+// grad-x tile with atomics); `wsplit` holds 2 * 9 * Cin * KP floats of
+// scratch (KP = Cout rounded up to 8); `partial` holds
+// splits * B * H * W * 27 floats when splits > 1 and may be null
+// otherwise; grad_offset (B, H, W, 18) and grad_mask (B, H, W, 9) are
 // fully written.
 extern "C" int dcn_local_bwd_data(const float* x, const float* offset,
                                   const float* mask, const float* weight,
                                   const float* grad_out, float* grad_x,
                                   float* grad_offset, float* grad_mask,
-                                  int B, int H, int W, int Cin, int Cout,
-                                  int R, void* stream) {
+                                  float* partial, float* wsplit, int B,
+                                  int H, int W, int Cin, int Cout, int R,
+                                  int tile_h, int tile_w, int chunk,
+                                  int warpgroups, int splits, int smem,
+                                  void* stream) {
   const int npix = B * H * W;
-  if (npix <= 0) return (int)cudaSuccess;
-  const dim3 grid((npix + DP - 1) / DP, 9);
-  dcn_local_bwd_data_kernel<<<grid, DNT, 0, (cudaStream_t)stream>>>(
-      x, offset, mask, weight, grad_out, grad_x, grad_offset, grad_mask,
-      npix, H, W, Cin, Cout, R);
+  if (npix <= 0 || Cin <= 0) return (int)cudaSuccess;
+  const int nsteps = 9 * ((Cin + chunk - 1) / (chunk > 0 ? chunk : 1));
+  if (Cout <= 0 || tile_h != DTH || tile_w != DTW ||
+      (chunk != 32 && chunk != 16 && chunk != 8) ||
+      (warpgroups != 1 && (warpgroups != 2 || chunk < 16)) || R < 1 ||
+      R > MAX_R ||
+      splits < 1 || splits > nsteps ||
+      smem != data_smem_bytes(Cout, R, chunk) || wsplit == nullptr ||
+      (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int threads = 256;
+  const int64_t rows = (int64_t)9 * Cin;
+  const int64_t count = rows * kpad(Cout);
+  dcn_local_bwd_split_weight_kernel<<<(unsigned)((count + threads - 1) /
+                                                 threads),
+                                      threads, 0, s>>>(weight, wsplit, rows,
+                                                       Cout, kpad(Cout));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const DataArgs a{x, offset, mask, wsplit, grad_out, grad_x, grad_offset,
+                   grad_mask, partial, npix, H, W, Cin, Cout, R,
+                   (W + DTW - 1) / DTW, (H + DTH - 1) / DTH, nsteps, splits};
+  const dim3 grid(B * a.tiles_y * a.tiles_x, 1, splits);
+  const bool two = warpgroups == 2;
+  err = (cudaError_t)(
+      chunk == 32   ? (two ? launch_data<32, 2>(a, grid, smem, s)
+                           : launch_data<32, 1>(a, grid, smem, s))
+      : chunk == 16 ? (two ? launch_data<16, 2>(a, grid, smem, s)
+                           : launch_data<16, 1>(a, grid, smem, s))
+                    : launch_data<8, 1>(a, grid, smem, s));
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int64_t items = (int64_t)npix * 9;
+  dcn_local_bwd_data_reduce_kernel<<<(unsigned)((items + threads - 1) /
+                                                threads),
+                                     threads, 0, s>>>(
+      partial, grad_offset, grad_mask, npix, splits);
   return (int)cudaGetLastError();
 }
 

@@ -1,16 +1,20 @@
-// Hopper (sm_90a) building blocks shared by the bf16 DCN kernels
-// (dcn_local_bf16.cu, dcn_local_bwd_bf16.cu): asynchronous global ->
-// shared copies (cp.async, 16 bytes, zero-filled past the source), the
-// shared-memory matrix descriptor of wgmma for the layout without swizzle,
-// and one warpgroup product, m64n64k16 bf16 x bf16 -> float32.
+// Hopper (sm_90a) building blocks shared by the DCN kernels
+// (dcn_local.cu, dcn_local_bwd.cu, dcn_local_bf16.cu, dcn_local_bwd_bf16.cu):
+// asynchronous global -> shared copies (cp.async, 16 bytes, zero-filled
+// past the source), the shared-memory matrix descriptor of wgmma for the
+// layout without swizzle, one warpgroup product m64n64k16 bf16 x bf16 ->
+// float32, and the TF32 products m64nNk8 (N = 8, 16, 32, 64) with the
+// hi/lo split by which the float32 kernels run them three times
+// ("3xTF32") to keep float32 accuracy.
 //
 // Operand layout in shared memory ("interleaved", no swizzle): a core
-// matrix is 8 rows of 16 bytes (8 bf16), stored as 128 contiguous bytes.
-// An operand tile is a grid of core matrices; the descriptor carries the
-// byte stride between core matrices along K (LBO) and along M or N (SBO).
-// A K-major operand holds, in each 16-byte row, 8 consecutive K values of
-// one M (or N) index; an MN-major one (B with trans-b = 1) 8 consecutive
-// N values of one K index.
+// matrix is 8 rows of 16 bytes (8 bf16 or 4 tf32), stored as 128
+// contiguous bytes. An operand tile is a grid of core matrices; the
+// descriptor carries the byte stride between core matrices along K (LBO)
+// and along M or N (SBO). A K-major operand holds, in each 16-byte row,
+// consecutive K values of one M (or N) index (8 bf16, 4 tf32); an
+// MN-major one (bf16 B with trans-b = 1) 8 consecutive N values of one K
+// index. TF32 operands are K-major only: wgmma has no transpose for them.
 
 #pragma once
 
@@ -90,11 +94,18 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Waits until at most one committed product of this warpgroup is in
+// flight: the one before it is done.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
 // Keeps the compiler from moving reads or writes of the accumulators
 // across the asynchronous product.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int NACC>
+__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64 float32, the warpgroup's fragments) += A (64 x 16, K-major)
@@ -124,10 +135,140 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+
+// 4 consecutive float32 at `src` into the 16 bytes at `dst`: a cp.async
+// when all 4 are live and the source is 16-byte aligned, else the first
+// min(live, 4) values by plain loads and stores, zeros after them.
+__device__ __forceinline__ void copy4(void* dst, const float* src, int live,
+                                      bool aligned) {
+  if (live >= 4 && aligned) {
+    cp_async16(dst, src, 16);
+  } else if (live <= 0) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < live ? src[i] : 0.f;
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// v rounded to nearest (ties away) to TF32, 10 mantissa bits, as a float
+// whose low 13 bits are 0.
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// v = hi + lo + e with hi, lo TF32 and |e| <= 2^-22 |v|: the operands of
+// 3xTF32, a * b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi (the dropped a_lo
+// b_lo and the roundings are ~2^-21 of |a b|, float32's own size).
+__device__ __forceinline__ float4 tf32_hi(float4 v) {
+  return make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z),
+                     tf32_rna(v.w));
+}
+__device__ __forceinline__ float4 tf32_lo(float4 v, float4 hi) {
+  return make_float4(tf32_rna(v.x - hi.x), tf32_rna(v.y - hi.y),
+                     tf32_rna(v.z - hi.z), tf32_rna(v.w - hi.w));
+}
+
+// d (64 x N float32, the warpgroup's fragments; N / 2 per thread) += A
+// (64 x 8 tf32, K-major) * B (8 x N tf32, K-major). Thread T of the
+// warpgroup holds, for j = 0..N/8-1, rows 16 (T / 32) + (T % 32) / 4
+// (+ 8) and columns 8 j + 2 (T % 4) (+ 1): d[4 j + 2 h + e] is row + 8 h,
+// column + e, as in wgmma_m64n64k16. With accumulate = 0 the product
+// overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A * B in 3xTF32 (d = A * B with accumulate = 0): A and B given
+// as their hi and lo parts (each a K-major tile of the layout above,
+// `tf32_hi` / `tf32_lo`); the two small products first.
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2],
+                                             uint64_t a_hi, uint64_t a_lo,
+                                             uint64_t b_hi, uint64_t b_lo,
+                                             int accumulate = 1) {
+  wgmma_tf32<N>(d, a_lo, b_hi, accumulate);
+  wgmma_tf32<N>(d, a_hi, b_lo, 1);
+  wgmma_tf32<N>(d, a_hi, b_hi, 1);
+}
+
 }  // namespace hopper
 
-// Phase counters of the bf16 DCN kernels, read by
-// centertrack_tpu_torch/tools/dcn_bf16_phases.py. Built with -DDCN_PHASES,
+// Phase counters of the DCN kernels, read by
+// centertrack_tpu_torch/tools/dcn_phases.py. Built with -DDCN_PHASES,
 // a kernel's thread 0 of each block adds the clock64() cycles between its
 // DCN_PHASE(k) marks to slot k of dcn_phase_cycles, and dcn_read_phases
 // copies and clears the slots; otherwise the marks compile to nothing.

@@ -14,9 +14,13 @@ kernels: a float32 CUDA tensor goes to ``DCNLocal``, a
 (``csrc/dcn_local.cu``) and whose backward launches
 ``dcn_local_bwd_data`` (grad x, offset, mask) and ``dcn_local_bwd_weight``
 (grad weight) from ``csrc/dcn_local_bwd.cu``; the bias grad is a sum
-over (B, H, W). A CPU tensor goes to ``deform_conv2d_local_plain``, the
-plain PyTorch version that the tests hold against JAX and that the chip
-smoke holds the kernels against; autograd differentiates it.
+over (B, H, W). ``fwd_fp32_plan`` and ``bwd_data_fp32_plan`` give the
+first two their launch plans (pixel tile, Cin chunk, N tile, K splits,
+shared memory, scratch); their contractions run on the tensor cores in
+3xTF32, which keeps float32's accuracy. A CPU tensor goes to
+``deform_conv2d_local_plain``, the plain PyTorch version that the tests
+hold against JAX and that the chip smoke holds the kernels against;
+autograd differentiates it.
 
 bfloat16. The five tensors are all float32 or all bfloat16. A bf16
 CUDA call runs the bf16 kernels and is never upcast to the float32
@@ -77,9 +81,9 @@ BWD_WEIGHT_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_bf16
 # symbol -> (source in csrc/, pointer arguments, int arguments); every
 # launcher ends with the stream
 _SIGNATURES = {
-    "dcn_local_fwd": ("dcn_local", 6, 6),
+    "dcn_local_fwd": ("dcn_local", 8, 13),
     "dcn_local_fwd_bf16": ("dcn_local_bf16", 7, 12),
-    "dcn_local_bwd_data": ("dcn_local_bwd", 8, 6),
+    "dcn_local_bwd_data": ("dcn_local_bwd", 10, 12),
     "dcn_local_bwd_weight": ("dcn_local_bwd", 6, 7),
     "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", 10, 11),
     "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 7),
@@ -89,16 +93,27 @@ _launchers = {}
 # blocks the weight-grad kernel aims for: four per SM of an H100
 TARGET_BLOCKS = 4 * 132
 
-# The bf16 forward and data-gradient kernels (csrc/dcn_local_bf16.cu,
+# The forward and data-gradient kernels of both dtypes
+# (csrc/dcn_local.cu, csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu,
 # csrc/dcn_local_bwd_bf16.cu): a block takes a 4 x 16 tile of output
-# pixels (one wgmma M tile of 64) and walks K in steps of (a chunk of 64
+# pixels (one wgmma M tile of 64) and walks K in steps of (a chunk of
 # input channels, a tap); each checks the plan it is given.
-BF16_TILE = (4, 16)
+TILE = (4, 16)
 BF16_CHUNK = 64
-# dynamic shared memory one block may use on an H100 (227 KB)
+# dynamic shared memory one block may use on an H100 (227 KB), and what
+# the blocks resident on one SM share (228 KB, 1 KB of it reserved per
+# block)
 SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
+SMS = 132
 # the largest max_offset the data kernel's support walk is unrolled for
 BF16_DATA_MAX_OFFSET = 4
+# float32: the forward's Cin chunk; the data kernel's chunks, the first
+# whose shared memory fits (the chunk is its wgmma N); the largest
+# max_offset both plan for
+FP32_CHUNK = 32
+FP32_DATA_CHUNKS = (32, 16, 8)
+FP32_MAX_OFFSET = 8
 
 
 def _kernel(symbol: str):
@@ -177,26 +192,36 @@ def _check_grad(grad_out, x, cout):
         raise ValueError("dcn_local backward: grad is not contiguous")
 
 
-def launch_fwd(x, offset, mask, weight, bias, max_offset):
-    """``dcn_local_fwd`` on checked CUDA tensors -> (B, H, W, Cout)."""
-    global LAUNCHES
-    b, h, w, cin = x.shape
-    cout = weight.shape[3]
-    out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    _ok(_kernel("dcn_local_fwd")(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, h, w, cin, cout, max_offset, _stream(x)), "dcn_local_fwd")
-    LAUNCHES += 1
-    return out
-
-
 def _k_splits(blocks: int, steps: int) -> int:
     """K splits of a bf16 kernel launch: none when its pixel tiles give
     ``TARGET_BLOCKS // 2`` blocks (two per SM), else enough to reach
     that, at most one split per K step."""
     want = TARGET_BLOCKS // 2
     return 1 if blocks >= want else min(steps, -(-want // blocks))
+
+
+def _resident(smem: int, threads: int) -> int:
+    """Blocks of a launch that one SM holds at once, by shared memory and
+    threads."""
+    return max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // threads))
+
+
+def _wave_splits(blocks: int, steps: int, resident: int) -> int:
+    """K splits of a float32 kernel launch of ``blocks`` pixel tiles of
+    ``steps`` K steps, ``resident`` blocks to an SM. None when the tiles
+    fill four waves (the last wave's tail is then a small share). Else,
+    among the splits that give at least ``TARGET_BLOCKS // 2`` blocks (two
+    per SM; every step its own split when that is short of it), the
+    fewest waves times the steps of a block, one step added for its
+    staging; ties to fewer splits. A launch of 288 tiles at one block per
+    SM runs in 3 waves (the third of 24 blocks): 5 splits run the same K
+    in 11 waves of a fifth of the steps, 330 step-times against 435."""
+    cap = SMS * resident
+    if blocks >= 4 * cap:
+        return 1
+    least = min(steps, -(-(TARGET_BLOCKS // 2) // blocks))
+    return min(range(least, steps + 1), key=lambda s: (
+        -(-(blocks * s) // cap) * (-(-steps // s) + 1), s))
 
 
 def _k_ranges(steps: int, splits: int) -> tuple:
@@ -206,15 +231,15 @@ def _k_ranges(steps: int, splits: int) -> tuple:
                  for z in range(splits))
 
 
-def _bf16_tiles(b: int, h: int, w: int) -> int:
-    th, tw = BF16_TILE
+def _tiles(b: int, h: int, w: int) -> int:
+    th, tw = TILE
     return b * -(-h // th) * -(-w // tw)
 
 
 def _window_pixels(max_offset: int) -> int:
     """Pixels of a tile's x window: the tile and a halo of R + 1, every
     position a clamped offset's bilinear support reaches."""
-    th, tw = BF16_TILE
+    th, tw = TILE
     halo = max_offset + 1
     return (th + 2 * halo) * (tw + 2 * halo)
 
@@ -228,11 +253,11 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
     Cin chunk up to two, the corner table) and the float32 scratch of the
     split partials. Raises ValueError when a block's shared memory would
     not fit. Cached per shape: callers read it and never change it."""
-    th, tw = BF16_TILE
+    th, tw = TILE
     ck = BF16_CHUNK
     n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
     col_tiles = -(-cout // n_tile)
-    tiles = _bf16_tiles(b, h, w)
+    tiles = _tiles(b, h, w)
     steps = 9 * max(1, -(-cin // ck))
     splits = _k_splits(tiles * col_tiles, steps)
     table = 9 * 4 * th * tw * (2 + 4) + 9 * th * tw * 4
@@ -244,7 +269,7 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
             f"dcn_local_fwd_bf16: a block would need {smem} bytes of shared "
             f"memory at max_offset={max_offset}, Cout={cout}; the limit is "
             f"{SMEM_LIMIT}")
-    return {"tile": BF16_TILE, "chunk": ck, "n_tile": n_tile,
+    return {"tile": TILE, "chunk": ck, "n_tile": n_tile,
             "col_tiles": col_tiles, "tiles": tiles, "steps": steps,
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * col_tiles * splits, "smem_bytes": smem,
@@ -266,10 +291,10 @@ def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
         raise ValueError(
             f"dcn_local_bwd_data_bf16: max_offset={max_offset}; the kernel "
             f"takes max_offset up to {BF16_DATA_MAX_OFFSET}")
-    th, tw = BF16_TILE
+    th, tw = TILE
     ck = BF16_CHUNK
     kp = -(-cout // 16) * 16
-    tiles = _bf16_tiles(b, h, w)
+    tiles = _tiles(b, h, w)
     steps = 9 * max(1, -(-cin // ck))
     splits = _k_splits(tiles, steps)
     smem = (th * tw * kp * 2 + 2 * ck * kp * 2
@@ -281,16 +306,148 @@ def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
             f"shared memory at max_offset={max_offset}, Cout={cout}; the "
             f"limit is {SMEM_LIMIT}")
     npix = b * h * w
-    return {"tile": BF16_TILE, "chunk": ck, "tiles": tiles, "steps": steps,
+    return {"tile": TILE, "chunk": ck, "tiles": tiles, "steps": steps,
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * splits, "smem_bytes": smem,
             "grad_acc": npix * cin,
             "scratch": splits * npix * 27 if splits > 1 else 0}
 
 
+def _max_offset_ok(kernel: str, max_offset: int) -> None:
+    if max_offset > FP32_MAX_OFFSET:
+        raise ValueError(
+            f"{kernel}: max_offset={max_offset}; the kernel takes "
+            f"max_offset up to {FP32_MAX_OFFSET}")
+
+
+def _fwd_fp32_smem(n_tile: int, window_slots: int, max_offset: int) -> int:
+    """Two A slots and two weight slots of hi and lo, the x windows and
+    the corner table of ``dcn_local_fwd`` (csrc/dcn_local.cu
+    smem_bytes)."""
+    th, tw = TILE
+    ck = FP32_CHUNK
+    return (4 * th * tw * ck * 4 + 4 * ck * n_tile * 4
+            + window_slots * _window_pixels(max_offset) * ck * 4
+            + 9 * 4 * th * tw * (2 + 4))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
+                  max_offset: int) -> dict:
+    """Launch plan of ``dcn_local_fwd``: output channels per block
+    (``n_tile``: 64, 128 or 256, half per warpgroup; narrower where the
+    window would not fit 227 KB), x window slots (two, so that the next
+    chunk's window flies during a whole chunk, when Cin spans several
+    chunks of 32 and the second slot fits without costing a resident
+    block), the K splits, the blocks, the dynamic shared memory and the
+    float32 scratch: the weight split into TF32 hi and lo, K-major, padded
+    to the chunk and the N tile (``weight_split``), and the split
+    partials (``scratch``). Raises ValueError past ``FP32_MAX_OFFSET``.
+    Cached per shape: callers read it and never change it."""
+    _max_offset_ok("dcn_local_fwd", max_offset)
+    ck = FP32_CHUNK
+    nchunks = max(1, -(-cin // ck))
+    n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    while _fwd_fp32_smem(n_tile, 1, max_offset) > SMEM_LIMIT:
+        n_tile //= 2   # > 64 within FP32_MAX_OFFSET
+    one, two = (_fwd_fp32_smem(n_tile, k, max_offset) for k in (1, 2))
+    window_slots = (2 if nchunks > 1 and two <= SMEM_LIMIT
+                    and _resident(two, 256) == _resident(one, 256) else 1)
+    col_tiles = -(-cout // n_tile)
+    tiles = _tiles(b, h, w)
+    steps = 9 * nchunks
+    smem = _fwd_fp32_smem(n_tile, window_slots, max_offset)
+    splits = _wave_splits(tiles * col_tiles, steps, _resident(smem, 256))
+    return {"tile": TILE, "chunk": ck, "n_tile": n_tile,
+            "window_slots": window_slots, "col_tiles": col_tiles,
+            "tiles": tiles, "steps": steps, "splits": splits,
+            "k_ranges": _k_ranges(steps, splits),
+            "blocks": tiles * col_tiles * splits, "smem_bytes": smem,
+            "weight_split": 2 * 9 * col_tiles * n_tile * nchunks * ck,
+            "scratch": splits * b * h * w * cout if splits > 1 else 0}
+
+
+def _data_fp32_smem(cout: int, chunk: int, max_offset: int) -> int:
+    """g hi and lo, one weight slot of hi and lo, the x window and its
+    grad-x tile (pixels padded by 16 bytes from chunk 16), the offsets and
+    mask and the sums of ``dcn_local_bwd_data`` (csrc/dcn_local_bwd.cu
+    data_smem_bytes)."""
+    th, tw = TILE
+    kp = -(-cout // 8) * 8
+    pitch = chunk * 4 + (16 if chunk >= 16 else 0)
+    return (2 * th * tw * kp * 4 + 2 * chunk * kp * 4
+            + 2 * _window_pixels(max_offset) * pitch + 2 * th * tw * 27 * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_data_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
+                       max_offset: int) -> dict:
+    """Launch plan of ``dcn_local_bwd_data``: the Cin chunk (the wgmma N:
+    the first of ``FP32_DATA_CHUNKS`` whose shared memory fits, so the
+    chunk shrinks as Cout and max_offset grow), the warpgroups (two, each
+    with half the chunk's channels, where a block has an SM to itself by
+    shared memory and the chunk is 16 or more), the K splits, the blocks,
+    the dynamic shared memory and the float32 scratch: the weight split
+    into TF32 hi and lo over Cout padded to 8 (``weight_split``) and, when
+    split, the grad offset / mask partials (``scratch``). Raises
+    ValueError past ``FP32_MAX_OFFSET`` or when no chunk fits. Cached per
+    shape: callers read it and never change it."""
+    _max_offset_ok("dcn_local_bwd_data", max_offset)
+    for ck in FP32_DATA_CHUNKS:
+        smem = _data_fp32_smem(cout, ck, max_offset)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(
+            f"dcn_local_bwd_data: a block would need {smem} bytes of shared "
+            f"memory at max_offset={max_offset}, Cout={cout}, chunk {ck}; "
+            f"the limit is {SMEM_LIMIT}")
+    warpgroups = 2 if ck >= 16 and _resident(smem, 128) == 1 else 1
+    tiles = _tiles(b, h, w)
+    steps = 9 * max(1, -(-cin // ck))
+    splits = _wave_splits(tiles, steps, _resident(smem, 128 * warpgroups))
+    npix = b * h * w
+    return {"tile": TILE, "chunk": ck, "warpgroups": warpgroups,
+            "tiles": tiles, "steps": steps,
+            "splits": splits, "k_ranges": _k_ranges(steps, splits),
+            "blocks": tiles * splits, "smem_bytes": smem,
+            "weight_split": 2 * 9 * cin * (-(-cout // 8) * 8),
+            "scratch": splits * npix * 27 if splits > 1 else 0}
+
+
 def _plan_ints(plan: dict, *keys: str) -> tuple:
     return (*plan["tile"], plan["chunk"], *(plan[k] for k in keys),
             plan["smem_bytes"])
+
+
+def _scratch(plan: dict, key: str, device):
+    """The plan's float32 scratch ``key``, or None when it has none."""
+    return (torch.empty(plan[key], device=device, dtype=torch.float32)
+            if plan[key] else None)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_fwd(x, offset, mask, weight, bias, max_offset):
+    """``dcn_local_fwd`` on checked float32 CUDA tensors ->
+    (B, H, W, Cout), by ``fwd_fp32_plan``."""
+    global LAUNCHES
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    plan = fwd_fp32_plan(b, h, w, cin, cout, max_offset)
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    partial = _scratch(plan, "scratch", x.device)
+    wsplit = _scratch(plan, "weight_split", x.device)
+    _ok(_kernel("dcn_local_fwd")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        _ptr(bias), out.data_ptr(), _ptr(partial), _ptr(wsplit),
+        b, h, w, cin, cout, max_offset,
+        *_plan_ints(plan, "n_tile", "window_slots", "splits"), _stream(x)),
+        "dcn_local_fwd")
+    LAUNCHES += 1
+    return out
 
 
 def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
@@ -301,12 +458,10 @@ def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
     cout = weight.shape[3]
     plan = fwd_bf16_plan(b, h, w, cin, cout, max_offset)
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    partial = (torch.empty(plan["scratch"], device=x.device,
-                           dtype=torch.float32) if plan["scratch"] else None)
+    partial = _scratch(plan, "scratch", x.device)
     _ok(_kernel("dcn_local_fwd_bf16")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
+        _ptr(bias), out.data_ptr(), _ptr(partial),
         b, h, w, cin, cout, max_offset,
         *_plan_ints(plan, "n_tile", "splits"), _stream(x)),
         "dcn_local_fwd_bf16")
@@ -315,18 +470,24 @@ def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
 
 
 def launch_bwd_data(x, offset, mask, weight, grad_out, max_offset):
-    """``dcn_local_bwd_data`` -> (grad x, grad offset, grad mask)."""
+    """``dcn_local_bwd_data`` on checked float32 CUDA tensors -> (grad x,
+    grad offset, grad mask), by ``bwd_data_fp32_plan``."""
     global BWD_DATA_LAUNCHES
     _check_grad(grad_out, x, weight.shape[3])
     b, h, w, cin = x.shape
-    grad_x = torch.zeros_like(x)   # accumulated with atomics
+    plan = bwd_data_fp32_plan(b, h, w, cin, weight.shape[3], max_offset)
+    grad_x = torch.zeros_like(x)   # each block adds its tile with atomics
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
+    partial = _scratch(plan, "scratch", x.device)
+    wsplit = _scratch(plan, "weight_split", x.device)
     _ok(_kernel("dcn_local_bwd_data")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
-        grad_mask.data_ptr(), b, h, w, cin, weight.shape[3], max_offset,
-        _stream(x)), "dcn_local_bwd_data")
+        grad_mask.data_ptr(), _ptr(partial), _ptr(wsplit), b, h, w, cin,
+        weight.shape[3], max_offset,
+        *_plan_ints(plan, "warpgroups", "splits"), _stream(x)),
+        "dcn_local_bwd_data")
     BWD_DATA_LAUNCHES += 1
     return grad_x, grad_offset, grad_mask
 
@@ -367,16 +528,15 @@ def launch_bwd_data_bf16(x, offset, mask, weight, grad_out, max_offset):
     b, h, w, cin = x.shape
     plan = bwd_data_bf16_plan(b, h, w, cin, weight.shape[3], max_offset)
     grad_acc = torch.empty(x.shape, device=x.device, dtype=torch.float32)
-    partial = (torch.empty(plan["scratch"], device=x.device,
-                           dtype=torch.float32) if plan["scratch"] else None)
+    partial = _scratch(plan, "scratch", x.device)
     grad_x = torch.empty_like(x)
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
     _ok(_kernel("dcn_local_bwd_data_bf16")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_acc.data_ptr(), grad_x.data_ptr(),
-        grad_offset.data_ptr(), grad_mask.data_ptr(),
-        None if partial is None else partial.data_ptr(), b, h, w, cin,
+        grad_offset.data_ptr(), grad_mask.data_ptr(), _ptr(partial), b, h, w,
+        cin,
         weight.shape[3], max_offset, *_plan_ints(plan, "splits"),
         _stream(x)), "dcn_local_bwd_data_bf16")
     BWD_DATA_BF16_LAUNCHES += 1

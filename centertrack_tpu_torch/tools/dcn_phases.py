@@ -1,0 +1,148 @@
+"""Where a block of the DCN forward and data-gradient kernels spends its
+cycles, on one NVIDIA GPU: `dcn_local_fwd_bf16` and
+`dcn_local_bwd_data_bf16` (the default), or with `--dtype float32`
+`dcn_local_fwd` and `dcn_local_bwd_data`, are built from their sources
+with `-DDCN_PHASES`, which turns their `DCN_PHASE(k)` marks
+(`csrc/hopper.cuh`) into `clock64()` counters at the phase boundaries
+of their K loop, launched through the port's launchers at the neck
+shapes below, and each phase's cycles, summed over each block's thread 0
+and averaged over the blocks, printed as one JSON line per kernel and
+shape.
+
+    python3 -m centertrack_tpu_torch.tools.dcn_phases
+    python3 -m centertrack_tpu_torch.tools.dcn_phases --dtype float32
+
+Phases of the bf16 forward: `prologue` (first copies, and each step's
+product and next copies), `wait` (copy wait and barrier), `sample`
+(building A_t), `barrier` (before the product). Of the float32 forward,
+whose product runs under the next step's sampling: `window_wait` (the
+corner table and first copies, and a chunk's window where it was copied
+late), `sample` (building A_s), `wait` (copy wait and barrier),
+`product` (issuing A_s's product, waiting for the one before it, the
+barrier and the next copies). Of the data kernels: `prologue` (tile
+staging and each step's tail), `wait` (copy wait and barrier), `product`
+(G on the tensor cores), `walk` (support walk), `chunk_barrier`, `flush`
+(grad-x tile out by atomics). The counters cost
+a few cycles each; the instrumented libraries are built under
+build/phases and used only by this tool, in this process. Without a GPU
+it exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from unittest import mock
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+OUT_DIR = os.path.join(ROOT, "build", "phases")
+
+# (B, H, W, Cin, Cout) at R=1: two neck shapes at the training batch and
+# two at the serving batch
+SHAPES = [(8, 136, 240, 64, 64), (8, 34, 60, 256, 128),
+          (1, 136, 240, 64, 64), (1, 68, 120, 128, 128)]
+
+FWD_PHASES = ["prologue", "wait", "sample", "barrier"]
+FWD_FP32_PHASES = ["window_wait", "sample", "wait", "product"]
+DATA_PHASES = ["prologue", "wait", "product", "walk", "chunk_barrier",
+               "flush"]
+# dtype -> source in csrc/ -> (symbol, phase names in DCN_PHASE order,
+# its launcher and its planner in ops/dcn)
+KERNELS = {
+    "bfloat16": {
+        "dcn_local_bf16": ("dcn_local_fwd_bf16", FWD_PHASES,
+                           "launch_fwd_bf16", "fwd_bf16_plan"),
+        "dcn_local_bwd_bf16": ("dcn_local_bwd_data_bf16", DATA_PHASES,
+                               "launch_bwd_data_bf16",
+                               "bwd_data_bf16_plan")},
+    "float32": {
+        "dcn_local": ("dcn_local_fwd", FWD_FP32_PHASES, "launch_fwd",
+                      "fwd_fp32_plan"),
+        "dcn_local_bwd": ("dcn_local_bwd_data", DATA_PHASES,
+                          "launch_bwd_data", "bwd_data_fp32_plan")},
+}
+
+
+def _instrumented(_build, name):
+    """csrc/<name>.cu built with -DDCN_PHASES; its library."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    lib = os.path.join(OUT_DIR, name + ".so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-DDCN_PHASES",
+                    "-o", lib, os.path.join(_build.CSRC_DIR, name + ".cu")],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(lib)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(KERNELS),
+                    help="the kernels of this dtype (default: bfloat16)")
+    args = ap.parse_args(argv)
+    kernels = KERNELS[args.dtype]
+    sys.path.insert(0, ROOT)
+    import torch
+    from centertrack_tpu_torch.ops import _build, dcn
+    if not torch.cuda.is_available():
+        raise SystemExit("dcn_phases: no CUDA device")
+    libs, launchers = {}, {}
+    for name, (symbol, *_) in kernels.items():
+        libs[name] = _instrumented(_build, name)
+        fn = getattr(libs[name], symbol)
+        _, n_ptr, n_int = dcn._SIGNATURES[symbol]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        launchers[symbol] = fn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dtype = getattr(torch, args.dtype)
+    r = 1
+    with mock.patch.dict(dcn._launchers, launchers):
+        for b, h, w, cin, cout in SHAPES:
+            x = torch.randn(b, h, w, cin, generator=gen,
+                            device="cuda").to(dtype)
+            offset = ((torch.rand(b, h, w, 18, generator=gen, device="cuda")
+                       * 2 - 1) * (r + 1.5)).to(dtype)
+            mask = torch.rand(b, h, w, 9, generator=gen,
+                              device="cuda").to(dtype)
+            weight = (torch.randn(3, 3, cin, cout, generator=gen,
+                                  device="cuda") * 0.05).to(dtype)
+            g = torch.randn(b, h, w, cout, generator=gen,
+                            device="cuda").to(dtype)
+            for name, (symbol, phases, launch, planner) in kernels.items():
+                fwd = phases is not DATA_PHASES
+                call = (lambda: getattr(dcn, launch)(
+                    x, offset, mask, weight, None if fwd else g, r))
+                plan = getattr(dcn, planner)(b, h, w, cin, cout, r)
+                buf = (ctypes.c_ulonglong * 8)()
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+                libs[name].dcn_read_phases(buf)   # clears the warm-up's
+                call()
+                torch.cuda.synchronize()
+                if libs[name].dcn_read_phases(buf) != 0:
+                    raise SystemExit(f"dcn_phases: reading {symbol}'s "
+                                     f"counters failed")
+                cycles = {p: buf[i] / plan["blocks"]
+                          for i, p in enumerate(phases)}
+                print(json.dumps({
+                    "kernel": symbol, "batch": b, "hw": [h, w], "cin": cin,
+                    "cout": cout, "chunk": plan["chunk"],
+                    "blocks": plan["blocks"], "splits": plan["splits"],
+                    "steps_per_block": plan["steps"] / plan["splits"],
+                    "cycles_per_block": cycles,
+                    "share": {p: c / sum(cycles.values())
+                              for p, c in cycles.items()}}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,21 +1,25 @@
-"""Device times of the two bf16 DCN kernels that the bf16 serving and
-training paths launch, ``dcn_local_fwd_bf16`` and
-``dcn_local_bwd_data_bf16``, at the seven DLA-34 neck shapes of the
-544x960 path (R=1), at B=1 and B=8, on one NVIDIA GPU, by the
-measurement of ``chip_smoke.py``'s bf16 kernel and grad_bf16 phases.
+"""Device times of the DCN forward and data-gradient kernels of one
+dtype at the seven DLA-34 neck shapes of the 544x960 path (R=1), at B=1
+and B=8, on one NVIDIA GPU, by the measurement of ``chip_smoke.py``'s
+kernel and grad phases: ``dcn_local_fwd_bf16`` and
+``dcn_local_bwd_data_bf16`` (the bf16 paths' kernels, the default), or
+with ``--dtype float32`` ``dcn_local_fwd`` and ``dcn_local_bwd_data``
+(the float32 paths').
 
-    python3 -m centertrack_tpu_torch.tools.dcn_bf16_times
-    python3 -m centertrack_tpu_torch.tools.dcn_bf16_times --against DIR
+    python3 -m centertrack_tpu_torch.tools.dcn_times
+    python3 -m centertrack_tpu_torch.tools.dcn_times --against DIR
+    python3 -m centertrack_tpu_torch.tools.dcn_times --dtype float32 \
+        --against DIR
 
 The neck shapes (``chip_smoke.NECK_SHAPES``), the seeded inputs
-(``chip_smoke.bf16_dcn_inputs``) and the two times of each launch
+(``chip_smoke.dcn_inputs``) and the two times of each launch
 (``chip_smoke.time_ms``: median of 20 CUDA-event timed calls after 3 of
 warm-up; ``chip_smoke.queued_us``: median of 20 calls each queued behind
 a spin kernel, the device's time) are the smoke's, taken from the
 ``chip_smoke.py`` beside this package. The kernels are called through
-the launchers ``ops/dcn.launch_fwd_bf16`` and ``launch_bwd_data_bf16``,
-whose signatures are the same in every version of the port that has
-them.
+the launchers ``ops/dcn.launch_fwd_bf16`` and ``launch_bwd_data_bf16``
+(``launch_fwd`` and ``launch_bwd_data`` at float32), whose signatures
+are the same in every version of the port that has them.
 
 ``--root DIR`` times the package of the checkout in DIR instead of this
 one (its kernels are built into DIR/build), with this checkout's
@@ -39,7 +43,12 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 BATCHES = (1, 8)
-KERNELS = ("dcn_local_fwd_bf16", "dcn_local_bwd_data_bf16")
+# dtype -> (kernel, its launcher in ops/dcn) of the forward and the data
+# gradient
+KERNELS = {"bfloat16": (("dcn_local_fwd_bf16", "launch_fwd_bf16"),
+                        ("dcn_local_bwd_data_bf16", "launch_bwd_data_bf16")),
+           "float32": (("dcn_local_fwd", "launch_fwd"),
+                       ("dcn_local_bwd_data", "launch_bwd_data"))}
 
 
 def _smoke():
@@ -53,27 +62,28 @@ def _smoke():
     return smoke
 
 
-def measure(root: str) -> dict:
-    """Times of both kernels of the checkout at `root`, every neck shape
-    and batch."""
+def measure(root: str, dtype: str = "bfloat16") -> dict:
+    """Times of both kernels of `dtype` of the checkout at `root`, every
+    neck shape and batch."""
     sys.path.insert(0, root)
     import torch
     from centertrack_tpu_torch.ops import dcn
     if not torch.cuda.is_available():
-        raise SystemExit("dcn_bf16_times: no CUDA device")
+        raise SystemExit("dcn_times: no CUDA device")
     smoke = _smoke()
     gen = torch.Generator(device="cuda").manual_seed(5)
     r = 1
+    (fwd, launch_fwd), (data, launch_data) = KERNELS[dtype]
     rows = []
     for b in BATCHES:
         for name, h, w, cin, cout, per, _ in smoke.NECK_SHAPES:
-            x, offset, mask, weight, bias, g = smoke.bf16_dcn_inputs(
-                gen, b, h, w, cin, cout, r)
-            calls = (lambda: dcn.launch_fwd_bf16(x, offset, mask, weight,
-                                                 bias, r),
-                     lambda: dcn.launch_bwd_data_bf16(x, offset, mask,
-                                                      weight, g, r))
-            for kernel, fn in zip(KERNELS, calls):
+            x, offset, mask, weight, bias, g = smoke.dcn_inputs(
+                gen, b, h, w, cin, cout, r, getattr(torch, dtype))
+            calls = (lambda: getattr(dcn, launch_fwd)(x, offset, mask,
+                                                      weight, bias, r),
+                     lambda: getattr(dcn, launch_data)(x, offset, mask,
+                                                       weight, g, r))
+            for kernel, fn in zip((fwd, data), calls):
                 rows.append({"kernel": kernel, "map": name, "batch": b,
                              "hw": [h, w], "cin": cin, "cout": cout,
                              "launches_per_image": per,
@@ -82,24 +92,26 @@ def measure(root: str) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    return {"root": root, "device": torch.cuda.get_device_name(0),
-            "nvidia_smi": smi, "rows": rows}
+    return {"root": root, "dtype": dtype,
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "rows": rows}
 
 
-def _run(root: str) -> dict:
+def _run(root: str, dtype: str) -> dict:
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--root", root], capture_output=True, text=True,
-                         cwd=root)
+                          "--root", root, "--dtype", dtype],
+                         capture_output=True, text=True, cwd=root)
     if out.returncode != 0:
-        raise SystemExit(f"dcn_bf16_times on {root} failed:\n{out.stdout}"
+        raise SystemExit(f"dcn_times on {root} failed:\n{out.stdout}"
                          f"{out.stderr}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def compare(parent: str, change: str) -> dict:
+def compare(parent: str, change: str, dtype: str = "bfloat16") -> dict:
     """Both checkouts in the order parent, change, change, parent; per
     shape the two runs' times of each and change / parent."""
-    runs = [_run(parent), _run(change), _run(change), _run(parent)]
+    runs = [_run(parent, dtype), _run(change, dtype), _run(change, dtype),
+            _run(parent, dtype)]
     key = lambda r: (r["kernel"], r["map"], r["batch"], r["cin"], r["cout"])
     times = {}
     for i, run in enumerate(runs):
@@ -125,7 +137,7 @@ def compare(parent: str, change: str) -> dict:
     for v in per_image.values():
         for m in ("ms", "device_ms"):
             v[f"speedup_{m}"] = v[f"parent_{m}"] / v[f"change_{m}"]
-    return {"parent": parent, "change": change,
+    return {"parent": parent, "change": change, "dtype": dtype,
             "device": runs[0]["device"],
             "nvidia_smi": [r["nvidia_smi"] for r in runs],
             "order": ["parent", "change", "change", "parent"],
@@ -138,11 +150,14 @@ def main(argv=None) -> int:
                     help="checkout whose port is timed (default: this one)")
     ap.add_argument("--against", default=None,
                     help="checkout to compare with, run in turns")
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(KERNELS),
+                    help="the kernels of this dtype (default: bfloat16)")
     args = ap.parse_args(argv)
     if args.against:
-        print(json.dumps(compare(os.path.abspath(args.against), ROOT)))
+        print(json.dumps(compare(os.path.abspath(args.against), ROOT,
+                                 args.dtype)))
     else:
-        print(json.dumps(measure(os.path.abspath(args.root))))
+        print(json.dumps(measure(os.path.abspath(args.root), args.dtype)))
     return 0
 
 

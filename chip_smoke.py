@@ -19,16 +19,18 @@ Phases, each printing one JSON line with its elapsed seconds:
            dcn_local_fwd_bf16
   kernel   dcn_local_fwd and dcn_local_fwd_bf16 against their plain
            PyTorch versions at the seven DLA-34 neck shapes of the
-           544x960 path (R=1) and one R=2 case, and the bf16 kernel also
-           at one R=3 case, every neck shape at B=8 and one ragged shape
-           (17x30, 72->40), with kernel, device (queued behind a spin
-           kernel), plain and cuDNN-3x3 times, the H100 bound and, at
-           bf16, the launch plan (tile, N tile, splits, blocks, shared
-           memory)
+           544x960 path (R=1) at B=1 and B=8, R=2 and R=3 cases, one
+           ragged shape (17x30, 72->40) and one of odd widths (17x30,
+           69->37), with kernel, device (queued
+           behind a spin kernel), plain and cuDNN-3x3 times, the H100
+           bound (float32: 3xTF32 on the tensor cores, and the same work
+           on the CUDA cores beside it) and the launch plan (tile, chunk,
+           N tile, window slots, splits, blocks, shared memory)
   grad     dcn_local_bwd_data and dcn_local_bwd_weight (through the
            autograd function) against autograd of the plain version, at
-           the same shapes, on random offsets (some past +/-R) and on
-           all-zero offsets (the kinks), with kernel, plain and bound times
+           the same cases, on random offsets (some past +/-R) and on
+           all-zero offsets (the kinks), with kernel, device, plain and
+           bound times and the data kernel's launch plan
   grad_bf16  dcn_local_bwd_data_bf16 and dcn_local_bwd_weight_bf16
            against autograd of the plain bf16 version at the bf16
            forward's cases and the same offsets, every element within the
@@ -38,7 +40,9 @@ Phases, each printing one JSON line with its elapsed seconds:
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame fetched; the forward kernel
            must launch exactly 16 times per frame; the first 3 frames are
-           then re-run with the DCN on its plain version and must agree
+           then re-run with the DCN on its plain version and must agree,
+           and each of the first frame's 16 launches is held against the
+           plain version on its own inputs
   path_bf16  the same 30 frames, checkpoint and detector at
            compute_dtype="bfloat16": dcn_local_fwd_bf16 must launch
            exactly 16 times per frame and no float32 DCN kernel at all;
@@ -73,6 +77,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -103,9 +108,10 @@ BUDGET_S = 1100
 T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
+# cores, dense bf16 and TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_S = 3.35e12
 
 # (map, H, W, Cin, Cout, launches per frame, layers) at 544x960, R=1
@@ -241,6 +247,37 @@ def dcn_bound_ms(n, cin, cout):
     ops = 2.0 * n * 9 * cin * cout + 8.0 * n * 9 * cin  # contraction + bilinear
     nbytes = 4.0 * (n * cin + n * 27 + 9 * cin * cout + cout + n * cout)
     return _bound_ms(ops, nbytes)
+
+
+def _bound_3xtf32_ms(contraction, bilinear, nbytes):
+    """Least H100 time of float32 work whose contraction runs three times
+    at the dense TF32 tensor-core peak (3xTF32) and whose bilinear work
+    runs at the fp32 peak, against its bytes over the memory rate; the
+    larger, and which it is."""
+    t_ops = 3.0 * contraction / PEAK_TF32_FLOPS + bilinear / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def dcn_bound_ms_3xtf32(n, cin, cout):
+    """Least H100 time of one float32 clamped-DCN call with its
+    contraction on the tensor cores in 3xTF32 (``dcn_local_fwd``): the
+    work and bytes of ``dcn_bound_ms``, the contraction three times at the
+    TF32 peak, the sampling at the fp32 peak."""
+    return _bound_3xtf32_ms(
+        2.0 * n * 9 * cin * cout, 8.0 * n * 9 * cin,
+        4.0 * (n * cin + n * 27 + 9 * cin * cout + cout + n * cout))
+
+
+def dcn_bwd_data_bound_ms_3xtf32(n, cin, cout):
+    """Least H100 time of ``dcn_local_bwd_data`` with its G contraction in
+    3xTF32: the work and bytes of ``dcn_bwd_bound_ms``'s data kernel, the
+    contraction three times at the TF32 peak, the bilinear work at the
+    fp32 peak."""
+    return _bound_3xtf32_ms(
+        2.0 * n * 9 * cin * cout, 38.0 * n * 9 * cin,
+        4.0 * (2 * n * cin + 2 * n * 27 + 9 * cin * cout + n * cout))
 
 
 def dcn_bound_ms_bf16(n, cin, cout):
@@ -601,12 +638,6 @@ def phase_probes():
     return rows, launches, dcn_launches
 
 
-def _cases():
-    """The neck shapes at R=1 and one R=2 check."""
-    return [(*s, 1) for s in NECK_SHAPES] + \
-        [("s4", 136, 240, 64, 64, 0, "R=2 check", 2)]
-
-
 def _conv3x3_ms(x, weight, bias):
     """One cuDNN 3x3 convolution of the DCN call's shape and dtype: a
     yardstick of a dense contraction there, used nowhere in the port."""
@@ -618,18 +649,14 @@ def _conv3x3_ms(x, weight, bias):
 
 
 def phase_kernel():
+    """dcn_local_fwd against the plain float32 version on the same
+    inputs at ``_dcn_cases()``: every neck shape at B=1 and B=8, R=2 and
+    R=3, the ragged shape and the odd widths."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
     rows = []
-    for name, h, w, cin, cout, per_frame, layers, r in _cases():
-        x = torch.randn(1, h, w, cin, generator=gen, device=dev)
-        spread = r + 1.5   # offsets past +/-R exercise the clamp
-        offset = (torch.rand(1, h, w, 18, generator=gen, device=dev) * 2
-                  - 1) * spread
-        mask = torch.rand(1, h, w, 9, generator=gen, device=dev)
-        weight = torch.randn(3, 3, cin, cout, generator=gen,
-                             device=dev) * 0.05
-        bias = torch.randn(cout, generator=gen, device=dev)
+    for name, b, h, w, cin, cout, per_frame, layers, r in _dcn_cases():
+        x, offset, mask, weight, bias, _ = dcn_inputs(
+            gen, b, h, w, cin, cout, r, torch.float32)
         out = dcn.deform_conv2d_local(x, offset, mask, weight, bias, r)
         ref = dcn.deform_conv2d_local_plain(x, offset, mask, weight, bias, r)
         torch.cuda.synchronize()
@@ -638,71 +665,85 @@ def phase_kernel():
                                f"non-finite output")
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
+        del ref
         if err > REL_TOL * scale:
             raise RuntimeError(
-                f"dcn_local_fwd {name} {cin}->{cout} R={r}: max abs err "
-                f"{err} > {REL_TOL} * max|ref| {scale}")
+                f"dcn_local_fwd {name} B={b} {cin}->{cout} R={r}: max abs "
+                f"err {err} > {REL_TOL} * max|ref| {scale}")
         k_ms = time_ms(lambda: dcn.deform_conv2d_local(
             x, offset, mask, weight, bias, r), 3, 20)
+        device_ms = queued_us(lambda: dcn.deform_conv2d_local(
+            x, offset, mask, weight, bias, r), 20) / 1e3
         p_ms = time_ms(lambda: dcn.deform_conv2d_local_plain(
             x, offset, mask, weight, bias, r), 1, 5)
-        conv_ms = _conv3x3_ms(x, weight, bias)
-        bound, bound_by = dcn_bound_ms(h * w, cin, cout)
-        row = {"map": name, "hw": [h, w], "cin": cin, "cout": cout, "R": r,
+        bound, bound_by = dcn_bound_ms_3xtf32(b * h * w, cin, cout)
+        row = {"kernel": "dcn_local_fwd", "map": name, "batch": b,
+               "hw": [h, w], "cin": cin, "cout": cout, "R": r,
                "launches_per_frame": per_frame, "layers": layers,
+               "plan": _plan_row(dcn.fwd_fp32_plan(b, h, w, cin, cout, r)),
                "max_abs_err": err, "max_abs_ref": scale,
                "rel_err": err / scale, "tol_rel": REL_TOL, "ms": k_ms,
-               "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+               "device_ms": device_ms, "plain_ms": p_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_ms_fp32_cuda_cores": dcn_bound_ms(b * h * w, cin,
+                                                        cout)[0],
                "library_ms": None,
-               "conv3x3_cudnn_ms_other_function": conv_ms}
+               "conv3x3_cudnn_ms_other_function": _conv3x3_ms(x, weight,
+                                                              bias)}
         rows.append(row)
         emit("kernel", **row)
     return rows
 
 
-def _bf16_cases():
+def _dcn_cases():
     """(map, B, H, W, Cin, Cout, launches per image, layers, R) of the
-    bf16 kernels' checks: ``_cases()`` at B=1, one R=3 case (the data
-    kernel's widest support walk, built for R up to 4), every neck shape
-    at B=8 (the training step's batch) and one ragged shape, whose
-    tiles, Cin chunk and N tile are all partly past the map."""
-    return ([(n, 1, h, w, ci, co, k, lay, r)
-             for n, h, w, ci, co, k, lay, r in _cases()]
-            + [("s4", 1, 136, 240, 64, 64, 0, "R=3 check", 3)]
+    DCN kernels' checks, at both dtypes: the neck shapes at B=1, R=1,
+    one R=2 and one R=3 case (the bf16 data kernel's widest support
+    walk, built for R up to 4; the float32 kernels' plans shrink their
+    chunk or N tile for it), every neck shape at B=8 (the training
+    step's batch), one ragged shape, whose tiles, Cin chunk and N tile
+    are all partly past the map, and one of odd widths, whose rows are
+    not 16-byte aligned and whose pieces of 4 and 8 channels the kernels
+    copy by hand."""
+    return ([(n, 1, h, w, ci, co, k, lay, 1)
+             for n, h, w, ci, co, k, lay in NECK_SHAPES]
+            + [("s4", 1, 136, 240, 64, 64, 0, "R=2 check", 2),
+               ("s4", 1, 136, 240, 64, 64, 0, "R=3 check", 3)]
             + [(n, TRAIN_B, h, w, ci, co, k, lay, 1)
                for n, h, w, ci, co, k, lay in NECK_SHAPES]
-            + [("ragged", 1, 17, 30, 72, 40, 0, "ragged check", 1)])
+            + [("ragged", 1, 17, 30, 72, 40, 0, "ragged check", 1),
+               ("odd", 1, 17, 30, 69, 37, 0, "odd widths check", 1)])
 
 
-def bf16_dcn_inputs(gen, b, h, w, cin, cout, r):
-    """Seeded bf16 inputs of one DCN call on the card: x, offset
+def dcn_inputs(gen, b, h, w, cin, cout, r, dtype=torch.bfloat16):
+    """Seeded inputs of one DCN call on the card, in ``dtype``: x, offset
     (spread past +/-R, so the clamp and the kinks run), mask, weight,
     bias and an output gradient."""
     def draw(f, *shape):
         return f(*shape, generator=gen, device="cuda")
-    bf16 = torch.bfloat16
-    return (draw(torch.randn, b, h, w, cin).to(bf16),
-            ((draw(torch.rand, b, h, w, 18) * 2 - 1) * (r + 1.5)).to(bf16),
-            draw(torch.rand, b, h, w, 9).to(bf16),
-            (draw(torch.randn, 3, 3, cin, cout) * 0.05).to(bf16),
-            draw(torch.randn, cout).to(bf16),
-            draw(torch.randn, b, h, w, cout).to(bf16))
+    return (draw(torch.randn, b, h, w, cin).to(dtype),
+            ((draw(torch.rand, b, h, w, 18) * 2 - 1) * (r + 1.5)).to(dtype),
+            draw(torch.rand, b, h, w, 9).to(dtype),
+            (draw(torch.randn, 3, 3, cin, cout) * 0.05).to(dtype),
+            draw(torch.randn, cout).to(dtype),
+            draw(torch.randn, b, h, w, cout).to(dtype))
 
 
 def _plan_row(plan):
-    return {k: plan[k] for k in ("tile", "n_tile", "splits", "blocks",
+    return {k: plan[k] for k in ("tile", "chunk", "n_tile", "window_slots",
+                                 "warpgroups", "splits", "blocks",
                                  "smem_bytes") if k in plan}
 
 
 def phase_kernel_bf16():
     """dcn_local_fwd_bf16 against the plain bf16 version on the same
     bf16 inputs, at the float32 kernel's cases, an R=3 case, every neck
-    shape at B=8 and a ragged shape."""
+    shape at B=8, a ragged shape and odd widths."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
     rows = []
-    for name, b, h, w, cin, cout, per_frame, layers, r in _bf16_cases():
-        x, offset, mask, weight, bias, _ = bf16_dcn_inputs(
+    for name, b, h, w, cin, cout, per_frame, layers, r in _dcn_cases():
+        x, offset, mask, weight, bias, _ = dcn_inputs(
             gen, b, h, w, cin, cout, r)
         out = dcn.deform_conv2d_local(x, offset, mask, weight, bias, r)
         ref = dcn.deform_conv2d_local_plain(x, offset, mask, weight, bias, r)
@@ -754,23 +795,16 @@ def _rel_errs(got, ref, names):
 
 def phase_grad():
     """The backward kernels through DCNLocal against autograd of the
-    plain version on the same inputs and output grad."""
+    plain version on the same inputs and output grad, at
+    ``_dcn_cases()``, on random offsets (some past +/-R) and on all-zero
+    offsets (the kinks)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    dev = "cuda"
     names = ("x", "offset", "mask", "weight", "bias")
     rows = []
-    for name, h, w, cin, cout, per_frame, layers, r in _cases():
-        x = torch.randn(1, h, w, cin, generator=gen, device=dev)
-        spread = r + 1.5
-        offsets = {
-            "random": (torch.rand(1, h, w, 18, generator=gen, device=dev)
-                       * 2 - 1) * spread,
-            "zero": torch.zeros(1, h, w, 18, device=dev)}
-        mask = torch.rand(1, h, w, 9, generator=gen, device=dev)
-        weight = torch.randn(3, 3, cin, cout, generator=gen,
-                             device=dev) * 0.05
-        bias = torch.randn(cout, generator=gen, device=dev)
-        g = torch.randn(1, h, w, cout, generator=gen, device=dev)
+    for name, bsz, h, w, cin, cout, per_frame, layers, r in _dcn_cases():
+        x, offset, mask, weight, bias, g = dcn_inputs(
+            gen, bsz, h, w, cin, cout, r, torch.float32)
+        offsets = {"random": offset, "zero": torch.zeros_like(offset)}
         errs = {}
         for kind, offset in offsets.items():
             ins = [t.clone().requires_grad_() for t in
@@ -782,15 +816,18 @@ def phase_grad():
             torch.cuda.synchronize()
             errs[kind] = _rel_errs([t.grad for t in ins],
                                    [t.grad for t in pins], names)
+            del ins, pins
             bad = {k: v for k, v in errs[kind].items()
                    if v[1] > GRAD_REL_TOL}
             if bad:
                 raise RuntimeError(
-                    f"DCN backward {name} {cin}->{cout} R={r} {kind} "
-                    f"offsets: rel err {bad} > {GRAD_REL_TOL}")
+                    f"DCN backward {name} B={bsz} {cin}->{cout} R={r} "
+                    f"{kind} offsets: rel err {bad} > {GRAD_REL_TOL}")
         offset = offsets["random"]
         data_ms = time_ms(lambda: dcn.launch_bwd_data(
             x, offset, mask, weight, g, r), 3, 20)
+        data_device_ms = queued_us(lambda: dcn.launch_bwd_data(
+            x, offset, mask, weight, g, r), 20) / 1e3
         weight_ms = time_ms(lambda: dcn.launch_bwd_weight(
             x, offset, mask, g, cout, r), 3, 20)
         pins = [t.clone().requires_grad_() for t in
@@ -801,10 +838,15 @@ def phase_grad():
         plain_weight_ms = time_ms(lambda: torch.autograd.grad(
             pout, pins[3:], g, retain_graph=True), 1, 3)
         del pout, pins
-        (data_b, data_by), (weight_b, weight_by) = dcn_bwd_bound_ms(
-            h * w, cin, cout)
-        row = {"map": name, "hw": [h, w], "cin": cin, "cout": cout, "R": r,
+        n = bsz * h * w
+        (data_fp32, _), (weight_b, weight_by) = dcn_bwd_bound_ms(n, cin,
+                                                                 cout)
+        data_b, data_by = dcn_bwd_data_bound_ms_3xtf32(n, cin, cout)
+        row = {"map": name, "batch": bsz, "hw": [h, w], "cin": cin,
+               "cout": cout, "R": r,
                "launches_per_step_and_image": per_frame, "layers": layers,
+               "data_plan": _plan_row(dcn.bwd_data_fp32_plan(
+                   bsz, h, w, cin, cout, r)),
                "data_max_abs_err": max(e[k][0] for e in errs.values()
                                        for k in ("x", "offset", "mask")),
                "weight_max_abs_err": max(e["weight"][0]
@@ -812,8 +854,10 @@ def phase_grad():
                "rel_err": {kind: {k: v[1] for k, v in e.items()}
                            for kind, e in errs.items()},
                "tol_rel": GRAD_REL_TOL,
-               "data_ms": data_ms, "data_plain_ms": plain_data_ms,
+               "data_ms": data_ms, "data_device_ms": data_device_ms,
+               "data_plain_ms": plain_data_ms,
                "data_bound_ms": data_b, "data_bound_by": data_by,
+               "data_bound_ms_fp32_cuda_cores": data_fp32,
                "weight_ms": weight_ms, "weight_plain_ms": plain_weight_ms,
                "weight_bound_ms": weight_b, "weight_bound_by": weight_by,
                "library_ms": None}
@@ -840,8 +884,8 @@ def phase_grad_bf16():
     bf16 = torch.bfloat16
     names = ("x", "offset", "mask", "weight")
     rows = []
-    for name, bsz, h, w, cin, cout, per_frame, layers, r in _bf16_cases():
-        x, offset, mask, weight, _, g = bf16_dcn_inputs(
+    for name, bsz, h, w, cin, cout, per_frame, layers, r in _dcn_cases():
+        x, offset, mask, weight, _, g = dcn_inputs(
             gen, bsz, h, w, cin, cout, r)
         offsets = {"random": offset, "zero": torch.zeros_like(offset)}
         errs = {}
@@ -1001,9 +1045,9 @@ def phase_path(dtype="float32", ref_packed=None):
     # same frames, DCN on the plain PyTorch version. float32: from a
     # fresh state, the two paths must stay together. bf16: each frame
     # from the kernel path's own state before it, since one flipped ulp
-    # can make two neighbouring peaks tie and add a track; and every
-    # kernel launch of the first frame is held against the plain
-    # version on its own inputs
+    # can make two neighbouring peaks tie and add a track. At both
+    # dtypes every kernel launch of the first frame is then held against
+    # the plain version on its own inputs
     plain = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda",
                           plain_dcn=True)
     low = dtype != "float32"
@@ -1016,12 +1060,11 @@ def phase_path(dtype="float32", ref_packed=None):
         FusedDetector.fetch(res, cfg.out_thresh)
         plain_times.append(1e3 * (time.perf_counter() - t))
         plain_packed.append(res.cpu().numpy())
-    launch_worst = None
-    if low:
-        det.track_state, det.pre_images = states[0]
-        with _RecordLaunches(("bf16",)) as rec:
-            det.run(frames[0])
-        launch_worst = rec.check(16)["bf16"]
+    det.track_state, det.pre_images = states[0]
+    kind = "bf16" if low else "fwd"
+    with _RecordLaunches((kind,)) as rec:
+        det.run(frames[0])
+    launch_worst = rec.check(16)[kind]
     margin = PLAIN_SCORE_TOL[dtype] if low else 0.0
     vs_plain = rows_against(packed[:PLAIN_FRAMES], plain_packed,
                             cfg.out_thresh, margin, collapse_ties=low)
@@ -1033,7 +1076,7 @@ def phase_path(dtype="float32", ref_packed=None):
         raise RuntimeError(f"kernel vs plain DCN at {dtype}: score diff "
                            f"{vs_plain['max_score_diff']} > "
                            f"{PLAIN_SCORE_TOL[dtype]}")
-    if _launches()[kernel] != launches + (16 if low else 0):
+    if _launches()[kernel] != launches + 16:
         raise RuntimeError("the plain-DCN run launched the kernel")
     row = {"compute_dtype": dtype, "kernel": kernel,
            "frames": PATH_FRAMES, "input": [cfg.input_h, cfg.input_w],
@@ -1060,10 +1103,11 @@ def phase_path(dtype="float32", ref_packed=None):
 
 def _profile(run_once, n, phase, unit):
     """torch.profiler over n calls of run_once (each ends on the host):
-    device time by kernel, the share of the wall time the device was
-    busy, and the host operators with the most self CPU time (inflated
-    by the profiler's own cost, but in the same proportion for both
-    dtypes), per ``unit``."""
+    device time by kernel, the port's DCN kernels summed over their
+    template builds, the share of the wall time the device was busy, and
+    the host operators with the most self CPU time (inflated by the
+    profiler's own cost, but in the same proportion for both dtypes),
+    per ``unit``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1075,6 +1119,14 @@ def _profile(run_once, n, phase, unit):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    dcn_kernels = {}
+    for e in events:
+        m = re.search(r"dcn_local\w*", e.key)
+        if m:
+            d = dcn_kernels.setdefault(m.group(0), {f"calls_per_{unit}": 0.0,
+                                                    f"ms_per_{unit}": 0.0})
+            d[f"calls_per_{unit}"] += e.count / n
+            d[f"ms_per_{unit}"] += e.self_device_time_total / 1e3 / n
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
@@ -1088,6 +1140,7 @@ def _profile(run_once, n, phase, unit):
                             f"ms_per_{unit}":
                                 e.self_device_time_total / 1e3 / n}
                            for e in top],
+                   "dcn_kernels": dcn_kernels,
                    "host_top": [{"name": e.key[:80],
                                  f"calls_per_{unit}": e.count / n,
                                  f"self_cpu_ms_per_{unit}":
@@ -1489,14 +1542,19 @@ def main(argv):
     train = phase_train(n_profile)
     train_bf16 = phase_train(n_profile, "bfloat16")
 
-    neck = [r for r in rows if r["launches_per_frame"]]
+    neck = [r for r in rows if r["launches_per_frame"] and r["batch"] == 1]
+    neck8 = [r for r in rows
+             if r["launches_per_frame"] and r["batch"] == TRAIN_B]
     per_frame = lambda key, rs=neck: sum(r[key] * r["launches_per_frame"]
                                          for r in rs)
     bf16_neck = [r for r in bf16_rows
                  if r["launches_per_frame"] and r["batch"] == 1]
     bf16_neck8 = [r for r in bf16_rows
                   if r["launches_per_frame"] and r["batch"] == TRAIN_B]
-    gneck = [r for r in grad_rows if r["launches_per_step_and_image"]]
+    gneck = [r for r in grad_rows
+             if r["launches_per_step_and_image"] and r["batch"] == 1]
+    gneck8 = [r for r in grad_rows
+              if r["launches_per_step_and_image"] and r["batch"] == TRAIN_B]
     gneck_bf16 = [r for r in grad_bf16_rows
                   if r["launches_per_step_and_image"] and r["batch"] == 1]
     gneck_bf16_8 = [r for r in grad_bf16_rows
@@ -1514,6 +1572,7 @@ def main(argv):
                          if name == "dcn_local_fwd_bf16" else 0),
         "train": launches[name], "train_bf16": launches_bf16[name],
         "probes": probe_dcn_launches[name]}
+    fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     kernels = [{
         "name": "dcn_local_fwd", "route": "cuda",
         "source": "centertrack_tpu_torch/csrc/dcn_local.cu",
@@ -1521,14 +1580,18 @@ def main(argv):
         "also_replaces": ["centertrack_tpu/ops/dcn_pallas_grid.py:126",
                           "centertrack_tpu/ops/dcn_pallas_shift.py:110",
                           "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
+        "design": fp32_design,
         "launches": launches["dcn_local_fwd"],
         "launches_by_path": by_path("dcn_local_fwd"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
-        "ms": per_frame("ms"), "plain_ms": per_frame("plain_ms"),
+        "ms": per_frame("ms"), "device_ms": per_frame("device_ms"),
+        "ms_per_image_at_b8": per_frame("ms", neck8) / TRAIN_B,
+        "plain_ms": per_frame("plain_ms"),
         "bound_ms": per_frame("bound_ms"),
         "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                          for r in neck) else "bytes"),
+        "bound_ms_fp32_cuda_cores": per_frame("bound_ms_fp32_cuda_cores"),
         "library_ms": None,
     }, {
         "name": "dcn_local_fwd_bf16", "route": "cuda",
@@ -1550,16 +1613,17 @@ def main(argv):
                                          for r in bf16_neck) else "bytes"),
         "library_ms": None,
     }]
-    for kname, key, rows_, neck_, src, at, n in (
-            ("dcn_local_bwd_data", "data", grad_rows, gneck,
+    for kname, key, rows_, neck_, neck8_, src, at, n in (
+            ("dcn_local_bwd_data", "data", grad_rows, gneck, gneck8,
              "dcn_local_bwd.cu", None, launches),
-            ("dcn_local_bwd_weight", "weight", grad_rows, gneck,
+            ("dcn_local_bwd_weight", "weight", grad_rows, gneck, gneck8,
              "dcn_local_bwd.cu", None, launches),
             ("dcn_local_bwd_data_bf16", "data", grad_bf16_rows, gneck_bf16,
-             "dcn_local_bwd_bf16.cu", "bfloat16 inputs", launches_bf16),
+             gneck_bf16_8, "dcn_local_bwd_bf16.cu", "bfloat16 inputs",
+             launches_bf16),
             ("dcn_local_bwd_weight_bf16", "weight", grad_bf16_rows,
-             gneck_bf16, "dcn_local_bwd_bf16.cu", "bfloat16 inputs",
-             launches_bf16)):
+             gneck_bf16, gneck_bf16_8, "dcn_local_bwd_bf16.cu",
+             "bfloat16 inputs", launches_bf16)):
         row = {
             "name": kname, "route": "cuda",
             "source": "centertrack_tpu_torch/csrc/" + src,
@@ -1576,11 +1640,15 @@ def main(argv):
                 r[key + "_bound_by"] == "operations" for r in neck_)
                 else "bytes"),
             "library_ms": None,
+            "ms_per_image_at_b8": per_image(key + "_ms", neck8_) / TRAIN_B,
         }
         if at:
             row["at"] = at
-            row["ms_per_image_at_b8"] = per_image(
-                key + "_ms", gneck_bf16_8) / TRAIN_B
+        if kname == "dcn_local_bwd_data":
+            row["design"] = fp32_design
+            row["device_ms"] = per_image("data_device_ms", neck_)
+            row["bound_ms_fp32_cuda_cores"] = per_image(
+                "data_bound_ms_fp32_cuda_cores", neck_)
         kernels.append(row)
     for name, r in probe_rows.items():
         kernels.append({

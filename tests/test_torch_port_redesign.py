@@ -158,7 +158,7 @@ def test_smoke_bf16_cases_cover_the_neck_and_every_walk():
     training batch, the ragged shape, and R=1, 2 and 3 (the data kernel's
     two walk instantiations, R=1 and R up to 4), and both planners take
     every case."""
-    cases = chip_smoke._bf16_cases()
+    cases = chip_smoke._dcn_cases()
     neck = {(h, w, ci, co) for _, h, w, ci, co, *_ in SHAPES}
     for b in (1, chip_smoke.TRAIN_B):
         assert neck <= {(h, w, ci, co) for _, bb, h, w, ci, co, _, _, r
