@@ -58,7 +58,9 @@
 //   - the block builds A_t (64 pixels x 64 channels, bf16) from the
 //     window, 8 channels of one pixel per thread and item, from a corner
 //     table (window index, hat weight wy*wx, mask) computed once per
-//     block; A is written in the interleaved wgmma layout.
+//     block, by the device code it shares with the weight gradient
+//     (dcn_sample_bf16.cuh); A is written in the interleaved wgmma
+//     layout.
 //   - one wgmma m64n64k16 per 16 channels and N tile accumulates in
 //     float32 registers; B is the weight slot read MN-major (trans-b).
 // Small maps split the K loop over blocks (`splits`, chosen by
@@ -69,6 +71,7 @@
 // pieces are XOR-swizzled by window position, so the eight pixels a
 // quarter-warp samples read eight bank groups.
 
+#include "dcn_sample_bf16.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -81,7 +84,7 @@ constexpr int TW = 16;         // tile columns
 constexpr int TP = TH * TW;    // pixels per block: one wgmma M tile
 constexpr int CK = 64;         // input channels per chunk
 constexpr int NT = 128;        // threads: one warpgroup
-constexpr int PIX_B = CK * 2;  // bytes of one window pixel (8 pieces)
+constexpr int PIX_B = dcn_bf16::PIX_B;  // bytes of one window pixel
 constexpr int A_BYTES = TP * CK * 2;
 constexpr int A_SBO = (CK / 8) * 128;  // A: bytes between 8-row groups
 constexpr int TABLE_BYTES = 9 * 4 * TP * 2 + 9 * 4 * TP * 4 + 9 * TP * 4;
@@ -172,24 +175,7 @@ dcn_local_fwd_bf16_kernel(const Args a) {
       const float dy = fminf(fmaxf(f32(o[2 * t]), -R), R);
       const float dx = fminf(fmaxf(f32(o[2 * t + 1]), -R), R);
       m = f32(a.mask[n * 9 + t]);
-      // tap-relative sample position and its hat weights, computed as
-      // the plain version computes max(0, 1 - |(t + d) - a|)
-      const float vy = __fadd_rn((float)(t / 3 - 1), dy);
-      const float vx = __fadd_rn((float)(t % 3 - 1), dx);
-      const float fy = floorf(vy);
-      const float fx = floorf(vx);
-      const float wy[2] = {1.f - fabsf(vy - fy), 1.f - fabsf(vy - (fy + 1.f))};
-      const float wx[2] = {1.f - fabsf(vx - fx), 1.f - fabsf(vx - (fx + 1.f))};
-      const int r0 = py + h + (int)fy;  // >= 0: fy >= -1 - R
-      const int c0 = px + h + (int)fx;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          idx[2 * i + j] = min(r0 + i, WH - 1) * WW + min(c0 + j, WW - 1);
-          wt[2 * i + j] = __fmul_rn(wy[i], wx[j]);
-        }
-      }
+      dcn_bf16::corners(dy, dx, t, py, px, h, WH, WW, idx, wt);
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -275,30 +261,7 @@ dcn_local_fwd_bf16_kernel(const Args a) {
 #pragma unroll
     for (int it = 0; it < TP * 8 / NT; ++it) {
       const int q = tid / TP + (NT / TP) * it;  // channel octet
-      uint4 raw[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        raw[k] = *reinterpret_cast<const uint4*>(
-            win + pos[k] * PIX_B + ((q ^ (pos[k] & 7)) << 4));
-      float s8[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) s8[c] = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bf162* v = reinterpret_cast<const bf162*>(&raw[k]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float2 f = __bfloat1622float2(v[c]);
-          s8[2 * c] = __fadd_rn(s8[2 * c], __fmul_rn(f.x, wk[k]));
-          s8[2 * c + 1] = __fadd_rn(s8[2 * c + 1], __fmul_rn(f.y, wk[k]));
-        }
-      }
-      uint4 packed;
-      bf162* pk = reinterpret_cast<bf162*>(&packed);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        pk[c] = __floats2bfloat162_rn(__fmul_rn(s8[2 * c], m),
-                                      __fmul_rn(s8[2 * c + 1], m));
+      const uint4 packed = dcn_bf16::sample8(win, pos, wk, m, q);
       *reinterpret_cast<uint4*>(s_a + (p >> 3) * A_SBO + q * 128 +
                                 (p & 7) * 16) = packed;
     }

@@ -84,12 +84,38 @@
 //   the grad-x tile's pixel pitches are padded so that the pixels of a
 //   warp's accesses start in distinct bank groups.
 //
-//   dcn_local_bwd_weight: grad w[t] = sum_p (m_t S_t(p))^T g(p), with
-//   S_t rebuilt from x as the forward builds it. A reduction over all
-//   B*H*W pixels: the pixels are split over `splits` blocks, each writes
-//   its (64 x 64) partial tile to a scratch slice, and a second kernel
-//   sums the slices in a fixed order (deterministic). splits = 1 writes
-//   the result directly. It runs on the CUDA cores.
+//   dcn_local_bwd_weight: grad w[t] = sum_p A_t(p)^T g(p), A_t = m_t S_t
+//   the forward's masked sample, a contraction over all B*H*W pixels on
+//   the tensor cores in 3xTF32: D = A_t^T g with M = a chunk of 64 input
+//   channels, N = Cout (the whole of it up to 256, half per warpgroup)
+//   and K = pixels, so D is grad w[t] in its own (Cin, Cout) layout. A
+//   block (two warpgroups) takes a chunk, a group of taps (3, or 1 at N
+//   256: each tap's accumulators are N / 4 float32 a thread) and walks
+//   its split's pixel tiles (th x 16, th 4, 2 or 1 by
+//   ops/dcn.bwd_weight_fp32_plan, so that shared memory fits) in order.
+//   Per tile the x window (the tile and a halo of R + 1, 16 pieces of 4
+//   channels per position, swizzled) and g^T come in by cp.async a tile
+//   ahead (window: two slots, or one from the tile's last build on; g:
+//   two slots, from the tile's first product on), and each tap's A_t is
+//   built from the window by the forward's corner table and sums, once
+//   per (tap, channel, pixel) per launch whatever Cout is; an item is 4
+//   pixels x 4 channels, transposed in registers to 4 pixels of one
+//   channel per 16 bytes (TF32 operands are K-major only) and split into
+//   hi and lo; its product runs while the next tap's A is built (two A
+//   slots). g^T, K-major by 4 pixels, is the output grad split into
+//   TF32 hi and lo and laid out per tile by a small kernel into a scratch
+//   (`gsplit`), so the block copies its image as it is: the split and
+//   transposition run once per tile, not once for each of the chunks x
+//   tap groups blocks that read the tile (staged through registers by
+//   each of them it ran slower, and through shared memory it would need a
+//   third of shared memory more).
+//   The pixel tiles are split over blocks by the wave rule; the splits'
+//   float32 partials are summed in split order by a second kernel, so
+//   grad w is the same, bit for bit, on every launch. Past any tile that
+//   fits (a max_offset past about 7 at Cout 256), the gather route
+//   `dcn_local_bwd_weight_gather`: the first design, corners gathered
+//   from global memory per 64 x 64 tile of (Cin, Cout), on the CUDA
+//   cores.
 //
 // What bounds them on the H100. bwd_data: the G contraction (2 * 9 * Cin
 // * Cout operations per pixel, three times at the dense TF32 peak,
@@ -98,9 +124,11 @@
 // it must move at 3.35 TB/s; at the DLA-34 neck shapes the operations
 // take longer (chip_smoke.py dcn_bwd_bound_ms_3xtf32). In practice the
 // support walk's chains of shared-memory read-modify-writes decide its
-// time. bwd_weight:
-// its contraction and sampling at the float32 peak (dcn_bwd_bound_ms).
-// Nothing of size pixels x channels x taps goes to device memory.
+// time. bwd_weight: the same contraction three times at the TF32 peak
+// and the sampling (8 * 9 * Cin per pixel) at the float32 peak
+// (chip_smoke.py dcn_bwd_weight_bound_ms_3xtf32); in practice the
+// latency of each tile's copies and builds. Nothing of size pixels x
+// channels x taps goes to device memory.
 
 #include "hopper.cuh"
 
@@ -113,10 +141,17 @@ constexpr int MAX_R = 8;        // bwd_data: the largest max_offset planned
 constexpr int OM_B = DTP * 27 * 4;       // the tile's offsets and mask
 constexpr int SUMS_B = 3 * 9 * DTP * 4;  // grad mask, dy, dx sums
 
-constexpr int WC = 64;    // bwd_weight: input channels per block
-constexpr int WO = 64;    // bwd_weight: output channels per block
-constexpr int WP = 32;    // bwd_weight: pixels per shared-memory chunk
-constexpr int WNT = 256;  // bwd_weight: threads, 16 x 16, 4 x 4 each
+constexpr int WNT = 256;         // bwd_weight: threads, two warpgroups
+constexpr int WCK = 64;          // bwd_weight: input channels per block
+                                 // (wgmma M)
+constexpr int WTW = 16;          // bwd_weight: tile columns
+constexpr int WPIX_B = WCK * 4;  // bwd_weight: bytes of a window position
+
+// the gather route of bwd_weight (max offsets whose window does not fit)
+constexpr int GC = 64;    // input channels per block
+constexpr int GO = 64;    // output channels per block
+constexpr int GP = 32;    // pixels per shared-memory chunk
+constexpr int GNT = 256;  // threads, 16 x 16, 4 x 4 each
 
 // Cout padded to the wgmma K step of 8
 __host__ __device__ constexpr int kpad(int cout) { return (cout + 7) / 8 * 8; }
@@ -137,6 +172,32 @@ __host__ __device__ constexpr int pitch(int ck) {
 __host__ __device__ constexpr int data_smem_bytes(int cout, int R, int ck) {
   return 2 * DTP * kpad(cout) * 4 + 2 * ck * kpad(cout) * 4 +
          2 * window_pixels(R) * pitch(ck) + OM_B + SUMS_B;
+}
+
+// bwd_weight: taps per block by N tile (64 nb output channels): its
+// accumulators, nb 16 float32 a thread and tap, in registers
+__host__ __device__ constexpr int weight_taps(int nb) {
+  return nb == 4 ? 1 : 3;
+}
+
+// bwd_weight's A (64 channels x th 16 pixels, K-major): bytes between
+// 8-channel groups, padded by 16 so that the 8 channels a quarter-warp
+// stores at once fall in 8 bank groups
+__host__ __device__ constexpr int weight_asbo(int th) {
+  return th * WTW * 32 + 16;
+}
+
+__host__ __device__ constexpr int weight_window_bytes(int R, int th) {
+  return (th + 2 * (R + 1)) * (WTW + 2 * (R + 1)) * WPIX_B;
+}
+
+// bwd_weight: two A slots and two g slots of hi and lo, the window
+// slots, two corner tables (per tap and pixel 4 int16 indices and 4
+// weights)
+__host__ __device__ constexpr int weight_smem_bytes(int nb, int taps, int R,
+                                                    int th, int ws) {
+  return 4 * 8 * weight_asbo(th) + 4 * 64 * nb * th * WTW * 4 +
+         ws * weight_window_bytes(R, th) + 2 * taps * th * WTW * 24;
 }
 
 // hat(u) and its derivative with JAX's rules at the kinks (see above)
@@ -671,23 +732,28 @@ int launch_data(const DataArgs& a, dim3 grid, int smem, cudaStream_t s) {
                   : launch_data_r<CK, NWG, 0>(a, grid, smem, s);
 }
 
-__global__ void __launch_bounds__(WNT)
-dcn_local_bwd_weight_kernel(const float* __restrict__ x,
+// The gather route of bwd_weight, for the max offsets whose window does
+// not fit in shared memory (ops/dcn.bwd_weight_fp32_plan): per (64 x 64)
+// tile, tap and pixel split, the corners of each chunk of 32 pixels
+// gathered straight from global memory, a 4 x 4 outer product per thread
+// on the CUDA cores, a partial tile per split.
+__global__ void __launch_bounds__(GNT)
+dcn_local_bwd_weight_gather_kernel(const float* __restrict__ x,
                             const float* __restrict__ offset,
                             const float* __restrict__ mask,
                             const float* __restrict__ grad_out,
                             float* __restrict__ partial,
                             int npix, int H, int W, int Cin, int Cout,
                             float R, int per_split) {
-  __shared__ int s_idx[WP][4];         // flat pixel index of each corner
-  __shared__ float s_wt[WP][4];        // bilinear weight x mask, 0 outside
-  __shared__ float s_S[WP][WC];
-  __shared__ float s_g[WP][WO];
+  __shared__ int s_idx[GP][4];         // flat pixel index of each corner
+  __shared__ float s_wt[GP][4];        // bilinear weight x mask, 0 outside
+  __shared__ float s_S[GP][GC];
+  __shared__ float s_g[GP][GO];
 
   const int tid = threadIdx.x;
-  const int tiles_o = (Cout + WO - 1) / WO;
-  const int c0 = (blockIdx.x / tiles_o) * WC;
-  const int o0 = (blockIdx.x % tiles_o) * WO;
+  const int tiles_o = (Cout + GO - 1) / GO;
+  const int c0 = (blockIdx.x / tiles_o) * GC;
+  const int o0 = (blockIdx.x % tiles_o) * GO;
   const int t = blockIdx.y;
   const int split = blockIdx.z;
   const int pbeg = split * per_split;
@@ -703,9 +769,9 @@ dcn_local_bwd_weight_kernel(const float* __restrict__ x,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
 
-  for (int q0 = pbeg; q0 < pend; q0 += WP) {
+  for (int q0 = pbeg; q0 < pend; q0 += GP) {
     __syncthreads();  // previous chunk consumed
-    if (tid < WP) {
+    if (tid < GP) {
       const int n = q0 + tid;
       int idx[4] = {0, 0, 0, 0};
       float wt[4] = {0.f, 0.f, 0.f, 0.f};
@@ -747,9 +813,9 @@ dcn_local_bwd_weight_kernel(const float* __restrict__ x,
       }
     }
     __syncthreads();
-    for (int e = tid; e < WP * WC; e += WNT) {
-      const int c = e % WC;
-      const int p = e / WC;
+    for (int e = tid; e < GP * GC; e += GNT) {
+      const int c = e % GC;
+      const int p = e / GC;
       float v = 0.f;
       if (c0 + c < Cin) {
 #pragma unroll
@@ -761,9 +827,9 @@ dcn_local_bwd_weight_kernel(const float* __restrict__ x,
       }
       s_S[p][c] = v;
     }
-    for (int e = tid; e < WP * WO; e += WNT) {
-      const int o = e % WO;
-      const int p = e / WO;
+    for (int e = tid; e < GP * GO; e += GNT) {
+      const int o = e % GO;
+      const int p = e / GO;
       const int n = q0 + p;
       s_g[p][o] = (n < pend && o0 + o < Cout)
                       ? grad_out[(int64_t)n * Cout + o0 + o]
@@ -771,7 +837,7 @@ dcn_local_bwd_weight_kernel(const float* __restrict__ x,
     }
     __syncthreads();
 #pragma unroll 8
-    for (int p = 0; p < WP; ++p) {
+    for (int p = 0; p < GP; ++p) {
       float a[4], g[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = s_S[p][ty + 16 * i];
@@ -798,6 +864,384 @@ dcn_local_bwd_weight_kernel(const float* __restrict__ x,
   }
 }
 
+// ---- bwd_weight, the window route -------------------------------------
+
+struct WeightArgs {
+  const float* x;
+  const float* offset;
+  const float* mask;
+  const float* gsplit;
+  float* grad_w;
+  float* partial;
+  int H, W, Cin, Cout, R, th, ws;
+  int tiles_x, tiles_y, tiles, groups, col_tiles, splits;
+};
+
+// image and top-left pixel of a tile of th x WTW pixels (order: image,
+// tile row, tile column)
+__device__ __forceinline__ void tile_origin(int tile, int tiles_x,
+                                            int tiles_y, int th, int& b,
+                                            int& y0, int& x0) {
+  const int r = tile / tiles_x;
+  x0 = (tile - r * tiles_x) * WTW;
+  b = r / tiles_y;
+  y0 = (r - b * tiles_y) * th;
+}
+
+// gsplit[tile][col][hl][o / 8][p / 4][o % 8][p % 4] = the TF32 hi (hl =
+// 0) or lo (1) part of the output grad at the tile's pixel p and output
+// channel 64 NB col + o (0 past the map and past Cout): each tile's g^T,
+// K-major by 4 pixels, in the shared-memory image the weight kernel
+// copies as it is. One thread per (tile, col, 4 pixels, channel).
+__global__ void dcn_local_bwd_split_grad_kernel(
+    const float* __restrict__ g, float* __restrict__ gsplit, int H, int W,
+    int Cout, int th, int tiles_x, int tiles_y, int np, int col_tiles,
+    int64_t items) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= items) return;
+  const int TP = th * WTW;
+  const int o = (int)(e % np);
+  int64_t r = e / np;
+  const int pq = (int)(r % (TP / 4));
+  r /= TP / 4;
+  const int col = (int)(r % col_tiles);
+  const int tile = (int)(r / col_tiles);
+  int b, y0, x0;
+  tile_origin(tile, tiles_x, tiles_y, th, b, y0, x0);
+  const int y = y0 + (4 * pq) / WTW;
+  const int xs = x0 + (4 * pq) % WTW;
+  const int oc = col * np + o;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (y < H && oc < Cout) {
+    const float* src = g + ((int64_t)b * H + y) * W * Cout + oc;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (xs + i < W) v[i] = src[(int64_t)(xs + i) * Cout];
+  }
+  const float4 val = make_float4(v[0], v[1], v[2], v[3]);
+  const float4 hi = hopper::tf32_hi(val);
+  float* dst = gsplit + ((int64_t)tile * col_tiles + col) * 2 * np * TP +
+               (o >> 3) * (TP * 8) + pq * 32 + (o & 7) * 4;
+  *reinterpret_cast<float4*>(dst) = hi;
+  *reinterpret_cast<float4*>(dst + np * TP) = hopper::tf32_lo(val, hi);
+}
+
+// The weight-gradient kernel, window route, for N tiles of 64 NB output
+// channels. Block (chunk of 64 input channels, group of TPB taps, N tile,
+// pixel split): it walks its split's pixel tiles (th x 16 pixels each) in
+// order; per tile it builds each tap's A_t (64 channels x th 16 pixels,
+// TF32 hi and lo, K-major: 4 pixels of one channel per 16 bytes) from
+// the tile's x window and adds A_t^T g into that tap's accumulators in
+// 3xTF32, half of the N tile per warpgroup; g^T comes split and laid out
+// by dcn_local_bwd_split_grad_kernel.
+template <int NB>
+__global__ void __launch_bounds__(WNT, 1)
+dcn_local_bwd_weight_kernel(const WeightArgs a) {
+  constexpr int TPB = weight_taps(NB);  // taps of a block at most
+  constexpr int NP = 64 * NB;           // output channels of a block
+  constexpr int NH = NP / 2;            // of each warpgroup
+  constexpr int TWID = NH < 64 ? NH : 64;  // its wgmma N
+  constexpr int NTW = NH / TWID;           // its wgmma N tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, W = a.W, Cin = a.Cin;
+  const float R = (float)a.R;
+  const int th = a.th;
+  const int TP = th * WTW;  // pixels of a tile: the K of one tile
+  const int ASBO = weight_asbo(th);  // A: bytes between 8-channel groups
+  const int GSBO = TP * 32;          // g: bytes between 8-channel groups
+  const int h = a.R + 1;
+  const int WH = th + 2 * h;
+  const int WW = WTW + 2 * h;
+  const int win_b = WH * WW * WPIX_B;
+  const int a_bytes = 8 * ASBO;    // A hi or lo
+  const int g_bytes = NP * TP * 4;  // g hi or lo
+  const int tab_b = TPB * TP * 24;
+  unsigned char* s_a = smem;                    // [slot][hi, lo]
+  unsigned char* s_g = s_a + 4 * a_bytes;       // [slot][hi, lo]
+  unsigned char* s_win = s_g + 4 * g_bytes;     // 1 or 2 slots
+  unsigned char* s_tab = s_win + a.ws * win_b;  // 2 slots
+
+  const int tid = threadIdx.x;
+  int bx = blockIdx.x;
+  const int col = bx % a.col_tiles;
+  bx /= a.col_tiles;
+  const int group = bx % a.groups;
+  const int c0 = (bx / a.groups) * WCK;
+  const int t0 = group * TPB;
+  const int ntaps = min(TPB, 9 - t0);
+  const int split = blockIdx.y;
+  const int tbeg = (int)((int64_t)split * a.tiles / a.splits);
+  const int tend = (int)((int64_t)(split + 1) * a.tiles / a.splits);
+  const bool x_al = Cin % 4 == 0 && hopper::aligned16(a.x);
+
+  // corner table slot: [TPB][TP] window indices of the 4 corners (short4)
+  // and their weights wy * wx * m (float4)
+  const auto tab_idx = [&](int slot) {
+    return reinterpret_cast<short4*>(s_tab + slot * tab_b);
+  };
+  const auto tab_w = [&](int slot) {
+    return reinterpret_cast<float4*>(s_tab + slot * tab_b + TPB * TP * 8);
+  };
+  // a tile's x window of this block's channels into window slot `slot`:
+  // 16 pieces of 4 channels per position, piece q at q ^ (pos & 7)
+  const auto load_window = [&](int tile, int slot) {
+    int b, y0, x0;
+    tile_origin(tile, a.tiles_x, a.tiles_y, th, b, y0, x0);
+    unsigned char* dst = s_win + slot * win_b;
+    for (int e = tid; e < WH * WW * 16; e += WNT) {
+      const int pos = e >> 4;
+      const int q = e & 15;
+      const int wr = pos / WW;
+      const int yy = y0 - h + wr;
+      const int xc = x0 - h + (pos - wr * WW);
+      const int ch = c0 + 4 * q;
+      const bool in = yy >= 0 && yy < H && xc >= 0 && xc < W;
+      hopper::copy4(dst + pos * WPIX_B + ((q ^ (pos & 7)) << 4),
+                    in ? a.x + (((int64_t)b * H + yy) * W + xc) * Cin + ch
+                       : a.x,
+                    in ? Cin - ch : 0, x_al);
+    }
+  };
+  // a tile's g^T, hi and lo, into g slot `slot`: one contiguous copy
+  const auto load_g = [&](int tile, int slot) {
+    const float* src =
+        a.gsplit + ((int64_t)tile * a.col_tiles + col) * 2 * NP * TP;
+    unsigned char* dst = s_g + slot * 2 * g_bytes;
+    for (int e = tid; e < NP * TP / 2; e += WNT)
+      hopper::cp_async16(dst + 16 * e, src + 4 * e, 16);
+  };
+  // This thread's corner-table entry, tap t0 + ej at pixel ep: its
+  // offsets and mask are read from global memory at the start of the tile
+  // before, and the entry written at that tile's end.
+  static_assert(TPB * 64 <= WNT, "one corner-table entry per thread");
+  const int ej = tid / TP;
+  const int ep = tid - ej * TP;
+  float e_dy = 0.f, e_dx = 0.f, e_m = 0.f;
+  bool e_in = false;
+  const auto fetch_entries = [&](int tile) {
+    int b, y0, x0;
+    tile_origin(tile, a.tiles_x, a.tiles_y, th, b, y0, x0);
+    const int y = y0 + ep / WTW;
+    const int xx = x0 + ep % WTW;
+    e_in = ej < ntaps && y < H && xx < W;
+    if (!e_in) return;
+    const int64_t n = ((int64_t)b * H + y) * W + xx;
+    const int t = t0 + ej;
+    e_dy = a.offset[n * 18 + 2 * t];
+    e_dx = a.offset[n * 18 + 2 * t + 1];
+    e_m = a.mask[n * 9 + t];
+  };
+  // as dcn_local_fwd's corner table (dcn_local.cu), at index tid = ej TP
+  // + ep
+  const auto write_entries = [&](int slot) {
+    if (ej >= ntaps) return;
+    int idx[4] = {0, 0, 0, 0};
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (e_in) {
+      const int t = t0 + ej;
+      const float vy = (float)(t / 3 - 1) + fminf(fmaxf(e_dy, -R), R);
+      const float vx = (float)(t % 3 - 1) + fminf(fmaxf(e_dx, -R), R);
+      const float fy = floorf(vy);
+      const float fx = floorf(vx);
+      const float ly = vy - fy;
+      const float lx = vx - fx;
+      const float wy[2] = {1.f - ly, ly};
+      const float wx[2] = {1.f - lx, lx};
+      const int r0 = ep / WTW + h + (int)fy;  // >= 0: fy >= -1 - R
+      const int cc = ep % WTW + h + (int)fx;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          idx[2 * i + j] = min(r0 + i, WH - 1) * WW + min(cc + j, WW - 1);
+          wt[2 * i + j] = wy[i] * wx[j] * e_m;
+        }
+      }
+    }
+    tab_idx(slot)[tid] = make_short4((short)idx[0], (short)idx[1],
+                                     (short)idx[2], (short)idx[3]);
+    tab_w(slot)[tid] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+  };
+  // A_t of tap t0 + j into A slot s_ai (hi, then lo): an item is 4 pixels
+  // 4 pq .. 4 pq + 3 x 4 channels 4 q .. 4 q + 3, each sample summed over
+  // its corners as the forward sums it, then transposed to 4 pixels of
+  // one channel per 16 bytes and split into TF32 hi and lo. The 16
+  // channel quartets of one pixel quartet are neighbouring threads, so a
+  // quarter-warp reads 8 distinct bank groups of one window position;
+  // ASBO's 16 bytes of padding spread its stores over 8 bank groups too.
+  const auto build = [&](int j, int tslot, const unsigned char* win,
+                         unsigned char* s_ai) {
+    const int q = tid & 15;
+    for (int pq = tid >> 4; pq < TP / 4; pq += WNT / 16) {
+      float4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const short4 id = tab_idx(tslot)[j * TP + 4 * pq + i];
+        const float4 w4 = tab_w(tslot)[j * TP + 4 * pq + i];
+        const int pos[4] = {id.x, id.y, id.z, id.w};
+        const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
+        v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float4 c = *reinterpret_cast<const float4*>(
+              win + pos[k] * WPIX_B + ((q ^ (pos[k] & 7)) << 4));
+          v[i].x = fmaf(c.x, wk[k], v[i].x);
+          v[i].y = fmaf(c.y, wk[k], v[i].y);
+          v[i].z = fmaf(c.z, wk[k], v[i].z);
+          v[i].w = fmaf(c.w, wk[k], v[i].w);
+        }
+      }
+      const float4 u[4] = {make_float4(v[0].x, v[1].x, v[2].x, v[3].x),
+                           make_float4(v[0].y, v[1].y, v[2].y, v[3].y),
+                           make_float4(v[0].z, v[1].z, v[2].z, v[3].z),
+                           make_float4(v[0].w, v[1].w, v[2].w, v[3].w)};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int ch = 4 * q + c;
+        const int at = (ch >> 3) * ASBO + pq * 128 + (ch & 7) * 16;
+        const float4 hi = hopper::tf32_hi(u[c]);
+        *reinterpret_cast<float4*>(s_ai + at) = hi;
+        *reinterpret_cast<float4*>(s_ai + a_bytes + at) =
+            hopper::tf32_lo(u[c], hi);
+      }
+    }
+  };
+
+  const int wg = tid >> 7;  // warpgroup: output channels NP col + NH wg ..
+  float acc[TPB][NTW][TWID / 2];
+#pragma unroll
+  for (int j = 0; j < TPB; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NTW; ++nb)
+#pragma unroll
+      for (int i = 0; i < TWID / 2; ++i) acc[j][nb][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < TPB; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NTW; ++nb) hopper::fence_acc(acc[j][nb]);
+
+  // The tile loop, software-pipelined: each tap's A is built while the
+  // product of the tap before it (of this tile or the last) runs; the
+  // next tile's window flies during this tile (two slots; with one, from
+  // the last tap's build on), its g from this tile's first product on,
+  // and its offsets and mask during the builds.
+  DCN_PHASES_BEGIN;  // phase 0 (with the first tile's staging): copy wait
+  if (tbeg < tend) {
+    load_window(tbeg, 0);
+    load_g(tbeg, 0);
+    hopper::cp_async_commit();
+    fetch_entries(tbeg);
+    write_entries(0);
+  }
+  int step = 0;  // products issued: A slot step & 1
+  for (int tile = tbeg; tile < tend; ++tile) {
+    const int slot = (tile - tbeg) & 1;
+    const bool next = tile + 1 < tend;
+    const unsigned char* win = s_win + (a.ws == 2 ? slot * win_b : 0);
+    hopper::cp_async_wait_all();
+    DCN_PHASE(0);     // phase 0: the wait for the tile's copies
+    hopper::fence_async_shared();
+    __syncthreads();  // the tile's window, g and table visible; the last
+                      // tile's builds done
+    DCN_PHASE(5);     // phase 5: the barrier after it
+    if (next) {
+      if (a.ws == 2) {
+        load_window(tile + 1, slot ^ 1);
+        hopper::cp_async_commit();
+      }
+      DCN_PHASE(6);  // phase 6: the next tile's window copy issued
+      fetch_entries(tile + 1);
+    }
+    DCN_PHASE(7);  // phase 7: its offsets and mask loaded
+#pragma unroll
+    for (int j = 0; j < TPB; ++j) {
+      if (j >= ntaps) break;
+      unsigned char* s_ai = s_a + (step & 1) * 2 * a_bytes;
+      build(j, slot, win, s_ai);
+      hopper::fence_async_shared();
+      __syncthreads();  // A_t visible to both warpgroups
+      DCN_PHASE(1);     // phase 1: building A_t
+      if (next && a.ws == 1 && j == ntaps - 1) {
+        load_window(tile + 1, 0);  // the window's last build is done
+        hopper::cp_async_commit();
+      }
+      // this warpgroup's NH columns: 3xTF32 per 8 pixels and N tile
+      const unsigned char* gs =
+          s_g + slot * 2 * g_bytes + wg * (NH / 8) * GSBO;
+      hopper::wgmma_fence();
+      for (int ks = 0; ks < TP / 8; ++ks) {
+        const uint64_t a_hi = hopper::desc(s_ai + ks * 256, 128, ASBO);
+        const uint64_t a_lo =
+            hopper::desc(s_ai + a_bytes + ks * 256, 128, ASBO);
+#pragma unroll
+        for (int nb = 0; nb < NTW; ++nb) {
+          const unsigned char* bt = gs + nb * (TWID / 8) * GSBO + ks * 256;
+          hopper::wgmma_3xtf32<TWID>(acc[j][nb], a_hi, a_lo,
+                                     hopper::desc(bt, 128, GSBO),
+                                     hopper::desc(bt + g_bytes, 128, GSBO));
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_one();  // this warpgroup's product before is done
+      __syncthreads();  // every product before is done: its A slot, and at
+                        // the tile's first tap the last tile's g slot, free
+      if (next && j == 0) {
+        load_g(tile + 1, slot ^ 1);
+        hopper::cp_async_commit();
+      }
+      ++step;
+      DCN_PHASE(2);  // phase 2: the product issued, the one before waited
+    }
+    if (next) write_entries(slot ^ 1);
+    DCN_PHASE(4);  // phase 4: the next tile's corner table
+  }
+  hopper::wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < TPB; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NTW; ++nb) hopper::fence_acc(acc[j][nb]);
+
+  // epilogue from the fragments: rows (input channels) 16 warp + lane / 4
+  // (+ 8), columns (output channels) 8 jj + 2 (lane % 4) (+ 1) of each N
+  // tile; grad w when the pixels are not split, else this split's partial
+  const int Cout = a.Cout;
+  const int n0 = col * NP;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const bool pairs = Cout % 2 == 0;
+  float* out = a.splits > 1 ? a.partial + (int64_t)split * 9 * Cin * Cout
+                            : a.grad_w;
+#pragma unroll
+  for (int j = 0; j < TPB; ++j) {
+    if (j >= ntaps) break;
+    const int t = t0 + j;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = c0 + 16 * warp + lane / 4 + 8 * hh;
+      if (c >= Cin) continue;
+      float* row = out + ((int64_t)t * Cin + c) * Cout;
+#pragma unroll
+      for (int nb = 0; nb < NTW; ++nb) {
+#pragma unroll
+        for (int jj = 0; jj < TWID / 8; ++jj) {
+          const int o = n0 + NH * wg + TWID * nb + 8 * jj + 2 * (lane & 3);
+          if (o >= Cout) continue;
+          const float v0 = acc[j][nb][4 * jj + 2 * hh];
+          const float v1 = acc[j][nb][4 * jj + 2 * hh + 1];
+          if (o + 1 < Cout && pairs) {
+            *reinterpret_cast<float2*>(row + o) = make_float2(v0, v1);
+          } else {
+            row[o] = v0;
+            if (o + 1 < Cout) row[o + 1] = v1;
+          }
+        }
+      }
+    }
+  }
+  DCN_PHASE(3);  // phase 3: the flush of the accumulators
+  DCN_PHASES_END;
+}
+
 // grad_w[e] = sum over the splits of partial[s, e], in split order
 __global__ void dcn_local_bwd_weight_reduce_kernel(
     const float* __restrict__ partial, float* __restrict__ grad_w,
@@ -807,6 +1251,22 @@ __global__ void dcn_local_bwd_weight_reduce_kernel(
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += partial[(int64_t)k * count + e];
   grad_w[e] = s;
+}
+
+template <int NB>
+int launch_weight(const WeightArgs& a, int chunks, int smem,
+                  cudaStream_t s) {
+  static int smem_set = 0;  // the dynamic shared memory allowed so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcn_local_bwd_weight_kernel<NB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const dim3 grid(chunks * a.groups * a.col_tiles, a.splits);
+  dcn_local_bwd_weight_kernel<NB><<<grid, WNT, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -875,22 +1335,79 @@ extern "C" int dcn_local_bwd_data(const float* x, const float* offset,
   return (int)cudaGetLastError();
 }
 
-// grad_w (3, 3, Cin, Cout) is fully written. With splits > 1, `partial`
-// holds splits * 9 * Cin * Cout floats of scratch; with splits == 1 it
-// may be null.
-extern "C" int dcn_local_bwd_weight(const float* x, const float* offset,
-                                    const float* mask, const float* grad_out,
-                                    float* grad_w, float* partial, int B,
-                                    int H, int W, int Cin, int Cout, int R,
-                                    int splits, void* stream) {
+// The plan (ops/dcn.bwd_weight_fp32_plan) comes in as tile_h (4, 2 or 1),
+// tile_w, chunk, n_tile (output channels per block: 64, 128 or 256),
+// taps (per block), window_slots (1 or 2), splits (of the pixel tiles)
+// and the dynamic shared memory in bytes; each is checked against this
+// file's constants and the shapes, and a mismatch returns
+// cudaErrorInvalidValue before any launch. grad_w (3, 3, Cin, Cout) is
+// fully written; `gsplit` holds tiles * col_tiles * 2 * n_tile * tile_h *
+// tile_w floats of scratch (the output grad split into TF32 hi and lo by
+// tile); `partial` holds splits * 9 * Cin * Cout floats when splits > 1
+// and may be null otherwise.
+extern "C" int dcn_local_bwd_weight(
+    const float* x, const float* offset, const float* mask,
+    const float* grad_out, float* grad_w, float* partial, float* gsplit,
+    int B, int H, int W, int Cin, int Cout, int R, int tile_h, int tile_w,
+    int chunk, int n_tile, int taps, int window_slots, int splits, int smem,
+    void* stream) {
+  const int nb = n_tile / 64;
+  const int tiles_x = (W + WTW - 1) / WTW;
+  const int tiles_y = tile_h > 0 ? (H + tile_h - 1) / tile_h : 0;
+  const int tiles = B * tiles_y * tiles_x;
+  if (Cin <= 0 || Cout <= 0 || tiles <= 0 || tile_w != WTW ||
+      (tile_h != 4 && tile_h != 2 && tile_h != 1) || chunk != WCK ||
+      (nb != 1 && nb != 2 && nb != 4) || n_tile != 64 * nb ||
+      (n_tile < Cout && n_tile != 256) || taps != weight_taps(nb) ||
+      (window_slots != 1 && window_slots != 2) || R < 1 || splits < 1 ||
+      splits > tiles ||
+      smem != weight_smem_bytes(nb, taps, R, tile_h, window_slots) ||
+      gsplit == nullptr || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int col_tiles = (Cout + n_tile - 1) / n_tile;
+  const int threads = 256;
+  const int64_t items =
+      (int64_t)tiles * col_tiles * (tile_h * WTW / 4) * n_tile;
+  dcn_local_bwd_split_grad_kernel<<<(unsigned)((items + threads - 1) /
+                                               threads),
+                                    threads, 0, s>>>(
+      grad_out, gsplit, H, W, Cout, tile_h, tiles_x, tiles_y, n_tile,
+      col_tiles, items);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const WeightArgs a{x, offset, mask, gsplit, grad_w, partial, H, W, Cin,
+                     Cout, R, tile_h, window_slots, tiles_x, tiles_y, tiles,
+                     (9 + taps - 1) / taps, col_tiles, splits};
+  const int chunks = (Cin + WCK - 1) / WCK;
+  err = nb == 1   ? launch_weight<1>(a, chunks, smem, s)
+        : nb == 2 ? launch_weight<2>(a, chunks, smem, s)
+                  : launch_weight<4>(a, chunks, smem, s);
+  if (err != 0 || splits == 1) return err;
+  const int64_t count = (int64_t)9 * Cin * Cout;
+  dcn_local_bwd_weight_reduce_kernel<<<(unsigned)((count + threads - 1) /
+                                                  threads),
+                                       threads, 0, s>>>(
+      partial, grad_w, count, splits);
+  return (int)cudaGetLastError();
+}
+
+// The gather route (ops/dcn.bwd_weight_fp32_plan's route "gather"): grad_w
+// (3, 3, Cin, Cout) is fully written. With splits > 1, `partial` holds
+// splits * 9 * Cin * Cout floats of scratch; with splits == 1 it may be
+// null.
+extern "C" int dcn_local_bwd_weight_gather(
+    const float* x, const float* offset, const float* mask,
+    const float* grad_out, float* grad_w, float* partial, int B, int H,
+    int W, int Cin, int Cout, int R, int splits, void* stream) {
   const int npix = B * H * W;
   if (Cin <= 0 || Cout <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
   if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
-  const int per_split = (((npix + splits - 1) / splits + WP - 1) / WP) * WP;
-  const int tiles = ((Cin + WC - 1) / WC) * ((Cout + WO - 1) / WO);
+  const int per_split = (((npix + splits - 1) / splits + GP - 1) / GP) * GP;
+  const int tiles = ((Cin + GC - 1) / GC) * ((Cout + GO - 1) / GO);
   const dim3 grid(tiles, 9, splits);
   float* dst = splits > 1 ? partial : grad_w;
-  dcn_local_bwd_weight_kernel<<<grid, WNT, 0, (cudaStream_t)stream>>>(
+  dcn_local_bwd_weight_gather_kernel<<<grid, GNT, 0, (cudaStream_t)stream>>>(
       x, offset, mask, grad_out, dst, npix, H, W, Cin, Cout, (float)R,
       per_split);
   cudaError_t err = cudaGetLastError();

@@ -61,8 +61,8 @@
 //   global atomicAdd (neighbouring tiles' halos overlap), once per block
 //   and chunk, not once per support corner, and a second kernel rounds
 //   the scratch to bf16 once. Small maps split the K loop over blocks
-//   (`splits`, ops/dcn.bwd_data_bf16_plan, so that each launch has at
-//   least two blocks per SM): grad x needs nothing more (it is summed by
+//   (`splits`, ops/dcn.bwd_data_bf16_plan, for the fewest waves of
+//   resident blocks): grad x needs nothing more (it is summed by
 //   atomics), grad offset and grad mask go to float32 partials per split
 //   that a third kernel sums in split order and rounds once; without a
 //   split the block rounds and writes them itself. The window's and the
@@ -70,17 +70,27 @@
 //   warp's accesses start in distinct bank groups.
 //
 //   dcn_local_bwd_weight_bf16: grad w[t] = sum_p A_t(p)^T g(p), with A_t
-//   rebuilt exactly as the forward built it (the same corner order, the
-//   same float32 roundings, no fused multiply-adds), so the contraction
-//   sees the bf16 values the forward contracted. The pixels are split
-//   over `splits` blocks per (64 x 64) tile and tap; each block
-//   contracts its chunks of 32 pixels on the tensor cores (wmma
-//   16x16x16) and writes a float32 partial tile; a second kernel sums
-//   the partials in split order (deterministic) and rounds once. Its
-//   gathers are not pipelined and it does not use wgmma yet.
+//   the bf16 sample the forward contracted, built by the forward's own
+//   device code (dcn_sample_bf16.cuh: the same corner order, the same
+//   float32 roundings, no fused multiply-adds). The design of the float32
+//   weight kernel (dcn_local_bwd.cu), in bf16 wgmma m64nNk16: M = 64
+//   input channels, N = Cout up to 256 (half per warpgroup), K = pixels;
+//   blocks of (chunk, 3 taps or 1 at N 256, split of the pixel tiles),
+//   each tile's x window and output grad copied by cp.async a tile
+//   ahead, A_t built once per (tap, channel, pixel) per launch. A_t is
+//   written as the forward writes its A (8 channels of one pixel per 16
+//   bytes) and read MN-major (trans-a: M = channel, K = pixel); g is
+//   copied in its own layout (8 output channels of one pixel per 16
+//   bytes) and read MN-major (trans-b). The splits' float32 partials are
+//   summed in split order and rounded once by a second kernel (one split:
+//   the block rounds), so grad w is bit-identical on every launch. Past
+//   any tile that fits in shared memory (a max_offset past about 13),
+//   the gather route `dcn_local_bwd_weight_gather_bf16`: the first
+//   design, corners gathered from global memory, wmma 16x16x16.
 
 #include <mma.h>
 
+#include "dcn_sample_bf16.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -103,14 +113,21 @@ constexpr int GXPIX_B = DCK * 4 + 64;
 constexpr int OM_B = DTP * 27 * 4;       // the tile's offsets and mask
 constexpr int SUMS_B = 3 * 9 * DTP * 4;  // grad mask, dy, dx sums
 
-constexpr int WC = 64;    // bwd_weight: input channels per block
-constexpr int WO = 64;    // bwd_weight: output channels per block
-constexpr int WP = 32;    // bwd_weight: pixels per chunk (two k-steps)
-constexpr int WNT = 256;  // bwd_weight: 8 warps, 4 rows of 16 input
-                          // channels x 2 cols of 32 output channels
-constexpr int LDS = WC + 8;  // bf16 pitch of the sample chunk (144 B)
-constexpr int LDW = WO + 8;  // bf16 pitch of the g chunk (144 B)
-constexpr int LDT = WO + 4;  // float32 pitch of the result tile
+constexpr int WNT = 256;  // bwd_weight: threads, two warpgroups
+constexpr int WCK = 64;   // bwd_weight: input channels per block (wgmma M)
+constexpr int WTW = 16;   // bwd_weight: tile columns
+constexpr int A_LBO = (WCK / 8) * 128;  // bwd_weight A: bytes between
+                                        // 8-pixel groups
+
+// the gather route of bwd_weight (max offsets whose window does not fit)
+constexpr int GC = 64;    // input channels per block
+constexpr int GO = 64;    // output channels per block
+constexpr int GP = 32;    // pixels per chunk (two k-steps)
+constexpr int GNT = 256;  // 8 warps, 4 rows of 16 input channels x 2
+                          // cols of 32 output channels
+constexpr int LDS = GC + 8;  // bf16 pitch of the sample chunk (144 B)
+constexpr int LDW = GO + 8;  // bf16 pitch of the g chunk (144 B)
+constexpr int LDT = GO + 4;  // float32 pitch of the result tile
 
 // Cout padded to the wgmma K step
 __host__ __device__ constexpr int kpad(int cout) {
@@ -126,6 +143,24 @@ __host__ __device__ constexpr int window_pixels(int R) {
 __host__ __device__ constexpr int data_smem_bytes(int cout, int R) {
   return DTP * kpad(cout) * 2 + 2 * DCK * kpad(cout) * 2 +
          window_pixels(R) * (XPIX_B + GXPIX_B) + OM_B + SUMS_B;
+}
+
+// bwd_weight: taps per block by N tile (64 nb output channels): its
+// accumulators, nb 16 float32 a thread and tap, in registers
+__host__ __device__ constexpr int weight_taps(int nb) {
+  return nb == 4 ? 1 : 3;
+}
+
+__host__ __device__ constexpr int weight_window_bytes(int R, int th) {
+  return (th + 2 * (R + 1)) * (WTW + 2 * (R + 1)) * dcn_bf16::PIX_B;
+}
+
+// bwd_weight: two A slots, two g slots, the window slots, two corner
+// tables (per tap and pixel 4 int16 indices, 4 weights and the mask)
+__host__ __device__ constexpr int weight_smem_bytes(int nb, int taps, int R,
+                                                    int th, int ws) {
+  return 2 * th * WTW * WCK * 2 + 2 * th * WTW * 64 * nb * 2 +
+         ws * weight_window_bytes(R, th) + 2 * taps * th * WTW * 28;
 }
 
 // The wgmma N column that holds input channel c (0..63) of a chunk: the
@@ -583,25 +618,31 @@ __global__ void round_to_bf16_kernel(const float* __restrict__ src,
   }
 }
 
-__global__ void __launch_bounds__(WNT)
-dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
+// The gather route of bwd_weight, for the max offsets whose window does
+// not fit in shared memory (ops/dcn.bwd_weight_bf16_plan): per (64 x 64)
+// tile, tap and pixel split, the corners of each chunk of 32 pixels
+// gathered straight from global memory, A_t built as the forward builds
+// it (its hat weights by dcn_sample_bf16.cuh), the contraction on wmma
+// 16x16x16, a float32 partial tile per split.
+__global__ void __launch_bounds__(GNT)
+dcn_local_bwd_weight_gather_bf16_kernel(const bf16* __restrict__ x,
                                  const bf16* __restrict__ offset,
                                  const bf16* __restrict__ mask,
                                  const bf16* __restrict__ grad_out,
                                  float* __restrict__ partial,
                                  int npix, int H, int W, int Cin, int Cout,
                                  float R, int per_split) {
-  __shared__ int s_idx[4][WP];     // flat pixel index of each corner
-  __shared__ float s_wt[4][WP];    // hat weight wy * wx, 0 outside
-  __shared__ float s_m[WP];
-  __shared__ __align__(32) bf16 s_S[WP][LDS];   // A_t chunk, bf16
-  __shared__ __align__(32) bf16 s_g[WP][LDW];
-  __shared__ __align__(32) float s_out[WC][LDT];
+  __shared__ int s_idx[4][GP];     // flat pixel index of each corner
+  __shared__ float s_wt[4][GP];    // hat weight wy * wx, 0 outside
+  __shared__ float s_m[GP];
+  __shared__ __align__(32) bf16 s_S[GP][LDS];   // A_t chunk, bf16
+  __shared__ __align__(32) bf16 s_g[GP][LDW];
+  __shared__ __align__(32) float s_out[GC][LDT];
 
   const int tid = threadIdx.x;
-  const int tiles_o = (Cout + WO - 1) / WO;
-  const int c0 = (blockIdx.x / tiles_o) * WC;
-  const int o0 = (blockIdx.x % tiles_o) * WO;
+  const int tiles_o = (Cout + GO - 1) / GO;
+  const int c0 = (blockIdx.x / tiles_o) * GC;
+  const int o0 = (blockIdx.x % tiles_o) * GO;
   const int t = blockIdx.y;
   const int split = blockIdx.z;
   const int pbeg = split * per_split;
@@ -617,9 +658,9 @@ dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
   wmma::fill_fragment(acc[0], 0.f);
   wmma::fill_fragment(acc[1], 0.f);
 
-  for (int q0 = pbeg; q0 < pend; q0 += WP) {
+  for (int q0 = pbeg; q0 < pend; q0 += GP) {
     __syncthreads();  // previous chunk consumed
-    if (tid < WP) {
+    if (tid < GP) {
       // the corners, hat weights and mask of dcn_local_fwd_bf16, computed
       // the same way
       const int n = q0 + tid;
@@ -635,25 +676,18 @@ dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
         const float dy = fminf(fmaxf(f32(o[2 * t]), -R), R);
         const float dx = fminf(fmaxf(f32(o[2 * t + 1]), -R), R);
         m = f32(mask[(int64_t)n * 9 + t]);
-        const float vy = __fadd_rn((float)(t / 3 - 1), dy);
-        const float vx = __fadd_rn((float)(t % 3 - 1), dx);
-        const float fy = floorf(vy);
-        const float fx = floorf(vx);
-        const float wy[2] = {1.f - fabsf(vy - fy),
-                             1.f - fabsf(vy - (fy + 1.f))};
-        const float wx[2] = {1.f - fabsf(vx - fx),
-                             1.f - fabsf(vx - (fx + 1.f))};
-        const int y0 = y + (int)fy;
-        const int x0 = xx + (int)fx;
+        int fy, fx;
+        float hw[4];
+        dcn_bf16::hats(dy, dx, t, fy, fx, hw);
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const int yy = y0 + a;
-            const int xc = x0 + c;
+            const int yy = y + fy + a;
+            const int xc = xx + fx + c;
             const bool inside = yy >= 0 && yy < H && xc >= 0 && xc < W;
             idx[2 * a + c] = inside ? b * HW + yy * W + xc : 0;
-            wt[2 * a + c] = inside ? __fmul_rn(wy[a], wx[c]) : 0.f;
+            wt[2 * a + c] = inside ? hw[2 * a + c] : 0.f;
           }
         }
       }
@@ -666,9 +700,9 @@ dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
     }
     __syncthreads();
     // A_t = bf16(m * S_t), term by term as the forward builds it
-    for (int e = tid; e < WP * WC / 2; e += WNT) {
-      const int cp = e % (WC / 2);
-      const int p = e / (WC / 2);
+    for (int e = tid; e < GP * GC / 2; e += GNT) {
+      const int cp = e % (GC / 2);
+      const int p = e / (GC / 2);
       const int c = c0 + 2 * cp;
       const int live = Cin - c;
       float s0 = 0.f, s1 = 0.f;
@@ -690,9 +724,9 @@ dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
       *reinterpret_cast<bf162*>(&s_S[p][2 * cp]) =
           __floats2bfloat162_rn(s0, s1);
     }
-    for (int e = tid; e < WP * WO / 2; e += WNT) {
-      const int op = e % (WO / 2);
-      const int p = e / (WO / 2);
+    for (int e = tid; e < GP * GO / 2; e += GNT) {
+      const int op = e % (GO / 2);
+      const int p = e / (GO / 2);
       const int n = q0 + p;
       const int o = o0 + 2 * op;
       float2 v = make_float2(0.f, 0.f);
@@ -703,7 +737,7 @@ dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
     }
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < WP; k += 16) {
+    for (int k = 0; k < GP; k += 16) {
       // A(c, p) = s_S[p][c]: column-major with pitch LDS
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
       wmma::load_matrix_sync(a, &s_S[k][16 * wm], LDS);
@@ -723,12 +757,325 @@ dcn_local_bwd_weight_bf16_kernel(const bf16* __restrict__ x,
                             wmma::mem_row_major);
   __syncthreads();
   float* out = partial + ((int64_t)split * 9 + t) * Cin * Cout;
-  for (int e = tid; e < WC * WO; e += WNT) {
-    const int o = e % WO;
-    const int c = e / WO;
+  for (int e = tid; e < GC * GO; e += GNT) {
+    const int o = e % GO;
+    const int c = e / GO;
     if (c0 + c < Cin && o0 + o < Cout)
       out[(int64_t)(c0 + c) * Cout + o0 + o] = s_out[c][o];
   }
+}
+
+struct WeightArgs {
+  const bf16* x;
+  const bf16* offset;
+  const bf16* mask;
+  const bf16* grad_out;
+  bf16* grad_w;
+  float* partial;
+  int H, W, Cin, Cout, R, th, ws;
+  int tiles_x, tiles_y, tiles, groups, col_tiles, splits;
+};
+
+// The weight-gradient kernel, window route, for N tiles of 64 NB output
+// channels. Block (chunk of 64 input channels, group of TPB taps, N tile,
+// pixel split): it walks its split's pixel tiles (th x 16 pixels each) in
+// order; per tile it builds each tap's A_t (64 channels x th 16 pixels,
+// bf16) from the tile's x window and adds A_t^T g into that tap's
+// accumulators, half of the N tile per warpgroup. A_t is laid MN-major
+// (8 channels of one pixel per 16 bytes: the forward's own A layout) and
+// read with trans-a; g, the tile's output gradient, in its own layout,
+// read with trans-b.
+template <int NB>  // two blocks to an SM at N 64 (3 taps: 48 accumulators)
+__global__ void __launch_bounds__(WNT, NB == 1 ? 2 : 1)
+dcn_local_bwd_weight_bf16_kernel(const WeightArgs a) {
+  constexpr int TPB = weight_taps(NB);  // taps of a block at most
+  constexpr int NP = 64 * NB;           // output channels of a block
+  constexpr int NH = NP / 2;            // of each warpgroup
+  constexpr int TWID = NH < 64 ? NH : 64;  // its wgmma N
+  constexpr int NTW = NH / TWID;           // its wgmma N tiles
+  constexpr int G_LBO = NP * 16;  // g: bytes between 8-pixel groups
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
+  const float R = (float)a.R;
+  const int th = a.th;
+  const int TP = th * WTW;  // pixels of a tile: the K of one tile
+  const int h = a.R + 1;
+  const int WH = th + 2 * h;
+  const int WW = WTW + 2 * h;
+  const int win_b = WH * WW * dcn_bf16::PIX_B;
+  const int a_bytes = TP * WCK * 2;
+  const int g_bytes = TP * NP * 2;
+  const int tab_b = TPB * TP * 28;
+  unsigned char* s_a = smem;                    // 2 slots
+  unsigned char* s_g = s_a + 2 * a_bytes;       // 2 slots
+  unsigned char* s_win = s_g + 2 * g_bytes;     // 1 or 2 slots
+  unsigned char* s_tab = s_win + a.ws * win_b;  // 2 slots
+
+  const int tid = threadIdx.x;
+  int bx = blockIdx.x;
+  const int col = bx % a.col_tiles;
+  bx /= a.col_tiles;
+  const int group = bx % a.groups;
+  const int c0 = (bx / a.groups) * WCK;
+  const int n0 = col * NP;
+  const int t0 = group * TPB;
+  const int ntaps = min(TPB, 9 - t0);
+  const int split = blockIdx.y;
+  const int tbeg = (int)((int64_t)split * a.tiles / a.splits);
+  const int tend = (int)((int64_t)(split + 1) * a.tiles / a.splits);
+  const bool x_al = Cin % 8 == 0 && hopper::aligned16(a.x);
+  const bool g_al = Cout % 8 == 0 && hopper::aligned16(a.grad_out);
+
+  // image and top-left pixel of a tile (order: image, tile row, column)
+  const auto origin = [&](int tile, int& b, int& y0, int& x0) {
+    const int r = tile / a.tiles_x;
+    x0 = (tile - r * a.tiles_x) * WTW;
+    b = r / a.tiles_y;
+    y0 = (r - b * a.tiles_y) * th;
+  };
+  // corner table slot: [TPB][4][TP] window indices, [TPB][4][TP] hat
+  // weights, [TPB][TP] masks (the forward's layout)
+  const auto tab_idx = [&](int slot) {
+    return reinterpret_cast<int16_t*>(s_tab + slot * tab_b);
+  };
+  const auto tab_w = [&](int slot) {
+    return reinterpret_cast<float*>(s_tab + slot * tab_b + TPB * 4 * TP * 2);
+  };
+  const auto tab_m = [&](int slot) { return tab_w(slot) + TPB * 4 * TP; };
+
+  // a tile's x window of this block's channels into window slot `slot`
+  const auto load_window = [&](int tile, int slot) {
+    int b, y0, x0;
+    origin(tile, b, y0, x0);
+    unsigned char* dst = s_win + slot * win_b;
+    for (int e = tid; e < WH * WW * 8; e += WNT) {
+      const int pos = e >> 3;
+      const int q = e & 7;
+      const int wr = pos / WW;
+      const int yy = y0 - h + wr;
+      const int xc = x0 - h + (pos - wr * WW);
+      const int ch = c0 + 8 * q;
+      const bool in = yy >= 0 && yy < H && xc >= 0 && xc < W;
+      hopper::copy8(dst + pos * dcn_bf16::PIX_B + ((q ^ (pos & 7)) << 4),
+                    in ? a.x + (((int64_t)b * H + yy) * W + xc) * Cin + ch
+                       : a.x,
+                    in ? Cin - ch : 0, x_al);
+    }
+  };
+  // a tile's output grad, MN-major (8 output channels of one pixel per 16
+  // bytes, K = pixel), into g slot `slot`; 0 past the map and past Cout
+  const auto load_g = [&](int tile, int slot) {
+    int b, y0, x0;
+    origin(tile, b, y0, x0);
+    unsigned char* dst = s_g + slot * g_bytes;
+    for (int e = tid; e < TP * (NP / 8); e += WNT) {
+      const int p = e / (NP / 8);
+      const int q = e - p * (NP / 8);
+      const int y = y0 + p / WTW;
+      const int xx = x0 + p % WTW;
+      const int o = n0 + 8 * q;
+      const bool in = y < H && xx < W;
+      hopper::copy8(
+          dst + (p >> 3) * G_LBO + q * 128 + (p & 7) * 16,
+          in ? a.grad_out + (((int64_t)b * H + y) * W + xx) * Cout + o
+             : a.grad_out,
+          in ? Cout - o : 0, g_al);
+    }
+  };
+  // This thread's corner-table entry, tap t0 + ej at pixel ep: its
+  // offsets and mask are read from global memory at the start of the tile
+  // before, and the entry written at that tile's end.
+  static_assert(TPB * 64 <= WNT, "one corner-table entry per thread");
+  const int ej = tid / TP;
+  const int ep = tid - ej * TP;
+  float e_dy = 0.f, e_dx = 0.f, e_m = 0.f;
+  bool e_in = false;
+  const auto fetch_entries = [&](int tile) {
+    int b, y0, x0;
+    origin(tile, b, y0, x0);
+    const int y = y0 + ep / WTW;
+    const int xx = x0 + ep % WTW;
+    e_in = ej < ntaps && y < H && xx < W;
+    if (!e_in) return;
+    const int64_t n = ((int64_t)b * H + y) * W + xx;
+    const int t = t0 + ej;
+    e_dy = f32(a.offset[n * 18 + 2 * t]);
+    e_dx = f32(a.offset[n * 18 + 2 * t + 1]);
+    e_m = f32(a.mask[n * 9 + t]);
+  };
+  const auto write_entries = [&](int slot) {
+    if (ej >= ntaps) return;
+    int idx[4] = {0, 0, 0, 0};
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (e_in)
+      dcn_bf16::corners(fminf(fmaxf(e_dy, -R), R), fminf(fmaxf(e_dx, -R), R),
+                        t0 + ej, ep / WTW, ep % WTW, h, WH, WW, idx, wt);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      tab_idx(slot)[(ej * 4 + k) * TP + ep] = (int16_t)idx[k];
+      tab_w(slot)[(ej * 4 + k) * TP + ep] = wt[k];
+    }
+    tab_m(slot)[ej * TP + ep] = e_in ? e_m : 0.f;
+  };
+  // A_t of tap t0 + j, bf16(m * S_t), 8 channels of one pixel per item, by
+  // the forward's code, MN-major into A slot s_ai
+  const auto build = [&](int j, int tslot, const unsigned char* win,
+                         unsigned char* s_ai) {
+    const int p = tid & (TP - 1);
+    int pos[4];
+    float wk[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      pos[k] = tab_idx(tslot)[(j * 4 + k) * TP + p];
+      wk[k] = tab_w(tslot)[(j * 4 + k) * TP + p];
+    }
+    const float m = tab_m(tslot)[j * TP + p];
+    for (int q = tid / TP; q < 8; q += WNT / TP)
+      *reinterpret_cast<uint4*>(s_ai + (p >> 3) * A_LBO + q * 128 +
+                                (p & 7) * 16) =
+          dcn_bf16::sample8(win, pos, wk, m, q);
+  };
+
+  const int wg = tid >> 7;  // warpgroup: output channels n0 + NH wg ..
+  float acc[TPB][NTW][TWID / 2];
+#pragma unroll
+  for (int j = 0; j < TPB; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NTW; ++nb)
+#pragma unroll
+      for (int i = 0; i < TWID / 2; ++i) acc[j][nb][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < TPB; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NTW; ++nb) hopper::fence_acc(acc[j][nb]);
+
+  // The tile loop, software-pipelined: each tap's A is built while the
+  // product of the tap before it (of this tile or the last) runs; the
+  // next tile's window flies during this tile (two slots; with one, from
+  // the last tap's build on), its g from this tile's first product on,
+  // and its offsets and mask during the builds.
+  DCN_PHASES_BEGIN;  // phase 0 (with the first tile's staging): copy wait
+  if (tbeg < tend) {
+    load_window(tbeg, 0);
+    load_g(tbeg, 0);
+    hopper::cp_async_commit();
+    fetch_entries(tbeg);
+    write_entries(0);
+  }
+  int step = 0;  // products issued: A slot step & 1
+  for (int tile = tbeg; tile < tend; ++tile) {
+    const int slot = (tile - tbeg) & 1;
+    const bool next = tile + 1 < tend;
+    const unsigned char* win = s_win + (a.ws == 2 ? slot * win_b : 0);
+    hopper::cp_async_wait_all();
+    DCN_PHASE(0);     // phase 0: the wait for the tile's copies
+    hopper::fence_async_shared();
+    __syncthreads();  // the tile's window, g and table visible; the last
+                      // tile's builds done
+    DCN_PHASE(5);     // phase 5: the barrier after it
+    if (next) {
+      if (a.ws == 2) {
+        load_window(tile + 1, slot ^ 1);
+        hopper::cp_async_commit();
+      }
+      DCN_PHASE(6);  // phase 6: the next tile's window copy issued
+      fetch_entries(tile + 1);
+    }
+    DCN_PHASE(7);  // phase 7: its offsets and mask loaded
+#pragma unroll
+    for (int j = 0; j < TPB; ++j) {
+      if (j >= ntaps) break;
+      unsigned char* s_ai = s_a + (step & 1) * a_bytes;
+      build(j, slot, win, s_ai);
+      hopper::fence_async_shared();
+      __syncthreads();  // A_t visible to both warpgroups
+      DCN_PHASE(1);     // phase 1: building A_t
+      if (next && a.ws == 1 && j == ntaps - 1) {
+        load_window(tile + 1, 0);  // the window's last build is done
+        hopper::cp_async_commit();
+      }
+      const unsigned char* gs = s_g + slot * g_bytes + wg * (NH / 8) * 128;
+      hopper::wgmma_fence();
+      for (int ks = 0; ks < TP / 16; ++ks) {
+        const uint64_t da =
+            hopper::desc(s_ai + 2 * ks * A_LBO, A_LBO, 128);
+#pragma unroll
+        for (int nb = 0; nb < NTW; ++nb)
+          hopper::wgmma_bf16<TWID, 1, 1>(
+              acc[j][nb], da,
+              hopper::desc(gs + nb * (TWID / 8) * 128 + 2 * ks * G_LBO,
+                           G_LBO, 128),
+              1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_one();  // this warpgroup's product before is done
+      __syncthreads();  // every product before is done: its A slot, and at
+                        // the tile's first tap the last tile's g slot, free
+      if (next && j == 0) {
+        load_g(tile + 1, slot ^ 1);
+        hopper::cp_async_commit();
+      }
+      ++step;
+      DCN_PHASE(2);  // phase 2: the product issued, the one before waited
+    }
+    if (next) write_entries(slot ^ 1);
+    DCN_PHASE(4);  // phase 4: the next tile's corner table
+  }
+  hopper::wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < TPB; ++j)
+#pragma unroll
+    for (int nb = 0; nb < NTW; ++nb) hopper::fence_acc(acc[j][nb]);
+
+  // epilogue from the fragments: rows (input channels) 16 warp + lane / 4
+  // (+ 8), columns (output channels) 8 jj + 2 (lane % 4) (+ 1) of each N
+  // tile; bf16 grad w when the pixels are not split, else this split's
+  // float32 partial
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const bool pairs = Cout % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < TPB; ++j) {
+    if (j >= ntaps) break;
+    const int t = t0 + j;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = c0 + 16 * warp + lane / 4 + 8 * hh;
+      if (c >= Cin) continue;
+      const int64_t row = ((int64_t)t * Cin + c) * Cout;
+#pragma unroll
+      for (int nb = 0; nb < NTW; ++nb) {
+#pragma unroll
+        for (int jj = 0; jj < TWID / 8; ++jj) {
+          const int o = n0 + NH * wg + TWID * nb + 8 * jj + 2 * (lane & 3);
+          if (o >= Cout) continue;
+          const float v0 = acc[j][nb][4 * jj + 2 * hh];
+          const float v1 = acc[j][nb][4 * jj + 2 * hh + 1];
+          const bool two = o + 1 < Cout;
+          if (a.splits > 1) {
+            float* dst =
+                a.partial + (int64_t)split * 9 * Cin * Cout + row + o;
+            if (two && pairs) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (two) dst[1] = v1;
+            }
+          } else {
+            bf16* dst = a.grad_w + row + o;
+            if (two && pairs) {
+              *reinterpret_cast<bf162*>(dst) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              dst[0] = __float2bfloat16_rn(v0);
+              if (two) dst[1] = __float2bfloat16_rn(v1);
+            }
+          }
+        }
+      }
+    }
+  }
+  DCN_PHASE(3);  // phase 3: the flush of the accumulators
+  DCN_PHASES_END;
 }
 
 // grad_w[e] = bf16(sum over the splits of partial[s, e]), in split order
@@ -740,6 +1087,22 @@ __global__ void dcn_local_bwd_weight_bf16_reduce_kernel(
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += partial[(int64_t)k * count + e];
   grad_w[e] = __float2bfloat16_rn(s);
+}
+
+template <int NB>
+int launch_weight(const WeightArgs& a, int chunks, int smem,
+                  cudaStream_t s) {
+  static int smem_set = 0;  // the dynamic shared memory allowed so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcn_local_bwd_weight_bf16_kernel<NB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const dim3 grid(chunks * a.groups * a.col_tiles, a.splits);
+  dcn_local_bwd_weight_bf16_kernel<NB><<<grid, WNT, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <int RM>
@@ -814,22 +1177,66 @@ extern "C" int dcn_local_bwd_data_bf16(
   return (int)cudaGetLastError();
 }
 
-// grad_w (3, 3, Cin, Cout) bf16 is fully written; `partial` holds
-// splits * 9 * Cin * Cout floats of scratch.
-extern "C" int dcn_local_bwd_weight_bf16(const bf16* x, const bf16* offset,
-                                         const bf16* mask,
-                                         const bf16* grad_out, bf16* grad_w,
-                                         float* partial, int B, int H,
-                                         int W, int Cin, int Cout, int R,
-                                         int splits, void* stream) {
+// The plan (ops/dcn.bwd_weight_bf16_plan) comes in as tile_h (4, 2 or 1),
+// tile_w, chunk, n_tile (output channels per block: 64, 128 or 256),
+// taps (per block), window_slots (1 or 2), splits (of the pixel tiles)
+// and the dynamic shared memory in bytes; each is checked against this
+// file's constants and the shapes, and a mismatch returns
+// cudaErrorInvalidValue before any launch. grad_w (3, 3, Cin, Cout) bf16
+// is fully written; `partial` holds splits * 9 * Cin * Cout floats of
+// scratch when splits > 1 and may be null otherwise.
+extern "C" int dcn_local_bwd_weight_bf16(
+    const bf16* x, const bf16* offset, const bf16* mask,
+    const bf16* grad_out, bf16* grad_w, float* partial, int B, int H, int W,
+    int Cin, int Cout, int R, int tile_h, int tile_w, int chunk, int n_tile,
+    int taps, int window_slots, int splits, int smem, void* stream) {
+  const int nb = n_tile / 64;
+  const int tiles_x = (W + WTW - 1) / WTW;
+  const int tiles_y = tile_h > 0 ? (H + tile_h - 1) / tile_h : 0;
+  const int tiles = B * tiles_y * tiles_x;
+  if (Cin <= 0 || Cout <= 0 || tiles <= 0 || tile_w != WTW ||
+      (tile_h != 4 && tile_h != 2 && tile_h != 1) || chunk != WCK ||
+      (nb != 1 && nb != 2 && nb != 4) || n_tile != 64 * nb ||
+      (n_tile < Cout && n_tile != 256) || taps != weight_taps(nb) ||
+      (window_slots != 1 && window_slots != 2) || R < 1 || splits < 1 ||
+      splits > tiles ||
+      smem != weight_smem_bytes(nb, taps, R, tile_h, window_slots)
+      || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const WeightArgs a{x, offset, mask, grad_out, grad_w, partial, H, W, Cin,
+                     Cout, R, tile_h, window_slots, tiles_x, tiles_y, tiles,
+                     (9 + taps - 1) / taps, (Cout + n_tile - 1) / n_tile,
+                     splits};
+  const int chunks = (Cin + WCK - 1) / WCK;
+  int err = nb == 1   ? launch_weight<1>(a, chunks, smem, s)
+        : nb == 2 ? launch_weight<2>(a, chunks, smem, s)
+                  : launch_weight<4>(a, chunks, smem, s);
+  if (err != 0 || splits == 1) return err;
+  const int64_t count = (int64_t)9 * Cin * Cout;
+  const int threads = 256;
+  dcn_local_bwd_weight_bf16_reduce_kernel<<<(unsigned)((count + threads -
+                                                        1) / threads),
+                                            threads, 0, s>>>(
+      partial, grad_w, count, splits);
+  return (int)cudaGetLastError();
+}
+
+// The gather route (ops/dcn.bwd_weight_bf16_plan's route "gather"): grad_w
+// (3, 3, Cin, Cout) bf16 is fully written; `partial` holds splits * 9 *
+// Cin * Cout floats of scratch.
+extern "C" int dcn_local_bwd_weight_gather_bf16(
+    const bf16* x, const bf16* offset, const bf16* mask,
+    const bf16* grad_out, bf16* grad_w, float* partial, int B, int H, int W,
+    int Cin, int Cout, int R, int splits, void* stream) {
   const int npix = B * H * W;
   if (Cin <= 0 || Cout <= 0 || splits < 1 || partial == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int per_split = (((npix + splits - 1) / splits + WP - 1) / WP) * WP;
-  const int tiles = ((Cin + WC - 1) / WC) * ((Cout + WO - 1) / WO);
+  const int per_split = (((npix + splits - 1) / splits + GP - 1) / GP) * GP;
+  const int tiles = ((Cin + GC - 1) / GC) * ((Cout + GO - 1) / GO);
   const dim3 grid(tiles, 9, splits);
-  dcn_local_bwd_weight_bf16_kernel<<<grid, WNT, 0, s>>>(
+  dcn_local_bwd_weight_gather_bf16_kernel<<<grid, GNT, 0, s>>>(
       x, offset, mask, grad_out, partial, npix, H, W, Cin, Cout, (float)R,
       per_split);
   cudaError_t err = cudaGetLastError();

@@ -2,8 +2,9 @@
 // (dcn_local.cu, dcn_local_bwd.cu, dcn_local_bf16.cu, dcn_local_bwd_bf16.cu):
 // asynchronous global -> shared copies (cp.async, 16 bytes, zero-filled
 // past the source), the shared-memory matrix descriptor of wgmma for the
-// layout without swizzle, one warpgroup product m64n64k16 bf16 x bf16 ->
-// float32, and the TF32 products m64nNk8 (N = 8, 16, 32, 64) with the
+// layout without swizzle, the warpgroup products m64nNk16 bf16 x bf16 ->
+// float32 (N = 32, 64; either operand K-major or MN-major), and the TF32
+// products m64nNk8 (N = 8, 16, 32, 64) with the
 // hi/lo split by which the float32 kernels run them three times
 // ("3xTF32") to keep float32 accuracy.
 //
@@ -14,7 +15,8 @@
 // and along M or N (SBO). A K-major operand holds, in each 16-byte row,
 // consecutive K values of one M (or N) index (8 bf16, 4 tf32); an
 // MN-major one (bf16 B with trans-b = 1) 8 consecutive N values of one K
-// index. TF32 operands are K-major only: wgmma has no transpose for them.
+// index (bf16 A with trans-a = 1 likewise: 8 consecutive M values). TF32
+// operands are K-major only: wgmma has no transpose for them.
 
 #pragma once
 
@@ -108,14 +110,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
   for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 64 float32, the warpgroup's fragments) += A (64 x 16, K-major)
-// * B (16 x 64; K-major when TRANS_B = 0, MN-major when 1); with
-// accumulate = 0 the product overwrites d. Thread T of the warpgroup
-// holds, for j = 0..7, rows 16 (T / 32) + (T % 32) / 4 (+ 8) and columns
-// 8 j + 2 (T % 4) (+ 1): d[4 j + 2 h + e] is row + 8 h, column + e.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db, int accumulate) {
+// d (64 x N float32, the warpgroup's fragments; N / 2 per thread) += A
+// (64 x 16 bf16) * B (16 x N bf16), N = 64 or 32; A K-major when TRANS_A
+// = 0, MN-major (8 consecutive M values of one K index per 16-byte row)
+// when 1; B K-major when TRANS_B = 0, MN-major when 1. With accumulate =
+// 0 the product overwrites d. Thread T of the warpgroup holds, for j =
+// 0..N/8-1, rows 16 (T / 32) + (T % 32) / 4 (+ 8) and columns 8 j + 2 (T %
+// 4) (+ 1): d[4 j + 2 h + e] is row + 8 h, column + e.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -123,7 +127,8 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -132,9 +137,45 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+template <int N, int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 32, "wgmma_bf16: N is 64 or 32");
+  if constexpr (N == 64)
+    wgmma_bf16_n64<TRANS_A, TRANS_B>(d, da, db, accumulate);
+  else
+    wgmma_bf16_n32<TRANS_A, TRANS_B>(d, da, db, accumulate);
+}
+
+// d (64 x 64) += A (64 x 16, K-major) * B (16 x 64; K-major when TRANS_B
+// = 0, MN-major when 1)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  wgmma_bf16_n64<0, TRANS_B>(d, da, db, accumulate);
+}
 
 // 4 consecutive float32 at `src` into the 16 bytes at `dst`: a cp.async
 // when all 4 are live and the source is 16-byte aligned, else the first

@@ -34,6 +34,7 @@ from centertrack_tpu_torch.ops.decode import generic_decode, sigmoid_output
 from centertrack_tpu_torch.ops.gaussian import gaussian_radius, render_pre_hm
 from centertrack_tpu_torch.ops.warp import (preprocess_frame,
                                             warp_precision_for)
+from centertrack_tpu_torch.utils.precision import full_float32
 
 
 def _affine_pts(pts: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -49,7 +50,8 @@ class FusedDetector:
     utils.checkpoint.load_jax_ckpt). ``plain_dcn=True`` runs the DCN
     layers through their plain PyTorch version instead of the kernel.
 
-    ``cfg.compute_dtype`` sets the network's dtype. Everything around it
+    ``cfg.compute_dtype`` sets the network's dtype (float32 in full
+    float32, whatever the process's TF32 flags). Everything around it
     runs as in the JAX ``one_frame``: the warp at
     ``warp_precision_for(cfg)``, the float32 input and pre_hm cast to
     the compute dtype by the network, float32 head maps (bf16-quantised
@@ -129,7 +131,13 @@ class FusedDetector:
     @torch.no_grad()
     def run(self, image) -> torch.Tensor:
         """Enqueue one uint8 (H, W, 3) frame (numpy or tensor); returns
-        the packed (K, 13) float32 result on the device."""
+        the packed (K, 13) float32 result on the device. At float32 it
+        runs in full float32 (``utils.precision.full_float32``: cuDNN and
+        cuBLAS without TF32, the caller's flags restored after)."""
+        with full_float32(self.cfg.compute_dtype):
+            return self._run(image)
+
+    def _run(self, image) -> torch.Tensor:
         cfg = self.cfg
         height, width = image.shape[:2]
         inv_trans_input, trans_input, inv_trans_output = \

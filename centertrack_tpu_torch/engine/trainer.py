@@ -9,6 +9,8 @@ One optimisation step:
      kernels on the card)
   -> Adam / SGD update.
 
+At ``compute_dtype="float32"`` a step runs in full float32, TF32 off in
+cuDNN and cuBLAS whatever the process's flags (``utils.precision``).
 At ``compute_dtype="bfloat16"`` the network computes in bf16 (its DCN
 layers through the bf16 kernels, forward and backward) while the
 parameters, their gradients, the optimizer state, the head maps, the
@@ -31,6 +33,7 @@ import torch
 
 from centertrack_tpu_torch.data.render import render_batch
 from centertrack_tpu_torch.ops.losses import generic_loss
+from centertrack_tpu_torch.utils.precision import full_float32
 
 # the loss heads in the order the reference logs them
 LOSS_ORDER = ["hm", "wh", "reg", "ltrb", "hps", "hm_hp", "hp_offset", "dep",
@@ -99,7 +102,13 @@ class Trainer:
     def train_step(self, batch, lr: float) -> Dict[str, torch.Tensor]:
         """One optimiser step over ``batch`` (split into ``grad_accum``
         micro-batches). Returns the per-head losses (device scalars,
-        averaged over the micro-batches)."""
+        averaged over the micro-batches). At float32 it runs in full
+        float32 (``utils.precision.full_float32``: cuDNN and cuBLAS
+        without TF32, the caller's flags restored after)."""
+        with full_float32(self.cfg.compute_dtype):
+            return self._train_step(batch, lr)
+
+    def _train_step(self, batch, lr: float) -> Dict[str, torch.Tensor]:
         batch = self._to_device(batch)
         n = batch["image"].shape[0]
         if n % self.accum:
@@ -126,9 +135,11 @@ class Trainer:
 
     @torch.no_grad()
     def val_step(self, batch) -> Dict[str, torch.Tensor]:
-        """Losses of ``batch`` in eval mode (running statistics)."""
+        """Losses of ``batch`` in eval mode (running statistics), at
+        float32 in full float32 as ``train_step``."""
         self.model.eval()
-        _, losses = self._forward_loss(self._to_device(batch))
+        with full_float32(self.cfg.compute_dtype):
+            _, losses = self._forward_loss(self._to_device(batch))
         return {k: torch.as_tensor(v) for k, v in losses.items()}
 
     def run_epoch(self, phase: str, epoch: int, loader, num_iters: int = -1,

@@ -14,10 +14,13 @@ kernels: a float32 CUDA tensor goes to ``DCNLocal``, a
 (``csrc/dcn_local.cu``) and whose backward launches
 ``dcn_local_bwd_data`` (grad x, offset, mask) and ``dcn_local_bwd_weight``
 (grad weight) from ``csrc/dcn_local_bwd.cu``; the bias grad is a sum
-over (B, H, W). ``fwd_fp32_plan`` and ``bwd_data_fp32_plan`` give the
-first two their launch plans (pixel tile, Cin chunk, N tile, K splits,
-shared memory, scratch); their contractions run on the tensor cores in
-3xTF32, which keeps float32's accuracy. A CPU tensor goes to
+over (B, H, W). ``fwd_fp32_plan``, ``bwd_data_fp32_plan`` and
+``bwd_weight_fp32_plan`` give the three their launch plans (pixel tile,
+Cin chunk, N tile, taps, splits, shared memory, scratch); their
+contractions run on the tensor cores in 3xTF32, which keeps float32's
+accuracy. Past what shared memory holds, the weight gradient's plan
+takes its gather route, ``dcn_local_bwd_weight_gather``. A CPU tensor
+goes to
 ``deform_conv2d_local_plain``, the plain PyTorch version that the tests
 hold against JAX and that the chip smoke holds the kernels against;
 autograd differentiates it.
@@ -28,9 +31,11 @@ ones: without a gradient it is ``dcn_local_fwd_bf16``
 (``csrc/dcn_local_bf16.cu``); with one it is ``DCNLocal`` at bf16,
 whose forward launches ``dcn_local_fwd_bf16`` and whose backward
 launches ``dcn_local_bwd_data_bf16`` and ``dcn_local_bwd_weight_bf16``
-(``csrc/dcn_local_bwd_bf16.cu``); ``fwd_bf16_plan`` and
-``bwd_data_bf16_plan`` give the first two their launch plans (pixel
-tile, K splits, shared memory, scratch). At bf16 the forward rounds
+(``csrc/dcn_local_bwd_bf16.cu``); ``fwd_bf16_plan``,
+``bwd_data_bf16_plan`` and ``bwd_weight_bf16_plan`` give the three
+their launch plans (pixel tile, splits, shared memory, scratch; the
+weight gradient's gather route ``dcn_local_bwd_weight_gather_bf16``).
+At bf16 the forward rounds
 where the Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the sample
 is taken in float32 from the bf16 inputs, masked, rounded to bf16,
 contracted with the bf16 weight with float32 accumulation, the bias
@@ -77,6 +82,9 @@ BWD_DATA_LAUNCHES = 0    # dcn_local_bwd_data
 BWD_WEIGHT_LAUNCHES = 0  # dcn_local_bwd_weight
 BWD_DATA_BF16_LAUNCHES = 0    # dcn_local_bwd_data_bf16
 BWD_WEIGHT_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_bf16
+# the weight gradient's route past what shared memory holds
+BWD_WEIGHT_GATHER_LAUNCHES = 0       # dcn_local_bwd_weight_gather
+BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_gather_bf16
 
 # symbol -> (source in csrc/, pointer arguments, int arguments); every
 # launcher ends with the stream
@@ -84,13 +92,16 @@ _SIGNATURES = {
     "dcn_local_fwd": ("dcn_local", 8, 13),
     "dcn_local_fwd_bf16": ("dcn_local_bf16", 7, 12),
     "dcn_local_bwd_data": ("dcn_local_bwd", 10, 12),
-    "dcn_local_bwd_weight": ("dcn_local_bwd", 6, 7),
+    "dcn_local_bwd_weight": ("dcn_local_bwd", 7, 14),
+    "dcn_local_bwd_weight_gather": ("dcn_local_bwd", 6, 7),
     "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", 10, 11),
-    "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 7),
+    "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 14),
+    "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
 }
 _launchers = {}
 
-# blocks the weight-grad kernel aims for: four per SM of an H100
+# blocks a split launch aims for: four per SM of an H100 (the wave rule
+# asks for at least half of it)
 TARGET_BLOCKS = 4 * 132
 
 # The forward and data-gradient kernels of both dtypes
@@ -114,6 +125,21 @@ BF16_DATA_MAX_OFFSET = 4
 FP32_CHUNK = 32
 FP32_DATA_CHUNKS = (32, 16, 8)
 FP32_MAX_OFFSET = 8
+# The weight-gradient kernels of both dtypes (csrc/dcn_local_bwd.cu,
+# csrc/dcn_local_bwd_bf16.cu), window route: a block takes a chunk of 64
+# input channels (the wgmma M), a group of taps and up to 256 output
+# channels (the N tile), and walks its split's pixel tiles of th x 16
+# (the K); the rows th of a tile are the first of WEIGHT_TILE_ROWS whose
+# shared memory fits, with two x-window slots, else one. The taps of a
+# block are set by registers (WEIGHT_TAPS, by N tile): each warpgroup
+# keeps N / 4 float32 accumulators a thread for each. Past anything that
+# fits, the weight gradient takes its gather route.
+WEIGHT_CHUNK = 64
+WEIGHT_TILE_ROWS = (4, 2, 1)
+WEIGHT_TAPS = {64: 3, 128: 3, 256: 1}
+# blocks an SM holds at most, by dtype and N tile (the kernels'
+# __launch_bounds__): the bf16 kernel at N 64 fits two in registers
+WEIGHT_MIN_BLOCKS = {("bfloat16", 64): 2}
 
 
 def _kernel(symbol: str):
@@ -193,9 +219,12 @@ def _check_grad(grad_out, x, cout):
 
 
 def _k_splits(blocks: int, steps: int) -> int:
-    """K splits of a bf16 kernel launch: none when its pixel tiles give
+    """K splits of a ``dcn_local_fwd_bf16`` launch (its plan's
+    ``split_rule`` "two_per_sm"): none when its pixel tiles give
     ``TARGET_BLOCKS // 2`` blocks (two per SM), else enough to reach
-    that, at most one split per K step."""
+    that, at most one split per K step. The forward keeps it because
+    the wave rule splits it more, and each split adds a float32 partial
+    of the whole output and its sum (PERF.md: 25% slower at s4, B=1)."""
     want = TARGET_BLOCKS // 2
     return 1 if blocks >= want else min(steps, -(-want // blocks))
 
@@ -207,8 +236,11 @@ def _resident(smem: int, threads: int) -> int:
 
 
 def _wave_splits(blocks: int, steps: int, resident: int) -> int:
-    """K splits of a float32 kernel launch of ``blocks`` pixel tiles of
-    ``steps`` K steps, ``resident`` blocks to an SM. None when the tiles
+    """Splits of a launch of ``blocks`` independent units (pixel tiles,
+    or the weight gradient's chunk x tap-group x N tiles) of ``steps``
+    steps each (its K steps, or the weight gradient's pixel tiles),
+    ``resident`` blocks to an SM (the plans' ``split_rule`` "waves":
+    every planner but ``fwd_bf16_plan``'s). None when the tiles
     fill four waves (the last wave's tail is then a small share). Else,
     among the splits that give at least ``TARGET_BLOCKS // 2`` blocks (two
     per SM; every step its own split when that is short of it), the
@@ -231,15 +263,15 @@ def _k_ranges(steps: int, splits: int) -> tuple:
                  for z in range(splits))
 
 
-def _tiles(b: int, h: int, w: int) -> int:
-    th, tw = TILE
+def _tiles(b: int, h: int, w: int, th: int = TILE[0]) -> int:
+    tw = TILE[1]
     return b * -(-h // th) * -(-w // tw)
 
 
-def _window_pixels(max_offset: int) -> int:
-    """Pixels of a tile's x window: the tile and a halo of R + 1, every
-    position a clamped offset's bilinear support reaches."""
-    th, tw = TILE
+def _window_pixels(max_offset: int, th: int = TILE[0]) -> int:
+    """Pixels of a tile's x window: the tile (th rows) and a halo of R + 1,
+    every position a clamped offset's bilinear support reaches."""
+    tw = TILE[1]
     halo = max_offset + 1
     return (th + 2 * halo) * (tw + 2 * halo)
 
@@ -248,7 +280,8 @@ def _window_pixels(max_offset: int) -> int:
 def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
                   max_offset: int) -> dict:
     """Launch plan of ``dcn_local_fwd_bf16``: output channels per block
-    (``n_tile``: 64, 128 or 256, the wgmma N), the K splits, the blocks,
+    (``n_tile``: 64, 128 or 256, the wgmma N), the K splits (by
+    ``_k_splits``), the blocks,
     the dynamic shared memory (A tile, two weight slots, one x window per
     Cin chunk up to two, the corner table) and the float32 scratch of the
     split partials. Raises ValueError when a block's shared memory would
@@ -259,7 +292,6 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
     col_tiles = -(-cout // n_tile)
     tiles = _tiles(b, h, w)
     steps = 9 * max(1, -(-cin // ck))
-    splits = _k_splits(tiles * col_tiles, steps)
     table = 9 * 4 * th * tw * (2 + 4) + 9 * th * tw * 4
     smem = (th * tw * ck * 2 + 2 * ck * n_tile * 2
             + min(2, steps // 9) * _window_pixels(max_offset) * ck * 2
@@ -269,8 +301,10 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
             f"dcn_local_fwd_bf16: a block would need {smem} bytes of shared "
             f"memory at max_offset={max_offset}, Cout={cout}; the limit is "
             f"{SMEM_LIMIT}")
+    splits = _k_splits(tiles * col_tiles, steps)
     return {"tile": TILE, "chunk": ck, "n_tile": n_tile,
             "col_tiles": col_tiles, "tiles": tiles, "steps": steps,
+            "split_rule": "two_per_sm",
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * col_tiles * splits, "smem_bytes": smem,
             "scratch": splits * b * h * w * cout if splits > 1 else 0}
@@ -279,8 +313,8 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
 @functools.lru_cache(maxsize=256)
 def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
                        max_offset: int) -> dict:
-    """Launch plan of ``dcn_local_bwd_data_bf16``: the K splits, the
-    blocks, the dynamic shared memory (the output-grad tile and two
+    """Launch plan of ``dcn_local_bwd_data_bf16``: the K splits (by
+    ``_wave_splits``), the blocks, the dynamic shared memory (the output-grad tile and two
     weight slots over Cout padded to 16, the x window and its float32
     grad-x tile, the tile's offsets and mask, the sums) and the float32
     scratch: the grad-x accumulator and, when split, the grad offset /
@@ -296,7 +330,6 @@ def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
     kp = -(-cout // 16) * 16
     tiles = _tiles(b, h, w)
     steps = 9 * max(1, -(-cin // ck))
-    splits = _k_splits(tiles, steps)
     smem = (th * tw * kp * 2 + 2 * ck * kp * 2
             + _window_pixels(max_offset) * (ck * (2 + 4) + 32 + 64)
             + th * tw * 27 * 4 + 3 * 9 * th * tw * 4)
@@ -305,8 +338,10 @@ def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
             f"dcn_local_bwd_data_bf16: a block would need {smem} bytes of "
             f"shared memory at max_offset={max_offset}, Cout={cout}; the "
             f"limit is {SMEM_LIMIT}")
+    splits = _wave_splits(tiles, steps, _resident(smem, 128))
     npix = b * h * w
     return {"tile": TILE, "chunk": ck, "tiles": tiles, "steps": steps,
+            "split_rule": "waves",
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * splits, "smem_bytes": smem,
             "grad_acc": npix * cin,
@@ -360,7 +395,8 @@ def fwd_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
     splits = _wave_splits(tiles * col_tiles, steps, _resident(smem, 256))
     return {"tile": TILE, "chunk": ck, "n_tile": n_tile,
             "window_slots": window_slots, "col_tiles": col_tiles,
-            "tiles": tiles, "steps": steps, "splits": splits,
+            "tiles": tiles, "steps": steps, "split_rule": "waves",
+            "splits": splits,
             "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * col_tiles * splits, "smem_bytes": smem,
             "weight_split": 2 * 9 * col_tiles * n_tile * nchunks * ck,
@@ -408,11 +444,106 @@ def bwd_data_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
     splits = _wave_splits(tiles, steps, _resident(smem, 128 * warpgroups))
     npix = b * h * w
     return {"tile": TILE, "chunk": ck, "warpgroups": warpgroups,
-            "tiles": tiles, "steps": steps,
+            "tiles": tiles, "steps": steps, "split_rule": "waves",
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * splits, "smem_bytes": smem,
             "weight_split": 2 * 9 * cin * (-(-cout // 8) * 8),
             "scratch": splits * npix * 27 if splits > 1 else 0}
+
+
+def _weight_fp32_smem(n_tile: int, max_offset: int, th: int,
+                      window_slots: int) -> int:
+    """Two A slots and two output-grad slots of hi and lo (A's 8-channel
+    groups padded by 16 bytes), the x windows and two corner tables of
+    ``dcn_local_bwd_weight`` (csrc/dcn_local_bwd.cu weight_smem_bytes)."""
+    tp = th * TILE[1]
+    return (4 * 8 * (tp * 32 + 16) + 4 * n_tile * tp * 4
+            + window_slots * _window_pixels(max_offset, th) * WEIGHT_CHUNK * 4
+            + 2 * WEIGHT_TAPS[n_tile] * tp * 24)
+
+
+def _weight_bf16_smem(n_tile: int, max_offset: int, th: int,
+                      window_slots: int) -> int:
+    """Two A slots, two output-grad slots, the x windows and two corner
+    tables of ``dcn_local_bwd_weight_bf16`` (csrc/dcn_local_bwd_bf16.cu
+    weight_smem_bytes)."""
+    tp = th * TILE[1]
+    return (2 * tp * WEIGHT_CHUNK * 2 + 2 * tp * n_tile * 2
+            + window_slots * _window_pixels(max_offset, th) * WEIGHT_CHUNK * 2
+            + 2 * WEIGHT_TAPS[n_tile] * tp * 28)
+
+
+def weight_splits(npix: int, cin: int, cout: int) -> int:
+    """Pixel splits of the gather route: enough blocks to fill the card
+    (``TARGET_BLOCKS``), at least 256 pixels per split."""
+    tiles = -(-cin // 64) * -(-cout // 64) * 9
+    return max(1, min(-(-TARGET_BLOCKS // tiles), -(-npix // 256)))
+
+
+def _weight_plan(dtype: str, smem_of, b: int, h: int, w: int, cin: int,
+                 cout: int, max_offset: int) -> dict:
+    n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    taps = WEIGHT_TAPS[n_tile]
+    fits = [(th, ws) for th in WEIGHT_TILE_ROWS for ws in (2, 1)
+            if smem_of(n_tile, max_offset, th, ws) <= SMEM_LIMIT]
+    if not fits:
+        splits = weight_splits(b * h * w, cin, cout)
+        partial = splits > 1 or dtype == "bfloat16"
+        return {"route": "gather", "splits": splits,
+                "scratch": splits * 9 * cin * cout if partial else 0}
+    th, ws = fits[0]
+    smem = smem_of(n_tile, max_offset, th, ws)
+    col_tiles = -(-cout // n_tile)
+    groups = -(-9 // taps)
+    chunks = -(-cin // WEIGHT_CHUNK)
+    tiles = _tiles(b, h, w, th)
+    resident = min(_resident(smem, 256),
+                   WEIGHT_MIN_BLOCKS.get((dtype, n_tile), 1))
+    units = chunks * groups * col_tiles
+    splits = _wave_splits(units, tiles, resident)
+    plan = {"route": "window", "tile": (th, TILE[1]), "chunk": WEIGHT_CHUNK,
+            "n_tile": n_tile, "taps": taps, "groups": groups,
+            "chunks": chunks, "col_tiles": col_tiles,
+            "window_slots": ws, "tiles": tiles, "resident": resident,
+            "split_rule": "waves",
+            "splits": splits, "tile_ranges": _k_ranges(tiles, splits),
+            "blocks": units * splits, "smem_bytes": smem,
+            "scratch": splits * 9 * cin * cout if splits > 1 else 0}
+    if dtype == "float32":
+        plan["grad_split"] = tiles * col_tiles * 2 * n_tile * th * TILE[1]
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_weight_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
+                         max_offset: int) -> dict:
+    """Launch plan of the float32 weight gradient. Window route
+    (``dcn_local_bwd_weight``): the tile rows (4, 2 or 1: the first whose
+    shared memory fits) and x-window slots (two, else one), the N tile
+    (64, 128 or 256), the taps of a block (``WEIGHT_TAPS``) and their
+    groups, the Cin chunks, the pixel tiles and their splits by the wave
+    rule (``_wave_splits``: the units chunks x tap groups x N tiles, the
+    tiles the steps), the blocks, the dynamic shared memory, the float32
+    scratch of the output grad split into TF32 hi and lo by tile
+    (``grad_split``) and of the split partials (``scratch``). Where no
+    tile fits shared memory (a max_offset past about 7 at Cout 256), the
+    gather route (``dcn_local_bwd_weight_gather``): its pixel splits and
+    partials. Any max_offset and width have a plan. Cached per shape:
+    callers read it and never change it."""
+    return _weight_plan("float32", _weight_fp32_smem, b, h, w, cin, cout,
+                        max_offset)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_weight_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
+                         max_offset: int) -> dict:
+    """Launch plan of the bf16 weight gradient, as
+    ``bwd_weight_fp32_plan`` (window route ``dcn_local_bwd_weight_bf16``,
+    no split output grad; gather route
+    ``dcn_local_bwd_weight_gather_bf16``, whose partials are always
+    summed and rounded by a second kernel)."""
+    return _weight_plan("bfloat16", _weight_bf16_smem, b, h, w, cin, cout,
+                        max_offset)
 
 
 def _plan_ints(plan: dict, *keys: str) -> tuple:
@@ -492,29 +623,40 @@ def launch_bwd_data(x, offset, mask, weight, grad_out, max_offset):
     return grad_x, grad_offset, grad_mask
 
 
-def weight_splits(npix: int, cin: int, cout: int) -> int:
-    """Pixel splits of the weight-grad reduction: enough blocks to fill
-    the card (``TARGET_BLOCKS``), at least 256 pixels per split."""
-    tiles = -(-cin // 64) * -(-cout // 64) * 9
-    return max(1, min(-(-TARGET_BLOCKS // tiles), -(-npix // 256)))
-
-
 def launch_bwd_weight(x, offset, mask, grad_out, cout, max_offset):
-    """``dcn_local_bwd_weight`` -> grad weight (3, 3, Cin, Cout)."""
-    global BWD_WEIGHT_LAUNCHES
+    """The float32 weight gradient -> grad weight (3, 3, Cin, Cout), by
+    ``bwd_weight_fp32_plan``: ``dcn_local_bwd_weight`` (window route) or
+    ``dcn_local_bwd_weight_gather``."""
+    global BWD_WEIGHT_LAUNCHES, BWD_WEIGHT_GATHER_LAUNCHES
     _check_grad(grad_out, x, cout)
     b, h, w, cin = x.shape
-    splits = weight_splits(b * h * w, cin, cout)
+    if b * h * w == 0:
+        return torch.zeros((3, 3, cin, cout), device=x.device,
+                           dtype=torch.float32)
+    plan = bwd_weight_fp32_plan(b, h, w, cin, cout, max_offset)
     grad_w = torch.empty((3, 3, cin, cout), device=x.device,
                          dtype=torch.float32)
-    partial = (torch.empty((splits, 9, cin, cout), device=x.device,
-                           dtype=torch.float32) if splits > 1 else None)
+    if plan["route"] == "gather":
+        partial = _scratch(plan, "scratch", x.device)
+        _ok(_kernel("dcn_local_bwd_weight_gather")(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            grad_out.data_ptr(), grad_w.data_ptr(), _ptr(partial),
+            b, h, w, cin, cout, max_offset, plan["splits"], _stream(x)),
+            "dcn_local_bwd_weight_gather")
+        BWD_WEIGHT_GATHER_LAUNCHES += 1
+        return grad_w
+    # one allocation for both scratches: the split output grad, then the
+    # partials (16-byte aligned: grad_split is a multiple of 4 floats)
+    scratch = torch.empty(plan["grad_split"] + plan["scratch"],
+                          device=x.device, dtype=torch.float32)
+    gsplit = scratch.data_ptr()
+    partial = gsplit + 4 * plan["grad_split"] if plan["scratch"] else None
     _ok(_kernel("dcn_local_bwd_weight")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-        grad_out.data_ptr(), grad_w.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        b, h, w, cin, cout, max_offset, splits, _stream(x)),
-        "dcn_local_bwd_weight")
+        grad_out.data_ptr(), grad_w.data_ptr(), partial, gsplit,
+        b, h, w, cin, cout, max_offset,
+        *_plan_ints(plan, "n_tile", "taps", "window_slots", "splits"),
+        _stream(x)), "dcn_local_bwd_weight")
     BWD_WEIGHT_LAUNCHES += 1
     return grad_w
 
@@ -544,20 +686,31 @@ def launch_bwd_data_bf16(x, offset, mask, weight, grad_out, max_offset):
 
 
 def launch_bwd_weight_bf16(x, offset, mask, grad_out, cout, max_offset):
-    """``dcn_local_bwd_weight_bf16`` on bf16 CUDA tensors -> bf16 grad
-    weight (3, 3, Cin, Cout), reduced over float32 partials."""
-    global BWD_WEIGHT_BF16_LAUNCHES
+    """The bf16 weight gradient on bf16 CUDA tensors -> bf16 grad weight
+    (3, 3, Cin, Cout), by ``bwd_weight_bf16_plan``:
+    ``dcn_local_bwd_weight_bf16`` (window route) or
+    ``dcn_local_bwd_weight_gather_bf16``; summed in float32 and rounded
+    once."""
+    global BWD_WEIGHT_BF16_LAUNCHES, BWD_WEIGHT_GATHER_BF16_LAUNCHES
     _check_grad(grad_out, x, cout)
     b, h, w, cin = x.shape
-    splits = weight_splits(b * h * w, cin, cout)
+    if b * h * w == 0:
+        return torch.zeros((3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    plan = bwd_weight_bf16_plan(b, h, w, cin, cout, max_offset)
     grad_w = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
-    partial = torch.empty((splits, 9, cin, cout), device=x.device,
-                          dtype=torch.float32)
+    partial = _scratch(plan, "scratch", x.device)
+    ptrs = (x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            grad_out.data_ptr(), grad_w.data_ptr(), _ptr(partial))
+    if plan["route"] == "gather":
+        _ok(_kernel("dcn_local_bwd_weight_gather_bf16")(
+            *ptrs, b, h, w, cin, cout, max_offset, plan["splits"],
+            _stream(x)), "dcn_local_bwd_weight_gather_bf16")
+        BWD_WEIGHT_GATHER_BF16_LAUNCHES += 1
+        return grad_w
     _ok(_kernel("dcn_local_bwd_weight_bf16")(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-        grad_out.data_ptr(), grad_w.data_ptr(), partial.data_ptr(),
-        b, h, w, cin, cout, max_offset, splits, _stream(x)),
-        "dcn_local_bwd_weight_bf16")
+        *ptrs, b, h, w, cin, cout, max_offset,
+        *_plan_ints(plan, "n_tile", "taps", "window_slots", "splits"),
+        _stream(x)), "dcn_local_bwd_weight_bf16")
     BWD_WEIGHT_BF16_LAUNCHES += 1
     return grad_w
 

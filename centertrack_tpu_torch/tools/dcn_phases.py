@@ -1,13 +1,13 @@
-"""Where a block of the DCN forward and data-gradient kernels spends its
-cycles, on one NVIDIA GPU: `dcn_local_fwd_bf16` and
-`dcn_local_bwd_data_bf16` (the default), or with `--dtype float32`
-`dcn_local_fwd` and `dcn_local_bwd_data`, are built from their sources
-with `-DDCN_PHASES`, which turns their `DCN_PHASE(k)` marks
-(`csrc/hopper.cuh`) into `clock64()` counters at the phase boundaries
-of their K loop, launched through the port's launchers at the neck
-shapes below, and each phase's cycles, summed over each block's thread 0
-and averaged over the blocks, printed as one JSON line per kernel and
-shape.
+"""Where a block of the DCN kernels spends its cycles, on one NVIDIA GPU:
+`dcn_local_fwd_bf16`, `dcn_local_bwd_data_bf16` and
+`dcn_local_bwd_weight_bf16` (the default), or with `--dtype float32`
+`dcn_local_fwd`, `dcn_local_bwd_data` and `dcn_local_bwd_weight`, are
+built from their sources with `-DDCN_PHASES`, which turns their
+`DCN_PHASE(k)` marks (`csrc/hopper.cuh`) into `clock64()` counters at
+the phase boundaries of their K loop, launched through the port's
+launchers at the neck shapes below, and each phase's cycles, summed
+over each block's thread 0 and averaged over the blocks, printed as one
+JSON line per kernel and shape.
 
     python3 -m centertrack_tpu_torch.tools.dcn_phases
     python3 -m centertrack_tpu_torch.tools.dcn_phases --dtype float32
@@ -22,7 +22,16 @@ late), `sample` (building A_s), `wait` (copy wait and barrier),
 barrier and the next copies). Of the data kernels: `prologue` (tile
 staging and each step's tail), `wait` (copy wait and barrier), `product`
 (G on the tensor cores), `walk` (support walk), `chunk_barrier`, `flush`
-(grad-x tile out by atomics). The counters cost
+(grad-x tile out by atomics). Of the weight kernels (both dtypes):
+`window_wait` (the first tile's staging and each tile's wait for its
+copies), `barrier` (the barrier after it), `next_window` (issuing the
+next tile's window copy), `next_entries` (loading its offsets and
+mask), `build` (building a tap's A_t and the barrier after it),
+`product`
+(issuing its product, waiting for the one before it, the barrier and,
+after a tile's first, the next tile's output grad into its slot),
+`table` (the next tile's corner table), `flush` (the accumulators
+out). The counters cost
 a few cycles each; the instrumented libraries are built under
 build/phases and used only by this tool, in this process. Without a GPU
 it exits with an error.
@@ -51,20 +60,28 @@ FWD_PHASES = ["prologue", "wait", "sample", "barrier"]
 FWD_FP32_PHASES = ["window_wait", "sample", "wait", "product"]
 DATA_PHASES = ["prologue", "wait", "product", "walk", "chunk_barrier",
                "flush"]
-# dtype -> source in csrc/ -> (symbol, phase names in DCN_PHASE order,
+WEIGHT_PHASES = ["window_wait", "build", "product", "flush", "table",
+                 "barrier", "next_window", "next_entries"]
+# dtype -> symbol -> (source in csrc/, phase names in DCN_PHASE order,
 # its launcher and its planner in ops/dcn)
 KERNELS = {
     "bfloat16": {
-        "dcn_local_bf16": ("dcn_local_fwd_bf16", FWD_PHASES,
-                           "launch_fwd_bf16", "fwd_bf16_plan"),
-        "dcn_local_bwd_bf16": ("dcn_local_bwd_data_bf16", DATA_PHASES,
-                               "launch_bwd_data_bf16",
-                               "bwd_data_bf16_plan")},
+        "dcn_local_fwd_bf16": ("dcn_local_bf16", FWD_PHASES,
+                               "launch_fwd_bf16", "fwd_bf16_plan"),
+        "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", DATA_PHASES,
+                                    "launch_bwd_data_bf16",
+                                    "bwd_data_bf16_plan"),
+        "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", WEIGHT_PHASES,
+                                      "launch_bwd_weight_bf16",
+                                      "bwd_weight_bf16_plan")},
     "float32": {
-        "dcn_local": ("dcn_local_fwd", FWD_FP32_PHASES, "launch_fwd",
-                      "fwd_fp32_plan"),
-        "dcn_local_bwd": ("dcn_local_bwd_data", DATA_PHASES,
-                          "launch_bwd_data", "bwd_data_fp32_plan")},
+        "dcn_local_fwd": ("dcn_local", FWD_FP32_PHASES, "launch_fwd",
+                          "fwd_fp32_plan"),
+        "dcn_local_bwd_data": ("dcn_local_bwd", DATA_PHASES,
+                               "launch_bwd_data", "bwd_data_fp32_plan"),
+        "dcn_local_bwd_weight": ("dcn_local_bwd", WEIGHT_PHASES,
+                                 "launch_bwd_weight",
+                                 "bwd_weight_fp32_plan")},
 }
 
 
@@ -90,8 +107,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("dcn_phases: no CUDA device")
     libs, launchers = {}, {}
-    for name, (symbol, *_) in kernels.items():
-        libs[name] = _instrumented(_build, name)
+    for symbol, (name, *_) in kernels.items():
+        if name not in libs:
+            libs[name] = _instrumented(_build, name)
         fn = getattr(libs[name], symbol)
         _, n_ptr, n_int = dcn._SIGNATURES[symbol]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -113,11 +131,18 @@ def main(argv=None) -> int:
                                   device="cuda") * 0.05).to(dtype)
             g = torch.randn(b, h, w, cout, generator=gen,
                             device="cuda").to(dtype)
-            for name, (symbol, phases, launch, planner) in kernels.items():
-                fwd = phases is not DATA_PHASES
-                call = (lambda: getattr(dcn, launch)(
-                    x, offset, mask, weight, None if fwd else g, r))
+            for symbol, (name, phases, launch, planner) in kernels.items():
+                if phases is WEIGHT_PHASES:
+                    call = (lambda: getattr(dcn, launch)(
+                        x, offset, mask, g, cout, r))
+                else:
+                    fwd = phases is not DATA_PHASES
+                    call = (lambda: getattr(dcn, launch)(
+                        x, offset, mask, weight, None if fwd else g, r))
                 plan = getattr(dcn, planner)(b, h, w, cin, cout, r)
+                # the K loop of a block: steps (taps x Cin chunks) for the
+                # forward and data kernels, pixel tiles for the weight
+                steps = plan["steps"] if "steps" in plan else plan["tiles"]
                 buf = (ctypes.c_ulonglong * 8)()
                 for _ in range(3):
                     call()
@@ -134,7 +159,7 @@ def main(argv=None) -> int:
                     "kernel": symbol, "batch": b, "hw": [h, w], "cin": cin,
                     "cout": cout, "chunk": plan["chunk"],
                     "blocks": plan["blocks"], "splits": plan["splits"],
-                    "steps_per_block": plan["steps"] / plan["splits"],
+                    "steps_per_block": steps / plan["splits"],
                     "cycles_per_block": cycles,
                     "share": {p: c / sum(cycles.values())
                               for p, c in cycles.items()}}), flush=True)

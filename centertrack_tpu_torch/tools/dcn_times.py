@@ -1,10 +1,11 @@
-"""Device times of the DCN forward and data-gradient kernels of one
-dtype at the seven DLA-34 neck shapes of the 544x960 path (R=1), at B=1
-and B=8, on one NVIDIA GPU, by the measurement of ``chip_smoke.py``'s
-kernel and grad phases: ``dcn_local_fwd_bf16`` and
-``dcn_local_bwd_data_bf16`` (the bf16 paths' kernels, the default), or
-with ``--dtype float32`` ``dcn_local_fwd`` and ``dcn_local_bwd_data``
-(the float32 paths').
+"""Device times of the DCN kernels of one dtype at the seven DLA-34 neck
+shapes of the 544x960 path (R=1), at B=1 and B=8, on one NVIDIA GPU, by
+the measurement of ``chip_smoke.py``'s kernel and grad phases: the
+forward, the data gradient and the weight gradient,
+``dcn_local_fwd_bf16``, ``dcn_local_bwd_data_bf16`` and
+``dcn_local_bwd_weight_bf16`` (the bf16 paths' kernels, the default), or
+with ``--dtype float32`` ``dcn_local_fwd``, ``dcn_local_bwd_data`` and
+``dcn_local_bwd_weight`` (the float32 paths').
 
     python3 -m centertrack_tpu_torch.tools.dcn_times
     python3 -m centertrack_tpu_torch.tools.dcn_times --against DIR
@@ -17,9 +18,10 @@ The neck shapes (``chip_smoke.NECK_SHAPES``), the seeded inputs
 warm-up; ``chip_smoke.queued_us``: median of 20 calls each queued behind
 a spin kernel, the device's time) are the smoke's, taken from the
 ``chip_smoke.py`` beside this package. The kernels are called through
-the launchers ``ops/dcn.launch_fwd_bf16`` and ``launch_bwd_data_bf16``
-(``launch_fwd`` and ``launch_bwd_data`` at float32), whose signatures
-are the same in every version of the port that has them.
+the launchers ``ops/dcn.launch_fwd_bf16``, ``launch_bwd_data_bf16`` and
+``launch_bwd_weight_bf16`` (``launch_fwd``, ``launch_bwd_data`` and
+``launch_bwd_weight`` at float32), whose signatures are the same in
+every version of the port that has them.
 
 ``--root DIR`` times the package of the checkout in DIR instead of this
 one (its kernels are built into DIR/build), with this checkout's
@@ -43,12 +45,15 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 BATCHES = (1, 8)
-# dtype -> (kernel, its launcher in ops/dcn) of the forward and the data
-# gradient
+# dtype -> (kernel, its launcher in ops/dcn) of the forward, the data
+# gradient and the weight gradient
 KERNELS = {"bfloat16": (("dcn_local_fwd_bf16", "launch_fwd_bf16"),
-                        ("dcn_local_bwd_data_bf16", "launch_bwd_data_bf16")),
+                        ("dcn_local_bwd_data_bf16", "launch_bwd_data_bf16"),
+                        ("dcn_local_bwd_weight_bf16",
+                         "launch_bwd_weight_bf16")),
            "float32": (("dcn_local_fwd", "launch_fwd"),
-                       ("dcn_local_bwd_data", "launch_bwd_data"))}
+                       ("dcn_local_bwd_data", "launch_bwd_data"),
+                       ("dcn_local_bwd_weight", "launch_bwd_weight"))}
 
 
 def _smoke():
@@ -73,7 +78,8 @@ def measure(root: str, dtype: str = "bfloat16") -> dict:
     smoke = _smoke()
     gen = torch.Generator(device="cuda").manual_seed(5)
     r = 1
-    (fwd, launch_fwd), (data, launch_data) = KERNELS[dtype]
+    (fwd, launch_fwd), (data, launch_data), (wgt, launch_wgt) = \
+        KERNELS[dtype]
     rows = []
     for b in BATCHES:
         for name, h, w, cin, cout, per, _ in smoke.NECK_SHAPES:
@@ -82,8 +88,10 @@ def measure(root: str, dtype: str = "bfloat16") -> dict:
             calls = (lambda: getattr(dcn, launch_fwd)(x, offset, mask,
                                                       weight, bias, r),
                      lambda: getattr(dcn, launch_data)(x, offset, mask,
-                                                       weight, g, r))
-            for kernel, fn in zip((fwd, data), calls):
+                                                       weight, g, r),
+                     lambda: getattr(dcn, launch_wgt)(x, offset, mask, g,
+                                                      cout, r))
+            for kernel, fn in zip((fwd, data, wgt), calls):
                 rows.append({"kernel": kernel, "map": name, "batch": b,
                              "hw": [h, w], "cin": cin, "cout": cout,
                              "launches_per_image": per,

@@ -26,19 +26,29 @@ Phases, each printing one JSON line with its elapsed seconds:
            bound (float32: 3xTF32 on the tensor cores, and the same work
            on the CUDA cores beside it) and the launch plan (tile, chunk,
            N tile, window slots, splits, blocks, shared memory)
+  precision  a float32 3x3 convolution and matmul against float64 with
+           the process's flags and inside the package's full_float32
+           (the float32 paths' precision); fails if TF32 is on inside
   grad     dcn_local_bwd_data and dcn_local_bwd_weight (through the
            autograd function) against autograd of the plain version, at
            the same cases, on random offsets (some past +/-R) and on
            all-zero offsets (the kinks), with kernel, device, plain and
-           bound times and the data kernel's launch plan
+           bound times (3xTF32 and on the CUDA cores) and both launch
+           plans; two weight launches must give a bit-identical grad w
   grad_bf16  dcn_local_bwd_data_bf16 and dcn_local_bwd_weight_bf16
            against autograd of the plain bf16 version at the bf16
            forward's cases and the same offsets, every element within the
            bf16 forward's tolerance, with kernel, device, plain and bound
-           times and the data kernel's launch plan
+           times and both launch plans; grad w bit-identical over two
+           launches
+  gather, gather_bf16  the weight gradient's gather route, the planner's
+           choice where no window fits in shared memory, against the
+           plain version at one such max offset per dtype
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
-           synthetic 1080p frames, every frame fetched; the forward kernel
+           synthetic 1080p frames, every frame fetched, with the process's
+           own precision flags (torch's defaults; the run must read TF32
+           off inside and give the flags back); the forward kernel
            must launch exactly 16 times per frame; the first 3 frames are
            then re-run with the DCN on its plain version and must agree,
            and each of the first frame's 16 launches is held against the
@@ -49,7 +59,8 @@ Phases, each printing one JSON line with its elapsed seconds:
            the first 3 frames re-run with the plain bf16 DCN must agree;
            the rows are compared with the float32 path's
   train    the port's Trainer on the same model and checkpoint at
-           544x960, B=8, Adam: 12 steps on one fixed batch built from 9
+           544x960, B=8, Adam (the flags as in path, read inside
+           train_step): 12 steps on one fixed batch built from 9
            consecutive synthetic frames; the loss must be finite and fall,
            and each DCN kernel must launch 16 times per step; a 13th step
            in which every one of the 48 launches is held against the
@@ -280,6 +291,16 @@ def dcn_bwd_data_bound_ms_3xtf32(n, cin, cout):
         4.0 * (2 * n * cin + 2 * n * 27 + 9 * cin * cout + n * cout))
 
 
+def dcn_bwd_weight_bound_ms_3xtf32(n, cin, cout):
+    """Least H100 time of ``dcn_local_bwd_weight`` with its contraction
+    over pixels in 3xTF32: the work and bytes of ``dcn_bwd_bound_ms``'s
+    weight kernel, the contraction three times at the TF32 peak, the
+    sampling at the fp32 peak."""
+    return _bound_3xtf32_ms(
+        2.0 * n * 9 * cin * cout, 8.0 * n * 9 * cin,
+        4.0 * (n * cin + n * 27 + n * cout + 9 * cin * cout))
+
+
 def dcn_bound_ms_bf16(n, cin, cout):
     """Least H100 time for one bf16 clamped-DCN call: the contraction at
     the dense bf16 tensor-core peak plus the bilinear sampling (in
@@ -365,15 +386,19 @@ def _launches():
     return {"dcn_local_fwd": dcn.LAUNCHES,
             "dcn_local_bwd_data": dcn.BWD_DATA_LAUNCHES,
             "dcn_local_bwd_weight": dcn.BWD_WEIGHT_LAUNCHES,
+            "dcn_local_bwd_weight_gather": dcn.BWD_WEIGHT_GATHER_LAUNCHES,
             "dcn_local_fwd_bf16": dcn.BF16_LAUNCHES,
             "dcn_local_bwd_data_bf16": dcn.BWD_DATA_BF16_LAUNCHES,
-            "dcn_local_bwd_weight_bf16": dcn.BWD_WEIGHT_BF16_LAUNCHES}
+            "dcn_local_bwd_weight_bf16": dcn.BWD_WEIGHT_BF16_LAUNCHES,
+            "dcn_local_bwd_weight_gather_bf16":
+                dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES}
 
 
 def _reset_launches():
     dcn.LAUNCHES = dcn.BWD_DATA_LAUNCHES = dcn.BWD_WEIGHT_LAUNCHES = 0
     dcn.BF16_LAUNCHES = 0
     dcn.BWD_DATA_BF16_LAUNCHES = dcn.BWD_WEIGHT_BF16_LAUNCHES = 0
+    dcn.BWD_WEIGHT_GATHER_LAUNCHES = dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0
 
 
 def phase_device():
@@ -385,9 +410,6 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=10, check=True).stdout.strip()
     print(smi, flush=True)
-    # full fp32 everywhere: the kernel, its plain version and cuDNN
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     info = {"name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -409,6 +431,88 @@ def phase_build():
             "ptxas": [ln.strip() for ln in info["log"].splitlines()
                       if "registers" in ln or "smem" in ln or "spill" in ln]}
     emit("build", seconds=round(time.perf_counter() - t, 3), libraries=libs)
+
+
+def read_flags():
+    """The package's ``utils.precision.read_flags``, imported where used:
+    tools/dcn_times.py loads this module beside an earlier checkout's
+    package, which may lack it."""
+    from centertrack_tpu_torch.utils import precision
+    return precision.read_flags()
+
+
+def full_float32(compute_dtype):
+    """The package's ``utils.precision.full_float32`` (imported where
+    used, as ``read_flags``)."""
+    from centertrack_tpu_torch.utils import precision
+    return precision.full_float32(compute_dtype)
+
+
+def _rel_to(out, ref):
+    return ((out.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_precision():
+    """Which precision cuDNN's float32 convolutions and cuBLAS's float32
+    matmuls take on this card and torch: a 3x3 convolution and a matmul
+    against float64, with the process's flags as torch starts them
+    (cuDNN convolutions in TF32), with the matmuls set to TF32 by the
+    legacy call, and inside the package's ``full_float32``, under which
+    the float32 paths run. Fails if either is not full float32 inside,
+    or the flags are not the caller's again after it."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(1, 64, 68, 120, generator=gen, device="cuda")
+    wc = torch.randn(64, 64, 3, 3, generator=gen, device="cuda")
+    a = torch.randn(2048, 576, generator=gen, device="cuda")
+    bm = torch.randn(576, 64, generator=gen, device="cuda")
+    conv = lambda: torch.nn.functional.conv2d(x, wc, padding=1)
+    ref_conv = torch.nn.functional.conv2d(x.double(), wc.double(), padding=1)
+    ref_mm = a.double() @ bm.double()
+    flags = {"process": read_flags()}
+    errs = {"process": {"conv": _rel_to(conv(), ref_conv),
+                        "matmul": _rel_to(a @ bm, ref_mm)}}
+    legacy = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        flags["matmul_high"] = read_flags()
+        errs["matmul_high"] = {"matmul": _rel_to(a @ bm, ref_mm)}
+        with full_float32("float32"):
+            flags["inside_full_float32"] = read_flags()
+            errs["inside_full_float32"] = {
+                "conv": _rel_to(conv(), ref_conv),
+                "matmul": _rel_to(a @ bm, ref_mm)}
+        restored = read_flags() == flags["matmul_high"]
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+    emit("precision", flags=flags, rel_err_vs_float64=errs,
+         flags_restored=restored)
+    inside = errs["inside_full_float32"]
+    if max(inside.values()) > 1e-5 or not restored:
+        raise RuntimeError(f"full_float32 left TF32 on or did not restore "
+                           f"the flags: {errs}, {flags}")
+    return errs
+
+
+def _flags_inside(model):
+    """A forward pre-hook on ``model`` that keeps the precision flags read
+    at its first call; returns (the kept list, the hook's handle)."""
+    kept = []
+    handle = model.register_forward_pre_hook(
+        lambda module, args: kept.append(read_flags()) if not kept
+        else None)
+    return kept, handle
+
+
+def _check_flags(kind, dtype, inside, outside):
+    """At float32 the network ran with TF32 off and cuDNN on; at bf16
+    with the caller's flags untouched."""
+    full = {"cudnn_enabled": True, "cudnn_allow_tf32": False,
+            "cudnn_conv": "ieee", "cudnn_rnn": "ieee", "cuda_matmul": "ieee",
+            "float32_matmul_precision": "highest"}
+    want = full if dtype == "float32" else outside
+    if inside != want:
+        raise RuntimeError(f"{kind} at {dtype}: flags inside {inside}, "
+                           f"expected {want}")
 
 
 # ---- the toolchain probes (csrc/probes.cu) ---------------------------
@@ -730,9 +834,9 @@ def dcn_inputs(gen, b, h, w, cin, cout, r, dtype=torch.bfloat16):
 
 
 def _plan_row(plan):
-    return {k: plan[k] for k in ("tile", "chunk", "n_tile", "window_slots",
-                                 "warpgroups", "splits", "blocks",
-                                 "smem_bytes") if k in plan}
+    return {k: plan[k] for k in ("route", "tile", "chunk", "n_tile", "taps",
+                                 "window_slots", "warpgroups", "splits",
+                                 "blocks", "smem_bytes") if k in plan}
 
 
 def phase_kernel_bf16():
@@ -828,8 +932,8 @@ def phase_grad():
             x, offset, mask, weight, g, r), 3, 20)
         data_device_ms = queued_us(lambda: dcn.launch_bwd_data(
             x, offset, mask, weight, g, r), 20) / 1e3
-        weight_ms = time_ms(lambda: dcn.launch_bwd_weight(
-            x, offset, mask, g, cout, r), 3, 20)
+        weight_ms, weight_device_ms = _weight_times(
+            dcn.launch_bwd_weight, x, offset, mask, g, cout, r)
         pins = [t.clone().requires_grad_() for t in
                 (x, offset, mask, weight)]
         pout = dcn.deform_conv2d_local_plain(*pins, None, r)
@@ -842,11 +946,15 @@ def phase_grad():
         (data_fp32, _), (weight_b, weight_by) = dcn_bwd_bound_ms(n, cin,
                                                                  cout)
         data_b, data_by = dcn_bwd_data_bound_ms_3xtf32(n, cin, cout)
+        weight_b3, weight_by3 = dcn_bwd_weight_bound_ms_3xtf32(n, cin, cout)
         row = {"map": name, "batch": bsz, "hw": [h, w], "cin": cin,
                "cout": cout, "R": r,
                "launches_per_step_and_image": per_frame, "layers": layers,
                "data_plan": _plan_row(dcn.bwd_data_fp32_plan(
                    bsz, h, w, cin, cout, r)),
+               "weight_plan": _plan_row(dcn.bwd_weight_fp32_plan(
+                   bsz, h, w, cin, cout, r)),
+               "weight_bit_identical_over_two_launches": True,
                "data_max_abs_err": max(e[k][0] for e in errs.values()
                                        for k in ("x", "offset", "mask")),
                "weight_max_abs_err": max(e["weight"][0]
@@ -858,8 +966,10 @@ def phase_grad():
                "data_plain_ms": plain_data_ms,
                "data_bound_ms": data_b, "data_bound_by": data_by,
                "data_bound_ms_fp32_cuda_cores": data_fp32,
-               "weight_ms": weight_ms, "weight_plain_ms": plain_weight_ms,
-               "weight_bound_ms": weight_b, "weight_bound_by": weight_by,
+               "weight_ms": weight_ms, "weight_device_ms": weight_device_ms,
+               "weight_plain_ms": plain_weight_ms,
+               "weight_bound_ms": weight_b3, "weight_bound_by": weight_by3,
+               "weight_bound_ms_fp32_cuda_cores": weight_b,
                "library_ms": None}
         rows.append(row)
         emit("grad", **row)
@@ -915,8 +1025,8 @@ def phase_grad_bf16():
             x, offset, mask, weight, g, r), 3, 20)
         data_device_ms = queued_us(lambda: dcn.launch_bwd_data_bf16(
             x, offset, mask, weight, g, r), 20) / 1e3
-        weight_ms = time_ms(lambda: dcn.launch_bwd_weight_bf16(
-            x, offset, mask, g, cout, r), 3, 20)
+        weight_ms, weight_device_ms = _weight_times(
+            dcn.launch_bwd_weight_bf16, x, offset, mask, g, cout, r)
         pins = [t.clone().requires_grad_() for t in
                 (x, offset, mask, weight)]
         pout = dcn.deform_conv2d_local_plain(*pins, None, r)
@@ -932,6 +1042,9 @@ def phase_grad_bf16():
                "launches_per_step_and_image": per_frame, "layers": layers,
                "data_plan": _plan_row(dcn.bwd_data_bf16_plan(
                    bsz, h, w, cin, cout, r)),
+               "weight_plan": _plan_row(dcn.bwd_weight_bf16_plan(
+                   bsz, h, w, cin, cout, r)),
+               "weight_bit_identical_over_two_launches": True,
                "data_max_abs_err": max(e[k]["max_abs_err"]
                                        for e in errs.values()
                                        for k in names[:3]),
@@ -942,12 +1055,93 @@ def phase_grad_bf16():
                "data_ms": data_ms, "data_device_ms": data_device_ms,
                "data_plain_ms": plain_data_ms,
                "data_bound_ms": data_b, "data_bound_by": data_by,
-               "weight_ms": weight_ms, "weight_plain_ms": plain_weight_ms,
+               "weight_ms": weight_ms, "weight_device_ms": weight_device_ms,
+               "weight_plain_ms": plain_weight_ms,
                "weight_bound_ms": weight_b, "weight_bound_by": weight_by,
                "library_ms": None}
         rows.append(row)
         emit("grad_bf16", **row)
     return rows
+
+
+def _weight_times(launch, x, offset, mask, g, cout, r):
+    """A weight-gradient launcher's two launches on the same inputs must
+    give a bit-identical grad w (its pixel sum runs in a fixed order);
+    then its times: CUDA events around a call, and the device's time
+    (queued behind a spin kernel)."""
+    first = launch(x, offset, mask, g, cout, r)
+    second = launch(x, offset, mask, g, cout, r)
+    torch.cuda.synchronize()
+    if not torch.equal(first.view(torch.int16 if first.dtype ==
+                                  torch.bfloat16 else torch.int32),
+                       second.view(torch.int16 if second.dtype ==
+                                   torch.bfloat16 else torch.int32)):
+        raise RuntimeError(f"{launch.__name__} on {tuple(x.shape)} -> "
+                           f"{cout}, R={r}: two launches differ")
+    return (time_ms(lambda: launch(x, offset, mask, g, cout, r), 3, 20),
+            queued_us(lambda: launch(x, offset, mask, g, cout, r), 20)
+            / 1e3)
+
+
+# the gather route of each dtype's weight gradient, at a max offset
+# whose window does not fit in shared memory: (B, H, W, Cin, Cout, R)
+GATHER_CASES = {"float32": (1, 17, 30, 64, 256, 8),
+                "bfloat16": (1, 17, 30, 64, 64, 16)}
+
+
+def phase_gather(dtype):
+    """The weight gradient's gather route (``dcn_local_bwd_weight_gather``
+    or ``_bf16``) at GATHER_CASES[dtype]: the plan must choose it, one
+    launch counted per call, grad w against the plain version's (float32
+    at GRAD_REL_TOL, bf16 per element within BF16_ULPS ulps +
+    BF16_REL_OF_MAX max|plain|), two launches bit-identical, times and
+    bounds."""
+    low = dtype == "bfloat16"
+    b, h, w, cin, cout, r = GATHER_CASES[dtype]
+    plan = (dcn.bwd_weight_bf16_plan if low else dcn.bwd_weight_fp32_plan)(
+        b, h, w, cin, cout, r)
+    if plan["route"] != "gather":
+        raise RuntimeError(f"{dtype} weight plan at R={r}, Cout={cout}: "
+                           f"{plan['route']}, expected the gather route")
+    launch = dcn.launch_bwd_weight_bf16 if low else dcn.launch_bwd_weight
+    kernel = "dcn_local_bwd_weight_gather" + ("_bf16" if low else "")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, offset, mask, _, _, g = dcn_inputs(gen, b, h, w, cin, cout, r,
+                                          getattr(torch, dtype))
+    _reset_launches()
+    out = launch(x, offset, mask, g, cout, r)
+    torch.cuda.synchronize()
+    if _launches()[kernel] != 1 or sum(_launches().values()) != 1:
+        raise RuntimeError(f"gather route: launches {_launches()}")
+    wz = torch.zeros(3, 3, cin, cout, device="cuda", dtype=x.dtype,
+                     requires_grad=True)
+    pout = dcn.deform_conv2d_local_plain(x, offset, mask, wz, None, r)
+    ref = torch.autograd.grad(pout, [wz], g, retain_graph=True)[0]
+    if low:
+        err, _, past_tol = bf16_agreement(out, ref)
+        if past_tol:
+            raise RuntimeError(f"{kernel}: {past_tol} elements past the "
+                               f"tolerance (max abs err {err})")
+    else:
+        err = (out - ref).abs().max().item()
+        if err > GRAD_REL_TOL * ref.abs().max().item():
+            raise RuntimeError(f"{kernel}: max abs err {err} > "
+                               f"{GRAD_REL_TOL} max|plain|")
+    ms, device_ms = _weight_times(launch, x, offset, mask, g, cout, r)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        pout, [wz], g, retain_graph=True), 1, 3)
+    n = b * h * w
+    bound, bound_by = (dcn_bwd_bound_ms_bf16(n, cin, cout)[1] if low else
+                       dcn_bwd_weight_bound_ms_3xtf32(n, cin, cout))
+    row = {"kernel": kernel, "batch": b, "hw": [h, w], "cin": cin,
+           "cout": cout, "R": r, "plan": plan, "max_abs_err": err,
+           "max_abs_ref": ref.float().abs().max().item(),
+           "bit_identical_over_two_launches": True,
+           "launches_in_check": 1, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": None}
+    emit("gather" if not low else "gather_bf16", **row)
+    return row
 
 
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
@@ -1019,6 +1213,8 @@ def phase_path(dtype="float32", ref_packed=None):
     det = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda")
 
     _reset_launches()
+    flags_outside = read_flags()
+    flags_inside, hook = _flags_inside(det.model)
     times, n_dets, packed, states = [], [], [], []
     for f in frames:
         if len(states) < PLAIN_FRAMES:
@@ -1032,6 +1228,10 @@ def phase_path(dtype="float32", ref_packed=None):
         if res.shape != (cfg.K, 13) or not torch.isfinite(res).all():
             raise RuntimeError(f"bad packed result {tuple(res.shape)}")
     counts = _launches()
+    hook.remove()
+    _check_flags("FusedDetector.run", dtype, flags_inside[0], flags_outside)
+    if read_flags() != flags_outside:
+        raise RuntimeError("FusedDetector.run did not restore the flags")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = counts[kernel]
     live = int(det.track_state.valid.sum())
@@ -1079,6 +1279,8 @@ def phase_path(dtype="float32", ref_packed=None):
     if _launches()[kernel] != launches + 16:
         raise RuntimeError("the plain-DCN run launched the kernel")
     row = {"compute_dtype": dtype, "kernel": kernel,
+           "flags_outside": flags_outside,
+           "flags_inside_run": flags_inside[0],
            "frames": PATH_FRAMES, "input": [cfg.input_h, cfg.input_w],
            "warp_precision": det.warp_precision,
            "ms_per_frame_median": statistics.median(times[PATH_WARMUP:]),
@@ -1405,6 +1607,8 @@ def phase_train(n_profile=0, dtype="float32"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    flags_outside = read_flags()
+    flags_inside, hook = _flags_inside(trainer.model)
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t = time.perf_counter()
@@ -1413,6 +1617,10 @@ def phase_train(n_profile=0, dtype="float32"):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t))
     counts = _launches()
+    hook.remove()
+    _check_flags("Trainer.train_step", dtype, flags_inside[0], flags_outside)
+    if read_flags() != flags_outside:
+        raise RuntimeError("Trainer.train_step did not restore the flags")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     tot = [l["tot"] for l in losses]
     if not all(np.isfinite(v) for l in losses for v in l.values()):
@@ -1457,6 +1665,8 @@ def phase_train(n_profile=0, dtype="float32"):
     ref = grads["plain"]
     l2 = _rel_l2(grads["kernel"], ref)
     row = {"compute_dtype": dtype, "input": [cfg.input_h, cfg.input_w],
+           "flags_outside": flags_outside,
+           "flags_inside_train_step": flags_inside[0],
            "batch": TRAIN_B, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
            "optim": cfg.optim,
            "loss_tot": tot, "loss_first": losses[0], "loss_last": losses[-1],
@@ -1524,11 +1734,19 @@ def main(argv):
     signal.alarm(BUDGET_S)
     dev = phase_device()
     phase_build()
-    probe_rows, probe_launches, probe_dcn_launches = phase_probes()
-    rows = phase_kernel()
-    bf16_rows = phase_kernel_bf16()
-    grad_rows = phase_grad()
-    grad_bf16_rows = phase_grad_bf16()
+    phase_precision()
+    # the kernel phases hold the kernels against their plain versions, so
+    # they run in full float32 (cuBLAS without TF32 for the plain
+    # versions' products); the paths after them run with the process's
+    # own flags, and the package sets its precision itself
+    with full_float32("float32"):
+        probe_rows, probe_launches, probe_dcn_launches = phase_probes()
+        rows = phase_kernel()
+        bf16_rows = phase_kernel_bf16()
+        grad_rows = phase_grad()
+        grad_bf16_rows = phase_grad_bf16()
+        gather_rows = {dt: phase_gather(dt)
+                       for dt in ("float32", "bfloat16")}
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
@@ -1573,6 +1791,8 @@ def main(argv):
         "train": launches[name], "train_bf16": launches_bf16[name],
         "probes": probe_dcn_launches[name]}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
+    weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "
+                     "cp.async haloed window, pixel splits by waves")
     kernels = [{
         "name": "dcn_local_fwd", "route": "cuda",
         "source": "centertrack_tpu_torch/csrc/dcn_local.cu",
@@ -1644,12 +1864,32 @@ def main(argv):
         }
         if at:
             row["at"] = at
+        row["device_ms"] = per_image(key + "_device_ms", neck_)
+        row["device_ms_per_image_at_b8"] = per_image(
+            key + "_device_ms", neck8_) / TRAIN_B
+        if kname in ("dcn_local_bwd_data", "dcn_local_bwd_weight"):
+            row["bound_ms_fp32_cuda_cores"] = per_image(
+                key + "_bound_ms_fp32_cuda_cores", neck_)
         if kname == "dcn_local_bwd_data":
             row["design"] = fp32_design
-            row["device_ms"] = per_image("data_device_ms", neck_)
-            row["bound_ms_fp32_cuda_cores"] = per_image(
-                "data_bound_ms_fp32_cuda_cores", neck_)
+        elif "weight" in kname:
+            row["design"] = weight_design
         kernels.append(row)
+    for dt, r in gather_rows.items():
+        kernels.append({
+            "name": r["kernel"], "route": "cuda",
+            "source": "centertrack_tpu_torch/csrc/dcn_local_bwd"
+                      + ("_bf16" if dt == "bfloat16" else "") + ".cu",
+            "replaces": bwd_replaces, "also_replaces": bwd_also,
+            "at": f"{dt} inputs, max offsets whose window does not fit",
+            "launches": 0, "launches_in_check": r["launches_in_check"],
+            "launches_by_path": {"train": 0, "train_bf16": 0},
+            "max_abs_err": r["max_abs_err"],
+            "per": f"one call at B={r['batch']}, {r['hw'][0]}x{r['hw'][1]}, "
+                   f"{r['cin']}->{r['cout']}, R={r['R']}",
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     for name, r in probe_rows.items():
         kernels.append({
             "name": r["kernel"], "route": "cuda",

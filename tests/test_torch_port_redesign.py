@@ -97,9 +97,12 @@ def _cases():
 def test_plan_covers_pixels_and_k_once_and_fits(kind, shape, b, r):
     """Tiles cover every output pixel once (the kernels' tile order:
     image, tile row, tile column); the splits' K ranges partition the
-    steps (taps x Cin chunks) without an empty one; at B=1 a neck launch
-    has at least two blocks per SM unless every step is its own split;
-    the shared memory fits a block of the H100."""
+    steps (taps x Cin chunks) without an empty one; a launch has at
+    least two blocks per SM unless every step is its own split, and its
+    splits are those of the rule its plan names: the data kernel's the
+    wave rule's (``_wave_splits``, as the float32 planners'), the
+    forward's two blocks per SM (``_k_splits``: none once the tiles
+    give them); the shared memory fits a block of the H100."""
     name, h, w, cin, cout = shape
     plan = PLANS[kind](b, h, w, cin, cout, r)
     th, tw = plan["tile"]
@@ -122,11 +125,17 @@ def test_plan_covers_pixels_and_k_once_and_fits(kind, shape, b, r):
 
     cols = plan.get("col_tiles", 1)
     assert plan["blocks"] == plan["tiles"] * cols * plan["splits"]
-    if b == 1 and name != "ragged":
-        assert (plan["blocks"] >= dcn.TARGET_BLOCKS // 2
-                or plan["splits"] == plan["steps"])
-    if plan["tiles"] * cols >= dcn.TARGET_BLOCKS // 2:
-        assert plan["splits"] == 1
+    assert (plan["blocks"] >= dcn.TARGET_BLOCKS // 2
+            or plan["splits"] == plan["steps"])
+    if kind == "data":
+        assert plan["split_rule"] == "waves"
+        assert plan["splits"] == dcn._wave_splits(
+            plan["tiles"], plan["steps"],
+            dcn._resident(plan["smem_bytes"], 128))
+    else:
+        assert plan["split_rule"] == "two_per_sm"
+        if plan["tiles"] * cols >= dcn.TARGET_BLOCKS // 2:
+            assert plan["splits"] == 1
     assert plan["smem_bytes"] <= dcn.SMEM_LIMIT == 227 * 1024
     if kind == "fwd":
         assert plan["n_tile"] in (64, 128, 256)

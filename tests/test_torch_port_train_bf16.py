@@ -359,9 +359,10 @@ def test_bf16_autograd_function_calls_the_bf16_kernels(monkeypatch):
     replaced by a recorder: forward and backward reach
     dcn_local_fwd_bf16, dcn_local_bwd_data_bf16 and
     dcn_local_bwd_weight_bf16 with the inputs' pointers, fresh outputs
-    and the sizes of their _SIGNATURES entries (the forward and the data
-    kernel followed by their launch plans: tile, chunk, the forward's N
-    tile, splits, shared memory); each bumps its own
+    and the sizes of their _SIGNATURES entries (each kernel followed by
+    its launch plan: tile, chunk, the forward's and the weight kernel's
+    N tile, the weight kernel's taps and window slots, splits, shared
+    memory); each bumps its own
     counter; no float32 kernel is reached; the gradients come back bf16
     in the inputs' shapes, the bias grad a float32 sum rounded once."""
     ins, g = _wiring_inputs()
@@ -393,13 +394,13 @@ def test_bf16_autograd_function_calls_the_bf16_kernels(monkeypatch):
     after = [getattr(dcn, c) for c in counters]
     assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 1, 1]
     sizes = (1, 6, 7, 4, 5, 1)
-    splits = dcn.weight_splits(42, 4, 5)
     ptr = [t.data_ptr() for t in ts]
     assert [c[0] for c in calls] == ["dcn_local_fwd_bf16",
                                      "dcn_local_bwd_data_bf16",
                                      "dcn_local_bwd_weight_bf16"]
     fwd = dcn.fwd_bf16_plan(1, 6, 7, 4, 5, 1)
     data = dcn.bwd_data_bf16_plan(1, 6, 7, 4, 5, 1)
+    wgt = dcn.bwd_weight_bf16_plan(1, 6, 7, 4, 5, 1)
     assert calls[0][1][:5] == tuple(ptr)
     assert calls[0][2] == (*sizes, 4, 16, 64, 64, fwd["splits"],
                            fwd["smem_bytes"])
@@ -407,7 +408,10 @@ def test_bf16_autograd_function_calls_the_bf16_kernels(monkeypatch):
     assert calls[1][2] == (*sizes, 4, 16, 64, data["splits"],
                            data["smem_bytes"])
     assert calls[2][1][:4] == (*ptr[:3], g.data_ptr())
-    assert calls[2][2] == (*sizes, splits)
+    assert wgt["route"] == "window"
+    assert calls[2][2] == (*sizes, *wgt["tile"], 64, wgt["n_tile"],
+                           wgt["taps"], wgt["window_slots"], wgt["splits"],
+                           wgt["smem_bytes"])
     for t in ts:
         assert t.grad.dtype == torch.bfloat16 and t.grad.shape == t.shape
     torch.testing.assert_close(ts[4].grad,
