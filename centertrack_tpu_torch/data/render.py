@@ -56,8 +56,9 @@ def render_single(sample: Dict[str, torch.Tensor], output_h: int,
                                        sample["ignore_valid"])}
     if with_pre_hm and "pre_cts_int" in sample:
         out["pre_hm"] = render_pre_hm(
-            input_h, input_w, sample["pre_cts_int"], sample["pre_radii"],
-            sample["pre_ks"], sample["pre_valid"])
+            input_h, input_w, sample["pre_cts_int"][None],
+            sample["pre_radii"][None], sample["pre_ks"][None],
+            sample["pre_valid"][None])[0]
     return out
 
 

@@ -95,3 +95,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _libs[name] = lib
     return lib
+
+
+_symbols: Dict[str, object] = {}
+
+
+def launcher(name: str, symbol: str, n_ptr: int, n_int: int):
+    """The extern "C" launcher ``symbol`` of csrc/<name>.cu (its library
+    built at first use) as a ctypes function of ``n_ptr`` pointers,
+    ``n_int`` ints and the stream, returning its CUDA error code."""
+    fn = _symbols.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _symbols[symbol] = fn
+    return fn

@@ -66,7 +66,6 @@ difference, and DCNv2's floor-based backward the forward difference.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -98,7 +97,6 @@ _SIGNATURES = {
     "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 14),
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
 }
-_launchers = {}
 
 # blocks a split launch aims for: four per SM of an H100 (the wave rule
 # asks for at least half of it)
@@ -143,15 +141,8 @@ WEIGHT_MIN_BLOCKS = {("bfloat16", 64): 2}
 
 
 def _kernel(symbol: str):
-    fn = _launchers.get(symbol)
-    if fn is None:
-        source, n_ptr, n_int = _SIGNATURES[symbol]
-        fn = getattr(_build.load(source), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _launchers[symbol] = fn
-    return fn
+    source, n_ptr, n_int = _SIGNATURES[symbol]
+    return _build.launcher(source, symbol, n_ptr, n_int)
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -34,7 +34,6 @@ Two facts of the JAX reference that the port follows:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -77,20 +76,13 @@ NAMES = tuple(SPECS)
 
 # launches of each probe kernel in this process; read and reset by callers
 LAUNCHES = {name: 0 for name in NAMES}
-_launchers = {}
 
 
 def _kernel(symbol: str):
     """The ctypes launcher ``symbol(pointers..., stream)`` of probes.cu."""
-    fn = _launchers.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load("probes"), symbol)
-        n_ptr = (len(SPECS[symbol[len("probe_"):]][0]) + 1
-                 if symbol != "probe_empty" else 0)
-        fn.argtypes = [ctypes.c_void_p] * (n_ptr + 1)
-        fn.restype = ctypes.c_int
-        _launchers[symbol] = fn
-    return fn
+    n_ptr = (len(SPECS[symbol[len("probe_"):]][0]) + 1
+             if symbol != "probe_empty" else 0)
+    return _build.launcher("probes", symbol, n_ptr, 0)
 
 
 def _stream(t: torch.Tensor) -> int:

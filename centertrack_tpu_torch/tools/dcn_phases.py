@@ -119,7 +119,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtype = getattr(torch, args.dtype)
     r = 1
-    with mock.patch.dict(dcn._launchers, launchers):
+    with mock.patch.dict(_build._symbols, launchers):
         for b, h, w, cin, cout in SHAPES:
             x = torch.randn(b, h, w, cin, generator=gen,
                             device="cuda").to(dtype)

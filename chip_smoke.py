@@ -7,8 +7,8 @@ Phases, each printing one JSON line with its elapsed seconds:
   device   the card's name and power limit (nvidia-smi); fails without CUDA
   build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
            csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu,
-           csrc/dcn_local_bwd_bf16.cu, csrc/probes.cu) into build/, all
-           started together
+           csrc/dcn_local_bwd_bf16.cu, csrc/probes.cu, csrc/tracker.cu)
+           into build/, all started together
   probes   the 13 toolchain-probe kernels of csrc/probes.cu (the JAX
            package's tools/pallas_probe.py P0-P6 and pallas_probe2.py
            P10-P15) against their plain versions on seeded and on
@@ -46,18 +46,46 @@ Phases, each printing one JSON line with its elapsed seconds:
            plain version at one such max offset per dtype
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
-           synthetic 1080p frames, every frame fetched, with the process's
-           own precision flags (torch's defaults; the run must read TF32
-           off inside and give the flags back); the forward kernel
-           must launch exactly 16 times per frame; the first 3 frames are
-           then re-run with the DCN on its plain version and must agree,
-           and each of the first frame's 16 launches is held against the
-           plain version on its own inputs
+           synthetic 1080p frames, every frame a CUDA graph replay (the
+           first call warms up and captures), fetched, with the process's
+           own precision flags (torch's defaults; the step must read TF32
+           off inside and the run give the flags back); every run after
+           the capture under set_sync_debug_mode("error"); the wrappers
+           run twice (warm-up, capture); then the counted run: the same
+           frames from a fresh state, all replays, under torch.profiler,
+           bit for bit the first run's rows, no wrapper called, and 16
+           device launches of the forward kernel, one of greedy_assign
+           and one of splat_pre_hm per frame (the path's launches, by
+           kernel name); the first 3
+           frames through the eager step must give the replays' rows bit
+           for bit, each of the first frame's 16 DCN launches and every
+           tracker launch held against its plain version on its own
+           inputs (greedy exactly, the splat within 1e-6 with the same
+           support), both tracker kernels timed at the path's shapes;
+           the first 3 frames re-run with the DCN on its plain version
+           must agree
   path_bf16  the same 30 frames, checkpoint and detector at
-           compute_dtype="bfloat16": dcn_local_fwd_bf16 must launch
-           exactly 16 times per frame and no float32 DCN kernel at all;
-           the first 3 frames re-run with the plain bf16 DCN must agree;
-           the rows are compared with the float32 path's
+           compute_dtype="bfloat16": the same checks with
+           dcn_local_fwd_bf16 and no float32 DCN kernel at all; the
+           rows are compared with the float32 path's
+  chunk, chunk_bf16  run_chunk over the same 30 frames from a fresh
+           state in chunks of 4 and one of 2 (one graph per chunk
+           size): every row bit for bit the path's; run_chunk under the
+           sync-debug mode after its capture; a counted run of the same
+           chunks as in path; the bench's lag-4 (timed_tracking) and chunk-4
+           (timed_tracking_chunked) protocols timed on device frames,
+           with host ms per call and peak memory
+  multistream  MultiStreamDetector at float32 with 2 streams and at
+           bf16 with 6 (stream s offset by 5 s frames): at each, the
+           first 3 steps on the eager step bit for bit the replays, the
+           first step's 16 DCN launches and every tracker launch held
+           against their plain versions, a counted run as in path;
+           float32: stream 1 reset before frame 15, each stream against
+           single-stream tracking of the same frames, track ids equal
+           and scores within PLAIN_SCORE_TOL; bf16: each stream's rows
+           at every step against a single-stream bf16 detector started
+           from that stream's state, then the bench's 6-stream leg at
+           lag 4: aggregate fps, peak memory
   train    the port's Trainer on the same model and checkpoint at
            544x960, B=8, Adam (the flags as in path, read inside
            train_step): 12 steps on one fixed batch built from 9
@@ -75,15 +103,17 @@ Phases, each printing one JSON line with its elapsed seconds:
            step's distance from a plain float32 step
   kernels  one JSON line: the port's kernel table
 
-`--profile N` adds a phase after `path`, one after `path_bf16` and one
-after the timed steps of `train` and of `train_bf16`: torch.profiler
-over N frames (of each path) and over N B=8 steps (of each dtype),
-device time by kernel and the device's idle share.
+`--profile N` adds a phase after `path`, `path_bf16`, `chunk` and
+`chunk_bf16` and one after the timed steps of `train` and of
+`train_bf16`: torch.profiler over N frames (graph replays) of each
+path, N chunk replays and N B=8 steps of each dtype, device time by
+kernel, kernels per frame and the device's idle share.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -149,7 +179,7 @@ PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
 SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16",
-           "dcn_local_bwd_bf16", "probes")
+           "dcn_local_bwd_bf16", "probes", "tracker")
 # the forward kernel each compute dtype's serving path launches
 PATH_KERNEL = {"float32": "dcn_local_fwd", "bfloat16": "dcn_local_fwd_bf16"}
 # the kernel path's rows against the plain-DCN path's over PLAIN_FRAMES
@@ -157,6 +187,29 @@ PATH_KERNEL = {"float32": "dcn_local_fwd", "bfloat16": "dcn_local_fwd_bf16"}
 # forwards agree to ~1e-6; bf16: a kernel launch may flip single
 # outputs by an ulp, and later bf16 layers carry that on
 PLAIN_SCORE_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# the serving step's tracker kernels (csrc/tracker.cu): greedy_assign
+# must equal its plain version exactly, splat_pre_hm within this
+# (float32 exp on the card and on the CPU) with the same support
+TRACKER_KERNELS = ("greedy_assign", "splat_pre_hm")
+SPLAT_TOL = 1e-6
+# the first frames of a path run again on the eager step (no graph),
+# which must give the replays' rows bit for bit
+EAGER_FRAMES = 3
+# the device kernels a replay launches, by name in a profiler trace
+KERNEL_NAMES = {"dcn_local_fwd": r"dcn_local_fwd_kernel\b",
+                "dcn_local_fwd_bf16": r"dcn_local_fwd_bf16_kernel\b",
+                "greedy_assign": r"greedy_assign_kernel\b",
+                "splat_pre_hm": r"splat_pre_hm_kernel\b"}
+# bench.py's protocols (timed_tracking, timed_tracking_chunked and the
+# 6-stream leg): lag-4 fetches over 60 frames after 5, chunks of 4
+# fetched one chunk behind over 20 chunks after 3, six bf16 streams
+# (stream s offset by 5 frames) at lag 4 over 30 steps after 4
+LAG, LAG_WARMUP, LAG_FRAMES = 4, 5, 60
+CHUNK, CHUNK_WARMUP, CHUNK_ITERS = 4, 3, 20
+MULTI_STREAMS, MULTI_OFFSET, MULTI_WARMUP, MULTI_ITERS = 6, 5, 4, 30
+# multistream at float32: two streams against single-stream tracking,
+# stream 1 reset (a video boundary) before this frame
+MULTI_RESET_AT = 15
 # two paths' rows are the same detection when their centres lie within
 # one output pixel of the 544x960 path on a 1080p frame
 MATCH_PX = 8.0
@@ -394,11 +447,25 @@ def _launches():
                 dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES}
 
 
+def _tracker_modules():
+    """Each tracker kernel's module (``ops.tracker``, ``ops.gaussian``),
+    imported where used (as ``read_flags``: an earlier checkout's package
+    may lack them)."""
+    from centertrack_tpu_torch.ops import gaussian, tracker
+    return {"greedy_assign": tracker, "splat_pre_hm": gaussian}
+
+
+def _tracker_launches():
+    return {k: m.LAUNCHES[k] for k, m in _tracker_modules().items()}
+
+
 def _reset_launches():
     dcn.LAUNCHES = dcn.BWD_DATA_LAUNCHES = dcn.BWD_WEIGHT_LAUNCHES = 0
     dcn.BF16_LAUNCHES = 0
     dcn.BWD_DATA_BF16_LAUNCHES = dcn.BWD_WEIGHT_BF16_LAUNCHES = 0
     dcn.BWD_WEIGHT_GATHER_LAUNCHES = dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0
+    for name, module in _tracker_modules().items():
+        module.LAUNCHES[name] = 0
 
 
 def phase_device():
@@ -1146,14 +1213,21 @@ def phase_gather(dtype):
 
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
     """The rows above ``out_thresh``, without those within ``margin`` of
-    it; with ``collapse_ties``, a row whose score equals the previous
-    row's is left out."""
+    it; with ``collapse_ties``, a row is left out whose score equals that
+    of an earlier kept row within 2 MATCH_PX of it (two neighbouring
+    peaks of one object that both passed the 3x3 NMS: one output pixel
+    apart plus their sub-pixel offsets). Distinct objects whose scores
+    happen to be equal are both kept."""
     rows = [d for d in FusedDetector.fetch(torch.from_numpy(packed),
                                            out_thresh)
             if abs(d["score"] - out_thresh) > margin]
     if collapse_ties:
-        rows = [d for i, d in enumerate(rows)
-                if i == 0 or d["score"] != rows[i - 1]["score"]]
+        kept = []
+        for d in rows:
+            if not any(k["score"] == d["score"] and float(np.abs(
+                    k["ct"] - d["ct"]).max()) <= 2 * MATCH_PX for k in kept):
+                kept.append(d)
+        rows = kept
     return rows
 
 
@@ -1168,8 +1242,9 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
     ``margin`` and ``collapse_ties`` as in ``_kept_rows``: at bf16 a
     score may land on either side of the threshold, and two
     neighbouring peaks whose bf16 logits tie exactly both pass the 3x3
-    max-pool NMS."""
-    counts, unpaired, pairs, same_ids = [], 0, 0, 0
+    max-pool NMS. ``unpaired_scores`` are the scores of the rows left
+    unpaired."""
+    counts, unpaired, pairs, same_ids = [], [], 0, 0
     score, box, id_map = 0.0, 0.0, {}
     for a, b in zip(packed, ref_packed):
         ra = _kept_rows(a, out_thresh, margin, collapse_ties)
@@ -1179,7 +1254,7 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
         for da in ra:
             dist = [float(np.abs(da["ct"] - db["ct"]).max()) for db in free]
             if not dist or min(dist) > MATCH_PX:
-                unpaired += 1
+                unpaired.append(da["score"])
                 continue
             db = free.pop(int(np.argmin(dist)))
             pairs += 1
@@ -1188,13 +1263,235 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
                 db["tracking_id"])
             score = max(score, abs(da["score"] - db["score"]))
             box = max(box, float(np.abs(da["bbox"] - db["bbox"]).max()))
-        unpaired += len(free)
+        unpaired += [db["score"] for db in free]
     mapped = [next(iter(v)) for v in id_map.values() if len(v) == 1]
-    return {"rows_per_frame": counts, "rows_unpaired": unpaired,
-            "pairs": pairs, "pairs_same_track_id": same_ids,
+    return {"rows_per_frame": counts, "rows_unpaired": len(unpaired),
+            "unpaired_scores": unpaired, "pairs": pairs, "pairs_same_track_id": same_ids,
             "track_ids_one_to_one": (len(mapped) == len(id_map) ==
                                      len(set(mapped))),
             "max_score_diff": score, "max_bbox_diff_px": box}
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """While active, a host synchronisation with the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def device_kernel_counts(run_once, n, names):
+    """torch.profiler over n calls of run_once (each ends on the host):
+    the device launches of each kernel of ``names`` (KERNEL_NAMES keys),
+    by its name in the trace; graph replays launch no wrapper, so this
+    is what counts them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run_once()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if re.search(KERNEL_NAMES[name], e.key):
+                    counts[name] += e.count
+    return counts
+
+
+def _check_device_counts(phase, counts, want):
+    if counts != want:
+        raise RuntimeError(f"{phase}: device launches {counts} over the "
+                           f"profiled replays, expected {want}")
+
+
+class _RecordTracker:
+    """While active, keeps a copy of the inputs and the output of every
+    launch of the tracker kernels, to hold each against its plain
+    version afterwards (``check``)."""
+
+    LAUNCHERS = {"greedy_assign": "launch_greedy_assign",
+                 "splat_pre_hm": "launch_splat_pre_hm"}
+
+    def __enter__(self):
+        self.modules = _tracker_modules()
+        self.calls = []
+        self._saved = {k: getattr(self.modules[k], f)
+                       for k, f in self.LAUNCHERS.items()}
+
+        def recording(kind, launch):
+            def run(*args):
+                out = launch(*args)
+                self.calls.append((kind, [a.clone() if torch.is_tensor(a)
+                                          else a for a in args],
+                                   out.clone()))
+                return out
+            return run
+
+        for kind, f in self.LAUNCHERS.items():
+            setattr(self.modules[kind], f, recording(kind, self._saved[kind]))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, f in self.LAUNCHERS.items():
+            setattr(self.modules[kind], f, self._saved[kind])
+
+    def check(self, per_kind):
+        """Requires ``per_kind`` launches of each kernel; greedy_assign
+        must equal the plain version exactly, splat_pre_hm lie within
+        SPLAT_TOL of it with the same support. Returns the worst max abs
+        error of each."""
+        tracker, gaussian = (self.modules[k] for k in TRACKER_KERNELS)
+        counts = {k: sum(c[0] == k for c in self.calls)
+                  for k in self.LAUNCHERS}
+        if counts != dict.fromkeys(self.LAUNCHERS, per_kind):
+            raise RuntimeError(f"recorded tracker launches {counts}, "
+                               f"expected {per_kind} of each")
+        worst = dict.fromkeys(self.LAUNCHERS, 0.0)
+        for kind, args, out in self.calls:
+            if kind == "greedy_assign":
+                ref = tracker.greedy_assign_plain(*args)
+                if not torch.equal(out, ref):
+                    raise RuntimeError(
+                        f"greedy_assign differs from its plain version at "
+                        f"{(out != ref).sum().item()} of {out.numel()} rows")
+                continue
+            ref = gaussian.splat_pre_hm_plain(*args)
+            err = (out - ref).abs().max().item()
+            if err > SPLAT_TOL or not torch.equal(out > 0, ref > 0):
+                raise RuntimeError(
+                    f"splat_pre_hm against its plain version: max abs err "
+                    f"{err} (tolerance {SPLAT_TOL}), support differs at "
+                    f"{((out > 0) != (ref > 0)).sum().item()} pixels")
+            worst[kind] = max(worst[kind], err)
+        return worst
+
+    def last_with_live_slots(self, kind):
+        """The inputs of the last launch of ``kind`` whose map held a live
+        track (the path's shapes, for timing)."""
+        for k, args, _ in reversed(self.calls):
+            if k == kind and (kind == "greedy_assign" or args[-1].any()):
+                return args
+        raise RuntimeError(f"no {kind} launch with a live track recorded")
+
+
+def _eager_rows(det, steps, records=()):
+    """``steps`` (each a list of the detector's S frames) through its
+    eager step (no graph) from a fresh state: the step a graph captures,
+    run as it is. The context managers of ``records`` are active for the
+    first step. Returns the (S, K, 13) rows of each step on the host."""
+    from centertrack_tpu_torch.engine import device_tracker as dt
+    from centertrack_tpu_torch.engine.fused import _Carried
+    n = det.streams
+    carried = _Carried(dt.init_state(det.capacity, n, det.device),
+                       torch.zeros_like(det._carried.pre),
+                       torch.ones(n, dtype=torch.bool, device=det.device))
+    h, w = steps[0][0].shape[:2]
+    trans = det._transforms(h, w)
+    out = torch.empty((1, n, det.cfg.K, 13), device=det.device)
+    rows = []
+    for i, step in enumerate(steps):
+        frames = torch.as_tensor(np.stack(step), device=det.device)[None]
+        with contextlib.ExitStack() as stack:
+            if i == 0:
+                for r in records:
+                    stack.enter_context(r)
+            det._step(frames, carried, out, trans)
+        rows.append(out[0].cpu().numpy().copy())
+    return rows
+
+
+def counted_replays(phase, replay_all, names, want, ref_rows):
+    """A path's counted run: every launch count set to 0 just before,
+    then ``replay_all`` (the path's steps again from a fresh state, each
+    a replay of a graph already captured; returns its rows) under
+    torch.profiler. Its rows must equal ``ref_rows`` bit for bit, no
+    wrapper may have been called (a replay calls none), and the device
+    must have launched ``want`` of each kernel of ``names``, counted by
+    kernel name. Returns those device launches, the path's count."""
+    _reset_launches()
+    rows = []
+    launches = device_kernel_counts(lambda: rows.extend(replay_all()), 1,
+                                    names)
+    _bitwise(f"{phase}: the counted replays against the checked run", rows,
+             ref_rows)
+    calls = {**_launches(), **_tracker_launches()}
+    if any(calls.values()):
+        raise RuntimeError(f"{phase}: replays called wrappers {calls}")
+    _check_device_counts(phase, launches, want)
+    return launches
+
+
+def _bitwise(kind, rows, ref_rows):
+    """Raises unless the two lists of (K, 13) rows are equal bit for bit."""
+    for i, (a, b) in enumerate(zip(rows, ref_rows)):
+        if not np.array_equal(a, b):
+            cols = sorted(set(np.nonzero(a != b)[1].tolist()))
+            raise RuntimeError(
+                f"{kind}: frame {i} differs (columns {cols}, max "
+                f"{np.abs(a - b).max()})")
+    if len(rows) != len(ref_rows):
+        raise RuntimeError(f"{kind}: {len(rows)} frames against "
+                           f"{len(ref_rows)}")
+
+
+def greedy_bound_ms(s, k, t):
+    """Least H100 time for greedy_assign: dist read once and the match
+    written once, against one comparison per entry (the bytes bound)."""
+    return _bound_ms(s * k * t, 4.0 * (s * k * t + s * k))
+
+
+def splat_bound_ms(height, width, cts_int, radii, valid):
+    """Least H100 time for splat_pre_hm on these inputs: the canvas
+    written once and the slots read once, against 8 float32 operations
+    per pixel of each live slot's clipped window (two squares, a sum, a
+    division, the exp, the product by k, the compare)."""
+    s, t = valid.shape
+    r = radii.clamp(max=_tracker_modules()["splat_pre_hm"].MAX_RADIUS
+                    ).long()
+    cx, cy = cts_int[..., 0].long(), cts_int[..., 1].long()
+    wx = ((cx + r).clamp(max=width - 1) - (cx - r).clamp(min=0) + 1).clamp(
+        min=0)
+    wy = ((cy + r).clamp(max=height - 1) - (cy - r).clamp(min=0) + 1
+          ).clamp(min=0)
+    pixels = int((wx * wy * valid.long()).sum())
+    return _bound_ms(8.0 * pixels,
+                     4.0 * s * height * width + 17.0 * s * t)
+
+
+def tracker_kernel_rows(rec):
+    """Per tracker kernel, on the last recorded inputs with a live track
+    (the path's shapes): the call's time (median of CUDA events around
+    each call, the launcher's host time included), its device time
+    (``queued_us``: each call queued behind a spin kernel), the plain
+    version's time, the bound."""
+    tracker, gaussian = (_tracker_modules()[k] for k in TRACKER_KERNELS)
+    rows = {}
+    args = rec.last_with_live_slots("greedy_assign")
+    s, k, t = args[0].shape
+    bound, by = greedy_bound_ms(s, k, t)
+    kernel = lambda: tracker.launch_greedy_assign(*args)
+    rows["greedy_assign"] = {
+        "shape": [s, k, t], "ms": time_ms(kernel, 5, 50),
+        "device_ms": queued_us(kernel, 50) / 1e3,
+        "plain_ms": time_ms(lambda: tracker.greedy_assign_plain(*args), 1,
+                            5),
+        "bound_ms": bound, "bound_by": by}
+    args = rec.last_with_live_slots("splat_pre_hm")
+    bound, by = splat_bound_ms(*args[:3], args[3], args[5])
+    kernel = lambda: gaussian.launch_splat_pre_hm(*args)
+    rows["splat_pre_hm"] = {
+        "shape": [args[0], args[1], *args[5].shape],
+        "live_slots": int(args[5].sum()), "ms": time_ms(kernel, 5, 50),
+        "device_ms": queued_us(kernel, 50) / 1e3,
+        "plain_ms": time_ms(lambda: gaussian.splat_pre_hm_plain(*args), 1,
+                            5),
+        "bound_ms": bound, "bound_by": by}
+    return rows
 
 
 def phase_path(dtype="float32", ref_packed=None):
@@ -1212,46 +1509,82 @@ def phase_path(dtype="float32", ref_packed=None):
     torch.cuda.reset_peak_memory_stats()
     det = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda")
 
+    # every frame a graph replay: the first call also runs the eager step
+    # once (warm-up, on copies of the state) and captures it; every call
+    # after it runs with host synchronisation an error
     _reset_launches()
     flags_outside = read_flags()
-    flags_inside, hook = _flags_inside(det.model)
-    times, n_dets, packed, states = [], [], [], []
-    for f in frames:
+    times, run_ms, n_dets, packed, states = [], [], [], [], []
+    for i, f in enumerate(frames):
         if len(states) < PLAIN_FRAMES:
             states.append((det.track_state, det.pre_images))
         t = time.perf_counter()
-        res = det.run(f)
+        with sync_errors() if i else contextlib.nullcontext():
+            res = det.run(f)
+        run_ms.append(1e3 * (time.perf_counter() - t))
         items = FusedDetector.fetch(res, cfg.out_thresh)
         times.append(1e3 * (time.perf_counter() - t))
         n_dets.append(len(items))
         packed.append(res.cpu().numpy())
         if res.shape != (cfg.K, 13) or not torch.isfinite(res).all():
             raise RuntimeError(f"bad packed result {tuple(res.shape)}")
-    counts = _launches()
-    hook.remove()
-    _check_flags("FusedDetector.run", dtype, flags_inside[0], flags_outside)
+    counts, tcounts = _launches(), _tracker_launches()
     if read_flags() != flags_outside:
         raise RuntimeError("FusedDetector.run did not restore the flags")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    launches = counts[kernel]
     live = int(det.track_state.valid.sum())
-    want = {k: 16 * PATH_FRAMES if k == kernel else 0 for k in counts}
-    if counts != want:
-        raise RuntimeError(f"DCN launches over {PATH_FRAMES} frames at "
-                           f"{dtype}: {counts}, expected {want}")
+    # the wrappers run twice, at the warm-up and at the capture; replays
+    # launch no wrapper
+    want = {k: 2 * 16 if k == kernel else 0 for k in counts}
+    if counts != want or tcounts != dict.fromkeys(TRACKER_KERNELS, 2):
+        raise RuntimeError(f"wrapper calls over {PATH_FRAMES} frames at "
+                           f"{dtype}: {counts}, {tcounts}; expected {want} "
+                           f"and 2 of each tracker kernel")
     if sum(n_dets) == 0:
         raise RuntimeError("no detection above out_thresh in any frame")
+
+    # the counted run: the same frames from a fresh state, every one a
+    # replay; its device launches are the path's launches
+    def replay_all():
+        det.reset_tracking()
+        out = []
+        for f in frames:
+            res = det.run(f)
+            FusedDetector.fetch(res, cfg.out_thresh)
+            out.append(res.cpu().numpy())
+        return out
+    launches = counted_replays(
+        phase, replay_all, (kernel,) + TRACKER_KERNELS,
+        {kernel: 16 * PATH_FRAMES,
+         **dict.fromkeys(TRACKER_KERNELS, PATH_FRAMES)}, packed)
+
+    # the first frames again on the eager step, no graph: the replays'
+    # rows bit for bit. Its first frame's 16 DCN launches are held
+    # against the plain version on their own inputs and the flags are
+    # read inside; every tracker launch is held against its plain version
+    kind = "bf16" if dtype != "float32" else "fwd"
+    flags_inside, hook = _flags_inside(det.model)
+    rec, trec = _RecordLaunches((kind,)), _RecordTracker()
+    with trec:
+        eager = _eager_rows(det, [[f] for f in frames[:EAGER_FRAMES]],
+                            (rec,))
+    hook.remove()
+    _check_flags("the serving step", dtype, flags_inside[0], flags_outside)
+    _bitwise(f"{phase} eager step against its graph replays",
+             [r[0] for r in eager], packed[:EAGER_FRAMES])
+    launch_worst = rec.check(16)[kind]
+    tracker_worst = trec.check(EAGER_FRAMES)
+    tracker_rows = tracker_kernel_rows(trec)
 
     # same frames, DCN on the plain PyTorch version. float32: from a
     # fresh state, the two paths must stay together. bf16: each frame
     # from the kernel path's own state before it, since one flipped ulp
-    # can make two neighbouring peaks tie and add a track. At both
-    # dtypes every kernel launch of the first frame is then held against
-    # the plain version on its own inputs
+    # can make two neighbouring peaks tie and add a track
     plain = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda",
                           plain_dcn=True)
     low = dtype != "float32"
     plain_times, plain_packed = [], []
+    before = _launches()
     for i, f in enumerate(frames[:PLAIN_FRAMES]):
         if low:
             plain.track_state, plain.pre_images = states[i]
@@ -1260,11 +1593,9 @@ def phase_path(dtype="float32", ref_packed=None):
         FusedDetector.fetch(res, cfg.out_thresh)
         plain_times.append(1e3 * (time.perf_counter() - t))
         plain_packed.append(res.cpu().numpy())
-    det.track_state, det.pre_images = states[0]
-    kind = "bf16" if low else "fwd"
-    with _RecordLaunches((kind,)) as rec:
-        det.run(frames[0])
-    launch_worst = rec.check(16)[kind]
+    if _launches() != before:
+        raise RuntimeError("the plain-DCN run launched a DCN kernel")
+    del plain
     margin = PLAIN_SCORE_TOL[dtype] if low else 0.0
     vs_plain = rows_against(packed[:PLAIN_FRAMES], plain_packed,
                             cfg.out_thresh, margin, collapse_ties=low)
@@ -1276,17 +1607,23 @@ def phase_path(dtype="float32", ref_packed=None):
         raise RuntimeError(f"kernel vs plain DCN at {dtype}: score diff "
                            f"{vs_plain['max_score_diff']} > "
                            f"{PLAIN_SCORE_TOL[dtype]}")
-    if _launches()[kernel] != launches + 16:
-        raise RuntimeError("the plain-DCN run launched the kernel")
     row = {"compute_dtype": dtype, "kernel": kernel,
            "flags_outside": flags_outside,
-           "flags_inside_run": flags_inside[0],
+           "flags_inside_step": flags_inside[0],
            "frames": PATH_FRAMES, "input": [cfg.input_h, cfg.input_w],
            "warp_precision": det.warp_precision,
            "ms_per_frame_median": statistics.median(times[PATH_WARMUP:]),
-           "ms_per_frame_first": times[0],
+           "host_ms_per_run_median": statistics.median(run_ms[PATH_WARMUP:]),
+           "ms_first_call_with_capture": times[0],
            "dets_per_frame": n_dets, "live_tracks_end": live,
-           "dcn_launches": launches,
+           "launches": launches,
+           "launches_counted": "device launches over the counted run of "
+                               f"{PATH_FRAMES} replayed frames, by kernel "
+                               "name (torch.profiler)",
+           "wrapper_calls": {kernel: counts[kernel], **tcounts},
+           "eager_frames_bitwise_equal_to_replays": EAGER_FRAMES,
+           "tracker_max_abs_err": tracker_worst,
+           "tracker_kernels": tracker_rows,
            "plain_dcn_frames": PLAIN_FRAMES,
            "plain_dcn_ms_per_frame": plain_times,
            "plain_vs_kernel_max_score_diff": vs_plain["max_score_diff"],
@@ -1303,9 +1640,299 @@ def phase_path(dtype="float32", ref_packed=None):
     return row, det, frames, cfg, packed
 
 
+def timed_lag(run, fetch, inputs, iters, warmup, lag):
+    """bench.py's protocols (timed_tracking, timed_tracking_chunked, the
+    6-stream leg): ``run`` on the inputs in turn, every result fetched
+    ``lag`` calls behind its run, after ``warmup`` calls fetched to the
+    end; ``fetch`` returns one row list per frame or stream. Returns
+    (calls per second, mean rows per frame or stream, median host ms per
+    run call)."""
+    pend = collections.deque()
+    for i in range(warmup):
+        pend.append(run(inputs[i % len(inputs)]))
+        if len(pend) > lag:
+            fetch(pend.popleft())
+    while pend:
+        fetch(pend.popleft())
+    rows, host = [], []
+    t0 = time.perf_counter()
+    for i in range(iters):
+        t = time.perf_counter()
+        pend.append(run(inputs[(warmup + i) % len(inputs)]))
+        host.append(1e3 * (time.perf_counter() - t))
+        if len(pend) > lag:
+            rows += map(len, fetch(pend.popleft()))
+    while pend:
+        rows += map(len, fetch(pend.popleft()))
+    dt = time.perf_counter() - t0
+    return iters / dt, float(np.mean(rows)), statistics.median(host)
+
+
+def phase_chunk(det, frames, cfg, path_packed, n_profile=0):
+    """``run_chunk`` over the path's frames from a fresh state, in chunks
+    of CHUNK and a last one of 2: every row bit for bit the path's (the
+    same kernels on the same inputs, unrolled in one graph). Then the
+    bench's lag-4 and chunk-4 protocols timed."""
+    dtype = cfg.compute_dtype
+    phase = "chunk" if dtype == "float32" else "chunk_bf16"
+    kernel = PATH_KERNEL[dtype]
+    det.reset_tracking()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    sizes = [CHUNK] * (PATH_FRAMES // CHUNK) + (
+        [PATH_FRAMES % CHUNK] if PATH_FRAMES % CHUNK else [])
+    rows, host_ms, start = [], [], 0
+    for j, n in enumerate(sizes):
+        captured = n in sizes[:j]
+        t = time.perf_counter()
+        with sync_errors() if captured else contextlib.nullcontext():
+            res = det.run_chunk(frames[start:start + n])
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        FusedDetector.fetch_chunk(res, cfg.out_thresh)
+        rows += list(res.cpu().numpy())
+        start += n
+    _bitwise(f"{phase}: run_chunk against run", rows, path_packed)
+    counts, tcounts = _launches(), _tracker_launches()
+    captured_frames = 2 * sum(set(sizes))
+    if counts[kernel] != 16 * captured_frames or \
+            tcounts != dict.fromkeys(TRACKER_KERNELS, captured_frames):
+        raise RuntimeError(f"{phase}: wrapper calls {counts[kernel]}, "
+                           f"{tcounts}; expected {16 * captured_frames} and "
+                           f"{captured_frames} of each tracker kernel")
+
+    # the counted run: the same chunks from a fresh state, all replays
+    def replay_all():
+        det.reset_tracking()
+        out, start = [], 0
+        for n in sizes:
+            res = det.run_chunk(frames[start:start + n])
+            FusedDetector.fetch_chunk(res, cfg.out_thresh)
+            out += list(res.cpu().numpy())
+            start += n
+        return out
+    launches = counted_replays(
+        phase, replay_all, (kernel,) + TRACKER_KERNELS,
+        {kernel: 16 * PATH_FRAMES,
+         **dict.fromkeys(TRACKER_KERNELS, PATH_FRAMES)}, rows)
+    peak_rows = torch.cuda.max_memory_allocated() / 2 ** 20
+    # device-resident frames and chunks, as bench.py times them
+    n = len(frames)
+    dev_frames = [torch.as_tensor(f, device="cuda") for f in frames]
+    dev_chunks = [torch.as_tensor(np.stack(
+        [frames[(i * CHUNK + j) % n] for j in range(CHUNK)]), device="cuda")
+        for i in range((n + CHUNK - 1) // CHUNK)]
+    fps, live, run_host = timed_lag(
+        det.run, lambda r: [det.fetch(r, cfg.out_thresh)], dev_frames,
+        LAG_FRAMES, LAG_WARMUP, LAG)
+    cps, clive, chunk_host = timed_lag(
+        det.run_chunk, lambda r: det.fetch_chunk(r, cfg.out_thresh),
+        dev_chunks, CHUNK_ITERS, CHUNK_WARMUP, 1)
+    cfps = cps * CHUNK
+    row = {"compute_dtype": dtype, "chunks": sizes,
+           "rows_bitwise_equal_to_path": len(rows),
+           "host_ms_per_run_chunk": host_ms,
+           "launches": launches,
+           "wrapper_calls": {kernel: counts[kernel], **tcounts},
+           "lag4_fps": fps, "lag4_rows_per_frame": live,
+           "lag4_host_ms_per_run_median": run_host,
+           "chunk4_fps": cfps, "chunk4_rows_per_frame": clive,
+           "chunk4_host_ms_per_run_chunk_median": chunk_host,
+           "max_memory_allocated_mb_rows": peak_rows,
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated()
+           / 2 ** 20,
+           "memory_reserved_mb": torch.cuda.memory_reserved() / 2 ** 20}
+    emit(phase, **row)
+    if n_profile:
+        more = iter([torch.as_tensor(np.stack(frames[i:i + CHUNK]),
+                                     device="cuda")
+                     for i in range(0, CHUNK * n_profile, CHUNK)])
+        _profile(lambda: FusedDetector.fetch_chunk(
+            det.run_chunk(next(more)), cfg.out_thresh), n_profile,
+            "profile_" + phase, "chunk")
+    return row
+
+
+def phase_multistream(path_packed):
+    """MultiStreamDetector at float32 with two streams and at bf16 with
+    MULTI_STREAMS (stream s at frame i reads frame i + s * MULTI_OFFSET
+    of the path's clip). At each: the first EAGER_FRAMES steps through
+    the eager step, bit for bit the replays, with the first step's 16
+    DCN launches and every tracker launch held against their plain
+    versions on their own inputs; a counted run of replays. float32:
+    stream 1 reset before step MULTI_RESET_AT; each stream against
+    single-stream tracking of its frames (stream 0: the path's rows):
+    the same track ids, scores within PLAIN_SCORE_TOL (cuDNN may take
+    other algorithms at batch 2). bf16: each stream's rows at every step
+    against a single-stream bf16 FusedDetector started from that
+    stream's state before the step (at bf16 one flipped ulp can make two
+    peaks tie and add a track, so no clip-long comparison): scores within
+    PLAIN_SCORE_TOL, ids one to one, no unpaired row but within twice
+    that of out_thresh; then the bench's 6-stream leg at lag 4."""
+    from centertrack_tpu_torch.engine import device_tracker as dt
+    from centertrack_tpu_torch.engine.fused import MultiStreamDetector
+    params, batch_stats = load_jax_ckpt(CKPT)
+    frames = synth_frames(PATH_FRAMES, seed=0)
+    n = len(frames)
+
+    def cfg_at(dtype):
+        return set_heads(parse_task(Config(
+            task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
+            max_age=3, dla_node="dcn_local1", compute_dtype=dtype)),
+            MOT_META)
+
+    def steps_of(streams):
+        return [[frames[(i + MULTI_OFFSET * s) % n] for s in range(streams)]
+                for i in range(n)]
+
+    def run_steps(det, steps, out_thresh, reset_at=None, sync=False,
+                  beside=None):
+        """``steps`` through the detector from a fresh state, stream 1
+        reset before step ``reset_at``, every step after the first under
+        the sync-debug mode with ``sync``; ``beside(i, state, pre)`` is
+        handed the state before step i. Returns each step's rows."""
+        det.reset_tracking()
+        out = []
+        for i, images in enumerate(steps):
+            if i == reset_at:
+                det.reset_stream(1)
+            if beside is not None:
+                beside(i, det.track_state, det.pre_images)
+            with sync_errors() if sync and i else contextlib.nullcontext():
+                res = det.run(images)
+            det.fetch_all(res, out_thresh)
+            out.append(res.cpu().numpy())
+        return out
+
+    def eager_and_counted(phase, det, steps, rows, reset_at=None):
+        """The eager steps against the replays' ``rows``, every recorded
+        launch against its plain version, then the counted run."""
+        dtype = det.cfg.compute_dtype
+        kind = "bf16" if dtype != "float32" else "fwd"
+        rec, trec = _RecordLaunches((kind,)), _RecordTracker()
+        with trec:
+            eager = _eager_rows(det, steps[:EAGER_FRAMES], (rec,))
+        _bitwise(f"{phase}: the eager step against its graph replays", eager,
+                 rows[:EAGER_FRAMES])
+        kernel = PATH_KERNEL[dtype]
+        launches = counted_replays(
+            phase, lambda: run_steps(det, steps, det.cfg.out_thresh,
+                                     reset_at),
+            (kernel,) + TRACKER_KERNELS,
+            {kernel: 16 * len(steps),
+             **dict.fromkeys(TRACKER_KERNELS, len(steps))}, rows)
+        return {"launches": launches,
+                "eager_steps_bitwise_equal_to_replays": EAGER_FRAMES,
+                "dcn_launch_worst_rel_err": rec.check(16)[kind],
+                "tracker_max_abs_err": trec.check(EAGER_FRAMES)}
+
+    cfg = cfg_at("float32")
+    single = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda")
+    single_rows = []
+    for i in range(n):
+        if i == MULTI_RESET_AT:
+            single.reset_tracking()
+        single_rows.append(single.run(frames[(i + MULTI_OFFSET) % n]).cpu()
+                           .numpy())
+    del single
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    det = MultiStreamDetector(cfg, 2, params, batch_stats, MOT_META,
+                              device="cuda")
+    steps2 = steps_of(2)
+    multi = run_steps(det, steps2, cfg.out_thresh, MULTI_RESET_AT, sync=True)
+    tcounts = _tracker_launches()
+    s2 = eager_and_counted("multistream", det, steps2, multi,
+                           MULTI_RESET_AT)
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 20
+    del det
+    torch.cuda.empty_cache()
+    vs = {}
+    for s, ref in ((0, path_packed), (1, single_rows)):
+        v = vs[s] = rows_against([m[s] for m in multi], ref, cfg.out_thresh)
+        if v["rows_unpaired"] or not v["pairs"] or \
+                v["pairs_same_track_id"] != v["pairs"] or \
+                v["max_score_diff"] > PLAIN_SCORE_TOL["float32"]:
+            raise RuntimeError(f"multistream stream {s} against single-"
+                               f"stream tracking: {v}")
+
+    # bf16, MULTI_STREAMS streams
+    cfg6 = cfg_at("bfloat16")
+    tol = PLAIN_SCORE_TOL["bfloat16"]
+    steps6 = steps_of(MULTI_STREAMS)
+    det = MultiStreamDetector(cfg6, MULTI_STREAMS, params, batch_stats,
+                              MOT_META, device="cuda")
+    single = FusedDetector(cfg6, params, batch_stats, MOT_META,
+                           device="cuda")
+    single6 = [[] for _ in range(MULTI_STREAMS)]
+
+    def beside(i, state, pre):
+        for s in range(MULTI_STREAMS):
+            single.track_state = dt.TrackState(*(t[s:s + 1] for t in state))
+            single.pre_images = None if pre is None else pre[s:s + 1]
+            single6[s].append(single.run(steps6[i][s]).cpu().numpy())
+
+    multi6 = run_steps(det, steps6, cfg6.out_thresh, sync=True,
+                       beside=beside)
+    del single
+    s6 = eager_and_counted("multistream_bf16", det, steps6, multi6)
+    # rows within ``tol`` of out_thresh are left out on each side, and a
+    # pair's scores may differ by up to ``tol``, so a row within 2 tol of
+    # the threshold may lose its partner to that band: such a row may
+    # stay unpaired, no other
+    vs6 = {"pairs": 0, "pairs_same_track_id": 0, "max_score_diff": 0.0,
+           "max_bbox_diff_px": 0.0, "unpaired_in_band": []}
+    for s in range(MULTI_STREAMS):
+        for i in range(n):
+            v = rows_against([multi6[i][s]], [single6[s][i]],
+                             cfg6.out_thresh, tol, collapse_ties=True)
+            band = all(abs(x - cfg6.out_thresh) <= 2 * tol
+                       for x in v["unpaired_scores"])
+            if not band or not v["track_ids_one_to_one"] or \
+                    v["max_score_diff"] > tol:
+                raise RuntimeError(f"multistream bf16 stream {s} step {i} "
+                                   f"against a single stream: {v}")
+            vs6["unpaired_in_band"] += [[s, i, x]
+                                        for x in v["unpaired_scores"]]
+            for key in ("pairs", "pairs_same_track_id"):
+                vs6[key] += v[key]
+            for key in ("max_score_diff", "max_bbox_diff_px"):
+                vs6[key] = max(vs6[key], v[key])
+    if not vs6["pairs"]:
+        raise RuntimeError("multistream bf16: no row above out_thresh")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the bench's 6-stream leg, on device-resident frames
+    stk = [torch.as_tensor(np.stack(step), device="cuda") for step in steps6]
+    steps, rows6, host6 = timed_lag(
+        det.run, lambda r: det.fetch_all(r, cfg6.out_thresh), stk,
+        MULTI_ITERS, MULTI_WARMUP, LAG)
+    peak6 = torch.cuda.max_memory_allocated() / 2 ** 20
+    del det
+    torch.cuda.empty_cache()
+    row = {"float32_streams": 2, "frames": n, "offset": MULTI_OFFSET,
+           "reset_stream_1_at": MULTI_RESET_AT,
+           "vs_single_stream": vs, "wrapper_calls_s2": tcounts,
+           **{k + "_s2": v for k, v in s2.items()},
+           "max_memory_allocated_mb_s2": peak2,
+           "bf16_streams": MULTI_STREAMS,
+           "bf16_vs_single_stream_per_step": vs6,
+           "bf16_vs_single_stream_score_tol": tol,
+           **{k + "_s6": v for k, v in s6.items()},
+           "bf16_steps": MULTI_ITERS,
+           "bf16_aggregate_fps": steps * MULTI_STREAMS,
+           "bf16_rows_per_stream_frame": rows6,
+           "bf16_host_ms_per_run_median": host6,
+           "max_memory_allocated_mb_s6": peak6}
+    emit("multistream", **row)
+    return row
+
+
 def _profile(run_once, n, phase, unit):
     """torch.profiler over n calls of run_once (each ends on the host):
-    device time by kernel, the port's DCN kernels summed over their
+    device time by kernel, the port's kernels summed over their
     template builds, the share of the wall time the device was busy, and
     the host operators with the most self CPU time (inflated by the
     profiler's own cost, but in the same proportion for both dtypes),
@@ -1321,11 +1948,11 @@ def _profile(run_once, n, phase, unit):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
-    dcn_kernels = {}
+    port_kernels = {}
     for e in events:
-        m = re.search(r"dcn_local\w*", e.key)
+        m = re.search(r"dcn_local\w*|greedy_assign|splat_pre_hm", e.key)
         if m:
-            d = dcn_kernels.setdefault(m.group(0), {f"calls_per_{unit}": 0.0,
+            d = port_kernels.setdefault(m.group(0), {f"calls_per_{unit}": 0.0,
                                                     f"ms_per_{unit}": 0.0})
             d[f"calls_per_{unit}"] += e.count / n
             d[f"ms_per_{unit}"] += e.self_device_time_total / 1e3 / n
@@ -1342,7 +1969,7 @@ def _profile(run_once, n, phase, unit):
                             f"ms_per_{unit}":
                                 e.self_device_time_total / 1e3 / n}
                            for e in top],
-                   "dcn_kernels": dcn_kernels,
+                   "port_kernels": port_kernels,
                    "host_top": [{"name": e.key[:80],
                                  f"calls_per_{unit}": e.count / n,
                                  f"self_cpu_ms_per_{unit}":
@@ -1616,7 +2243,7 @@ def phase_train(n_profile=0, dtype="float32"):
         losses.append({k: float(v) for k, v in step.items()})
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t))
-    counts = _launches()
+    counts, tcounts = _launches(), _tracker_launches()
     hook.remove()
     _check_flags("Trainer.train_step", dtype, flags_inside[0], flags_outside)
     if read_flags() != flags_outside:
@@ -1675,6 +2302,7 @@ def phase_train(n_profile=0, dtype="float32"):
            "img_per_s": TRAIN_B * 1e3 / statistics.median(
                times[TRAIN_TIMED]),
            "peak_memory_mb": peak_mb, "dcn_launches": counts,
+           "tracker_launches": tcounts,
            "dcn_launches_per_step": {k: v / TRAIN_STEPS
                                      for k, v in counts.items()},
            "b8_step13_launch_worst_rel_err": b8_worst,
@@ -1750,13 +2378,16 @@ def main(argv):
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
+    chunk = phase_chunk(det, frames, cfg, packed, n_profile)
     del det
     torch.cuda.empty_cache()
-    path_bf16, det, frames, cfg, _ = phase_path("bfloat16", packed)
+    path_bf16, det, frames, cfg, packed_bf16 = phase_path("bfloat16", packed)
     if n_profile:
         phase_profile(det, frames, cfg, n_profile, "profile_bf16")
+    chunk_bf16 = phase_chunk(det, frames, cfg, packed_bf16, n_profile)
     del det
     torch.cuda.empty_cache()
+    multistream = phase_multistream(packed)
     train = phase_train(n_profile)
     train_bf16 = phase_train(n_profile, "bfloat16")
 
@@ -1784,12 +2415,20 @@ def main(argv):
     bwd_also = ["centertrack_tpu/ops/dcn_pallas_halo.py:190"]
     launches = train["dcn_launches"]
     launches_bf16 = train_bf16["dcn_launches"]
+    # the serving paths' launches are device launches over each path's
+    # counted run of replays (a replay calls no wrapper); training runs
+    # eagerly, so there a wrapper call is a launch
+    serving = {"serving": path, "serving_bf16": path_bf16, "chunk": chunk,
+               "chunk_bf16": chunk_bf16,
+               "multistream": {"launches": multistream["launches_s2"]},
+               "multistream_bf16": {"launches": multistream["launches_s6"]}}
     by_path = lambda name: {
-        "serving": path["dcn_launches"] if name == "dcn_local_fwd" else 0,
-        "serving_bf16": (path_bf16["dcn_launches"]
-                         if name == "dcn_local_fwd_bf16" else 0),
-        "train": launches[name], "train_bf16": launches_bf16[name],
-        "probes": probe_dcn_launches[name]}
+        **{k: r["launches"].get(name, 0) for k, r in serving.items()},
+        "train": (launches if name in launches else train[
+            "tracker_launches"])[name],
+        "train_bf16": (launches_bf16 if name in launches_bf16 else
+                       train_bf16["tracker_launches"])[name],
+        "probes": probe_dcn_launches.get(name, 0)}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "
                      "cp.async haloed window, pixel splits by waves")
@@ -1821,7 +2460,7 @@ def main(argv):
                           "centertrack_tpu/ops/dcn_pallas_shift.py:110",
                           "centertrack_tpu/ops/dcn_pallas_halo.py:135"],
         "at": "bfloat16 inputs",
-        "launches": path_bf16["dcn_launches"],
+        "launches": path_bf16["launches"]["dcn_local_fwd_bf16"],
         "launches_by_path": by_path("dcn_local_fwd_bf16"),
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "per": "one 544x960 frame: the 16 launches of the neck shapes",
@@ -1890,6 +2529,37 @@ def main(argv):
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    replaces = {"greedy_assign": "centertrack_tpu/engine/device_tracker.py:70",
+                "splat_pre_hm": "centertrack_tpu/ops/gaussian.py:214"}
+    designs = {"greedy_assign": "one warp per stream, columns in registers, "
+                                "the next row's loads in flight",
+               "splat_pre_hm": "zeroed canvas, one block per (slot, "
+                               "stream), integer atomicMax on the float bits"}
+    for name in TRACKER_KERNELS:
+        r = path["tracker_kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "centertrack_tpu_torch/csrc/tracker.cu",
+            "replaces": replaces[name],
+            "replaces_kind": "an XLA loop inside the jitted step (no "
+                             "pl.pallas_call)",
+            "design": designs[name],
+            "launches": path["launches"][name],
+            "launches_by_path": by_path(name),
+            "launches_counted": path["launches_counted"],
+            "wrapper_calls": {"serving": path["wrapper_calls"][name],
+                              "serving_bf16":
+                                  path_bf16["wrapper_calls"][name]},
+            "max_abs_err": max(
+                path["tracker_max_abs_err"][name],
+                path_bf16["tracker_max_abs_err"][name],
+                multistream["tracker_max_abs_err_s2"][name],
+                multistream["tracker_max_abs_err_s6"][name]),
+            "per": f"one call at the 544x960 path's shape {r['shape']}",
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     for name, r in probe_rows.items():
         kernels.append({
             "name": r["kernel"], "route": "cuda",

@@ -104,20 +104,21 @@ def test_render_pre_hm_matches_jax(hw):
     ref = jgaussian.render_pre_hm(h, w, jnp.asarray(cts), jnp.asarray(radii),
                                   jnp.asarray(ks), jnp.asarray(valid),
                                   compact=True)
-    out = gaussian.render_pre_hm(h, w, torch.from_numpy(cts),
-                                 torch.from_numpy(radii),
-                                 torch.from_numpy(ks),
-                                 torch.from_numpy(valid))
-    assert out.shape == (h, w, 1)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6,
+    out = gaussian.render_pre_hm(h, w, torch.from_numpy(cts)[None],
+                                 torch.from_numpy(radii)[None],
+                                 torch.from_numpy(ks)[None],
+                                 torch.from_numpy(valid)[None])
+    assert out.shape == (1, h, w, 1)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref), atol=1e-6,
                                rtol=0)
 
 
 def test_render_pre_hm_without_live_tracks_is_zero():
-    out = gaussian.render_pre_hm(544, 960, torch.zeros(8, 2, dtype=torch.int32),
-                                 torch.ones(8, dtype=torch.int32),
-                                 torch.ones(8), torch.zeros(8, dtype=torch.bool))
-    assert out.shape == (544, 960, 1) and not out.any()
+    out = gaussian.render_pre_hm(
+        544, 960, torch.zeros(1, 8, 2, dtype=torch.int32),
+        torch.ones(1, 8, dtype=torch.int32), torch.ones(1, 8),
+        torch.zeros(1, 8, dtype=torch.bool))
+    assert out.shape == (1, 544, 960, 1) and not out.any()
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -171,18 +172,20 @@ def test_tracker_step_matches_jax_over_a_clip():
     rng = np.random.RandomState(5)
     k, cap = 12, 16
     base = rng.uniform(40, 260, (6, 2))
-    jstate, state = jdt.init_state(cap), dt.init_state(cap, "cpu")
+    jstate, state = jdt.init_state(cap), dt.init_state(cap, 1, "cpu")
     for f in range(5):
         keep = [i for i in range(6) if (i + f) % 4 != 0]
         centers = base[keep] + f * 3.0
         dets = _dets(rng, k, centers, 0.95)
         jstate, jout = jdt.step(jstate, *map(jnp.asarray, dets), 0.3, 0.3, 2)
-        state, out = dt.step(state, *map(torch.from_numpy, dets), 0.3, 0.3, 2)
+        state, out = dt.step(state, *(torch.from_numpy(d)[None]
+                                      for d in dets), 0.3, 0.3, 2)
         for key in ("tracking_id", "age", "active"):
-            np.testing.assert_array_equal(out[key].numpy(),
+            np.testing.assert_array_equal(out[key][0].numpy(),
                                           np.asarray(jout[key]), key)
-        assert int(state.id_count) == int(jstate.id_count)
-        rows, jrows = _state_rows(state), _state_rows(jstate)
+        assert int(state.id_count[0]) == int(jstate.id_count)
+        rows = _state_rows(dt.TrackState(*(t[0] for t in state)))
+        jrows = _state_rows(jstate)
         assert len(set(rows[:, 0])) == len(rows)
         n_det = int((np.asarray(jout["tracking_id"]) > 0).sum())
         det_ids = set(jrows[:n_det, 0])

@@ -360,7 +360,8 @@ def test_rows_against_leaves_out_near_threshold_rows_and_tied_peaks():
     carry an extra peak tied exactly with its neighbour, and a score
     just above the threshold that the other path has just below: with a
     margin and ties collapsed they agree; a renumbered track keeps the
-    ids one to one."""
+    ids one to one; a tie of two objects far apart is no NMS tie and
+    both rows stay."""
     def packed(rows):
         p = np.zeros((6, 13), np.float32)
         for i, (score, tid, x) in enumerate(rows):
@@ -384,6 +385,12 @@ def test_rows_against_leaves_out_near_threshold_rows_and_tied_peaks():
     other = chip_smoke.rows_against([a], [renumbered], 0.3, 1e-2, True)
     assert other["pairs_same_track_id"] == 0
     assert other["track_ids_one_to_one"]
+    # equal scores of two distinct objects (not neighbouring peaks) are
+    # both kept, and a row's partner left out is reported by its score
+    apart = packed([(0.9, 1, 100), (0.5, 2, 300), (0.5, 3, 600)])
+    kept = chip_smoke.rows_against([apart], [b], 0.3, 1e-2, True)
+    assert kept["rows_per_frame"] == [[3, 2]]
+    assert kept["unpaired_scores"] == [pytest.approx(0.5)]
 
 
 def test_dcn_bwd_bound_bf16_counts_tensor_and_fp32_work_against_bytes():
