@@ -496,3 +496,181 @@ extern "C" int dcn_local_fwd(const float* x, const float* offset,
                                                  Cout, splits);
   return (int)cudaGetLastError();
 }
+
+// The gather route, `dcn_local_fwd_gather`: the planner's choice
+// (ops/dcn.fwd_fp32_plan route "gather") where the window design above
+// does not take the call, for max_offset past 8 (MAX_R). It is the first
+// design of this kernel, from before the window design, and takes every
+// R and every width. A block takes 64 consecutive output pixels by 64
+// output channels and keeps the sum in registers (4 x 4 per thread, on
+// the CUDA cores). The four corners of every (pixel, tap), their flat
+// pixel index and their hat weight times the mask, are computed once per
+// block into shared memory; for each tap and chunk of 32 input channels
+// the block gathers the modulated sample of its pixels straight from x in
+// global memory (32 consecutive channels of a corner pixel: coalesced)
+// beside the tap's weight slice, and every thread runs 32 x 16 FMAs from
+// shared memory. What bounds it is what bounds the window design (the
+// operations: chip_smoke.py dcn_bound_ms_3xtf32, or dcn_bound_ms for the
+// same work on the CUDA cores, where this route runs); in practice the
+// corner gathers' latency and the CUDA cores' float32 rate decide its
+// time (5.47 ms per 544 x 960 image at R=1 on an H100 when it was the
+// path's kernel).
+// No path launches it.
+namespace {
+namespace gather {
+
+constexpr int TP = 64;    // output pixels per block
+constexpr int TC = 64;    // output channels per block
+constexpr int CK = 32;    // input channels per shared-memory chunk
+constexpr int NT = 256;   // threads: 16 pixel rows x 16 channel columns
+
+__global__ void __launch_bounds__(NT)
+dcn_local_fwd_gather_kernel(const float* __restrict__ x,
+                            const float* __restrict__ offset,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ weight,
+                            const float* __restrict__ bias,
+                            float* __restrict__ out, int npix, int H, int W,
+                            int Cin, int Cout, float R) {
+  __shared__ int corner_idx[9][4][TP];    // flat pixel index of each corner
+  __shared__ float corner_w[9][4][TP];    // hat weight x mask, 0 outside
+  __shared__ float s_sample[CK][TP + 1];  // +1: conflict-free column writes
+  __shared__ float s_weight[CK][TC];
+
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * TP;
+  const int o0 = blockIdx.y * TC;
+  const int HW = H * W;
+
+  for (int e = tid; e < 9 * TP; e += NT) {
+    const int t = e / TP;
+    const int p = e - t * TP;
+    const int n = p0 + p;
+    int idx[4] = {0, 0, 0, 0};
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (n < npix) {
+      const int b = n / HW;
+      const int rem = n - b * HW;
+      const int y = rem / W;
+      const int xx = rem - y * W;
+      const float* o = offset + (int64_t)n * 18;
+      const float dy = fminf(fmaxf(o[2 * t], -R), R);
+      const float dx = fminf(fmaxf(o[2 * t + 1], -R), R);
+      const float m = mask[(int64_t)n * 9 + t];
+      // the tap-relative position and its hat weights, as the plain
+      // version forms max(0, 1 - |(t + d) - a|)
+      const float vy = (float)(t / 3 - 1) + dy;
+      const float vx = (float)(t % 3 - 1) + dx;
+      const float fy = floorf(vy);
+      const float fx = floorf(vx);
+      const float wy[2] = {1.f - fabsf(vy - fy), 1.f - fabsf(vy - (fy + 1.f))};
+      const float wx[2] = {1.f - fabsf(vx - fx), 1.f - fabsf(vx - (fx + 1.f))};
+      const int y0 = y + (int)fy;
+      const int x0 = xx + (int)fx;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int yy = y0 + a;
+          const int xc = x0 + c;
+          const bool inside = yy >= 0 && yy < H && xc >= 0 && xc < W;
+          idx[2 * a + c] = inside ? b * HW + yy * W + xc : 0;
+          wt[2 * a + c] = inside ? wy[a] * wx[c] * m : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      corner_idx[t][k][p] = idx[k];
+      corner_w[t][k][p] = wt[k];
+    }
+  }
+
+  const int tx = tid % 16;  // output channels tx + 16 j
+  const int ty = tid / 16;  // output pixels ty + 16 i
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int t = 0; t < 9; ++t) {
+    const float* wtap = weight + (int64_t)t * Cin * Cout;
+    for (int c0 = 0; c0 < Cin; c0 += CK) {
+      __syncthreads();  // previous chunk fully consumed (and corners ready)
+      for (int e = tid; e < CK * TP; e += NT) {
+        const int c = e % CK;
+        const int p = e / CK;
+        float v = 0.f;
+        if (c0 + c < Cin) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float wk = corner_w[t][k][p];
+            if (wk != 0.f)
+              v = fmaf(wk, x[(int64_t)corner_idx[t][k][p] * Cin + c0 + c], v);
+          }
+        }
+        s_sample[c][p] = v;
+      }
+      for (int e = tid; e < CK * TC; e += NT) {
+        const int o = e % TC;
+        const int c = e / TC;
+        s_weight[c][o] = (c0 + c < Cin && o0 + o < Cout)
+                             ? wtap[(int64_t)(c0 + c) * Cout + o0 + o]
+                             : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < CK; ++c) {
+        float a[4], w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = s_sample[c][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = s_weight[c][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = p0 + ty + 16 * i;
+    if (n >= npix) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx + 16 * j;
+      if (o < Cout)
+        out[(int64_t)n * Cout + o] = acc[i][j] + (bias ? bias[o] : 0.f);
+    }
+  }
+}
+
+}  // namespace gather
+}  // namespace
+
+// The gather route: any R >= 1 and any Cin, Cout; out (B, H, W, Cout) is
+// fully written; `bias` may be null. Launches on `stream`, allocates
+// nothing, does not synchronise, and returns cudaGetLastError() as an
+// int; R < 1 or a map past 2^31 pixels returns cudaErrorInvalidValue.
+extern "C" int dcn_local_fwd_gather(const float* x, const float* offset,
+                                    const float* mask, const float* weight,
+                                    const float* bias, float* out, int B,
+                                    int H, int W, int Cin, int Cout, int R,
+                                    void* stream) {
+  const int64_t npix = (int64_t)B * H * W;
+  if (npix <= 0 || Cout <= 0) return (int)cudaSuccess;
+  if (R < 1 || Cin < 0 || npix > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((npix + gather::TP - 1) / gather::TP),
+                  (Cout + gather::TC - 1) / gather::TC);
+  gather::dcn_local_fwd_gather_kernel<<<grid, gather::NT, 0,
+                                        (cudaStream_t)stream>>>(
+      x, offset, mask, weight, bias, out, (int)npix, H, W, Cin, Cout,
+      (float)R);
+  return (int)cudaGetLastError();
+}

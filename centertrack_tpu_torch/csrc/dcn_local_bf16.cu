@@ -71,6 +71,8 @@
 // pieces are XOR-swizzled by window position, so the eight pixels a
 // quarter-warp samples read eight bank groups.
 
+#include <mma.h>
+
 #include "dcn_sample_bf16.cuh"
 #include "hopper.cuh"
 
@@ -410,5 +412,245 @@ extern "C" int dcn_local_fwd_bf16(const bf16* x, const bf16* offset,
                                                 threads),
                                      threads, 0, s>>>(partial, bias, out,
                                                       count, Cout, splits);
+  return (int)cudaGetLastError();
+}
+
+// The gather route, `dcn_local_fwd_gather_bf16`: the planner's choice
+// (ops/dcn.fwd_bf16_plan route "gather") where the window design above
+// would pass 227 KB of shared memory (a wide halo at a wide Cout). It is
+// the first design of this kernel, from before the window design, and
+// takes every R and every width. A block takes 64 consecutive output
+// pixels by 64 output channels. The four corners of every (pixel, tap),
+// their flat pixel index and hat weight (dcn_sample_bf16.cuh's, so A is
+// the window design's bit for bit), and the mask are computed once per
+// block into shared memory. For each tap and chunk of 32 input channels
+// the block builds the rounded sample A (64 x 32, bf16) in shared memory,
+// two channels of a corner pixel per thread read straight from x in
+// global memory (coalesced), beside the tap's (32 x 64) bf16 weight
+// slice; each of the 8 warps multiplies its 16 x 32 part with wmma
+// 16x16x16 bf16 fragments, accumulating in float32 across all taps and
+// chunks. The accumulators go through shared memory once at the end to
+// add the bias in float32 and round to bf16. What bounds it is what
+// bounds the window design (the operations: chip_smoke.py
+// dcn_bound_ms_bf16); in practice the exposed corner gathers and the two
+// barriers per chunk decide its time (3.78-3.89 ms per 544 x 960 image at
+// R=1 on an H100 when it was the path's kernel). No path launches it.
+namespace {
+namespace gather {
+
+using namespace nvcuda;
+
+constexpr int TP = 64;       // output pixels per block
+constexpr int TC = 64;       // output channels per block
+constexpr int CK = 32;       // input channels per chunk: two k-steps of 16
+constexpr int NT = 256;      // 8 warps: 4 rows of 16 pixels x 2 cols of
+                             // 32 channels
+constexpr int LDA = CK + 8;  // bf16 pitch of the sample tile (80 B rows)
+constexpr int LDB = TC + 8;  // bf16 pitch of the weight tile (144 B rows)
+constexpr int LDO = TC + 4;  // float32 pitch of the output tile
+
+struct Corners {
+  int idx[9][4][TP];  // flat pixel index of each corner, 0 outside
+  float w[9][4][TP];  // hat weight wy * wx, 0 outside the map
+  float m[9][TP];     // mask
+};
+
+// The corner tables are dead once the last chunk is built: the output
+// tile reuses their memory.
+union __align__(32) Smem {
+  Corners c;
+  float out[TP][LDO];
+};
+
+// Two consecutive channels of one pixel as float32; `n` of them (0-2)
+// lie inside the row, `paired` says a 4-byte load is aligned.
+__device__ __forceinline__ float2 load2(const bf16* p, int n, bool paired) {
+  if (n >= 2 && paired)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  float2 v = make_float2(0.f, 0.f);
+  if (n > 0) v.x = f32(p[0]);
+  if (n > 1) v.y = f32(p[1]);
+  return v;
+}
+
+__device__ __forceinline__ bool even(const void* q) {
+  return (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+}
+
+__global__ void __launch_bounds__(NT)
+dcn_local_fwd_gather_bf16_kernel(const bf16* __restrict__ x,
+                                 const bf16* __restrict__ offset,
+                                 const bf16* __restrict__ mask,
+                                 const bf16* __restrict__ weight,
+                                 const bf16* __restrict__ bias,
+                                 bf16* __restrict__ out, int npix, int H,
+                                 int W, int Cin, int Cout, float R) {
+  __shared__ Smem sm;
+  __shared__ __align__(32) bf16 s_a[TP][LDA];
+  __shared__ __align__(32) bf16 s_b[CK][LDB];
+
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * TP;
+  const int o0 = blockIdx.y * TC;
+  const int HW = H * W;
+  // 4-byte loads and stores of channel pairs where they are aligned
+  const bool x_paired = Cin % 2 == 0 && even(x);
+  const bool w_paired = Cout % 2 == 0 && even(weight) && even(out) &&
+                        (bias == nullptr || even(bias));
+
+  for (int e = tid; e < 9 * TP; e += NT) {
+    const int t = e / TP;
+    const int p = e - t * TP;
+    const int n = p0 + p;
+    int idx[4] = {0, 0, 0, 0};
+    float wt[4] = {0.f, 0.f, 0.f, 0.f};
+    float m = 0.f;
+    if (n < npix) {
+      const int b = n / HW;
+      const int rem = n - b * HW;
+      const int y = rem / W;
+      const int xx = rem - y * W;
+      const bf16* o = offset + (int64_t)n * 18;
+      const float dy = fminf(fmaxf(f32(o[2 * t]), -R), R);
+      const float dx = fminf(fmaxf(f32(o[2 * t + 1]), -R), R);
+      m = f32(mask[(int64_t)n * 9 + t]);
+      int fy, fx;
+      float hw[4];
+      dcn_bf16::hats(dy, dx, t, fy, fx, hw);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int yy = y + fy + a;
+          const int xc = xx + fx + c;
+          const bool inside = yy >= 0 && yy < H && xc >= 0 && xc < W;
+          idx[2 * a + c] = inside ? b * HW + yy * W + xc : 0;
+          wt[2 * a + c] = inside ? hw[2 * a + c] : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sm.c.idx[t][k][p] = idx[k];
+      sm.c.w[t][k][p] = wt[k];
+    }
+    sm.c.m[t][p] = m;
+  }
+
+  const int warp = tid / 32;
+  const int wm = warp % 4;  // pixel rows 16 wm .. 16 wm + 15
+  const int wn = warp / 4;  // channel cols 32 wn .. 32 wn + 31
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+
+  for (int t = 0; t < 9; ++t) {
+    const bf16* wtap = weight + (int64_t)t * Cin * Cout;
+    for (int c0 = 0; c0 < Cin; c0 += CK) {
+      __syncthreads();  // previous chunk fully consumed (and corners ready)
+      for (int e = tid; e < TP * CK / 2; e += NT) {
+        const int cp = e % (CK / 2);
+        const int p = e / (CK / 2);
+        const int c = c0 + 2 * cp;
+        const int live = Cin - c;
+        float s0 = 0.f, s1 = 0.f;
+        if (live > 0) {
+          // each corner's product added in turn, then the mask, without
+          // fused multiply-adds: the plain version's order and roundings
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float wk = sm.c.w[t][k][p];
+            if (wk != 0.f) {
+              const float2 v = load2(
+                  x + (int64_t)sm.c.idx[t][k][p] * Cin + c, live, x_paired);
+              s0 = __fadd_rn(s0, __fmul_rn(v.x, wk));
+              s1 = __fadd_rn(s1, __fmul_rn(v.y, wk));
+            }
+          }
+          const float m = sm.c.m[t][p];
+          s0 = __fmul_rn(s0, m);
+          s1 = __fmul_rn(s1, m);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(&s_a[p][2 * cp]) =
+            __floats2bfloat162_rn(s0, s1);
+      }
+      for (int e = tid; e < CK * TC / 2; e += NT) {
+        const int op = e % (TC / 2);
+        const int c = e / (TC / 2);
+        const int o = o0 + 2 * op;
+        float2 v = make_float2(0.f, 0.f);
+        if (c0 + c < Cin)
+          v = load2(wtap + (int64_t)(c0 + c) * Cout + o, Cout - o, w_paired);
+        *reinterpret_cast<__nv_bfloat162*>(&s_b[c][2 * op]) =
+            __floats2bfloat162_rn(v.x, v.y);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < CK; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, &s_a[16 * wm][k], LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+              bfrag;
+          wmma::load_matrix_sync(bfrag, &s_b[k][32 * wn + 16 * j], LDB);
+          wmma::mma_sync(acc[j], a, bfrag, acc[j]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with the corner tables
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(&sm.out[16 * wm][32 * wn + 16 * j], acc[j], LDO,
+                            wmma::mem_row_major);
+  __syncthreads();
+
+  for (int e = tid; e < TP * TC / 2; e += NT) {
+    const int op = e % (TC / 2);
+    const int p = e / (TC / 2);
+    const int n = p0 + p;
+    const int o = o0 + 2 * op;
+    if (n >= npix || o >= Cout) continue;
+    float v0 = sm.out[p][2 * op];
+    float v1 = sm.out[p][2 * op + 1];
+    if (bias) {
+      const float2 bv = load2(bias + o, Cout - o, w_paired);
+      v0 += bv.x;
+      v1 += bv.y;
+    }
+    bf16* dst = out + (int64_t)n * Cout + o;
+    if (o + 1 < Cout && w_paired) {
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      dst[0] = __float2bfloat16_rn(v0);
+      if (o + 1 < Cout) dst[1] = __float2bfloat16_rn(v1);
+    }
+  }
+}
+
+}  // namespace gather
+}  // namespace
+
+// The gather route: any R >= 1 and any Cin, Cout; out (B, H, W, Cout) bf16
+// is fully written; `bias` may be null. Launches on `stream`, allocates
+// nothing, does not synchronise, and returns cudaGetLastError() as an
+// int; R < 1 or a map past 2^31 pixels returns cudaErrorInvalidValue.
+extern "C" int dcn_local_fwd_gather_bf16(const bf16* x, const bf16* offset,
+                                         const bf16* mask, const bf16* weight,
+                                         const bf16* bias, bf16* out, int B,
+                                         int H, int W, int Cin, int Cout,
+                                         int R, void* stream) {
+  const int64_t npix = (int64_t)B * H * W;
+  if (npix <= 0 || Cout <= 0) return (int)cudaSuccess;
+  if (R < 1 || Cin < 0 || npix > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((npix + gather::TP - 1) / gather::TP),
+                  (Cout + gather::TC - 1) / gather::TC);
+  gather::dcn_local_fwd_gather_bf16_kernel<<<grid, gather::NT, 0,
+                                             (cudaStream_t)stream>>>(
+      x, offset, mask, weight, bias, out, (int)npix, H, W, Cin, Cout,
+      (float)R);
   return (int)cudaGetLastError();
 }

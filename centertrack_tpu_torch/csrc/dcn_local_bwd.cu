@@ -1420,3 +1420,238 @@ extern "C" int dcn_local_bwd_weight_gather(
       partial, grad_w, count, splits);
   return (int)cudaGetLastError();
 }
+
+// The gather route of bwd_data, `dcn_local_bwd_data_gather`: the
+// planner's choice (ops/dcn.bwd_data_fp32_plan route "gather") where the
+// window design does not take the call, for max_offset past 8 (MAX_R) or
+// an output-grad tile past shared memory (past about 360 output
+// channels). It is the first design of this kernel, from before the
+// window design, and takes every R and every width. One block per tile
+// of 64 pixels and one tap. Per chunk of 32 input channels it forms
+// G_t(p, c) = sum_o g(p, o) w[t, c, o] on the CUDA cores (g and the
+// weight slice staged in shared memory 32 output channels at a time),
+// then, one warp per pixel and one lane per channel, reads the (up to
+// 3 x 3) x values of the tap's support straight from global memory and
+// accumulates grad mask_t = sum_c G S_t, grad dy_t = m clip'(dy) sum_c G
+// sum_k hat'(.) hat(.) x and grad dx_t likewise (reduced by warp shuffles
+// in a fixed order), and adds m hat hat G into grad x at the (<= 4)
+// bilinear corners by float32 atomicAdd, so grad x sums in an order that
+// changes from run to run (rounding-level differences only). What bounds
+// it is what bounds the window design (the operations: chip_smoke.py
+// dcn_bwd_data_bound_ms_3xtf32, or dcn_bwd_bound_ms for the same work on
+// the CUDA cores, where this route runs); in practice the G contraction
+// on the CUDA cores, redone per tap, and the scattered atomics decide its
+// time (6.06 ms per 544 x 960 image at R=1 on an H100 when it was the
+// path's kernel). No path launches it.
+namespace {
+namespace data_gather {
+
+constexpr int DP = 64;    // pixels per block
+constexpr int DK = 32;    // input channels per chunk (one warp)
+constexpr int DO = 32;    // output channels per staged chunk
+constexpr int DNT = 256;  // threads (8 warps)
+constexpr int DPW = DP / (DNT / 32);  // pixels per warp
+
+__global__ void __launch_bounds__(DNT)
+dcn_local_bwd_data_gather_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ offset,
+                                 const float* __restrict__ mask,
+                                 const float* __restrict__ weight,
+                                 const float* __restrict__ grad_out,
+                                 float* __restrict__ grad_x,
+                                 float* __restrict__ grad_offset,
+                                 float* __restrict__ grad_mask, int npix,
+                                 int H, int W, int Cin, int Cout, int Ri) {
+  // per pixel of the tile: the 3 candidate rows / cols of the support
+  // (flat pixel index of the row start b*H*W + yy*W, and the column xx;
+  // -1 where the shift is outside [-R, R] or outside the map), their hat
+  // and hat' weights, the mask and the two clip' factors
+  __shared__ int s_row[DP][3];
+  __shared__ int s_col[DP][3];
+  __shared__ float s_wy[DP][3], s_gy[DP][3], s_wx[DP][3], s_gx[DP][3];
+  __shared__ float s_m[DP], s_cy[DP], s_cx[DP];
+  __shared__ float s_g[DP][DO + 1];
+  __shared__ float s_w[DK][DO + 1];
+
+  const float R = (float)Ri;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int p0 = blockIdx.x * DP;
+  const int t = blockIdx.y;
+  const int ty = t / 3 - 1;
+  const int tx = t % 3 - 1;
+  const int HW = H * W;
+
+  if (tid < DP) {
+    const int p = tid;
+    const int n = p0 + p;
+    float m = 0.f, cy = 0.f, cx = 0.f;
+    float dyc = 0.f, dxc = 0.f;
+    int b = 0, y = 0, xx = 0;
+    if (n < npix) {
+      b = n / HW;
+      const int rem = n - b * HW;
+      y = rem / W;
+      xx = rem - y * W;
+      const float dy = offset[(int64_t)n * 18 + 2 * t];
+      const float dx = offset[(int64_t)n * 18 + 2 * t + 1];
+      dyc = fminf(fmaxf(dy, -R), R);
+      dxc = fminf(fmaxf(dx, -R), R);
+      cy = clip_grad(dy, R);
+      cx = clip_grad(dx, R);
+      m = mask[(int64_t)n * 9 + t];
+    }
+    const float tyd = (float)ty + dyc;
+    const float txd = (float)tx + dxc;
+    // candidate shifts: every k with |u| <= 1 is in {f - 1, f, f + 1}
+    // for f the nearest integer to ty + dy_c - ty (as rounded in u, the
+    // others are at least 1.5 away); u is formed as (t + d) - (t + k), in
+    // JAX's order, so both see a kink at the same inputs
+    const int fy = (int)rintf(tyd) - ty;
+    const int fx = (int)rintf(txd) - tx;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int ky = fy - 1 + q;
+      const int kx = fx - 1 + q;
+      const float uy = tyd - (float)(ty + ky);
+      const float ux = txd - (float)(tx + kx);
+      const int yy = y + ty + ky;
+      const int xc = xx + tx + kx;
+      const bool oky = n < npix && ky >= -Ri && ky <= Ri && yy >= 0 &&
+                       yy < H;
+      const bool okx = n < npix && kx >= -Ri && kx <= Ri && xc >= 0 &&
+                       xc < W;
+      s_row[p][q] = oky ? b * HW + yy * W : -1;
+      s_col[p][q] = okx ? xc : -1;
+      s_wy[p][q] = oky ? hat(uy) : 0.f;
+      s_gy[p][q] = oky ? hat_grad(uy) : 0.f;
+      s_wx[p][q] = okx ? hat(ux) : 0.f;
+      s_gx[p][q] = okx ? hat_grad(ux) : 0.f;
+    }
+    s_m[p] = m;
+    s_cy[p] = cy;
+    s_cx[p] = cx;
+  }
+
+  // this thread's pixels are warp + 8 i, its channel c0 + lane
+  float acc_m[DPW], acc_y[DPW], acc_x[DPW];
+#pragma unroll
+  for (int i = 0; i < DPW; ++i) {
+    acc_m[i] = 0.f;
+    acc_y[i] = 0.f;
+    acc_x[i] = 0.f;
+  }
+  const float* wtap = weight + (int64_t)t * Cin * Cout;
+
+  for (int c0 = 0; c0 < Cin; c0 += DK) {
+    const int c = c0 + lane;
+    // G_t(p, c) = sum_o g(p, o) w[t, c, o]
+    float G[DPW];
+#pragma unroll
+    for (int i = 0; i < DPW; ++i) G[i] = 0.f;
+    for (int o0 = 0; o0 < Cout; o0 += DO) {
+      __syncthreads();  // previous chunk consumed (and the setup done)
+      for (int e = tid; e < DP * DO; e += DNT) {
+        const int o = e % DO;
+        const int p = e / DO;
+        const int n = p0 + p;
+        s_g[p][o] = (n < npix && o0 + o < Cout)
+                        ? grad_out[(int64_t)n * Cout + o0 + o]
+                        : 0.f;
+      }
+      for (int e = tid; e < DK * DO; e += DNT) {
+        const int o = e % DO;
+        const int k = e / DO;
+        s_w[k][o] = (c0 + k < Cin && o0 + o < Cout)
+                        ? wtap[(int64_t)(c0 + k) * Cout + o0 + o]
+                        : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int o = 0; o < DO; ++o) {
+        const float wv = s_w[lane][o];
+#pragma unroll
+        for (int i = 0; i < DPW; ++i)
+          G[i] = fmaf(s_g[warp + 8 * i][o], wv, G[i]);
+      }
+    }
+    if (c >= Cin) continue;  // lanes past Cin (last chunk): nothing to add
+#pragma unroll
+    for (int i = 0; i < DPW; ++i) {
+      const int p = warp + 8 * i;
+      const float mG = s_m[p] * G[i];
+      float S = 0.f, Sy = 0.f, Sx = 0.f;
+#pragma unroll
+      for (int qy = 0; qy < 3; ++qy) {
+        const int row = s_row[p][qy];
+        const float wy = s_wy[p][qy];
+        const float gy = s_gy[p][qy];
+        if (row < 0 || (wy == 0.f && gy == 0.f)) continue;
+#pragma unroll
+        for (int qx = 0; qx < 3; ++qx) {
+          const int col = s_col[p][qx];
+          const float wx = s_wx[p][qx];
+          const float gx = s_gx[p][qx];
+          if (col < 0 || (wx == 0.f && gx == 0.f)) continue;
+          const int64_t at = (int64_t)(row + col) * Cin + c;
+          const float v = x[at];
+          const float wk = wy * wx;
+          S = fmaf(wk, v, S);
+          Sy = fmaf(gy * wx, v, Sy);
+          Sx = fmaf(wy * gx, v, Sx);
+          if (wk != 0.f) atomicAdd(grad_x + at, wk * mG);
+        }
+      }
+      acc_m[i] = fmaf(G[i], S, acc_m[i]);
+      acc_y[i] = fmaf(G[i], Sy, acc_y[i]);
+      acc_x[i] = fmaf(G[i], Sx, acc_x[i]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < DPW; ++i) {
+    float a = acc_m[i], ay = acc_y[i], ax = acc_x[i];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, s);
+      ay += __shfl_xor_sync(0xffffffffu, ay, s);
+      ax += __shfl_xor_sync(0xffffffffu, ax, s);
+    }
+    const int p = warp + 8 * i;
+    const int n = p0 + p;
+    if (lane == 0 && n < npix) {
+      const float m = s_m[p];
+      grad_mask[(int64_t)n * 9 + t] = a;
+      grad_offset[(int64_t)n * 18 + 2 * t] = m * s_cy[p] * ay;
+      grad_offset[(int64_t)n * 18 + 2 * t + 1] = m * s_cx[p] * ax;
+    }
+  }
+}
+
+}  // namespace data_gather
+}  // namespace
+
+// The gather route of bwd_data: any R >= 1 and any Cin, Cout. grad_x must
+// be zero-filled by the caller (the kernel adds into it with atomics);
+// grad_offset (B, H, W, 18) and grad_mask (B, H, W, 9) are fully written.
+// Launches on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() as an int; R < 1 or a map past 2^31 pixels
+// returns cudaErrorInvalidValue.
+extern "C" int dcn_local_bwd_data_gather(
+    const float* x, const float* offset, const float* mask,
+    const float* weight, const float* grad_out, float* grad_x,
+    float* grad_offset, float* grad_mask, int B, int H, int W, int Cin,
+    int Cout, int R, void* stream) {
+  const int64_t npix = (int64_t)B * H * W;
+  if (npix <= 0) return (int)cudaSuccess;
+  if (R < 1 || Cin < 0 || Cout < 0 || npix > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((npix + data_gather::DP - 1) / data_gather::DP),
+                  9);
+  data_gather::dcn_local_bwd_data_gather_kernel<<<grid, data_gather::DNT, 0,
+                                                  (cudaStream_t)stream>>>(
+      x, offset, mask, weight, grad_out, grad_x, grad_offset, grad_mask,
+      (int)npix, H, W, Cin, Cout, R);
+  return (int)cudaGetLastError();
+}

@@ -1249,3 +1249,264 @@ extern "C" int dcn_local_bwd_weight_gather_bf16(
       partial, grad_w, count, splits);
   return (int)cudaGetLastError();
 }
+
+// The gather route of bwd_data, `dcn_local_bwd_data_gather_bf16`: the
+// planner's choice (ops/dcn.bwd_data_bf16_plan route "gather") where the
+// window design does not take the call, for max_offset past 4 (the widest
+// support walk instantiated) or a window past 227 KB. It is the first
+// design of this kernel, from before the window design, and takes every
+// R and every width. One block per tile of 64 pixels and one tap, as in
+// the float32 gather route (dcn_local_bwd.cu). Per chunk of 32 input
+// channels the block forms G_t(p, c) = sum_o g(p, o) w[t, c, o] on the
+// tensor cores (wmma 16x16x16, bf16 in, float32 accumulators; the
+// products of two bf16 values are exact in float32), parks G in shared
+// memory, and then, one warp per pixel and one lane per channel, walks
+// the tap's (up to 3 x 3) support straight from x in global memory to
+// accumulate grad mask, grad dy and grad dx (reduced by warp shuffles in
+// a fixed order, rounded once) and scatters m hat hat G into the float32
+// grad-x scratch with atomicAdd; round_to_bf16_kernel rounds it once.
+// What bounds it is what bounds the window design (the float32 bilinear
+// work: chip_smoke.py dcn_bwd_bound_ms_bf16); in practice the exposed
+// gathers, the g / w staging and the scattered atomics decide its time
+// (4.47-4.78 ms per 544 x 960 image at R=1 on an H100 when it was the
+// path's kernel). No path launches it.
+namespace {
+namespace data_gather {
+
+using namespace nvcuda;
+
+constexpr int DP = 64;    // pixels per block
+constexpr int DK = 32;    // input channels per chunk (one warp)
+constexpr int DO = 32;    // output channels per staged chunk
+constexpr int DNT = 256;  // threads (8 warps)
+constexpr int DPW = DP / (DNT / 32);  // pixels per warp
+constexpr int LDG = DO + 8;  // bf16 pitch of the g and w chunks (80 B)
+constexpr int LDC = DK + 4;  // float32 pitch of the G tile
+
+__global__ void __launch_bounds__(DNT)
+dcn_local_bwd_data_gather_bf16_kernel(const bf16* __restrict__ x,
+                                      const bf16* __restrict__ offset,
+                                      const bf16* __restrict__ mask,
+                                      const bf16* __restrict__ weight,
+                                      const bf16* __restrict__ grad_out,
+                                      float* __restrict__ grad_x_acc,
+                                      bf16* __restrict__ grad_offset,
+                                      bf16* __restrict__ grad_mask, int npix,
+                                      int H, int W, int Cin, int Cout,
+                                      int Ri) {
+  // per pixel: the 3 candidate rows / cols of the support (-1 where the
+  // shift is outside [-R, R] or the map), their hat and hat' weights,
+  // the mask and the two clip' factors (as in dcn_local_bwd.cu)
+  __shared__ int s_row[DP][3];
+  __shared__ int s_col[DP][3];
+  __shared__ float s_wy[DP][3], s_gy[DP][3], s_wx[DP][3], s_gx[DP][3];
+  __shared__ float s_m[DP], s_cy[DP], s_cx[DP];
+  __shared__ __align__(32) bf16 s_g[DP][LDG];
+  __shared__ __align__(32) bf16 s_w[DK][LDG];
+  __shared__ __align__(32) float s_G[DP][LDC];
+
+  const float R = (float)Ri;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % 4;  // G rows (pixels) 16 wm .. 16 wm + 15
+  const int wn = warp / 4;  // G cols (channels) 16 wn .. 16 wn + 15
+  const int p0 = blockIdx.x * DP;
+  const int t = blockIdx.y;
+  const int ty = t / 3 - 1;
+  const int tx = t % 3 - 1;
+  const int HW = H * W;
+  const bool g_paired = Cout % 2 == 0 && aligned4(grad_out);
+  const bool w_paired = Cout % 2 == 0 && aligned4(weight);
+
+  if (tid < DP) {
+    const int p = tid;
+    const int n = p0 + p;
+    float m = 0.f, cy = 0.f, cx = 0.f;
+    float dyc = 0.f, dxc = 0.f;
+    int b = 0, y = 0, xx = 0;
+    if (n < npix) {
+      b = n / HW;
+      const int rem = n - b * HW;
+      y = rem / W;
+      xx = rem - y * W;
+      const float dy = f32(offset[(int64_t)n * 18 + 2 * t]);
+      const float dx = f32(offset[(int64_t)n * 18 + 2 * t + 1]);
+      dyc = fminf(fmaxf(dy, -R), R);
+      dxc = fminf(fmaxf(dx, -R), R);
+      cy = clip_grad(dy, R);
+      cx = clip_grad(dx, R);
+      m = f32(mask[(int64_t)n * 9 + t]);
+    }
+    const float tyd = (float)ty + dyc;
+    const float txd = (float)tx + dxc;
+    const int fy = (int)rintf(tyd) - ty;
+    const int fx = (int)rintf(txd) - tx;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int ky = fy - 1 + q;
+      const int kx = fx - 1 + q;
+      const float uy = tyd - (float)(ty + ky);
+      const float ux = txd - (float)(tx + kx);
+      const int yy = y + ty + ky;
+      const int xc = xx + tx + kx;
+      const bool oky = n < npix && ky >= -Ri && ky <= Ri && yy >= 0 &&
+                       yy < H;
+      const bool okx = n < npix && kx >= -Ri && kx <= Ri && xc >= 0 &&
+                       xc < W;
+      s_row[p][q] = oky ? b * HW + yy * W : -1;
+      s_col[p][q] = okx ? xc : -1;
+      s_wy[p][q] = oky ? hat(uy) : 0.f;
+      s_gy[p][q] = oky ? hat_grad(uy) : 0.f;
+      s_wx[p][q] = okx ? hat(ux) : 0.f;
+      s_gx[p][q] = okx ? hat_grad(ux) : 0.f;
+    }
+    s_m[p] = m;
+    s_cy[p] = cy;
+    s_cx[p] = cx;
+  }
+
+  float acc_m[DPW], acc_y[DPW], acc_x[DPW];
+#pragma unroll
+  for (int i = 0; i < DPW; ++i) {
+    acc_m[i] = 0.f;
+    acc_y[i] = 0.f;
+    acc_x[i] = 0.f;
+  }
+  const bf16* wtap = weight + (int64_t)t * Cin * Cout;
+
+  for (int c0 = 0; c0 < Cin; c0 += DK) {
+    // G_t(p, c0 + k) = sum_o g(p, o) w[t, c0 + k, o] on the tensor cores
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> accG;
+    wmma::fill_fragment(accG, 0.f);
+    for (int o0 = 0; o0 < Cout; o0 += DO) {
+      __syncthreads();  // previous chunk consumed (and the setup done)
+      for (int e = tid; e < DP * DO / 2; e += DNT) {
+        const int op = e % (DO / 2);
+        const int p = e / (DO / 2);
+        const int n = p0 + p;
+        const int o = o0 + 2 * op;
+        float2 v = make_float2(0.f, 0.f);
+        if (n < npix)
+          v = load2(grad_out + (int64_t)n * Cout + o, Cout - o, g_paired);
+        *reinterpret_cast<bf162*>(&s_g[p][2 * op]) =
+            __floats2bfloat162_rn(v.x, v.y);
+      }
+      for (int e = tid; e < DK * DO / 2; e += DNT) {
+        const int op = e % (DO / 2);
+        const int k = e / (DO / 2);
+        const int o = o0 + 2 * op;
+        float2 v = make_float2(0.f, 0.f);
+        if (c0 + k < Cin)
+          v = load2(wtap + (int64_t)(c0 + k) * Cout + o, Cout - o, w_paired);
+        *reinterpret_cast<bf162*>(&s_w[k][2 * op]) =
+            __floats2bfloat162_rn(v.x, v.y);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < DO; k += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
+        wmma::load_matrix_sync(a, &s_g[16 * wm][k], LDG);
+        // B(o, c) = w[t, c, o] = s_w[c][o]: column-major with pitch LDG
+        wmma::load_matrix_sync(bw, &s_w[16 * wn][k], LDG);
+        wmma::mma_sync(accG, a, bw, accG);
+      }
+    }
+    wmma::store_matrix_sync(&s_G[16 * wm][16 * wn], accG, LDC,
+                            wmma::mem_row_major);
+    __syncthreads();
+    const int c = c0 + lane;
+    if (c >= Cin) continue;  // lanes past Cin (last chunk): nothing to add
+#pragma unroll
+    for (int i = 0; i < DPW; ++i) {
+      const int p = warp + 8 * i;
+      const float G = s_G[p][lane];
+      const float mG = s_m[p] * G;
+      float S = 0.f, Sy = 0.f, Sx = 0.f;
+#pragma unroll
+      for (int qy = 0; qy < 3; ++qy) {
+        const int row = s_row[p][qy];
+        const float wy = s_wy[p][qy];
+        const float gy = s_gy[p][qy];
+        if (row < 0 || (wy == 0.f && gy == 0.f)) continue;
+#pragma unroll
+        for (int qx = 0; qx < 3; ++qx) {
+          const int col = s_col[p][qx];
+          const float wx = s_wx[p][qx];
+          const float gx = s_gx[p][qx];
+          if (col < 0 || (wx == 0.f && gx == 0.f)) continue;
+          const int64_t at = (int64_t)(row + col) * Cin + c;
+          const float v = f32(x[at]);
+          const float wk = wy * wx;
+          S = fmaf(wk, v, S);
+          Sy = fmaf(gy * wx, v, Sy);
+          Sx = fmaf(wy * gx, v, Sx);
+          if (wk != 0.f) atomicAdd(grad_x_acc + at, wk * mG);
+        }
+      }
+      acc_m[i] = fmaf(G, S, acc_m[i]);
+      acc_y[i] = fmaf(G, Sy, acc_y[i]);
+      acc_x[i] = fmaf(G, Sx, acc_x[i]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < DPW; ++i) {
+    float a = acc_m[i], ay = acc_y[i], ax = acc_x[i];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, s);
+      ay += __shfl_xor_sync(0xffffffffu, ay, s);
+      ax += __shfl_xor_sync(0xffffffffu, ax, s);
+    }
+    const int p = warp + 8 * i;
+    const int n = p0 + p;
+    if (lane == 0 && n < npix) {
+      const float m = s_m[p];
+      grad_mask[(int64_t)n * 9 + t] = __float2bfloat16_rn(a);
+      grad_offset[(int64_t)n * 18 + 2 * t] =
+          __float2bfloat16_rn(m * s_cy[p] * ay);
+      grad_offset[(int64_t)n * 18 + 2 * t + 1] =
+          __float2bfloat16_rn(m * s_cx[p] * ax);
+    }
+  }
+}
+
+}  // namespace data_gather
+}  // namespace
+
+// The gather route of bwd_data: any R >= 1 and any Cin, Cout. grad_x_acc
+// is B * H * W * Cin floats of scratch (zeroed here); grad_x (B, H, W,
+// Cin), grad_offset (B, H, W, 18) and grad_mask (B, H, W, 9) are bf16 and
+// fully written. Launches on `stream`, allocates nothing, does not
+// synchronise, and returns cudaGetLastError() as an int; R < 1 or a map
+// past 2^31 pixels returns cudaErrorInvalidValue.
+extern "C" int dcn_local_bwd_data_gather_bf16(
+    const bf16* x, const bf16* offset, const bf16* mask, const bf16* weight,
+    const bf16* grad_out, float* grad_x_acc, bf16* grad_x, bf16* grad_offset,
+    bf16* grad_mask, int B, int H, int W, int Cin, int Cout, int R,
+    void* stream) {
+  const int64_t npix = (int64_t)B * H * W;
+  if (npix <= 0) return (int)cudaSuccess;
+  if (R < 1 || Cin < 0 || Cout < 0 || npix > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int64_t count = npix * Cin;
+  cudaError_t err = cudaMemsetAsync(grad_x_acc, 0, count * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((npix + data_gather::DP - 1) / data_gather::DP),
+                  9);
+  data_gather::dcn_local_bwd_data_gather_bf16_kernel<<<grid,
+                                                       data_gather::DNT, 0,
+                                                       s>>>(
+      x, offset, mask, weight, grad_out, grad_x_acc, grad_offset, grad_mask,
+      (int)npix, H, W, Cin, Cout, R);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || count == 0) return (int)err;
+  const int threads = 256;
+  const int64_t pairs = (count + 1) / 2;
+  round_to_bf16_kernel<<<(unsigned)((pairs + threads - 1) / threads),
+                         threads, 0, s>>>(grad_x_acc, grad_x, count);
+  return (int)cudaGetLastError();
+}

@@ -18,9 +18,12 @@ over (B, H, W). ``fwd_fp32_plan``, ``bwd_data_fp32_plan`` and
 ``bwd_weight_fp32_plan`` give the three their launch plans (pixel tile,
 Cin chunk, N tile, taps, splits, shared memory, scratch); their
 contractions run on the tensor cores in 3xTF32, which keeps float32's
-accuracy. Past what shared memory holds, the weight gradient's plan
-takes its gather route, ``dcn_local_bwd_weight_gather``. A CPU tensor
-goes to
+accuracy. Where a window design does not take the call (a max_offset
+past its support walk, or shared memory past 227 KB), each plan takes
+its gather route instead: ``dcn_local_fwd_gather``,
+``dcn_local_bwd_data_gather`` and ``dcn_local_bwd_weight_gather``, the
+first designs, which read x from global memory per corner and take every
+max_offset and width. A CPU tensor goes to
 ``deform_conv2d_local_plain``, the plain PyTorch version that the tests
 hold against JAX and that the chip smoke holds the kernels against;
 autograd differentiates it.
@@ -33,8 +36,10 @@ whose forward launches ``dcn_local_fwd_bf16`` and whose backward
 launches ``dcn_local_bwd_data_bf16`` and ``dcn_local_bwd_weight_bf16``
 (``csrc/dcn_local_bwd_bf16.cu``); ``fwd_bf16_plan``,
 ``bwd_data_bf16_plan`` and ``bwd_weight_bf16_plan`` give the three
-their launch plans (pixel tile, splits, shared memory, scratch; the
-weight gradient's gather route ``dcn_local_bwd_weight_gather_bf16``).
+their launch plans (pixel tile, splits, shared memory, scratch; their
+gather routes ``dcn_local_fwd_gather_bf16``,
+``dcn_local_bwd_data_gather_bf16`` and
+``dcn_local_bwd_weight_gather_bf16``).
 At bf16 the forward rounds
 where the Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the sample
 is taken in float32 from the bf16 inputs, masked, rounded to bf16,
@@ -81,7 +86,11 @@ BWD_DATA_LAUNCHES = 0    # dcn_local_bwd_data
 BWD_WEIGHT_LAUNCHES = 0  # dcn_local_bwd_weight
 BWD_DATA_BF16_LAUNCHES = 0    # dcn_local_bwd_data_bf16
 BWD_WEIGHT_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_bf16
-# the weight gradient's route past what shared memory holds
+# the gather routes, past what the window designs take
+FWD_GATHER_LAUNCHES = 0              # dcn_local_fwd_gather
+FWD_GATHER_BF16_LAUNCHES = 0         # dcn_local_fwd_gather_bf16
+BWD_DATA_GATHER_LAUNCHES = 0         # dcn_local_bwd_data_gather
+BWD_DATA_GATHER_BF16_LAUNCHES = 0    # dcn_local_bwd_data_gather_bf16
 BWD_WEIGHT_GATHER_LAUNCHES = 0       # dcn_local_bwd_weight_gather
 BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_gather_bf16
 
@@ -89,11 +98,15 @@ BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_gather_bf16
 # launcher ends with the stream
 _SIGNATURES = {
     "dcn_local_fwd": ("dcn_local", 8, 13),
+    "dcn_local_fwd_gather": ("dcn_local", 6, 6),
     "dcn_local_fwd_bf16": ("dcn_local_bf16", 7, 12),
+    "dcn_local_fwd_gather_bf16": ("dcn_local_bf16", 6, 6),
     "dcn_local_bwd_data": ("dcn_local_bwd", 10, 12),
+    "dcn_local_bwd_data_gather": ("dcn_local_bwd", 8, 6),
     "dcn_local_bwd_weight": ("dcn_local_bwd", 7, 14),
     "dcn_local_bwd_weight_gather": ("dcn_local_bwd", 6, 7),
     "dcn_local_bwd_data_bf16": ("dcn_local_bwd_bf16", 10, 11),
+    "dcn_local_bwd_data_gather_bf16": ("dcn_local_bwd_bf16", 9, 6),
     "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 14),
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
 }
@@ -123,6 +136,11 @@ BF16_DATA_MAX_OFFSET = 4
 FP32_CHUNK = 32
 FP32_DATA_CHUNKS = (32, 16, 8)
 FP32_MAX_OFFSET = 8
+# The gather routes of the forward and data-gradient kernels (the first
+# designs): a block of 256 threads takes 64 consecutive output pixels and
+# either 64 output channels (forward) or one tap (data gradient).
+GATHER_PIXELS = 64
+GATHER_CHANNELS = 64
 # The weight-gradient kernels of both dtypes (csrc/dcn_local_bwd.cu,
 # csrc/dcn_local_bwd_bf16.cu), window route: a block takes a chunk of 64
 # input channels (the wgmma M), a group of taps and up to 256 output
@@ -267,16 +285,27 @@ def _window_pixels(max_offset: int, th: int = TILE[0]) -> int:
     return (th + 2 * halo) * (tw + 2 * halo)
 
 
+def _gather_plan(kind: str, b: int, h: int, w: int, cout: int,
+                 reason: str) -> dict:
+    """The plan of a forward (``kind`` "fwd") or data-gradient ("data")
+    kernel's gather route: its blocks, 64 pixels by 64 output channels or
+    by one tap, and why the window design does not take the call."""
+    cols = -(-cout // GATHER_CHANNELS) if kind == "fwd" else 9
+    return {"route": "gather", "reason": reason,
+            "blocks": -(-(b * h * w) // GATHER_PIXELS) * cols}
+
+
 @functools.lru_cache(maxsize=256)
 def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
                   max_offset: int) -> dict:
-    """Launch plan of ``dcn_local_fwd_bf16``: output channels per block
-    (``n_tile``: 64, 128 or 256, the wgmma N), the K splits (by
-    ``_k_splits``), the blocks,
-    the dynamic shared memory (A tile, two weight slots, one x window per
-    Cin chunk up to two, the corner table) and the float32 scratch of the
-    split partials. Raises ValueError when a block's shared memory would
-    not fit. Cached per shape: callers read it and never change it."""
+    """Launch plan of ``dcn_local_fwd_bf16``, route "window": output
+    channels per block (``n_tile``: 64, 128 or 256, the wgmma N), the K
+    splits (by ``_k_splits``), the blocks, the dynamic shared memory (A
+    tile, two weight slots, one x window per Cin chunk up to two, the
+    corner table) and the float32 scratch of the split partials. Where a
+    block's shared memory would not fit, route "gather"
+    (``dcn_local_fwd_gather_bf16``). Any max_offset and width have a
+    plan. Cached per shape: callers read it and never change it."""
     th, tw = TILE
     ck = BF16_CHUNK
     n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
@@ -288,12 +317,10 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
             + min(2, steps // 9) * _window_pixels(max_offset) * ck * 2
             + table)
     if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"dcn_local_fwd_bf16: a block would need {smem} bytes of shared "
-            f"memory at max_offset={max_offset}, Cout={cout}; the limit is "
-            f"{SMEM_LIMIT}")
+        return _gather_plan("fwd", b, h, w, cout,
+                            f"shared memory {smem} > {SMEM_LIMIT}")
     splits = _k_splits(tiles * col_tiles, steps)
-    return {"tile": TILE, "chunk": ck, "n_tile": n_tile,
+    return {"route": "window", "tile": TILE, "chunk": ck, "n_tile": n_tile,
             "col_tiles": col_tiles, "tiles": tiles, "steps": steps,
             "split_rule": "two_per_sm",
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
@@ -304,18 +331,17 @@ def fwd_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
 @functools.lru_cache(maxsize=256)
 def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
                        max_offset: int) -> dict:
-    """Launch plan of ``dcn_local_bwd_data_bf16``: the K splits (by
-    ``_wave_splits``), the blocks, the dynamic shared memory (the output-grad tile and two
-    weight slots over Cout padded to 16, the x window and its float32
-    grad-x tile, the tile's offsets and mask, the sums) and the float32
-    scratch: the grad-x accumulator and, when split, the grad offset /
-    mask partials. Raises ValueError when it would not fit, or when
-    max_offset passes ``BF16_DATA_MAX_OFFSET``. Cached per shape:
-    callers read it and never change it."""
-    if max_offset > BF16_DATA_MAX_OFFSET:
-        raise ValueError(
-            f"dcn_local_bwd_data_bf16: max_offset={max_offset}; the kernel "
-            f"takes max_offset up to {BF16_DATA_MAX_OFFSET}")
+    """Launch plan of ``dcn_local_bwd_data_bf16``, route "window": the K
+    splits (by ``_wave_splits``), the blocks, the dynamic shared memory
+    (the output-grad tile and two weight slots over Cout padded to 16,
+    the x window and its float32 grad-x tile, the tile's offsets and
+    mask, the sums) and the float32 scratch: the grad-x accumulator and,
+    when split, the grad offset / mask partials. Where max_offset passes
+    ``BF16_DATA_MAX_OFFSET`` or shared memory would not fit, route
+    "gather" (``dcn_local_bwd_data_gather_bf16``, its grad-x accumulator
+    ``grad_acc``). Any max_offset and width have a plan. Cached per
+    shape: callers read it and never change it."""
+    npix = b * h * w
     th, tw = TILE
     ck = BF16_CHUNK
     kp = -(-cout // 16) * 16
@@ -324,26 +350,19 @@ def bwd_data_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
     smem = (th * tw * kp * 2 + 2 * ck * kp * 2
             + _window_pixels(max_offset) * (ck * (2 + 4) + 32 + 64)
             + th * tw * 27 * 4 + 3 * 9 * th * tw * 4)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"dcn_local_bwd_data_bf16: a block would need {smem} bytes of "
-            f"shared memory at max_offset={max_offset}, Cout={cout}; the "
-            f"limit is {SMEM_LIMIT}")
+    if max_offset > BF16_DATA_MAX_OFFSET or smem > SMEM_LIMIT:
+        reason = (f"max_offset {max_offset} > {BF16_DATA_MAX_OFFSET}"
+                  if max_offset > BF16_DATA_MAX_OFFSET else
+                  f"shared memory {smem} > {SMEM_LIMIT}")
+        return {**_gather_plan("data", b, h, w, cout, reason),
+                "grad_acc": npix * cin}
     splits = _wave_splits(tiles, steps, _resident(smem, 128))
-    npix = b * h * w
-    return {"tile": TILE, "chunk": ck, "tiles": tiles, "steps": steps,
-            "split_rule": "waves",
+    return {"route": "window", "tile": TILE, "chunk": ck, "tiles": tiles,
+            "steps": steps, "split_rule": "waves",
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * splits, "smem_bytes": smem,
             "grad_acc": npix * cin,
             "scratch": splits * npix * 27 if splits > 1 else 0}
-
-
-def _max_offset_ok(kernel: str, max_offset: int) -> None:
-    if max_offset > FP32_MAX_OFFSET:
-        raise ValueError(
-            f"{kernel}: max_offset={max_offset}; the kernel takes "
-            f"max_offset up to {FP32_MAX_OFFSET}")
 
 
 def _fwd_fp32_smem(n_tile: int, window_slots: int, max_offset: int) -> int:
@@ -360,7 +379,8 @@ def _fwd_fp32_smem(n_tile: int, window_slots: int, max_offset: int) -> int:
 @functools.lru_cache(maxsize=256)
 def fwd_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
                   max_offset: int) -> dict:
-    """Launch plan of ``dcn_local_fwd``: output channels per block
+    """Launch plan of ``dcn_local_fwd``, route "window": output channels
+    per block
     (``n_tile``: 64, 128 or 256, half per warpgroup; narrower where the
     window would not fit 227 KB), x window slots (two, so that the next
     chunk's window flies during a whole chunk, when Cin spans several
@@ -368,9 +388,12 @@ def fwd_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
     block), the K splits, the blocks, the dynamic shared memory and the
     float32 scratch: the weight split into TF32 hi and lo, K-major, padded
     to the chunk and the N tile (``weight_split``), and the split
-    partials (``scratch``). Raises ValueError past ``FP32_MAX_OFFSET``.
+    partials (``scratch``). Past ``FP32_MAX_OFFSET``, route "gather"
+    (``dcn_local_fwd_gather``). Any max_offset and width have a plan.
     Cached per shape: callers read it and never change it."""
-    _max_offset_ok("dcn_local_fwd", max_offset)
+    if max_offset > FP32_MAX_OFFSET:
+        return _gather_plan("fwd", b, h, w, cout,
+                            f"max_offset {max_offset} > {FP32_MAX_OFFSET}")
     ck = FP32_CHUNK
     nchunks = max(1, -(-cin // ck))
     n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
@@ -384,7 +407,7 @@ def fwd_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
     steps = 9 * nchunks
     smem = _fwd_fp32_smem(n_tile, window_slots, max_offset)
     splits = _wave_splits(tiles * col_tiles, steps, _resident(smem, 256))
-    return {"tile": TILE, "chunk": ck, "n_tile": n_tile,
+    return {"route": "window", "tile": TILE, "chunk": ck, "n_tile": n_tile,
             "window_slots": window_slots, "col_tiles": col_tiles,
             "tiles": tiles, "steps": steps, "split_rule": "waves",
             "splits": splits,
@@ -409,32 +432,37 @@ def _data_fp32_smem(cout: int, chunk: int, max_offset: int) -> int:
 @functools.lru_cache(maxsize=256)
 def bwd_data_fp32_plan(b: int, h: int, w: int, cin: int, cout: int,
                        max_offset: int) -> dict:
-    """Launch plan of ``dcn_local_bwd_data``: the Cin chunk (the wgmma N:
+    """Launch plan of ``dcn_local_bwd_data``, route "window": the Cin
+    chunk (the wgmma N:
     the first of ``FP32_DATA_CHUNKS`` whose shared memory fits, so the
     chunk shrinks as Cout and max_offset grow), the warpgroups (two, each
     with half the chunk's channels, where a block has an SM to itself by
     shared memory and the chunk is 16 or more), the K splits, the blocks,
     the dynamic shared memory and the float32 scratch: the weight split
     into TF32 hi and lo over Cout padded to 8 (``weight_split``) and, when
-    split, the grad offset / mask partials (``scratch``). Raises
-    ValueError past ``FP32_MAX_OFFSET`` or when no chunk fits. Cached per
-    shape: callers read it and never change it."""
-    _max_offset_ok("dcn_local_bwd_data", max_offset)
+    split, the grad offset / mask partials (``scratch``). Past
+    ``FP32_MAX_OFFSET``, or where no chunk fits (past about 360 output
+    channels), route "gather" (``dcn_local_bwd_data_gather``). Any
+    max_offset and width have a plan. Cached per shape: callers read it
+    and never change it."""
+    if max_offset > FP32_MAX_OFFSET:
+        return _gather_plan("data", b, h, w, cout,
+                            f"max_offset {max_offset} > {FP32_MAX_OFFSET}")
     for ck in FP32_DATA_CHUNKS:
         smem = _data_fp32_smem(cout, ck, max_offset)
         if smem <= SMEM_LIMIT:
             break
     else:
-        raise ValueError(
-            f"dcn_local_bwd_data: a block would need {smem} bytes of shared "
-            f"memory at max_offset={max_offset}, Cout={cout}, chunk {ck}; "
-            f"the limit is {SMEM_LIMIT}")
+        return _gather_plan("data", b, h, w, cout,
+                            f"shared memory {smem} > {SMEM_LIMIT} at "
+                            f"chunk {ck}")
     warpgroups = 2 if ck >= 16 and _resident(smem, 128) == 1 else 1
     tiles = _tiles(b, h, w)
     steps = 9 * max(1, -(-cin // ck))
     splits = _wave_splits(tiles, steps, _resident(smem, 128 * warpgroups))
     npix = b * h * w
-    return {"tile": TILE, "chunk": ck, "warpgroups": warpgroups,
+    return {"route": "window", "tile": TILE, "chunk": ck,
+            "warpgroups": warpgroups,
             "tiles": tiles, "steps": steps, "split_rule": "waves",
             "splits": splits, "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * splits, "smem_bytes": smem,
@@ -552,13 +580,67 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def launch_fwd_gather(x, offset, mask, weight, bias, max_offset):
+    """The forward's gather route on checked CUDA tensors of either dtype
+    -> (B, H, W, Cout) in x's dtype: ``dcn_local_fwd_gather`` (float32)
+    or ``dcn_local_fwd_gather_bf16``, any max_offset and width."""
+    global FWD_GATHER_LAUNCHES, FWD_GATHER_BF16_LAUNCHES
+    low = x.dtype == torch.bfloat16
+    symbol = "dcn_local_fwd_gather" + ("_bf16" if low else "")
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    _ok(_kernel(symbol)(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        _ptr(bias), out.data_ptr(), b, h, w, cin, cout, max_offset,
+        _stream(x)), symbol)
+    if low:
+        FWD_GATHER_BF16_LAUNCHES += 1
+    else:
+        FWD_GATHER_LAUNCHES += 1
+    return out
+
+
+def launch_bwd_data_gather(x, offset, mask, weight, grad_out, max_offset):
+    """The data gradient's gather route on checked CUDA tensors of either
+    dtype -> (grad x, grad offset, grad mask) in x's dtype:
+    ``dcn_local_bwd_data_gather`` (float32) or
+    ``dcn_local_bwd_data_gather_bf16`` (grad x summed in a float32
+    scratch and rounded once), any max_offset and width."""
+    global BWD_DATA_GATHER_LAUNCHES, BWD_DATA_GATHER_BF16_LAUNCHES
+    _check_grad(grad_out, x, weight.shape[3])
+    low = x.dtype == torch.bfloat16
+    symbol = "dcn_local_bwd_data_gather" + ("_bf16" if low else "")
+    b, h, w, cin = x.shape
+    # float32: the kernel adds into grad x with atomics; bf16: into the
+    # float32 scratch, which the launcher zeroes
+    grad_x = torch.empty_like(x) if low else torch.zeros_like(x)
+    acc = (torch.empty(x.shape, device=x.device, dtype=torch.float32),
+           ) if low else ()
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    _ok(_kernel(symbol)(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        grad_out.data_ptr(), *(t.data_ptr() for t in acc), grad_x.data_ptr(),
+        grad_offset.data_ptr(), grad_mask.data_ptr(), b, h, w, cin,
+        weight.shape[3], max_offset, _stream(x)), symbol)
+    if low:
+        BWD_DATA_GATHER_BF16_LAUNCHES += 1
+    else:
+        BWD_DATA_GATHER_LAUNCHES += 1
+    return grad_x, grad_offset, grad_mask
+
+
 def launch_fwd(x, offset, mask, weight, bias, max_offset):
-    """``dcn_local_fwd`` on checked float32 CUDA tensors ->
-    (B, H, W, Cout), by ``fwd_fp32_plan``."""
+    """The float32 forward on checked CUDA tensors -> (B, H, W, Cout), by
+    ``fwd_fp32_plan``: ``dcn_local_fwd`` (window route) or
+    ``dcn_local_fwd_gather``."""
     global LAUNCHES
     b, h, w, cin = x.shape
     cout = weight.shape[3]
     plan = fwd_fp32_plan(b, h, w, cin, cout, max_offset)
+    if plan["route"] == "gather":
+        return launch_fwd_gather(x, offset, mask, weight, bias, max_offset)
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
     partial = _scratch(plan, "scratch", x.device)
     wsplit = _scratch(plan, "weight_split", x.device)
@@ -573,12 +655,15 @@ def launch_fwd(x, offset, mask, weight, bias, max_offset):
 
 
 def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
-    """``dcn_local_fwd_bf16`` on checked bf16 CUDA tensors -> bf16
-    (B, H, W, Cout), by ``fwd_bf16_plan``."""
+    """The bf16 forward on checked bf16 CUDA tensors -> bf16 (B, H, W,
+    Cout), by ``fwd_bf16_plan``: ``dcn_local_fwd_bf16`` (window route) or
+    ``dcn_local_fwd_gather_bf16``."""
     global BF16_LAUNCHES
     b, h, w, cin = x.shape
     cout = weight.shape[3]
     plan = fwd_bf16_plan(b, h, w, cin, cout, max_offset)
+    if plan["route"] == "gather":
+        return launch_fwd_gather(x, offset, mask, weight, bias, max_offset)
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
     partial = _scratch(plan, "scratch", x.device)
     _ok(_kernel("dcn_local_fwd_bf16")(
@@ -592,12 +677,16 @@ def launch_fwd_bf16(x, offset, mask, weight, bias, max_offset):
 
 
 def launch_bwd_data(x, offset, mask, weight, grad_out, max_offset):
-    """``dcn_local_bwd_data`` on checked float32 CUDA tensors -> (grad x,
-    grad offset, grad mask), by ``bwd_data_fp32_plan``."""
+    """The float32 data gradient on checked CUDA tensors -> (grad x, grad
+    offset, grad mask), by ``bwd_data_fp32_plan``: ``dcn_local_bwd_data``
+    (window route) or ``dcn_local_bwd_data_gather``."""
     global BWD_DATA_LAUNCHES
     _check_grad(grad_out, x, weight.shape[3])
     b, h, w, cin = x.shape
     plan = bwd_data_fp32_plan(b, h, w, cin, weight.shape[3], max_offset)
+    if plan["route"] == "gather":
+        return launch_bwd_data_gather(x, offset, mask, weight, grad_out,
+                                      max_offset)
     grad_x = torch.zeros_like(x)   # each block adds its tile with atomics
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
@@ -653,13 +742,18 @@ def launch_bwd_weight(x, offset, mask, grad_out, cout, max_offset):
 
 
 def launch_bwd_data_bf16(x, offset, mask, weight, grad_out, max_offset):
-    """``dcn_local_bwd_data_bf16`` on bf16 CUDA tensors -> bf16 (grad x,
-    grad offset, grad mask), by ``bwd_data_bf16_plan``. grad x is summed
-    in a float32 scratch and rounded once."""
+    """The bf16 data gradient on bf16 CUDA tensors -> bf16 (grad x, grad
+    offset, grad mask), by ``bwd_data_bf16_plan``:
+    ``dcn_local_bwd_data_bf16`` (window route) or
+    ``dcn_local_bwd_data_gather_bf16``. grad x is summed in a float32
+    scratch and rounded once."""
     global BWD_DATA_BF16_LAUNCHES
     _check_grad(grad_out, x, weight.shape[3])
     b, h, w, cin = x.shape
     plan = bwd_data_bf16_plan(b, h, w, cin, weight.shape[3], max_offset)
+    if plan["route"] == "gather":
+        return launch_bwd_data_gather(x, offset, mask, weight, grad_out,
+                                      max_offset)
     grad_acc = torch.empty(x.shape, device=x.device, dtype=torch.float32)
     partial = _scratch(plan, "scratch", x.device)
     grad_x = torch.empty_like(x)
@@ -710,7 +804,8 @@ class DCNLocal(torch.autograd.Function):
     """The kernels' route, by the inputs' dtype: at float32 forward
     ``dcn_local_fwd``, backward ``dcn_local_bwd_data`` +
     ``dcn_local_bwd_weight``; at bfloat16 forward ``dcn_local_fwd_bf16``,
-    backward ``dcn_local_bwd_data_bf16`` + ``dcn_local_bwd_weight_bf16``;
+    backward ``dcn_local_bwd_data_bf16`` + ``dcn_local_bwd_weight_bf16``
+    (each launcher takes its gather route where its plan says so);
     the bias grad is a float32 sum over (B, H, W) in the bias's dtype.
     Inputs are checked by ``deform_conv2d_local``."""
 

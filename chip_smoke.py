@@ -17,6 +17,18 @@ Phases, each printing one JSON line with its elapsed seconds:
            launch; then the two ported probe tools' main on the card,
            each probe kernel launching once and P7/P8 launching
            dcn_local_fwd_bf16
+  tracker  greedy_assign and splat_pre_hm (csrc/tracker.cu) alone on
+           adversarial cases against their plain versions: greedy_assign
+           exactly at S=1 and 6 streams, T=256 and 1024 slots, K=100
+           (the path's ~10 live rows, ties, NaNs in taken and untaken
+           columns, every row live, every row the same, entries between
+           1e16 and 1e18); splat_pre_hm within 1e-6 with the same support
+           at S=1 and 6 on the 544x960 canvas (the path's ~10 slots,
+           edges, corners and tile borders with radii negative and past
+           the cap, all 256 slots valid, none); one launch counted per
+           call; one call of each is one kernel on the device and nothing
+           else (no memset); device times (spin-queued), the bytes bound
+           and greedy_assign's dependency-chain bound
   kernel   dcn_local_fwd and dcn_local_fwd_bf16 against their plain
            PyTorch versions at the seven DLA-34 neck shapes of the
            544x960 path (R=1) at B=1 and B=8, R=2 and R=3 cases, one
@@ -44,6 +56,15 @@ Phases, each printing one JSON line with its elapsed seconds:
   gather, gather_bf16  the weight gradient's gather route, the planner's
            choice where no window fits in shared memory, against the
            plain version at one such max offset per dtype
+  gather_routes  the forward and data kernels' gather routes at both
+           dtypes (dcn_local_fwd_gather[_bf16],
+           dcn_local_bwd_data_gather[_bf16]) at R=5, 9 and 16 with Cout
+           384 (Cin 69) and 512 (Cin 64), and odd widths 69->37 at R=5,
+           B=2, 17x30: each call one launch of its kernel and nothing
+           else (through the planner's route where it chooses the gather
+           route), against the plain version at the kernel phases'
+           tolerances, on random offsets and, at R=5, all-zero ones;
+           times and bounds
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame a CUDA graph replay (the
@@ -437,6 +458,11 @@ TRAIN_KINDS = {"float32": ("fwd", "data", "weight"),
 
 def _launches():
     return {"dcn_local_fwd": dcn.LAUNCHES,
+            "dcn_local_fwd_gather": dcn.FWD_GATHER_LAUNCHES,
+            "dcn_local_fwd_gather_bf16": dcn.FWD_GATHER_BF16_LAUNCHES,
+            "dcn_local_bwd_data_gather": dcn.BWD_DATA_GATHER_LAUNCHES,
+            "dcn_local_bwd_data_gather_bf16":
+                dcn.BWD_DATA_GATHER_BF16_LAUNCHES,
             "dcn_local_bwd_data": dcn.BWD_DATA_LAUNCHES,
             "dcn_local_bwd_weight": dcn.BWD_WEIGHT_LAUNCHES,
             "dcn_local_bwd_weight_gather": dcn.BWD_WEIGHT_GATHER_LAUNCHES,
@@ -464,6 +490,8 @@ def _reset_launches():
     dcn.BF16_LAUNCHES = 0
     dcn.BWD_DATA_BF16_LAUNCHES = dcn.BWD_WEIGHT_BF16_LAUNCHES = 0
     dcn.BWD_WEIGHT_GATHER_LAUNCHES = dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0
+    dcn.FWD_GATHER_LAUNCHES = dcn.FWD_GATHER_BF16_LAUNCHES = 0
+    dcn.BWD_DATA_GATHER_LAUNCHES = dcn.BWD_DATA_GATHER_BF16_LAUNCHES = 0
     for name, module in _tracker_modules().items():
         module.LAUNCHES[name] = 0
 
@@ -1211,6 +1239,157 @@ def phase_gather(dtype):
     return row
 
 
+# the forward and data kernels' gather routes: (R, Cin, Cout) at B=2 on
+# a 17x30 map; Cout past 256 at every R, Cin 69 not a multiple of 8, and
+# one case of odd widths
+GATHER_ROUTE_SHAPE = (2, 17, 30)
+GATHER_ROUTE_CASES = [(5, 69, 384), (5, 64, 512), (9, 69, 384),
+                      (9, 64, 512), (16, 69, 384), (16, 64, 512),
+                      (5, 69, 37)]
+# the case whose numbers stand in the kernels line
+GATHER_ROUTE_ROW = (9, 64, 512)
+# the gather kernel of each (kind, dtype), its planner and the launcher
+# that reaches it through the plan
+GATHER_ROUTES = {
+    ("fwd", "float32"): ("dcn_local_fwd_gather", "fwd_fp32_plan",
+                         "launch_fwd"),
+    ("fwd", "bfloat16"): ("dcn_local_fwd_gather_bf16", "fwd_bf16_plan",
+                          "launch_fwd_bf16"),
+    ("data", "float32"): ("dcn_local_bwd_data_gather", "bwd_data_fp32_plan",
+                          "launch_bwd_data"),
+    ("data", "bfloat16"): ("dcn_local_bwd_data_gather_bf16",
+                           "bwd_data_bf16_plan", "launch_bwd_data_bf16"),
+}
+
+
+def _gather_route_bound(kind, dtype, n, cin, cout):
+    """The least H100 time of a gather kernel's work: its window
+    design's bound (the same function), (ms, by)."""
+    if kind == "fwd":
+        return (dcn_bound_ms_bf16 if dtype == "bfloat16"
+                else dcn_bound_ms_3xtf32)(n, cin, cout)
+    return (dcn_bwd_bound_ms_bf16(n, cin, cout)[0] if dtype == "bfloat16"
+            else dcn_bwd_data_bound_ms_3xtf32(n, cin, cout))
+
+
+def _timed(fn):
+    """fn() and its CUDA-event time in ms (one call, e.g. the plain
+    version's check call)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_gather_routes():
+    """The forward and data kernels' gather routes
+    (``dcn_local_fwd_gather[_bf16]``, ``dcn_local_bwd_data_gather[_bf16]``)
+    at GATHER_ROUTE_CASES, both dtypes: each call with every launch count
+    set to 0 just before must launch its gather kernel once and nothing
+    else (through the planner's route where the plan chooses it, else
+    its gather launcher directly), and agree with the plain version on
+    the same inputs (float32 forward within REL_TOL of max|plain|, data
+    grads within GRAD_REL_TOL each, bf16 every element within BF16_ULPS
+    ulps + BF16_REL_OF_MAX max|plain|), on random offsets and, at R=5,
+    on all-zero ones (the kinks); times and bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, h, w = GATHER_ROUTE_SHAPE
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        low = dtype == "bfloat16"
+        for r, cin, cout in GATHER_ROUTE_CASES:
+            x, offset, mask, weight, bias, g = dcn_inputs(
+                gen, b, h, w, cin, cout, r, getattr(torch, dtype))
+            kinds = {"random": offset}
+            if r == 5:
+                kinds["zero"] = torch.zeros_like(offset)
+            for kind in ("fwd", "data"):
+                kernel, planner, routed = GATHER_ROUTES[kind, dtype]
+                plan = getattr(dcn, planner)(b, h, w, cin, cout, r)
+                via = "plan" if plan["route"] == "gather" else "direct"
+                launch = getattr(dcn, routed if via == "plan" else (
+                    "launch_fwd_gather" if kind == "fwd"
+                    else "launch_bwd_data_gather"))
+
+                def run(off):
+                    return launch(x, off, mask, weight,
+                                  bias if kind == "fwd" else g, r)
+
+                errs, plain_ms = {}, None
+                for okind, off in kinds.items():
+                    _reset_launches()
+                    got = run(off)
+                    torch.cuda.synchronize()
+                    if _launches()[kernel] != 1 or sum(
+                            _launches().values()) != 1:
+                        raise RuntimeError(f"{kernel} R={r} {cin}->{cout}: "
+                                           f"launches {_launches()}")
+                    if kind == "fwd":
+                        got = (got,)
+                        ref, ms_ = _timed(lambda: (
+                            dcn.deform_conv2d_local_plain(
+                                x, off, mask, weight, bias, r),))
+                    elif low:
+                        ref, ms_ = _timed(lambda: _bf16_grad_ref(
+                            x, off, mask, weight, g, r)[:3])
+                    else:
+                        ts = [t.clone().requires_grad_()
+                              for t in (x, off, mask)]
+                        ref, ms_ = _timed(lambda: torch.autograd.grad(
+                            dcn.deform_conv2d_local_plain(
+                                *ts, weight, None, r), ts, g))
+                    if okind == "random":
+                        plain_ms = ms_
+                    names = (("out",) if kind == "fwd"
+                             else ("x", "offset", "mask"))
+                    errs[okind] = {}
+                    for name, a, e in zip(names, got, ref):
+                        if a.dtype != x.dtype or not torch.isfinite(a).all():
+                            raise RuntimeError(f"{kernel} R={r} {cin}->"
+                                               f"{cout} {name}: {a.dtype}, "
+                                               f"or not finite")
+                        scale = e.float().abs().max().item()
+                        if low:
+                            err, _, past = bf16_agreement(a, e)
+                            bad = past > 0
+                        else:
+                            err = (a - e).abs().max().item()
+                            tol = REL_TOL if kind == "fwd" else GRAD_REL_TOL
+                            bad = err > tol * scale
+                        if bad:
+                            raise RuntimeError(
+                                f"{kernel} B={b} {cin}->{cout} R={r} "
+                                f"{okind} offsets, {name}: max abs err "
+                                f"{err} (max|plain| {scale}) past the "
+                                f"tolerance")
+                        errs[okind][name] = {"max_abs_err": err,
+                                             "max_abs_ref": scale}
+                call = lambda: run(offset)
+                bound, bound_by = _gather_route_bound(kind, dtype,
+                                                      b * h * w, cin, cout)
+                row = {"kernel": kernel, "batch": b, "hw": [h, w],
+                       "cin": cin, "cout": cout, "R": r,
+                       "plan_route": plan["route"], "via": via,
+                       "launches_in_check": len(kinds),
+                       "max_abs_err": max(e["max_abs_err"]
+                                          for k in errs.values()
+                                          for e in k.values()),
+                       "agreement": errs,
+                       "tol": ({"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX}
+                               if low else {"rel": REL_TOL if kind == "fwd"
+                                            else GRAD_REL_TOL}),
+                       "ms": time_ms(call, 2, 10),
+                       "device_ms": queued_us(call, 10) / 1e3,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": None}
+                rows.append(row)
+                emit("gather_routes", **row)
+    return rows
+
+
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
     """The rows above ``out_thresh``, without those within ``margin`` of
     it; with ``collapse_ties``, a row is left out whose score equals that
@@ -1468,15 +1647,19 @@ def tracker_kernel_rows(rec):
     (the path's shapes): the call's time (median of CUDA events around
     each call, the launcher's host time included), its device time
     (``queued_us``: each call queued behind a spin kernel), the plain
-    version's time, the bound."""
+    version's time, the bound (for greedy_assign also the dependency
+    chain's: its live rows x one shared-memory round trip)."""
     tracker, gaussian = (_tracker_modules()[k] for k in TRACKER_KERNELS)
     rows = {}
     args = rec.last_with_live_slots("greedy_assign")
     s, k, t = args[0].shape
     bound, by = greedy_bound_ms(s, k, t)
+    live = int(((args[0] < 1e16) | args[0].isnan()).any(-1).sum(-1).max())
     kernel = lambda: tracker.launch_greedy_assign(*args)
     rows["greedy_assign"] = {
-        "shape": [s, k, t], "ms": time_ms(kernel, 5, 50),
+        "shape": [s, k, t], "live_rows": live,
+        "chain_bound_ms": live * SMEM_ROUND_TRIP_NS / 1e6,
+        "ms": time_ms(kernel, 5, 50),
         "device_ms": queued_us(kernel, 50) / 1e3,
         "plain_ms": time_ms(lambda: tracker.greedy_assign_plain(*args), 1,
                             5),
@@ -1491,6 +1674,194 @@ def tracker_kernel_rows(rec):
         "plain_ms": time_ms(lambda: gaussian.splat_pre_hm_plain(*args), 1,
                             5),
         "bound_ms": bound, "bound_by": by}
+    return rows
+
+
+# the tracker phase: greedy_assign on K rows at S streams and T slots,
+# splat_pre_hm on the 544x960 canvas with T = 256 slots
+TRACKER_K = 100
+TRACKER_STREAMS = (1, 6)
+TRACKER_SLOTS = (256, 1024)
+GREEDY_CASES = ("path", "ties", "nan", "all_live", "exhaustion", "between")
+SPLAT_CASES = ("path", "edges", "dense", "empty")
+SPLAT_HW = (544, 960)
+# the least time of one dependent shared-memory access on the H100 (about
+# 30 SM cycles by microbenchmarks of Hopper's shared memory, at the
+# 1.98 GHz boost clock): greedy_assign's serial pass takes at least one
+# such step per live row
+SMEM_ROUND_TRIP_NS = 30 / 1.98
+
+
+def greedy_case(name, s, t, seed):
+    """(S, K, T) float32 distances of one adversarial case, from a numpy
+    seed: ``path`` about 10 live rows a stream with a few valid tracks
+    each (the serving step's frames), ``ties`` integer distances,
+    ``nan`` a NaN in a column an earlier row took and one in an untaken
+    column, ``all_live`` every row live, ``exhaustion`` every row the
+    same (each row's candidates taken by earlier rows: a rescan per row
+    from the fifth on), ``between`` entries in [1e16, 1e18) with a few
+    below."""
+    rng = np.random.RandomState(seed)
+    k = TRACKER_K
+    d = np.full((s, k, t), 1e18, np.float32)
+    if name == "path":
+        for st in range(s):
+            for i in rng.choice(k // 4, 10, replace=False):
+                cols = rng.choice(min(t, 64), rng.randint(1, 4),
+                                  replace=False)
+                d[st, i, cols] = rng.uniform(0, 400, len(cols))
+    elif name == "ties":
+        d = rng.randint(0, 3, (s, k, t)).astype(np.float32)
+        d[rng.rand(s, k, t) < 0.3] = 1e18
+    elif name == "nan":
+        d = rng.uniform(0, 100, (s, k, t)).astype(np.float32)
+        d[:, :3] = 1e18
+        d[:, 0, 5] = 0.0               # row 0 takes column 5
+        d[:, 1, [5, 7]] = [np.nan, 1.0]  # a NaN in the taken column
+        d[:, 2, [9, 11]] = [np.nan, 0.5]  # a NaN untaken: no match
+    elif name == "all_live":
+        d = rng.uniform(0, 100, (s, k, t)).astype(np.float32)
+    elif name == "exhaustion":
+        d[:] = rng.uniform(0, 100, (s, 1, t)).astype(np.float32)
+    else:
+        d[rng.rand(s, k, t) < 0.5] = 5e16
+        d[:, ::7, 3] = 2e15
+    return d
+
+
+def splat_case(name, s, t, seed):
+    """(cts, radii, ks, valid) of one splat case on SPLAT_HW, from a
+    numpy seed: ``path`` about 10 live slots a stream, radii 2-30;
+    ``edges`` centres on and past the map's edges and corners and on
+    tile borders, radii negative and past the cap, 70% valid;
+    ``dense`` every slot valid, radii 40-200; ``empty`` no valid slot."""
+    h, w = SPLAT_HW
+    rng = np.random.RandomState(seed)
+    cts = np.stack([rng.randint(-20, w + 20, (s, t)),
+                    rng.randint(-20, h + 20, (s, t))], -1).astype(np.int32)
+    radii = rng.randint(2, 31, (s, t)).astype(np.int32)
+    ks = rng.uniform(0.1, 1.0, (s, t)).astype(np.float32)
+    valid = np.zeros((s, t), bool)
+    if name == "path":
+        for st in range(s):
+            valid[st, rng.choice(t, 10, replace=False)] = True
+    elif name == "edges":
+        radii = rng.randint(-3, 200, (s, t)).astype(np.int32)
+        cts[:, :6] = [[127, 15], [128, 16], [0, 0], [w - 1, h - 1],
+                      [-5, h // 2], [w + 3, 7]]
+        valid = rng.rand(s, t) < 0.7
+    elif name == "dense":
+        radii = rng.randint(40, 201, (s, t)).astype(np.int32)
+        valid[:] = True
+    return tuple(torch.from_numpy(a).cuda() for a in (cts, radii, ks,
+                                                        valid))
+
+
+def _device_kernels(fn):
+    """The device activities of one call of ``fn`` under torch.profiler:
+    {name: count}, memsets and copies included."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _one_node(name, fn):
+    """Raises unless one call of ``fn`` is one launch of kernel ``name``
+    on the device and nothing else (no memset, no copy)."""
+    seen = _device_kernels(fn)
+    if len(seen) != 1 or not re.search(KERNEL_NAMES[name], next(iter(
+            seen))) or next(iter(seen.values())) != 1:
+        raise RuntimeError(f"{name}: one call ran {seen} on the device, "
+                           f"expected one launch of its kernel alone")
+    return seen
+
+
+def phase_tracker():
+    """The tracker kernels alone: greedy_assign on GREEDY_CASES at each
+    of TRACKER_STREAMS x TRACKER_SLOTS, exactly its plain version;
+    splat_pre_hm on SPLAT_CASES at each of TRACKER_STREAMS (T = 256),
+    within SPLAT_TOL of its plain version with the same support; each
+    call with the counts set to 0 just before must count one launch;
+    one call of each is one kernel on the device (no memset); device
+    time per call (spin-queued), the bytes bound and, for greedy_assign,
+    the dependency-chain bound (live rows x one shared-memory round
+    trip)."""
+    tracker, gaussian = (_tracker_modules()[k] for k in TRACKER_KERNELS)
+    rows = []
+    for ci, name in enumerate(GREEDY_CASES):
+        for s in TRACKER_STREAMS:
+            for t in TRACKER_SLOTS:
+                d = greedy_case(name, s, t, 100 * ci + s + t)
+                dist = torch.from_numpy(d).cuda()
+                _reset_launches()
+                got = tracker.launch_greedy_assign(dist)
+                torch.cuda.synchronize()
+                if _tracker_launches() != {"greedy_assign": 1,
+                                           "splat_pre_hm": 0}:
+                    raise RuntimeError(f"greedy_assign {name}: launches "
+                                       f"{_tracker_launches()}")
+                ref = tracker.greedy_assign_plain(dist.cpu())
+                if not torch.equal(got.cpu(), ref):
+                    raise RuntimeError(
+                        f"greedy_assign {name} S={s} T={t}: differs from "
+                        f"its plain version at "
+                        f"{(got.cpu() != ref).sum().item()} rows")
+                live = int(((d < 1e16) | np.isnan(d)).any(-1).sum(-1).max())
+                kernel = lambda: tracker.launch_greedy_assign(dist)
+                bound, by = greedy_bound_ms(s, TRACKER_K, t)
+                row = {"kernel": "greedy_assign", "case": name,
+                       "shape": [s, TRACKER_K, t], "live_rows": live,
+                       "matched": int((ref >= 0).sum()),
+                       "ms": time_ms(kernel, 5, 30),
+                       "device_ms": queued_us(kernel, 30) / 1e3,
+                       "bound_ms": bound, "bound_by": by,
+                       "chain_bound_ms": live * SMEM_ROUND_TRIP_NS / 1e6}
+                rows.append(row)
+                emit("tracker", **row)
+    for ci, name in enumerate(SPLAT_CASES):
+        for s in TRACKER_STREAMS:
+            args = (*SPLAT_HW, *splat_case(name, s, 256, 7 * ci + s))
+            _reset_launches()
+            got = gaussian.launch_splat_pre_hm(*args)
+            torch.cuda.synchronize()
+            if _tracker_launches() != {"greedy_assign": 0,
+                                       "splat_pre_hm": 1}:
+                raise RuntimeError(f"splat_pre_hm {name}: launches "
+                                   f"{_tracker_launches()}")
+            ref = gaussian.splat_pre_hm_plain(*args)
+            err = (got - ref).abs().max().item()
+            if err > SPLAT_TOL or not torch.equal(got > 0, ref > 0):
+                raise RuntimeError(
+                    f"splat_pre_hm {name} S={s}: max abs err {err} "
+                    f"(tolerance {SPLAT_TOL}), support differs at "
+                    f"{((got > 0) != (ref > 0)).sum().item()} pixels")
+            kernel = lambda: gaussian.launch_splat_pre_hm(*args)
+            bound, by = splat_bound_ms(*args[:4], args[5])
+            row = {"kernel": "splat_pre_hm", "case": name,
+                   "shape": [s, *SPLAT_HW, 256],
+                   "live_slots": int(args[5].sum()), "max_abs_err": err,
+                   "ms": time_ms(kernel, 5, 30),
+                   "device_ms": queued_us(kernel, 30) / 1e3,
+                   "plain_ms": _timed(lambda: gaussian.splat_pre_hm_plain(
+                       *args))[1],
+                   "bound_ms": bound, "bound_by": by}
+            rows.append(row)
+            emit("tracker", **row)
+    # inputs made before the profiled call, which must run one kernel
+    dist = torch.from_numpy(greedy_case("path", 1, 256, 0)).cuda()
+    slots = splat_case("path", 1, 256, 0)
+    torch.cuda.synchronize()
+    nodes = {
+        "greedy_assign": _one_node(
+            "greedy_assign", lambda: tracker.launch_greedy_assign(dist)),
+        "splat_pre_hm": _one_node(
+            "splat_pre_hm",
+            lambda: gaussian.launch_splat_pre_hm(*SPLAT_HW, *slots))}
+    emit("tracker", device_activities_of_one_call=nodes)
     return rows
 
 
@@ -2369,12 +2740,14 @@ def main(argv):
     # own flags, and the package sets its precision itself
     with full_float32("float32"):
         probe_rows, probe_launches, probe_dcn_launches = phase_probes()
+        tracker_rows = phase_tracker()
         rows = phase_kernel()
         bf16_rows = phase_kernel_bf16()
         grad_rows = phase_grad()
         grad_bf16_rows = phase_grad_bf16()
         gather_rows = {dt: phase_gather(dt)
                        for dt in ("float32", "bfloat16")}
+        route_rows = phase_gather_routes()
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
@@ -2529,12 +2902,47 @@ def main(argv):
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    for (kind, dt), (kname, _, _) in GATHER_ROUTES.items():
+        r, = [r for r in route_rows if r["kernel"] == kname
+              and (r["R"], r["cin"], r["cout"]) == GATHER_ROUTE_ROW]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "centertrack_tpu_torch/csrc/dcn_local"
+                      + ("_bwd" if kind == "data" else "")
+                      + ("_bf16" if dt == "bfloat16" else "") + ".cu",
+            "replaces": ("centertrack_tpu/ops/dcn_pallas.py:115"
+                         if kind == "fwd" else bwd_replaces),
+            "also_replaces": (
+                ["centertrack_tpu/ops/dcn_pallas_grid.py:126",
+                 "centertrack_tpu/ops/dcn_pallas_shift.py:110",
+                 "centertrack_tpu/ops/dcn_pallas_halo.py:135"]
+                if kind == "fwd" else bwd_also),
+            "at": f"{dt} inputs, past the window design's limits",
+            "design": "the first design: corners gathered from global "
+                      "memory, any max offset and width",
+            "launches": sum(by_path(kname).values()),
+            "launches_by_path": by_path(kname),
+            "launches_in_check": sum(x["launches_in_check"]
+                                     for x in route_rows
+                                     if x["kernel"] == kname),
+            "max_abs_err": max(x["max_abs_err"] for x in route_rows
+                               if x["kernel"] == kname),
+            "per": f"one call at B={r['batch']}, {r['hw'][0]}x{r['hw'][1]}, "
+                   f"{r['cin']}->{r['cout']}, R={r['R']}",
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     replaces = {"greedy_assign": "centertrack_tpu/engine/device_tracker.py:70",
                 "splat_pre_hm": "centertrack_tpu/ops/gaussian.py:214"}
-    designs = {"greedy_assign": "one warp per stream, columns in registers, "
-                                "the next row's loads in flight",
-               "splat_pre_hm": "zeroed canvas, one block per (slot, "
-                               "stream), integer atomicMax on the float bits"}
+    designs = {"greedy_assign": "one block per stream: a parallel pass of "
+                                "each row's first 4 candidates, then one "
+                                "warp walks the live rows against its "
+                                "taken bits",
+               "splat_pre_hm": "a block per 16x128 tile of one stream: "
+                               "the slots meeting it in shared memory, "
+                               "each pixel written once, no memset"}
+    greedy_path = [r for r in tracker_rows if r["kernel"] == "greedy_assign"
+                   and r["case"] == "path"]
     for name in TRACKER_KERNELS:
         r = path["tracker_kernels"][name]
         kernels.append({
@@ -2559,6 +2967,11 @@ def main(argv):
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            **({"chain_bound_ms": r["chain_bound_ms"],
+                "device_ms_by_case_s_t": {
+                    f"{x['case']}/S{x['shape'][0]}/T{x['shape'][2]}":
+                        x["device_ms"] for x in greedy_path}}
+               if name == "greedy_assign" else {}),
             "library_ms": None})
     for name, r in probe_rows.items():
         kernels.append({

@@ -144,22 +144,27 @@ def test_plan_covers_pixels_and_k_once_and_fits(kind, shape, b, r):
 
 
 def test_plan_refuses_a_window_past_shared_memory():
-    """A halo too wide for 227 KB raises before any launch."""
-    with pytest.raises(ValueError, match="shared memory"):
-        dcn.fwd_bf16_plan(1, 34, 60, 256, 256, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        dcn.bwd_data_bf16_plan(1, 34, 60, 256, 256, 4)
+    """A halo too wide for 227 KB refuses the window design: the plan
+    takes the gather route, which names the shared memory it would
+    need."""
+    for plan in (dcn.fwd_bf16_plan(1, 34, 60, 256, 256, 8),
+                 dcn.bwd_data_bf16_plan(1, 34, 60, 256, 256, 4)):
+        assert plan["route"] == "gather"
+        assert plan["reason"].startswith("shared memory")
+        assert int(plan["reason"].split()[2]) > dcn.SMEM_LIMIT
 
 
 def test_data_plan_refuses_max_offset_past_its_walk():
     """The data kernel's support walk is built for max_offset up to
     BF16_DATA_MAX_OFFSET (4): the planner takes 4 where the window fits
-    and names the limit past it, before any launch."""
+    and, past it, takes the gather route, naming the limit."""
     assert dcn.BF16_DATA_MAX_OFFSET == 4
     plan = dcn.bwd_data_bf16_plan(1, 34, 60, 64, 64, 4)
+    assert plan["route"] == "window"
     assert plan["smem_bytes"] <= dcn.SMEM_LIMIT
-    with pytest.raises(ValueError, match="max_offset up to 4"):
-        dcn.bwd_data_bf16_plan(1, 34, 60, 64, 16, 5)
+    plan = dcn.bwd_data_bf16_plan(1, 34, 60, 64, 16, 5)
+    assert plan["route"] == "gather"
+    assert plan["reason"] == "max_offset 5 > 4"
 
 
 def test_smoke_bf16_cases_cover_the_neck_and_every_walk():

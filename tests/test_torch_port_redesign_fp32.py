@@ -114,21 +114,25 @@ def test_plan_shrinks_as_the_halo_grows(kind):
 
 @pytest.mark.parametrize("kind", sorted(PLANS))
 def test_plan_refuses_max_offset_past_its_limit(kind):
-    """Both planners take max_offset up to FP32_MAX_OFFSET (8) and name
-    the limit past it, before any launch."""
+    """Both planners take max_offset up to FP32_MAX_OFFSET (8) on the
+    window design and, past it, take the gather route, naming the
+    limit."""
     assert dcn.FP32_MAX_OFFSET == 8
-    PLANS[kind](1, 34, 60, 256, 256, 8)
-    with pytest.raises(ValueError, match="max_offset up to 8"):
-        PLANS[kind](1, 34, 60, 64, 64, 9)
+    assert PLANS[kind](1, 34, 60, 256, 256, 8)["route"] == "window"
+    plan = PLANS[kind](1, 34, 60, 64, 64, 9)
+    assert plan["route"] == "gather"
+    assert plan["reason"] == "max_offset 9 > 8"
 
 
 def test_data_plan_refuses_a_gradient_tile_past_shared_memory():
     """The data kernel keeps the tile's output gradient (hi and lo) in
     shared memory: past about 360 output channels no chunk fits, and the
-    planner raises with the sizes."""
-    dcn.bwd_data_fp32_plan(1, 34, 60, 64, 320, 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        dcn.bwd_data_fp32_plan(1, 34, 60, 64, 512, 1)
+    planner takes the gather route, naming the sizes."""
+    assert dcn.bwd_data_fp32_plan(1, 34, 60, 64, 320, 1)["route"] == "window"
+    plan = dcn.bwd_data_fp32_plan(1, 34, 60, 64, 512, 1)
+    assert plan["route"] == "gather"
+    assert plan["reason"].startswith("shared memory")
+    assert plan["reason"].endswith("at chunk 8")
 
 
 @pytest.mark.parametrize("blocks, steps, resident, want", [
