@@ -40,7 +40,11 @@ class Config:
     # (JAX config.py:84)
     warp_precision: str = "auto"
     arch: str = "dla_34"
-    dla_node: str = "dcn"          # dcn_local1 | dcn_local | conv here
+    # the neck's nodes (JAX config.py:65): dcn (exact DCNv2) | dcn_mix
+    # (clamped at R=2 on maps of stride <= CT_MIX_STRIDE, default 8, exact
+    # above) | dcn_local (clamped, R=2) | dcn_local1 (R=1) | conv; the
+    # exact op serves on CUDA and trains on the CPU only (ROADMAP A4b)
+    dla_node: str = "dcn"
     head_conv: int = -1            # -1 => 256 for dla, 64 otherwise
     down_ratio: int = 4
     num_classes: int = -1

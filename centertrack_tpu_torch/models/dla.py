@@ -9,6 +9,7 @@ the current frame's stem features — live in ``DLA.forward``.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import torch
@@ -140,13 +141,14 @@ class ConvNode(nn.Module):
 
 
 class DeformNode(nn.Module):
-    """'dcn' node with the clamped op: DCN 3x3 + BN + ReLU
-    (reference: dla.py:506-518; JAX: models/dla.py:234-270)."""
+    """'dcn' node: DCN 3x3 + BN + ReLU (reference: dla.py:506-518; JAX:
+    models/dla.py:234-270). ``mode`` "gather" is the exact DCNv2, "local"
+    the clamped op at ``max_offset``."""
 
     def __init__(self, in_channels: int, features: int,
-                 max_offset: int = 2):
+                 mode: str = "gather", max_offset: int = 2):
         super().__init__()
-        self.conv = DCNLayer(in_channels, features, "local", max_offset)
+        self.conv = DCNLayer(in_channels, features, mode, max_offset)
         self.actf_bn = batch_norm(features)
 
     def forward(self, x):
@@ -154,17 +156,32 @@ class DeformNode(nn.Module):
 
 
 def node_factory(dla_node: str):
-    """(in, out) -> node module for a ``dla_node`` name
-    (reference: DLA_NODE, dla.py:588-592)."""
+    """(in, out, stride) -> node module for a ``dla_node`` name
+    (reference: DLA_NODE, dla.py:588-592; JAX: models/dla.py node_types),
+    ``stride`` being the absolute stride of the map the node runs on:
+    "dcn" the exact DCNv2 everywhere, "dcn_mix" the clamped op (R=2) at
+    strides up to the environment variable CT_MIX_STRIDE (default 8, read
+    when the network is built, as the JAX package reads it:
+    models/dla.py:260-262) and the exact op above it, "dcn_local" and
+    "dcn_local1" the clamped op at R=2 and 1, "conv" a 1x1 conv."""
+    if dla_node == "dcn":
+        return lambda cin, cout, stride: DeformNode(cin, cout, "gather")
+    if dla_node == "dcn_mix":
+        thr = int(os.environ.get("CT_MIX_STRIDE", "8"))
+        return lambda cin, cout, stride: DeformNode(
+            cin, cout, "local" if stride <= thr else "gather", max_offset=2)
     if dla_node == "dcn_local1":
-        return lambda cin, cout: DeformNode(cin, cout, max_offset=1)
+        return lambda cin, cout, stride: DeformNode(cin, cout, "local",
+                                                    max_offset=1)
     if dla_node == "dcn_local":
-        return lambda cin, cout: DeformNode(cin, cout, max_offset=2)
+        return lambda cin, cout, stride: DeformNode(cin, cout, "local",
+                                                    max_offset=2)
     if dla_node == "conv":
-        return ConvNode
+        return lambda cin, cout, stride: ConvNode(cin, cout)
     raise NotImplementedError(
-        f"dla_node {dla_node!r} is not ported yet: 'dcn' and 'dcn_mix' need "
-        f"the exact DCNv2 kernel (ROADMAP.md), 'gcn' the other nodes")
+        f"dla_node {dla_node!r} is not ported yet: the port takes dcn, "
+        f"dcn_mix, dcn_local, dcn_local1 and conv ('gcn' is queued in "
+        f"ROADMAP.md)")
 
 
 class IDAUp(nn.Module):
@@ -172,16 +189,20 @@ class IDAUp(nn.Module):
     (reference: dla.py:520-545)."""
 
     def __init__(self, out_channels: int, in_channels: Sequence[int],
-                 up_factors: Sequence[int], node: str):
+                 up_factors: Sequence[int], node: str, base_stride: int):
         super().__init__()
         make = node_factory(node)
         self.n = len(in_channels)
         for i in range(1, self.n):
-            # every level after the first is coarser: up_factors[i] >= 2
-            setattr(self, f"proj_{i}", make(in_channels[i], out_channels))
-            setattr(self, f"up_{i}",
-                    UpBilinear(out_channels, int(up_factors[i])))
-            setattr(self, f"node_{i}", make(out_channels, out_channels))
+            # every level after the first is coarser: up_factors[i] >= 2.
+            # proj_i runs on level i's own map, node_i on level 0's
+            # (base_stride, the absolute stride of level 0 of the slice)
+            f = int(up_factors[i])
+            setattr(self, f"proj_{i}",
+                    make(in_channels[i], out_channels, base_stride * f))
+            setattr(self, f"up_{i}", UpBilinear(out_channels, f))
+            setattr(self, f"node_{i}",
+                    make(out_channels, out_channels, base_stride))
 
     def forward(self, layers: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         layers = list(layers)
@@ -194,7 +215,9 @@ class IDAUp(nn.Module):
 class DLAUp(nn.Module):
     """Pyramid of IDAUp stages (reference: dla.py:549-574)."""
 
-    def __init__(self, channels: Sequence[int], node: str):
+    def __init__(self, channels: Sequence[int], node: str,
+                 first_stride: int = 4):
+        """``first_stride``: the absolute stride of channels[0]'s level."""
         super().__init__()
         channels = list(channels)
         in_channels = list(channels)
@@ -204,7 +227,8 @@ class DLAUp(nn.Module):
             j = len(channels) - i - 2
             setattr(self, f"ida_{i}", IDAUp(
                 channels[j], in_channels[j:],
-                [s // scales[j] for s in scales[j:]], node))
+                [s // scales[j] for s in scales[j:]], node,
+                first_stride * 2 ** j))
             # the stage leaves every level after j at level j's scale
             # and width
             scales[j + 1:] = [scales[j]] * (len(scales) - j - 1)
@@ -229,8 +253,10 @@ class DLASeg(nn.Module):
         super().__init__()
         ch = DLA34_CHANNELS
         self.base = DLA(with_pre_img, with_pre_hm)
-        self.dla_up = DLAUp(ch[2:], dla_node)
-        self.ida_up = IDAUp(ch[2], ch[2:5], [1, 2, 4], dla_node)
+        # levels 2..5: strides 4..32 (JAX models/dla.py:335, 342)
+        self.dla_up = DLAUp(ch[2:], dla_node, first_stride=4)
+        self.ida_up = IDAUp(ch[2], ch[2:5], [1, 2, 4], dla_node,
+                            base_stride=4)
 
     def forward(self, x, pre_img=None, pre_hm=None):
         feats = self.base(x, pre_img, pre_hm)

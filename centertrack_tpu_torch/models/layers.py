@@ -24,8 +24,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from centertrack_tpu_torch.ops.dcn import (deform_conv2d_local,
-                                           deform_conv2d_local_plain)
+from centertrack_tpu_torch.ops.dcn import (deform_conv2d,
+                                           deform_conv2d_local,
+                                           deform_conv2d_local_plain,
+                                           deform_conv2d_plain)
 
 
 def cast_param(module: nn.Module, name: str, dtype: torch.dtype):
@@ -145,31 +147,40 @@ class UpBilinear(nn.Module):
 
 class DCNLayer(nn.Module):
     """Modulated deformable 3x3 conv: a plain conv predicts the 18 offset
-    and 9 mask channels, the clamped DCN op samples and contracts
-    (reference API: DCN(chi, cho, 3, stride=1, padding=1) —
-    src/lib/model/networks/dla.py:513; JAX: models/layers.py:113-163).
+    and 9 mask channels, the DCN op samples and contracts (reference API:
+    DCN(chi, cho, 3, stride=1, padding=1) — src/lib/model/networks/dla.py:513;
+    JAX: models/layers.py:113-163). ``mode`` is JAX's: "local", the
+    clamped op (offsets clipped to +/-``max_offset``,
+    ``deform_conv2d_local``), or "gather", the exact DCNv2
+    (``deform_conv2d``).
 
-    ``weight`` keeps the JAX (3, 3, Cin, Cout) layout the kernel takes.
-    The op is differentiable at float32 and bf16 on both devices (the
-    kernels' autograd function on CUDA, autograd through the plain
-    version on the CPU); at bf16 the offsets, the mask (the sigmoid of
-    the bf16 mask channels), the weight and the bias are bf16, as the
-    JAX layer hands them to its op (models/layers.py:150-155).
-    ``plain=True`` routes it to its plain PyTorch version on any device
-    (used to check the kernels on the card).
+    ``weight`` keeps the JAX (3, 3, Cin, Cout) layout the kernels take.
+    The clamped op is differentiable at float32 and bf16 on both devices
+    (the kernels' autograd function on CUDA, autograd through the plain
+    version on the CPU). The exact op serves on CUDA through its forward
+    kernels and is differentiable on the CPU only: a CUDA call that needs
+    a gradient raises (its backward kernels are ROADMAP A4b). At bf16 the
+    offsets, the mask (the sigmoid of the bf16 mask channels), the weight
+    and the bias are bf16, as the JAX layer hands them to its op
+    (models/layers.py:150-155). ``plain=True`` routes either op to its
+    plain PyTorch version on any device (used to check the kernels on the
+    card).
     """
+
+    OPS = {"local": (deform_conv2d_local, deform_conv2d_local_plain),
+           "gather": (deform_conv2d, deform_conv2d_plain)}
 
     def __init__(self, in_channels: int, features: int, mode: str = "local",
                  max_offset: int = 2):
         super().__init__()
-        if mode != "local":
+        if mode not in self.OPS:
             raise NotImplementedError(
-                f"DCN mode {mode!r}: only the clamped 'local' op is ported; "
-                f"the exact DCNv2 ('gather') is queued in ROADMAP.md as a "
-                f"later hand-written kernel")
+                f"DCN mode {mode!r}: the port takes 'local' (clamped) and "
+                f"'gather' (exact DCNv2)")
         self.conv_offset_mask = Conv2d(in_channels, 27, 3, 1, 1)
         self.weight = nn.Parameter(torch.zeros(3, 3, in_channels, features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.mode = mode
         self.max_offset = max_offset
         self.plain = False
 
@@ -178,7 +189,9 @@ class DCNLayer(nn.Module):
         offset = om[..., :18].contiguous()
         mask = torch.sigmoid(om[..., 18:]).contiguous()
         xh = x.permute(0, 2, 3, 1).contiguous()
-        op = deform_conv2d_local_plain if self.plain else deform_conv2d_local
-        out = op(xh, offset, mask, cast_param(self, "weight", x.dtype),
-                 cast_param(self, "bias", x.dtype), self.max_offset)
-        return out.permute(0, 3, 1, 2)
+        op = self.OPS[self.mode][self.plain]
+        args = (xh, offset, mask, cast_param(self, "weight", x.dtype),
+                cast_param(self, "bias", x.dtype))
+        if self.mode == "local":
+            args += (self.max_offset,)
+        return op(*args).permute(0, 3, 1, 2)

@@ -1,16 +1,16 @@
-"""Clamped-offset modulated 3x3 deformable convolution (``dcn_local``),
-forward and backward.
+"""Modulated 3x3 deformable convolution (DCNv2) in two forms: the
+clamped op ``dcn_local`` (forward and backward) and the exact op
+(forward kernels; its backward runs on the CPU only).
 
-One function, in the JAX package's layout (ops/dcn.py:382,
-``deform_conv2d_local``): x (B, H, W, Cin), offset (B, H, W, 18)
-interleaved (dy, dx) per tap with taps row-major, mask (B, H, W, 9)
+Both take the JAX package's layout: x (B, H, W, Cin), offset (B, H, W,
+18) interleaved (dy, dx) per tap with taps row-major, mask (B, H, W, 9)
 already sigmoided, weight (3, 3, Cin, Cout), bias (Cout,). Stride 1,
-dilation 1; offsets are clipped to +/-max_offset and sampled with
-exact bilinear interpolation, zeros outside the map.
+padding 1, dilation 1; bilinear sampling with zeros outside the map.
 
-``deform_conv2d_local`` is the wrapper of the hand-written Hopper
-kernels: a float32 CUDA tensor goes to ``DCNLocal``, a
-``torch.autograd.Function`` whose forward launches ``dcn_local_fwd``
+The clamped op (JAX ops/dcn.py:382, ``deform_conv2d_local``) clips each
+offset to +/-max_offset. ``deform_conv2d_local`` is the wrapper of its
+hand-written Hopper kernels: a float32 CUDA tensor goes to ``DCNLocal``,
+a ``torch.autograd.Function`` whose forward launches ``dcn_local_fwd``
 (``csrc/dcn_local.cu``) and whose backward launches
 ``dcn_local_bwd_data`` (grad x, offset, mask) and ``dcn_local_bwd_weight``
 (grad weight) from ``csrc/dcn_local_bwd.cu``; the bias grad is a sum
@@ -28,6 +28,18 @@ max_offset and width. A CPU tensor goes to
 hold against JAX and that the chip smoke holds the kernels against;
 autograd differentiates it.
 
+The exact op (JAX ops/dcn.py:315, ``deform_conv2d``; dla_node "dcn", and
+"dcn_mix" on its coarse maps) takes any offset: the absolute sample
+position is clipped into the map's ring of zeros, as the JAX op clips it.
+``deform_conv2d`` is its wrapper (route: ``exact_route``): a CUDA tensor
+that needs no gradient launches ``dcn_exact_fwd`` (float32) or
+``dcn_exact_fwd_bf16`` (``csrc/dcn_exact.cu``); a CUDA call that needs a
+gradient raises ``NotImplementedError`` (the backward kernels are ROADMAP
+A4b); a CPU tensor goes to ``deform_conv2d_plain``, the plain version and
+the kernels' oracle, whose autograd is JAX's vjp. JAX's environment
+variable CT_EXACT_IMPL, which picks among its implementations of the
+op, has no counterpart: the port has one kernel a dtype.
+
 bfloat16. The five tensors are all float32 or all bfloat16. A bf16
 CUDA call runs the bf16 kernels and is never upcast to the float32
 ones: without a gradient it is ``dcn_local_fwd_bf16``
@@ -44,15 +56,17 @@ At bf16 the forward rounds
 where the Pallas kernels do (ops/dcn_pallas_shift.py:45-76): the sample
 is taken in float32 from the bf16 inputs, masked, rounded to bf16,
 contracted with the bf16 weight with float32 accumulation, the bias
-added in float32, and the sum rounded to bf16. The backward is the
+added in float32, and the sum rounded to bf16. The exact op rounds at
+the same two points, where JAX's ``_deform_conv2d_slot`` rounds. The
+clamped backward is the
 float32 vjp of that function on the bf16 values, with its two roundings
 passed through as a cast's transpose passes a cotangent, and each
 gradient rounded to bf16 once; the weight gradient contracts the bf16
 sample the forward contracted.
 
-Derivative convention. The op is piecewise linear in the offsets, with
-kinks at integer offsets (where training starts: the offset conv is
-zero-initialised) and at the clamp. The JAX package's gradient is
+Derivative convention of the clamped op. It is piecewise linear in the
+offsets, with kinks at integer offsets (where training starts: the
+offset conv is zero-initialised) and at the clamp. The JAX package's gradient is
 ``jax.vjp`` of its hat formulation (the ``custom_vjp`` of
 ops/dcn_pallas_shift.py and ops/dcn_pallas_halo.py), so the port takes
 JAX's rules at the kinks, in the plain version (through ``_Hat`` and
@@ -67,6 +81,9 @@ At a zero offset that gives the central difference of the map minus
 the tap's own sample, where torch's autograd of the same expression
 (abs'(0) = 0, clamp' = 1 at the bound) would give twice the central
 difference, and DCNv2's floor-based backward the forward difference.
+The exact op's gradient is JAX's floor-based vjp instead (floor' = 0,
+the position clip's derivative 1/2 at -1 and at the map's size, which
+zero offsets reach at the border taps): ``deform_conv2d_plain``.
 """
 
 from __future__ import annotations
@@ -93,6 +110,9 @@ BWD_DATA_GATHER_LAUNCHES = 0         # dcn_local_bwd_data_gather
 BWD_DATA_GATHER_BF16_LAUNCHES = 0    # dcn_local_bwd_data_gather_bf16
 BWD_WEIGHT_GATHER_LAUNCHES = 0       # dcn_local_bwd_weight_gather
 BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_gather_bf16
+# the exact (unclamped) DCNv2 forward, ``deform_conv2d``
+EXACT_FWD_LAUNCHES = 0       # dcn_exact_fwd
+EXACT_FWD_BF16_LAUNCHES = 0  # dcn_exact_fwd_bf16
 
 # symbol -> (source in csrc/, pointer arguments, int arguments); every
 # launcher ends with the stream
@@ -109,6 +129,8 @@ _SIGNATURES = {
     "dcn_local_bwd_data_gather_bf16": ("dcn_local_bwd_bf16", 9, 6),
     "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 14),
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
+    "dcn_exact_fwd": ("dcn_exact", 6, 5),
+    "dcn_exact_fwd_bf16": ("dcn_exact", 6, 5),
 }
 
 # blocks a split launch aims for: four per SM of an H100 (the wave rule
@@ -172,43 +194,45 @@ def _ok(rc: int, symbol: str) -> None:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
 
 
-def _check(x, offset, mask, weight, bias, max_offset):
-    """Raise on anything the kernel does not take, before any launch."""
+def _check(x, offset, mask, weight, bias, max_offset, op="dcn_local"):
+    """Raise on anything the kernel does not take, before any launch;
+    ``max_offset`` None for the exact op (``op`` "dcn"), which has none."""
     tensors = {"x": x, "offset": offset, "mask": mask, "weight": weight}
     if bias is not None:
         tensors["bias"] = bias
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"dcn_local: unsupported device {x.device}")
+        raise ValueError(f"{op}: unsupported device {x.device}")
     for name, t in tensors.items():
         if t.device != x.device:
-            raise ValueError(f"dcn_local: {name} on {t.device}, x on "
+            raise ValueError(f"{op}: {name} on {t.device}, x on "
                              f"{x.device}")
         if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"dcn_local: {name} is {t.dtype}, the kernels "
+            raise TypeError(f"{op}: {name} is {t.dtype}, the kernels "
                             f"take float32 or bfloat16")
         if t.dtype != x.dtype:
-            raise TypeError(f"dcn_local: {name} is {t.dtype}, x is "
+            raise TypeError(f"{op}: {name} is {t.dtype}, x is "
                             f"{x.dtype}: the five tensors share one dtype")
         if not t.is_contiguous():
-            raise ValueError(f"dcn_local: {name} is not contiguous")
+            raise ValueError(f"{op}: {name} is not contiguous")
     if x.dim() != 4:
-        raise ValueError(f"dcn_local: x must be (B, H, W, Cin), got "
+        raise ValueError(f"{op}: x must be (B, H, W, Cin), got "
                          f"{tuple(x.shape)}")
     b, h, w, cin = x.shape
     if tuple(offset.shape) != (b, h, w, 18):
-        raise ValueError(f"dcn_local: offset must be {(b, h, w, 18)}, got "
+        raise ValueError(f"{op}: offset must be {(b, h, w, 18)}, got "
                          f"{tuple(offset.shape)}")
     if tuple(mask.shape) != (b, h, w, 9):
-        raise ValueError(f"dcn_local: mask must be {(b, h, w, 9)}, got "
+        raise ValueError(f"{op}: mask must be {(b, h, w, 9)}, got "
                          f"{tuple(mask.shape)}")
     if weight.dim() != 4 or tuple(weight.shape[:3]) != (3, 3, cin):
-        raise ValueError(f"dcn_local: weight must be (3, 3, {cin}, Cout), "
+        raise ValueError(f"{op}: weight must be (3, 3, {cin}, Cout), "
                          f"got {tuple(weight.shape)}")
     if bias is not None and tuple(bias.shape) != (weight.shape[3],):
-        raise ValueError(f"dcn_local: bias must be ({weight.shape[3]},), "
+        raise ValueError(f"{op}: bias must be ({weight.shape[3]},), "
                          f"got {tuple(bias.shape)}")
-    if not isinstance(max_offset, int) or max_offset < 1:
-        raise ValueError(f"dcn_local: max_offset must be an int >= 1, got "
+    if max_offset is not None and (not isinstance(max_offset, int)
+                                   or max_offset < 1):
+        raise ValueError(f"{op}: max_offset must be an int >= 1, got "
                          f"{max_offset!r}")
 
 
@@ -968,6 +992,152 @@ def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
             if low:
                 sampled = _RoundBF16.apply(sampled)
             out = out + sampled.reshape(-1, cin) @ weight[i, j]
+    if bias is not None:
+        out = out + bias
+    out = out.reshape(b, h, w, cout)
+    return out.to(torch.bfloat16) if low else out
+
+
+# --- the exact DCNv2 (dla_node "dcn", and "dcn_mix" on its coarse maps) -----
+
+def _launch_exact(symbol, x, offset, mask, weight, bias):
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    _ok(_kernel(symbol)(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        _ptr(bias), out.data_ptr(), b, h, w, cin, cout, _stream(x)), symbol)
+    return out
+
+
+def launch_exact_fwd(x, offset, mask, weight, bias):
+    """The float32 exact forward on checked float32 CUDA tensors ->
+    (B, H, W, Cout): ``dcn_exact_fwd`` (csrc/dcn_exact.cu)."""
+    global EXACT_FWD_LAUNCHES
+    out = _launch_exact("dcn_exact_fwd", x, offset, mask, weight, bias)
+    EXACT_FWD_LAUNCHES += 1
+    return out
+
+
+def launch_exact_fwd_bf16(x, offset, mask, weight, bias):
+    """The bf16 exact forward on checked bf16 CUDA tensors -> bf16
+    (B, H, W, Cout): ``dcn_exact_fwd_bf16`` (csrc/dcn_exact.cu)."""
+    global EXACT_FWD_BF16_LAUNCHES
+    out = _launch_exact("dcn_exact_fwd_bf16", x, offset, mask, weight, bias)
+    EXACT_FWD_BF16_LAUNCHES += 1
+    return out
+
+
+def exact_route(device: torch.device, dtype: torch.dtype = torch.float32,
+                needs_grad: bool = False):
+    """What ``deform_conv2d`` calls for tensors on ``device``: the plain
+    version on the CPU (autograd differentiates it); on CUDA the forward
+    kernel of the dtype. A CUDA call that needs a gradient raises: the
+    exact op's backward kernels are ROADMAP A4b, and nothing autograds
+    through the plain version on the card in their place."""
+    if device.type == "cpu":
+        return deform_conv2d_plain
+    if needs_grad:
+        raise NotImplementedError(
+            "exact DCNv2 (deform_conv2d) on CUDA with a gradient: its "
+            "backward kernels are not ported yet (ROADMAP A4b); serve it "
+            "under torch.no_grad(), or train the clamped dcn_local nodes")
+    return (launch_exact_fwd_bf16 if dtype == torch.bfloat16
+            else launch_exact_fwd)
+
+
+def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  weight: torch.Tensor,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact DCNv2, 3x3, stride 1, padding 1 (JAX ops/dcn.py:315): the
+    forward kernel of the dtype on a CUDA tensor (no gradient there), the
+    plain PyTorch version on a CPU tensor."""
+    _check(x, offset, mask, weight, bias, None, op="dcn")
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, offset, mask, weight, bias))
+    return exact_route(x.device, x.dtype, needs_grad)(x, offset, mask,
+                                                      weight, bias)
+
+
+class _ClipPos(torch.autograd.Function):
+    """clip(p, -1, size), a sample position clipped into the map's ring
+    of zeros, with JAX's derivative (``jnp.clip``: 1 inside, 1/2 at
+    exactly -1 or size, 0 outside)."""
+
+    @staticmethod
+    def forward(ctx, p, size):
+        ctx.save_for_backward(p)
+        ctx.size = size
+        return p.clamp(-1.0, float(size))
+
+    @staticmethod
+    def backward(ctx, g):
+        p, = ctx.saved_tensors
+        inside = (p > -1.0) & (p < ctx.size)
+        tie = (p == -1.0) | (p == ctx.size)
+        slope = torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0))
+        return g * slope, None
+
+
+def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
+                        mask: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact DCNv2 in plain PyTorch, as the JAX package computes it at
+    every map size (``_deform_conv2d_slot``, ops/dcn.py:140-189; its
+    ``_deform_conv2d_onehot`` below 4096 pixels is the same function):
+    for tap t at (i - 1, j - 1) the absolute float32 position
+    py = (y + i - 1) + dy, clipped to [-1, h] (px likewise to [-1, w]),
+    y0 = floor(py), fy = py - y0; the corner weights
+    ((1 - fy) * (1 - fx)) * m, ((1 - fy) * fx) * m, (fy * (1 - fx)) * m,
+    (fy * fx) * m; corners outside the map read 0; the four corners
+    summed in float32, the sum contracted with the tap's (Cin, Cout)
+    weight and accumulated over the taps in float32; the bias added in
+    float32.
+
+    At bfloat16 it computes in float32 on the bf16 values, rounds the
+    masked sample to bf16 before the contraction and the result to bf16
+    at the end, where slot rounds. Autograd through it is JAX's vjp of
+    slot and onehot: floor has derivative 0, the position's clip 1
+    inside, 1/2 at a tie and 0 outside (``_ClipPos``), and the bf16
+    rounding of the sample passes the gradient through
+    (``_RoundBF16``). The oracle of ``dcn_exact_fwd[_bf16]``."""
+    low = x.dtype == torch.bfloat16
+    if low:
+        x, offset, mask, weight = (t.float() for t in (x, offset, mask,
+                                                       weight))
+        bias = None if bias is None else bias.float()
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    wp = w + 3
+    # padded by one row/column before and two after: every clipped
+    # position's 2x2 corners lie inside, the ring reading zeros
+    xp = F.pad(x, (0, 0, 1, 2, 1, 2)).reshape(b * (h + 3) * wp, cin)
+    image = (torch.arange(b, device=x.device) * ((h + 3) * wp)).view(b, 1, 1)
+    rows = torch.arange(h, device=x.device, dtype=torch.float32).view(1, h, 1)
+    cols = torch.arange(w, device=x.device, dtype=torch.float32).view(1, 1, w)
+    out = x.new_zeros((b * h * w, cout))
+    for i in range(3):
+        for j in range(3):
+            t = 3 * i + j
+            py = _ClipPos.apply((rows + (i - 1)) + offset[..., 2 * t], h)
+            px = _ClipPos.apply((cols + (j - 1)) + offset[..., 2 * t + 1], w)
+            y0 = torch.floor(py).detach()
+            x0 = torch.floor(px).detach()
+            fy = py - y0
+            fx = px - x0
+            m = mask[..., t]
+            corner = ((y0.long() + 1) * wp + x0.long() + 1 + image).reshape(-1)
+            sampled = None
+            for dq, cw in ((0, ((1 - fy) * (1 - fx)) * m),
+                           (1, ((1 - fy) * fx) * m),
+                           (wp, (fy * (1 - fx)) * m),
+                           (wp + 1, (fy * fx) * m)):
+                term = xp.index_select(0, corner + dq) * cw.reshape(-1, 1)
+                sampled = term if sampled is None else sampled + term
+            if low:
+                sampled = _RoundBF16.apply(sampled)
+            out = out + sampled @ weight[i, j]
     if bias is not None:
         out = out + bias
     out = out.reshape(b, h, w, cout)

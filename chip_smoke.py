@@ -7,8 +7,8 @@ Phases, each printing one JSON line with its elapsed seconds:
   device   the card's name and power limit (nvidia-smi); fails without CUDA
   build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
            csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu,
-           csrc/dcn_local_bwd_bf16.cu, csrc/probes.cu, csrc/tracker.cu)
-           into build/, all started together
+           csrc/dcn_local_bwd_bf16.cu, csrc/dcn_exact.cu, csrc/probes.cu,
+           csrc/tracker.cu) into build/, all started together
   probes   the 13 toolchain-probe kernels of csrc/probes.cu (the JAX
            package's tools/pallas_probe.py P0-P6 and pallas_probe2.py
            P10-P15) against their plain versions on seeded and on
@@ -65,6 +65,13 @@ Phases, each printing one JSON line with its elapsed seconds:
            route), against the plain version at the kernel phases'
            tolerances, on random offsets and, at R=5, all-zero ones;
            times and bounds
+  exact    dcn_exact_fwd and dcn_exact_fwd_bf16 (csrc/dcn_exact.cu, the
+           exact DCNv2 of dla_node dcn and dcn_mix) against
+           deform_conv2d_plain at the seven neck shapes at B=1 and B=6,
+           the ragged and the odd-widths shapes, on offsets ~N(0, 3),
+           ~N(0, 40), all zero and +/-1e6: float32 within REL_TOL, bf16
+           within BF16_ULPS ulps + BF16_REL_OF_MAX max|plain|, each call
+           one launch of its kernel; times, bounds, launches per frame
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame a CUDA graph replay (the
@@ -107,6 +114,18 @@ Phases, each printing one JSON line with its elapsed seconds:
            at every step against a single-stream bf16 detector started
            from that stream's state, then the bench's 6-stream leg at
            lag 4: aggregate fps, peak memory
+  path_dcn, path_dcn_bf16, path_dcn_mix_bf16  the path's checks on the
+           committed exact-trained assets/selftest_dcn_fp16.ckpt at
+           dla_node "dcn" (float32: both packages' default configuration;
+           bf16) and "dcn_mix" (bf16): the bench's exact legs. Replays bit
+           for bit the eager step, each first-frame launch against its
+           plain version, rows against a plain-DCN detector, device
+           launches of the counted run: 16 dcn_exact_fwd[_bf16] a frame
+           at dcn, 5 dcn_exact_fwd_bf16 and 11 dcn_local_fwd_bf16 (R=2) at
+           dcn_mix; then run_chunk over 8 frames bit for bit the path's
+           rows, a two-stream MultiStreamDetector (captured, its eager
+           step bit for bit a replay) and the lag-4 protocol (fps, peak
+           memory)
   train    the port's Trainer on the same model and checkpoint at
            544x960, B=8, Adam (the flags as in path, read inside
            train_step): 12 steps on one fixed batch built from 9
@@ -124,7 +143,8 @@ Phases, each printing one JSON line with its elapsed seconds:
            step's distance from a plain float32 step
   kernels  one JSON line: the port's kernel table
 
-`--profile N` adds a phase after `path`, `path_bf16`, `chunk` and
+`--profile N` adds a phase after `path`, `path_bf16`, the three exact
+paths, `chunk` and
 `chunk_bf16` and one after the timed steps of `train` and of
 `train_bf16`: torch.profiler over N frames (graph replays) of each
 path, N chunk replays and N B=8 steps of each dtype, device time by
@@ -136,6 +156,7 @@ the exit code is not 0. The whole run has a wall-clock budget.
 
 import collections
 import contextlib
+import gc
 import io
 import json
 import os
@@ -166,6 +187,9 @@ from centertrack_tpu_torch.utils.checkpoint import load_jax_ckpt
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "assets", "selftest_local1_fp16.ckpt")
+# the exact-trained checkpoint of the bench's exact legs (bench.py:17-18):
+# the same parameter tree, served at dla_node "dcn" and "dcn_mix"
+CKPT_DCN = os.path.join(ROOT, "assets", "selftest_dcn_fp16.ckpt")
 BUDGET_S = 1100
 T0 = time.perf_counter()
 
@@ -200,9 +224,31 @@ PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
 SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16",
-           "dcn_local_bwd_bf16", "probes", "tracker")
-# the forward kernel each compute dtype's serving path launches
-PATH_KERNEL = {"float32": "dcn_local_fwd", "bfloat16": "dcn_local_fwd_bf16"}
+           "dcn_local_bwd_bf16", "dcn_exact", "probes", "tracker")
+# the DCN kernels a serving path launches per frame, by (dla_node, compute
+# dtype): dcn_mix's 5 exact nodes run on the stride-16 and -32 maps, its
+# 11 clamped ones (R=2) on the stride-4 and -8 maps
+PATH_KERNELS = {
+    ("dcn_local1", "float32"): {"dcn_local_fwd": 16},
+    ("dcn_local1", "bfloat16"): {"dcn_local_fwd_bf16": 16},
+    ("dcn", "float32"): {"dcn_exact_fwd": 16},
+    ("dcn", "bfloat16"): {"dcn_exact_fwd_bf16": 16},
+    ("dcn_mix", "bfloat16"): {"dcn_exact_fwd_bf16": 5,
+                              "dcn_local_fwd_bf16": 11}}
+# the _RecordLaunches kind of each forward kernel
+RECORD_KIND = {"dcn_local_fwd": "fwd", "dcn_local_fwd_bf16": "bf16",
+               "dcn_exact_fwd": "exact", "dcn_exact_fwd_bf16": "exact_bf16"}
+# the exact forward kernels' checks: the offsets' spreads (~N(0, s); 0 is
+# all-zero offsets, every border tap on the clip's tie; "1e6" a mix of
+# +/-1e6 and small ones) and the batch of the multi-stream serving leg
+EXACT_OFFSETS = (3.0, 40.0, 0.0, "1e6")
+EXACT_BATCH = 6
+# the path phases of the exact-trained checkpoint: (phase, dla_node,
+# compute dtype); the float32 "dcn" is both packages' default
+# configuration, the two bf16 ones the bench's exact legs (bench.py:319)
+EXACT_PATHS = (("path_dcn", "dcn", "float32"),
+               ("path_dcn_bf16", "dcn", "bfloat16"),
+               ("path_dcn_mix_bf16", "dcn_mix", "bfloat16"))
 # the kernel path's rows against the plain-DCN path's over PLAIN_FRAMES
 # frames: the same track ids and scores within this. float32: both
 # forwards agree to ~1e-6; bf16: a kernel launch may flip single
@@ -219,6 +265,8 @@ EAGER_FRAMES = 3
 # the device kernels a replay launches, by name in a profiler trace
 KERNEL_NAMES = {"dcn_local_fwd": r"dcn_local_fwd_kernel\b",
                 "dcn_local_fwd_bf16": r"dcn_local_fwd_bf16_kernel\b",
+                "dcn_exact_fwd": r"dcn_exact_fwd_kernel\b",
+                "dcn_exact_fwd_bf16": r"dcn_exact_fwd_bf16_kernel\b",
                 "greedy_assign": r"greedy_assign_kernel\b",
                 "splat_pre_hm": r"splat_pre_hm_kernel\b"}
 # bench.py's protocols (timed_tracking, timed_tracking_chunked and the
@@ -470,7 +518,9 @@ def _launches():
             "dcn_local_bwd_data_bf16": dcn.BWD_DATA_BF16_LAUNCHES,
             "dcn_local_bwd_weight_bf16": dcn.BWD_WEIGHT_BF16_LAUNCHES,
             "dcn_local_bwd_weight_gather_bf16":
-                dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES}
+                dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES,
+            "dcn_exact_fwd": dcn.EXACT_FWD_LAUNCHES,
+            "dcn_exact_fwd_bf16": dcn.EXACT_FWD_BF16_LAUNCHES}
 
 
 def _tracker_modules():
@@ -492,6 +542,7 @@ def _reset_launches():
     dcn.BWD_WEIGHT_GATHER_LAUNCHES = dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0
     dcn.FWD_GATHER_LAUNCHES = dcn.FWD_GATHER_BF16_LAUNCHES = 0
     dcn.BWD_DATA_GATHER_LAUNCHES = dcn.BWD_DATA_GATHER_BF16_LAUNCHES = 0
+    dcn.EXACT_FWD_LAUNCHES = dcn.EXACT_FWD_BF16_LAUNCHES = 0
     for name, module in _tracker_modules().items():
         module.LAUNCHES[name] = 0
 
@@ -1390,6 +1441,176 @@ def phase_gather_routes():
     return rows
 
 
+def _exact_cases():
+    """(map, B, H, W, Cin, Cout, launches per frame by dla_node, layers)
+    of the exact kernels' checks: the neck shapes at B=1 and at
+    EXACT_BATCH (the multi-stream leg's batch), then the ragged shape
+    and the odd widths of ``_dcn_cases``. dcn_mix runs the exact op on
+    the stride-16 and -32 maps only."""
+    neck = [(n, b, h, w, ci, co,
+             {"dcn": k, "dcn_mix": k if n in ("s16", "s32") else 0}, lay)
+            for b in (1, EXACT_BATCH)
+            for n, h, w, ci, co, k, lay in NECK_SHAPES]
+    return neck + [
+        ("ragged", 1, 17, 30, 72, 40, {"dcn": 0, "dcn_mix": 0}, "ragged"),
+        ("odd", 1, 17, 30, 69, 37, {"dcn": 0, "dcn_mix": 0}, "odd widths")]
+
+
+def exact_offsets(gen, b, h, w, spread, dtype):
+    """Offsets of an exact-kernel check: ~N(0, spread), all zero, or
+    ("1e6") a mix of +/-1e6 and ~N(0, 1)."""
+    if spread == "1e6":
+        pick = torch.randint(0, 3, (b, h, w, 18), generator=gen,
+                             device="cuda")
+        small = torch.randn(b, h, w, 18, generator=gen, device="cuda")
+        off = torch.where(pick == 0, -1e6, torch.where(pick == 1, 1e6,
+                                                       small))
+    else:
+        off = torch.randn(b, h, w, 18, generator=gen, device="cuda") * spread
+    return off.to(dtype)
+
+
+def phase_exact():
+    """dcn_exact_fwd and dcn_exact_fwd_bf16 (csrc/dcn_exact.cu) against
+    deform_conv2d_plain on the same inputs at ``_exact_cases()``, each on
+    offsets of every EXACT_OFFSETS kind: float32 within REL_TOL of
+    max|plain|, bf16 every element within BF16_ULPS ulps +
+    BF16_REL_OF_MAX max|plain|; each call one launch of its kernel and
+    of nothing else. Times (per launch, spin-queued device time, the
+    plain version's) on the ~N(0, 3) offsets, the bound and the launches
+    per frame of each path."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        low = dtype == "bfloat16"
+        kernel = "dcn_exact_fwd" + ("_bf16" if low else "")
+        tdt = getattr(torch, dtype)
+        for name, b, h, w, cin, cout, per_frame, layers in _exact_cases():
+            x, _, mask, weight, bias, _ = dcn_inputs(gen, b, h, w, cin, cout,
+                                                     1, tdt)
+            errs, timed = {}, None
+            for spread in EXACT_OFFSETS:
+                off = exact_offsets(gen, b, h, w, spread, tdt)
+                _reset_launches()
+                with torch.no_grad():
+                    out = dcn.deform_conv2d(x, off, mask, weight, bias)
+                if _launches()[kernel] != 1 or sum(_launches().values()) != 1:
+                    raise RuntimeError(f"{kernel}: launches {_launches()}")
+                ref, plain_ms = _timed(lambda: dcn.deform_conv2d_plain(
+                    x, off, mask, weight, bias))
+                if out.dtype != tdt or not torch.isfinite(out).all():
+                    raise RuntimeError(f"{kernel} {name} {cin}->{cout}: "
+                                       f"{out.dtype} output, or not finite")
+                scale = ref.float().abs().max().item()
+                if low:
+                    err, past_ulp, past = bf16_agreement(out, ref)
+                    bad = past > 0
+                else:
+                    err, past_ulp = (out - ref).abs().max().item(), None
+                    bad = err > REL_TOL * scale
+                if bad:
+                    raise RuntimeError(
+                        f"{kernel} {name} B={b} {cin}->{cout} offsets "
+                        f"{spread}: max abs err {err} (max|plain| {scale}) "
+                        f"past the tolerance")
+                errs[str(spread)] = {"max_abs_err": err, "max_abs_ref": scale,
+                                     **({"elements_past_1_ulp": past_ulp}
+                                        if low else {})}
+                if timed is None:
+                    timed = (off, plain_ms)
+            off, plain_ms = timed
+
+            def call():
+                with torch.no_grad():
+                    return dcn.deform_conv2d(x, off, mask, weight, bias)
+            bound, bound_by = (dcn_bound_ms_bf16 if low else
+                               dcn_bound_ms_3xtf32)(b * h * w, cin, cout)
+            row = {"kernel": kernel, "map": name, "batch": b, "hw": [h, w],
+                   "cin": cin, "cout": cout,
+                   "launches_per_frame": per_frame, "layers": layers,
+                   "max_abs_err": max(e["max_abs_err"]
+                                      for e in errs.values()),
+                   "by_offsets": errs,
+                   "tol": ({"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX}
+                           if low else {"rel": REL_TOL}),
+                   "ms": time_ms(call, 3, 20),
+                   "device_ms": queued_us(call, 20) / 1e3,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by, "library_ms": None}
+            if not low:
+                row["bound_ms_fp32_cuda_cores"] = dcn_bound_ms(
+                    b * h * w, cin, cout)[0]
+            rows.append(row)
+            emit("exact", **row)
+    return rows
+
+
+def phase_path_exact(phase, node, dtype, ref_packed=None, n_profile=0):
+    """``phase_path`` of ``node`` at ``dtype`` on the exact-trained
+    checkpoint, then three more checks of the serving engine on it:
+    ``run_chunk`` over the first 2 CHUNK frames from a fresh state in
+    chunks of CHUNK (its own graph), every row bit for bit the path's;
+    a two-stream MultiStreamDetector (stream s at frame i reads frame
+    i + s MULTI_OFFSET) over EAGER_FRAMES + 2 steps, every step after the
+    capture under the sync-debug mode, its first step on the eager step
+    bit for bit the replay; and the bench's lag-4 protocol on device
+    frames. ``n_profile``: a profile phase of that many frames after the
+    path. Returns (row, packed rows)."""
+    from centertrack_tpu_torch.engine.fused import MultiStreamDetector
+    row, det, frames, cfg, packed = phase_path(dtype, ref_packed, node,
+                                               phase)
+    if n_profile:
+        phase_profile(det, frames, cfg, n_profile, "profile_" + phase)
+    det.reset_tracking()
+    rows = []
+    for i in range(2):
+        with sync_errors() if i else contextlib.nullcontext():
+            res = det.run_chunk(frames[i * CHUNK:(i + 1) * CHUNK])
+        FusedDetector.fetch_chunk(res, cfg.out_thresh)
+        rows += list(res.cpu().numpy())
+    _bitwise(f"{phase}: run_chunk against run", rows, packed[:2 * CHUNK])
+    torch.cuda.reset_peak_memory_stats()
+    dev_frames = [torch.as_tensor(f, device="cuda") for f in frames]
+    fps, live, run_host = timed_lag(
+        det.run, lambda r: [det.fetch(r, cfg.out_thresh)], dev_frames,
+        LAG_FRAMES, LAG_WARMUP, LAG)
+    peak_lag = torch.cuda.max_memory_allocated() / 2 ** 20
+    del det
+    torch.cuda.empty_cache()
+    params, batch_stats = load_jax_ckpt(CKPT_DCN)
+    multi = MultiStreamDetector(cfg, 2, params, batch_stats, MOT_META,
+                                device="cuda")
+    n = len(frames)
+    steps = [[frames[(i + MULTI_OFFSET * s) % n] for s in range(2)]
+             for i in range(EAGER_FRAMES + 2)]
+    replays = []
+    for i, step in enumerate(steps):
+        with sync_errors() if i else contextlib.nullcontext():
+            res = multi.run(step)
+        multi.fetch_all(res, cfg.out_thresh)
+        replays.append(res.cpu().numpy())
+        if res.shape != (2, cfg.K, 13) or not np.isfinite(replays[-1]).all():
+            raise RuntimeError(f"{phase}: two-stream result {res.shape}")
+    eager = _eager_rows(multi, steps[:1])
+    _bitwise(f"{phase}: two-stream eager step against its replay", eager,
+             replays[:1])
+    del multi
+    torch.cuda.empty_cache()
+    row = {**row, "run_chunk_rows_bitwise_equal_to_path": len(rows),
+           "two_stream_steps": len(steps),
+           "two_stream_eager_steps_bitwise_equal_to_replays": 1,
+           "lag4_fps": fps, "lag4_rows_per_frame": live,
+           "lag4_host_ms_per_run_median": run_host,
+           "lag4_max_memory_allocated_mb": peak_lag}
+    emit(phase + "_serving", **{k: row[k] for k in (
+        "run_chunk_rows_bitwise_equal_to_path", "two_stream_steps",
+        "two_stream_eager_steps_bitwise_equal_to_replays", "lag4_fps",
+        "lag4_rows_per_frame", "lag4_host_ms_per_run_median",
+        "lag4_max_memory_allocated_mb", "ms_per_frame_median",
+        "max_memory_allocated_mb", "memory_allocated_mb_at_start")})
+    return row, packed
+
+
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
     """The rows above ``out_thresh``, without those within ``margin`` of
     it; with ``collapse_ties``, a row is left out whose score equals that
@@ -1865,19 +2086,26 @@ def phase_tracker():
     return rows
 
 
-def phase_path(dtype="float32", ref_packed=None):
-    """The serving path at ``dtype`` over PATH_FRAMES frames; with
+def phase_path(dtype="float32", ref_packed=None, node="dcn_local1",
+               phase=None):
+    """The serving path of ``node`` at ``dtype`` over PATH_FRAMES frames
+    (dcn_local1 on the committed local1 checkpoint, the other nodes on the
+    exact-trained one), its DCN kernels by PATH_KERNELS; with
     ``ref_packed`` (the float32 path's rows) its rows are compared with
     those. Returns (row, detector, frames, cfg, packed rows)."""
-    phase = "path" if dtype == "float32" else "path_bf16"
-    kernel = PATH_KERNEL[dtype]
+    phase = phase or ("path" if dtype == "float32" else "path_bf16")
+    kernels = PATH_KERNELS[node, dtype]
     cfg = set_heads(parse_task(Config(
         task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
-        max_age=3, dla_node="dcn_local1", compute_dtype=dtype)), MOT_META)
-    params, batch_stats = load_jax_ckpt(CKPT)
+        max_age=3, dla_node=node, compute_dtype=dtype)), MOT_META)
+    params, batch_stats = load_jax_ckpt(
+        CKPT if node == "dcn_local1" else CKPT_DCN)
     frames = synth_frames(PATH_FRAMES, seed=0)
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold counts in the peak; it is read here
+    live_mb = torch.cuda.memory_allocated() / 2 ** 20
     det = FusedDetector(cfg, params, batch_stats, MOT_META, device="cuda")
 
     # every frame a graph replay: the first call also runs the eager step
@@ -1906,7 +2134,7 @@ def phase_path(dtype="float32", ref_packed=None):
     live = int(det.track_state.valid.sum())
     # the wrappers run twice, at the warm-up and at the capture; replays
     # launch no wrapper
-    want = {k: 2 * 16 if k == kernel else 0 for k in counts}
+    want = {k: 2 * kernels.get(k, 0) for k in counts}
     if counts != want or tcounts != dict.fromkeys(TRACKER_KERNELS, 2):
         raise RuntimeError(f"wrapper calls over {PATH_FRAMES} frames at "
                            f"{dtype}: {counts}, {tcounts}; expected {want} "
@@ -1925,17 +2153,17 @@ def phase_path(dtype="float32", ref_packed=None):
             out.append(res.cpu().numpy())
         return out
     launches = counted_replays(
-        phase, replay_all, (kernel,) + TRACKER_KERNELS,
-        {kernel: 16 * PATH_FRAMES,
+        phase, replay_all, tuple(kernels) + TRACKER_KERNELS,
+        {**{k: n * PATH_FRAMES for k, n in kernels.items()},
          **dict.fromkeys(TRACKER_KERNELS, PATH_FRAMES)}, packed)
 
     # the first frames again on the eager step, no graph: the replays'
     # rows bit for bit. Its first frame's 16 DCN launches are held
     # against the plain version on their own inputs and the flags are
     # read inside; every tracker launch is held against its plain version
-    kind = "bf16" if dtype != "float32" else "fwd"
+    kinds = {RECORD_KIND[k]: n for k, n in kernels.items()}
     flags_inside, hook = _flags_inside(det.model)
-    rec, trec = _RecordLaunches((kind,)), _RecordTracker()
+    rec, trec = _RecordLaunches(tuple(kinds)), _RecordTracker()
     with trec:
         eager = _eager_rows(det, [[f] for f in frames[:EAGER_FRAMES]],
                             (rec,))
@@ -1943,7 +2171,7 @@ def phase_path(dtype="float32", ref_packed=None):
     _check_flags("the serving step", dtype, flags_inside[0], flags_outside)
     _bitwise(f"{phase} eager step against its graph replays",
              [r[0] for r in eager], packed[:EAGER_FRAMES])
-    launch_worst = rec.check(16)[kind]
+    launch_worst = max(rec.check(kinds).values())
     tracker_worst = trec.check(EAGER_FRAMES)
     tracker_rows = tracker_kernel_rows(trec)
 
@@ -1978,7 +2206,8 @@ def phase_path(dtype="float32", ref_packed=None):
         raise RuntimeError(f"kernel vs plain DCN at {dtype}: score diff "
                            f"{vs_plain['max_score_diff']} > "
                            f"{PLAIN_SCORE_TOL[dtype]}")
-    row = {"compute_dtype": dtype, "kernel": kernel,
+    row = {"compute_dtype": dtype, "dla_node": node,
+           "kernel": "+".join(kernels), "kernels_per_frame": kernels,
            "flags_outside": flags_outside,
            "flags_inside_step": flags_inside[0],
            "frames": PATH_FRAMES, "input": [cfg.input_h, cfg.input_w],
@@ -1991,7 +2220,7 @@ def phase_path(dtype="float32", ref_packed=None):
            "launches_counted": "device launches over the counted run of "
                                f"{PATH_FRAMES} replayed frames, by kernel "
                                "name (torch.profiler)",
-           "wrapper_calls": {kernel: counts[kernel], **tcounts},
+           "wrapper_calls": {**{k: counts[k] for k in kernels}, **tcounts},
            "eager_frames_bitwise_equal_to_replays": EAGER_FRAMES,
            "tracker_max_abs_err": tracker_worst,
            "tracker_kernels": tracker_rows,
@@ -2003,7 +2232,8 @@ def phase_path(dtype="float32", ref_packed=None):
            "plain_vs_kernel_rows": vs_plain["rows_per_frame"],
            "plain_vs_kernel_pairs": vs_plain["pairs"],
            "first_frame_launch_worst_rel_err": launch_worst,
-           "max_memory_allocated_mb": peak_mb}
+           "max_memory_allocated_mb": peak_mb,
+           "memory_allocated_mb_at_start": live_mb}
     if ref_packed is not None:
         row["vs_float32_path"] = rows_against(
             packed, ref_packed, cfg.out_thresh, margin, collapse_ties=low)
@@ -2046,7 +2276,7 @@ def phase_chunk(det, frames, cfg, path_packed, n_profile=0):
     bench's lag-4 and chunk-4 protocols timed."""
     dtype = cfg.compute_dtype
     phase = "chunk" if dtype == "float32" else "chunk_bf16"
-    kernel = PATH_KERNEL[dtype]
+    kernel, = PATH_KERNELS["dcn_local1", dtype]
     det.reset_tracking()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2185,7 +2415,7 @@ def phase_multistream(path_packed):
             eager = _eager_rows(det, steps[:EAGER_FRAMES], (rec,))
         _bitwise(f"{phase}: the eager step against its graph replays", eager,
                  rows[:EAGER_FRAMES])
-        kernel = PATH_KERNEL[dtype]
+        kernel, = PATH_KERNELS["dcn_local1", dtype]
         launches = counted_replays(
             phase, lambda: run_steps(det, steps, det.cfg.out_thresh,
                                      reset_at),
@@ -2321,7 +2551,8 @@ def _profile(run_once, n, phase, unit):
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     port_kernels = {}
     for e in events:
-        m = re.search(r"dcn_local\w*|greedy_assign|splat_pre_hm", e.key)
+        m = re.search(r"dcn_local\w*|dcn_exact\w*|greedy_assign|"
+                      r"splat_pre_hm", e.key)
         if m:
             d = port_kernels.setdefault(m.group(0), {f"calls_per_{unit}": 0.0,
                                                     f"ms_per_{unit}": 0.0})
@@ -2363,14 +2594,15 @@ def phase_profile(det, frames, cfg, n, phase="profile"):
 class _RecordLaunches:
     """While active, keeps a copy of the inputs and outputs of every
     launch of the DCN kernels of ``kinds`` (the three float32 kernels by
-    default; "bf16", "data_bf16" and "weight_bf16" are the bf16 ones),
-    to hold each against the plain version on the same inputs
-    afterwards (``check``)."""
+    default; "bf16", "data_bf16" and "weight_bf16" are the bf16 ones,
+    "exact" and "exact_bf16" the exact forwards), to hold each against
+    the plain version on the same inputs afterwards (``check``)."""
 
     ALL = {"fwd": "launch_fwd", "data": "launch_bwd_data",
            "weight": "launch_bwd_weight", "bf16": "launch_fwd_bf16",
            "data_bf16": "launch_bwd_data_bf16",
-           "weight_bf16": "launch_bwd_weight_bf16"}
+           "weight_bf16": "launch_bwd_weight_bf16",
+           "exact": "launch_exact_fwd", "exact_bf16": "launch_exact_fwd_bf16"}
 
     def __init__(self, kinds=("fwd", "data", "weight")):
         self.LAUNCHERS = {k: self.ALL[k] for k in kinds}
@@ -2398,20 +2630,26 @@ class _RecordLaunches:
             setattr(dcn, f, self._saved[kind])
 
     def check(self, per_kind):
-        """Requires ``per_kind`` recorded launches of each kernel and
-        holds each against the plain version on its own inputs (forward
-        at REL_TOL, backward at GRAD_REL_TOL, the bf16 kernels at
-        BF16_ULPS ulps + BF16_REL_OF_MAX max|ref| per element). Returns
-        the worst rel err (max abs err over max|ref|) per kernel."""
+        """Requires ``per_kind`` recorded launches of each kernel (a count,
+        or a count by kind) and holds each against the plain version on
+        its own inputs (forward at REL_TOL, backward at GRAD_REL_TOL, the
+        bf16 kernels at BF16_ULPS ulps + BF16_REL_OF_MAX max|ref| per
+        element). Returns the worst rel err (max abs err over max|ref|)
+        per kernel."""
+        want = (per_kind if isinstance(per_kind, dict)
+                else dict.fromkeys(self.LAUNCHERS, per_kind))
         counts = {k: sum(c[0] == k for c in self.calls)
                   for k in self.LAUNCHERS}
-        if counts != {k: per_kind for k in self.LAUNCHERS}:
+        if counts != want:
             raise RuntimeError(f"recorded DCN launches {counts}, expected "
                                f"{per_kind} of each kernel")
         worst = dict.fromkeys(self.LAUNCHERS, 0.0)
         for kind, args, outs in self.calls:
-            if kind in ("bf16", "data_bf16", "weight_bf16"):
-                if kind == "bf16":
+            if kind in ("bf16", "data_bf16", "weight_bf16", "exact_bf16"):
+                if kind == "exact_bf16":
+                    with torch.no_grad():
+                        ref = [dcn.deform_conv2d_plain(*args)]
+                elif kind == "bf16":
                     with torch.no_grad():
                         ref = [dcn.deform_conv2d_local_plain(*args)]
                 elif kind == "data_bf16":
@@ -2431,9 +2669,11 @@ class _RecordLaunches:
                     worst[kind] = max(worst[kind], err / max(
                         rf.float().abs().max().item(), 1e-30))
                 continue
-            if kind == "fwd":
+            if kind in ("fwd", "exact"):
+                plain = (dcn.deform_conv2d_local_plain if kind == "fwd"
+                         else dcn.deform_conv2d_plain)
                 with torch.no_grad():
-                    ref = [dcn.deform_conv2d_local_plain(*args)]
+                    ref = [plain(*args)]
                 names, tol = ("out",), REL_TOL
             elif kind == "data":
                 x, offset, mask, weight, g, r = args
@@ -2748,6 +2988,7 @@ def main(argv):
         gather_rows = {dt: phase_gather(dt)
                        for dt in ("float32", "bfloat16")}
         route_rows = phase_gather_routes()
+        exact_rows = phase_exact()
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
@@ -2761,6 +3002,14 @@ def main(argv):
     del det
     torch.cuda.empty_cache()
     multistream = phase_multistream(packed)
+    exact_paths, exact_packed = {}, None
+    for phase, node, dtype in EXACT_PATHS:
+        exact_paths[phase], rows_ = phase_path_exact(
+            phase, node, dtype, exact_packed if node == "dcn" else None,
+            n_profile)
+        if (node, dtype) == ("dcn", "float32"):
+            exact_packed = rows_
+        torch.cuda.empty_cache()
     train = phase_train(n_profile)
     train_bf16 = phase_train(n_profile, "bfloat16")
 
@@ -2794,7 +3043,9 @@ def main(argv):
     serving = {"serving": path, "serving_bf16": path_bf16, "chunk": chunk,
                "chunk_bf16": chunk_bf16,
                "multistream": {"launches": multistream["launches_s2"]},
-               "multistream_bf16": {"launches": multistream["launches_s6"]}}
+               "multistream_bf16": {"launches": multistream["launches_s6"]},
+               **{"serving_" + k[len("path_"):]: r
+                  for k, r in exact_paths.items()}}
     by_path = lambda name: {
         **{k: r["launches"].get(name, 0) for k, r in serving.items()},
         "train": (launches if name in launches else train[
@@ -2932,6 +3183,44 @@ def main(argv):
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    for low in (False, True):
+        kname = "dcn_exact_fwd" + ("_bf16" if low else "")
+        rs = [r for r in exact_rows if r["kernel"] == kname]
+        one = [r for r in rs if r["batch"] == 1]
+        frame = lambda key, node="dcn": sum(
+            r[key] * r["launches_per_frame"][node] for r in one)
+        exact_row = {
+            "name": kname, "route": "cuda",
+            "source": "centertrack_tpu_torch/csrc/dcn_exact.cu",
+            "replaces": "centertrack_tpu/ops/dcn.py:315",
+            "replaces_kind": "deform_conv2d, an XLA gather (no "
+                             "pl.pallas_call): _deform_conv2d_slot at "
+                             "h*w >= 4096, _deform_conv2d_onehot below",
+            "at": "bfloat16 inputs" if low else "float32 inputs",
+            "design": "the clamped op's first gather design with the exact "
+                      "op's corners: 64 pixels x 64 channels a block, "
+                      "corners read from global memory"
+                      + (", wmma bf16" if low else ", CUDA-core FMAs"),
+            "launches": exact_paths[
+                "path_dcn_bf16" if low else "path_dcn"]["launches"][kname],
+            "launches_by_path": by_path(kname),
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "per": "one 544x960 frame at dla_node dcn: the 16 launches of "
+                   "the neck shapes",
+            "ms": frame("ms"), "device_ms": frame("device_ms"),
+            "ms_per_frame_dcn_mix": frame("ms", "dcn_mix"),
+            "ms_per_image_at_b6": sum(
+                r["ms"] * r["launches_per_frame"]["dcn"] for r in rs
+                if r["batch"] == EXACT_BATCH) / EXACT_BATCH,
+            "plain_ms": frame("plain_ms"),
+            "bound_ms": frame("bound_ms"),
+            "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                             for r in one) else "bytes"),
+            "library_ms": None}
+        if not low:
+            exact_row["bound_ms_fp32_cuda_cores"] = frame(
+                "bound_ms_fp32_cuda_cores")
+        kernels.append(exact_row)
     replaces = {"greedy_assign": "centertrack_tpu/engine/device_tracker.py:70",
                 "splat_pre_hm": "centertrack_tpu/ops/gaussian.py:214"}
     designs = {"greedy_assign": "one block per stream: a parallel pass of "

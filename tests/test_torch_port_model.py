@@ -229,7 +229,6 @@ def test_create_model_refuses_cuda_without_a_gpu():
 
 
 @pytest.mark.parametrize("cfg_kw, what", [
-    (dict(dla_node="dcn"), "exact DCNv2"),
     (dict(dla_node="gcn"), "not ported"),
     (dict(arch="res_18"), "not ported"),
 ])

@@ -470,3 +470,76 @@ def test_record_launches_holds_the_bf16_backward_kernels(monkeypatch,
     else:
         with pytest.raises(RuntimeError, match="past the tolerance"):
             rec.check(1)
+
+
+@pytest.mark.parametrize("node", ["dcn", "dcn_mix"])
+def test_exact_cases_are_the_models_exact_layers(node):
+    """The exact phase's per-frame launches list every exact DCN layer of
+    DLA-34 at ``node`` once (dcn: 16; dcn_mix: the 5 on the stride-16 and
+    -32 maps), and PATH_KERNELS counts the path's launches of each
+    kernel: the exact layers and, at dcn_mix, the 11 clamped ones."""
+    from collections import Counter
+    from centertrack_tpu_torch.config import (Config, MOT_META, parse_task,
+                                              set_heads)
+    from centertrack_tpu_torch.models.layers import DCNLayer
+    from centertrack_tpu_torch.models.model import create_model
+    cfg = set_heads(parse_task(Config(task="tracking", pre_hm=True,
+                                      dla_node=node)), MOT_META)
+    modes = Counter()
+    exact = Counter()
+    for m in create_model(cfg, "cpu").modules():
+        if isinstance(m, DCNLayer):
+            modes[m.mode] += 1
+            if m.mode == "gather":
+                exact[tuple(m.weight.shape[2:])] += 1
+    table = Counter()
+    for _, b, _, _, cin, cout, per_frame, _ in chip_smoke._exact_cases():
+        if b == 1 and per_frame[node]:
+            table[(cin, cout)] += per_frame[node]
+    assert exact == table
+    for dtype in ("float32", "bfloat16"):
+        want = chip_smoke.PATH_KERNELS.get((node, dtype))
+        if want is None:
+            continue
+        assert sum(n for k, n in want.items() if "exact" in k) == \
+            modes["gather"]
+        assert sum(n for k, n in want.items() if "local" in k) == \
+            modes["local"]
+
+
+@pytest.mark.parametrize("wrong", [None, "exact", "exact_bf16"])
+def test_record_launches_holds_the_exact_kernels(monkeypatch, wrong):
+    """_RecordLaunches(("exact", "exact_bf16")) around calls of the exact
+    launchers, stood in on the CPU by the plain version: launches equal to
+    it pass (counts by kind); a float32 launch 1e-3 off (past REL_TOL) or
+    a bf16 one 3% off (past 2 ulps + 1e-3 max|ref|) fails."""
+    import torch
+
+    from centertrack_tpu_torch.ops import dcn
+
+    def stand_in(kind, scale):
+        def launch(*a):
+            out = dcn.deform_conv2d_plain(*a)
+            return (out.float() * scale).to(out.dtype) if wrong == kind \
+                else out
+        return launch
+
+    monkeypatch.setattr(dcn, "launch_exact_fwd", stand_in("exact", 1.001))
+    monkeypatch.setattr(dcn, "launch_exact_fwd_bf16",
+                        stand_in("exact_bf16", 1.03))
+    rng = np.random.RandomState(2)
+    ts = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(1, 5, 6, 4), rng.randn(1, 5, 6, 18) * 3,
+        rng.rand(1, 5, 6, 9), rng.randn(3, 3, 4, 3), rng.randn(3))]
+    with chip_smoke._RecordLaunches(("exact", "exact_bf16")) as rec:
+        dcn.launch_exact_fwd(*ts)
+        for _ in range(2):
+            dcn.launch_exact_fwd_bf16(*(t.bfloat16() for t in ts))
+    if wrong:
+        with pytest.raises(RuntimeError, match="rel err|past the tolerance"):
+            rec.check({"exact": 1, "exact_bf16": 2})
+    else:
+        assert rec.check({"exact": 1, "exact_bf16": 2}) == {
+            "exact": 0.0, "exact_bf16": 0.0}
+    with pytest.raises(RuntimeError, match="expected"):
+        rec.check(1)
