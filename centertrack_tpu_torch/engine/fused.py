@@ -57,6 +57,25 @@ from centertrack_tpu_torch.utils.precision import full_float32
 # flight (the bench's lag-4 protocol keeps about five)
 STAGING_DEPTH = 6
 
+# one side stream per device index on which every engine warms a graph
+# up before capturing it. cuBLAS keeps a workspace for each stream it has
+# run on for the life of the process (32 MiB on an H100), so a side
+# stream made per capture left one workspace behind per graph of every
+# deleted detector
+_WARMUP_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def warmup_stream(device) -> torch.cuda.Stream:
+    """The warm-up stream of ``device`` (a CUDA device), made at first
+    use and kept."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = _WARMUP_STREAMS.get(index)
+    if stream is None:
+        stream = _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
+    return stream
+
 
 def _affine_pts(pts: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """(..., 2) points through a 2x3 affine."""
@@ -329,9 +348,10 @@ class _Engine:
         trans = self._transforms(*shape[2:4])
         frames = torch.zeros(shape, dtype=torch.uint8, device=self.device)
         out = torch.empty(shape[:2] + (self.cfg.K, 13), device=self.device)
-        # warm-up on copies of the carried buffers, on a side stream
+        # warm-up on copies of the carried buffers, on the device's warm-up
+        # stream
         scratch = self._carried.clone()
-        side = torch.cuda.Stream(self.device)
+        side = warmup_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self._step(frames, scratch, out, trans)

@@ -33,10 +33,15 @@ The exact op (JAX ops/dcn.py:315, ``deform_conv2d``; dla_node "dcn", and
 position is clipped into the map's ring of zeros, as the JAX op clips it.
 ``deform_conv2d`` is its wrapper (route: ``exact_route``): a CUDA tensor
 that needs no gradient launches ``dcn_exact_fwd`` (float32) or
-``dcn_exact_fwd_bf16`` (``csrc/dcn_exact.cu``); a CUDA call that needs a
-gradient raises ``NotImplementedError`` (the backward kernels are ROADMAP
-A4b); a CPU tensor goes to ``deform_conv2d_plain``, the plain version and
-the kernels' oracle, whose autograd is JAX's vjp. JAX's environment
+``dcn_exact_fwd_bf16`` (``csrc/dcn_exact.cu``), by ``exact_fwd_fp32_plan``
+/ ``exact_fwd_bf16_plan``: each block copies its tile's own bounding box
+of live corners into shared memory where the box fits the plan's
+capacity and gathers the corners from global memory where it does not
+(``exact_tile_routes`` is that rule in plain PyTorch); a CUDA call
+that needs a gradient raises ``NotImplementedError`` (the backward
+kernels are ROADMAP A4b); a CPU tensor goes to ``deform_conv2d_plain``,
+the plain version and the kernels' oracle, whose autograd is JAX's vjp.
+JAX's environment
 variable CT_EXACT_IMPL, which picks among its implementations of the
 op, has no counterpart: the port has one kernel a dtype.
 
@@ -129,8 +134,8 @@ _SIGNATURES = {
     "dcn_local_bwd_data_gather_bf16": ("dcn_local_bwd_bf16", 9, 6),
     "dcn_local_bwd_weight_bf16": ("dcn_local_bwd_bf16", 6, 14),
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
-    "dcn_exact_fwd": ("dcn_exact", 6, 5),
-    "dcn_exact_fwd_bf16": ("dcn_exact", 6, 5),
+    "dcn_exact_fwd": ("dcn_exact", 9, 13),
+    "dcn_exact_fwd_bf16": ("dcn_exact", 8, 13),
 }
 
 # blocks a split launch aims for: four per SM of an H100 (the wave rule
@@ -178,6 +183,25 @@ WEIGHT_TAPS = {64: 3, 128: 3, 256: 1}
 # blocks an SM holds at most, by dtype and N tile (the kernels'
 # __launch_bounds__): the bf16 kernel at N 64 fits two in registers
 WEIGHT_MIN_BLOCKS = {("bfloat16", 64): 2}
+# The exact forward kernels of both dtypes (csrc/dcn_exact.cu): a block of
+# 256 threads takes a 4 x 16 tile and up to 256 output channels, and walks
+# K in steps of (a Cin chunk, a tap), the chunk one window pixel of 128
+# bytes. Its window is the tile's own bounding box of the corners it
+# reads, in one or two slots of `box_capacity` pixels; a tile whose box is
+# larger gathers its corners from global memory. The capacity is as large
+# as shared memory allows at the resident blocks, up to EXACT_BOX_MAX
+# pixels; a second resident block or a second window slot is taken only
+# where each slot still holds EXACT_BOX_MIN pixels (a box of about 576
+# pixels holds 96-100% of the tiles of every neck node but s16 256->256
+# on the exact-trained checkpoint, PERF.md).
+EXACT_CHUNK = {"float32": 32, "bfloat16": 64}
+EXACT_THREADS = 256
+EXACT_PIXEL_BYTES = 128
+EXACT_TABLE_BYTES = 9 * 64 * 4 + 9 * 4 * 64 * 4 + 16
+EXACT_BOX_MIN = 576
+EXACT_BOX_MAX = 1024
+# the widest N tile of each dtype's plan (64, 128 or 256)
+EXACT_MAX_N_TILE = {"float32": 256, "bfloat16": 256}
 
 
 def _kernel(symbol: str):
@@ -587,6 +611,130 @@ def bwd_weight_bf16_plan(b: int, h: int, w: int, cin: int, cout: int,
     summed and rounded by a second kernel)."""
     return _weight_plan("bfloat16", _weight_bf16_smem, b, h, w, cin, cout,
                         max_offset)
+
+
+def _exact_smem(dtype: str, n_tile: int, cap: int, slots: int) -> int:
+    """Two A slots and two weight slots (float32: hi and lo parts of
+    each), the window slots and the corner table of the exact forward
+    (csrc/dcn_exact.cu smem_bytes)."""
+    parts = 2 if dtype == "float32" else 1
+    th, tw = TILE
+    return (2 * parts * th * tw * EXACT_PIXEL_BYTES
+            + 2 * parts * EXACT_CHUNK[dtype] * n_tile * (
+                4 if dtype == "float32" else 2)
+            + slots * cap * EXACT_PIXEL_BYTES + EXACT_TABLE_BYTES)
+
+
+def _exact_plan(dtype: str, b: int, h: int, w: int, cin: int,
+                cout: int) -> dict:
+    ck = EXACT_CHUNK[dtype]
+    n_tile = min(64 if cout <= 64 else 128 if cout <= 128 else 256,
+                 EXACT_MAX_N_TILE[dtype])
+    base = _exact_smem(dtype, n_tile, 0, 0)
+    least = EXACT_BOX_MIN * EXACT_PIXEL_BYTES
+    # two resident blocks where each still holds a window of EXACT_BOX_MIN
+    two = SMEM_PER_SM // 2 - 1024 - base
+    room = two if two >= least else SMEM_LIMIT - base
+    nchunks = max(1, -(-cin // ck))
+    slots = 2 if nchunks > 1 and room >= 2 * least else 1
+    cap = min(EXACT_BOX_MAX, room // (slots * EXACT_PIXEL_BYTES))
+    smem = _exact_smem(dtype, n_tile, cap, slots)
+    resident = _resident(smem, EXACT_THREADS)
+    col_tiles = -(-cout // n_tile)
+    tiles = _tiles(b, h, w)
+    steps = 9 * nchunks
+    splits = (_wave_splits(tiles * col_tiles, steps, resident)
+              if tiles * col_tiles else 1)
+    plan = {"tile": TILE, "chunk": ck, "n_tile": n_tile,
+            "col_tiles": col_tiles, "tiles": tiles, "steps": steps,
+            "box_capacity": cap, "window_slots": slots,
+            "resident": resident, "split_rule": "waves", "splits": splits,
+            "k_ranges": _k_ranges(steps, splits),
+            "blocks": tiles * col_tiles * splits, "smem_bytes": smem,
+            "scratch": splits * b * h * w * cout if splits > 1 else 0}
+    if dtype == "float32":
+        plan["weight_split"] = 2 * 9 * col_tiles * n_tile * nchunks * ck
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def exact_fwd_fp32_plan(b: int, h: int, w: int, cin: int,
+                        cout: int) -> dict:
+    """Launch plan of ``dcn_exact_fwd``: output channels per block
+    (``n_tile``: 64, 128 or 256, half per warpgroup, at most
+    ``EXACT_MAX_N_TILE``), the window (``box_capacity`` pixels a slot,
+    ``window_slots`` 1 or 2; a tile whose box of live corners is larger
+    takes the gather route), the resident blocks, the K splits (by
+    ``_wave_splits``), the blocks, the dynamic shared memory and the
+    float32 scratch: the weight split into TF32 hi and lo, K-major, padded
+    to the chunk and the N tile (``weight_split``), and the split partials
+    (``scratch``). Any shape has a plan. Cached per shape: callers read it
+    and never change it."""
+    return _exact_plan("float32", b, h, w, cin, cout)
+
+
+@functools.lru_cache(maxsize=256)
+def exact_fwd_bf16_plan(b: int, h: int, w: int, cin: int,
+                        cout: int) -> dict:
+    """Launch plan of ``dcn_exact_fwd_bf16``, as ``exact_fwd_fp32_plan``
+    with chunks of 64 channels and no weight split."""
+    return _exact_plan("bfloat16", b, h, w, cin, cout)
+
+
+def exact_tile_routes(offset: torch.Tensor, h: int, w: int,
+                      plan: dict) -> tuple:
+    """(window tiles, gather tiles) of an exact forward launch on
+    ``offset`` (B, h, w, 18) under ``plan``: the kernels' rule in plain
+    PyTorch, on any device. A tile's box is the smallest rectangle of map
+    positions holding every corner of its pixels' 9 taps that lies inside
+    the map with a bilinear (hat) weight that is not 0, the positions
+    taken as the kernels take them (``deform_conv2d_plain``'s float32
+    arithmetic); the tile takes the window route where the box's area is
+    at most ``plan["box_capacity"]`` (or it holds no such corner)."""
+    off = offset.float()
+    b = off.shape[0]
+    dev = off.device
+    th, tw = TILE
+    big = 2 ** 40
+    rows = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
+    cols = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
+    lo = [torch.full((b, h, w), big, dtype=torch.int64, device=dev)
+          for _ in range(2)]
+    hi = [torch.full((b, h, w), -big, dtype=torch.int64, device=dev)
+          for _ in range(2)]
+    for i in range(3):
+        for j in range(3):
+            t = 3 * i + j
+            py = ((rows + (i - 1)) + off[..., 2 * t]).clamp(-1.0, float(h))
+            px = ((cols + (j - 1)) + off[..., 2 * t + 1]).clamp(-1.0,
+                                                                float(w))
+            y0 = torch.floor(py)
+            x0 = torch.floor(px)
+            fy = py - y0
+            fx = px - x0
+            gy = 1 - fy
+            gx = 1 - fx
+            for k, hat in enumerate((gy * gx, gy * fx, fy * gx, fy * fx)):
+                r = y0.long() + (k >> 1)
+                c = x0.long() + (k & 1)
+                live = ((r >= 0) & (r < h) & (c >= 0) & (c < w)
+                        & (hat != 0))
+                for n, v in enumerate((r, c)):
+                    lo[n] = torch.minimum(lo[n], torch.where(live, v, big))
+                    hi[n] = torch.maximum(hi[n], torch.where(live, v, -big))
+    ty, tx = -(-h // th), -(-w // tw)
+
+    def per_tile(m, fill, reduce):
+        m = F.pad(m, (0, tx * tw - w, 0, ty * th - h), value=fill)
+        return reduce(reduce(m.view(b, ty, th, tx, tw), 4)[0], 2)[0]
+
+    rmin, cmin = (per_tile(m, big, torch.min) for m in lo)
+    rmax, cmax = (per_tile(m, -big, torch.max) for m in hi)
+    empty = rmin > rmax
+    area = (rmax - rmin + 1) * (cmax - cmin + 1)
+    window = empty | (area <= plan["box_capacity"])
+    n_window = int(window.sum())
+    return n_window, b * ty * tx - n_window
 
 
 def _plan_ints(plan: dict, *keys: str) -> tuple:
@@ -1000,30 +1148,61 @@ def deform_conv2d_local_plain(x: torch.Tensor, offset: torch.Tensor,
 
 # --- the exact DCNv2 (dla_node "dcn", and "dcn_mix" on its coarse maps) -----
 
-def _launch_exact(symbol, x, offset, mask, weight, bias):
+def _route_counts(route_counts, x):
+    """The optional route counter of an exact launch: None, or an int32
+    CUDA tensor of two elements on x's device."""
+    if route_counts is None:
+        return None
+    if (route_counts.dtype != torch.int32 or route_counts.device != x.device
+            or route_counts.shape != (2,)
+            or not route_counts.is_contiguous()):
+        raise ValueError("dcn: route_counts must be a contiguous int32 "
+                         "tensor of 2 elements on x's device, got "
+                         f"{route_counts.dtype} {tuple(route_counts.shape)} "
+                         f"on {route_counts.device}")
+    return route_counts.data_ptr()
+
+
+def launch_exact_fwd(x, offset, mask, weight, bias, route_counts=None):
+    """The float32 exact forward on checked float32 CUDA tensors ->
+    (B, H, W, Cout), by ``exact_fwd_fp32_plan``: ``dcn_exact_fwd``
+    (csrc/dcn_exact.cu). ``route_counts`` (optional, int32 (2,)) gets the
+    launch's window and gather tiles added."""
+    global EXACT_FWD_LAUNCHES
     b, h, w, cin = x.shape
     cout = weight.shape[3]
+    plan = exact_fwd_fp32_plan(b, h, w, cin, cout)
+    counts = _route_counts(route_counts, x)
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    _ok(_kernel(symbol)(
+    partial = _scratch(plan, "scratch", x.device)
+    wsplit = _scratch(plan, "weight_split", x.device)
+    _ok(_kernel("dcn_exact_fwd")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-        _ptr(bias), out.data_ptr(), b, h, w, cin, cout, _stream(x)), symbol)
-    return out
-
-
-def launch_exact_fwd(x, offset, mask, weight, bias):
-    """The float32 exact forward on checked float32 CUDA tensors ->
-    (B, H, W, Cout): ``dcn_exact_fwd`` (csrc/dcn_exact.cu)."""
-    global EXACT_FWD_LAUNCHES
-    out = _launch_exact("dcn_exact_fwd", x, offset, mask, weight, bias)
+        _ptr(bias), out.data_ptr(), _ptr(partial), _ptr(wsplit), counts,
+        b, h, w, cin, cout,
+        *_plan_ints(plan, "n_tile", "box_capacity", "window_slots",
+                    "splits"), _stream(x)), "dcn_exact_fwd")
     EXACT_FWD_LAUNCHES += 1
     return out
 
 
-def launch_exact_fwd_bf16(x, offset, mask, weight, bias):
+def launch_exact_fwd_bf16(x, offset, mask, weight, bias, route_counts=None):
     """The bf16 exact forward on checked bf16 CUDA tensors -> bf16
-    (B, H, W, Cout): ``dcn_exact_fwd_bf16`` (csrc/dcn_exact.cu)."""
+    (B, H, W, Cout), by ``exact_fwd_bf16_plan``: ``dcn_exact_fwd_bf16``
+    (csrc/dcn_exact.cu); ``route_counts`` as ``launch_exact_fwd``."""
     global EXACT_FWD_BF16_LAUNCHES
-    out = _launch_exact("dcn_exact_fwd_bf16", x, offset, mask, weight, bias)
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    plan = exact_fwd_bf16_plan(b, h, w, cin, cout)
+    counts = _route_counts(route_counts, x)
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
+    partial = _scratch(plan, "scratch", x.device)
+    _ok(_kernel("dcn_exact_fwd_bf16")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        _ptr(bias), out.data_ptr(), _ptr(partial), counts,
+        b, h, w, cin, cout,
+        *_plan_ints(plan, "n_tile", "box_capacity", "window_slots",
+                    "splits"), _stream(x)), "dcn_exact_fwd_bf16")
     EXACT_FWD_BF16_LAUNCHES += 1
     return out
 

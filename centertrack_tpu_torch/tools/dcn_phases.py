@@ -11,6 +11,16 @@ JSON line per kernel and shape.
 
     python3 -m centertrack_tpu_torch.tools.dcn_phases
     python3 -m centertrack_tpu_torch.tools.dcn_phases --dtype float32
+    python3 -m centertrack_tpu_torch.tools.dcn_phases --exact \
+        [--dtype float32]
+
+With ``--exact`` the exact forward of the dtype (``dcn_exact_fwd`` or
+``dcn_exact_fwd_bf16``) runs instead, at B=1 on every launch of one
+eager ``dcn`` forward of the bench's first synthetic frame
+(``chip_smoke.trained_exact_inputs``: each neck node's own inputs), one
+line per node, with its window share (``ops/dcn.exact_tile_routes``).
+Its phases are the float32 forward's four and `prologue` (the corner
+table, the tile's box and its route).
 
 Phases of the bf16 forward: `prologue` (first copies, and each step's
 product and next copies), `wait` (copy wait and barrier), `sample`
@@ -62,6 +72,7 @@ DATA_PHASES = ["prologue", "wait", "product", "walk", "chunk_barrier",
                "flush"]
 WEIGHT_PHASES = ["window_wait", "build", "product", "flush", "table",
                  "barrier", "next_window", "next_entries"]
+EXACT_PHASES = FWD_FP32_PHASES + ["prologue"]
 # dtype -> symbol -> (source in csrc/, phase names in DCN_PHASE order,
 # its launcher and its planner in ops/dcn)
 KERNELS = {
@@ -83,6 +94,12 @@ KERNELS = {
                                  "launch_bwd_weight",
                                  "bwd_weight_fp32_plan")},
 }
+EXACT = {"bfloat16": {"dcn_exact_fwd_bf16": ("dcn_exact", EXACT_PHASES,
+                                             "launch_exact_fwd_bf16",
+                                             "exact_fwd_bf16_plan")},
+         "float32": {"dcn_exact_fwd": ("dcn_exact", EXACT_PHASES,
+                                       "launch_exact_fwd",
+                                       "exact_fwd_fp32_plan")}}
 
 
 def _instrumented(_build, name):
@@ -95,12 +112,61 @@ def _instrumented(_build, name):
     return ctypes.CDLL(lib)
 
 
+def _cycles(lib, call, blocks, phases, symbol):
+    """Each phase's cycles per block of one call, after three warm-up
+    calls."""
+    import torch
+    buf = (ctypes.c_ulonglong * 8)()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    lib.dcn_read_phases(buf)   # clears the warm-up's
+    call()
+    torch.cuda.synchronize()
+    if lib.dcn_read_phases(buf) != 0:
+        raise SystemExit(f"dcn_phases: reading {symbol}'s counters failed")
+    return {p: buf[i] / blocks for i, p in enumerate(phases)}
+
+
+def _exact_phases(kernels, libs, dcn, torch, dtype):
+    """``--exact``: one line per launch of the dcn forward of `dtype`."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    (symbol, (name, phases, launch, planner)), = kernels.items()
+    for node, args in enumerate(smoke.trained_exact_inputs()["dcn", dtype]):
+        x, offset, _, weight, _ = args
+        b, h, w, cin = x.shape
+        cout = weight.shape[3]
+        plan = getattr(dcn, planner)(b, h, w, cin, cout)
+
+        def call():
+            with torch.no_grad():
+                return getattr(dcn, launch)(*args)
+        cycles = _cycles(libs[name], call, plan["blocks"], phases, symbol)
+        win, gat = dcn.exact_tile_routes(offset, h, w, plan)
+        print(json.dumps({
+            "kernel": symbol, "node": node, "batch": b, "hw": [h, w],
+            "cin": cin, "cout": cout, "n_tile": plan["n_tile"],
+            "box_capacity": plan["box_capacity"],
+            "window_slots": plan["window_slots"], "blocks": plan["blocks"],
+            "splits": plan["splits"], "window_share": win / (win + gat),
+            "steps_per_block": plan["steps"] / plan["splits"],
+            "cycles_per_block": cycles,
+            "share": {p: c / sum(cycles.values())
+                      for p, c in cycles.items()}}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(KERNELS),
                     help="the kernels of this dtype (default: bfloat16)")
+    ap.add_argument("--exact", action="store_true",
+                    help="the exact forward, on trained offsets")
     args = ap.parse_args(argv)
-    kernels = KERNELS[args.dtype]
+    kernels = (EXACT if args.exact else KERNELS)[args.dtype]
     sys.path.insert(0, ROOT)
     import torch
     from centertrack_tpu_torch.ops import _build, dcn
@@ -116,6 +182,13 @@ def main(argv=None) -> int:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         launchers[symbol] = fn
+    if args.exact:
+        with mock.patch.dict(_build._symbols, launchers):
+            _exact_phases(kernels, libs, dcn, torch, args.dtype)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip())
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtype = getattr(torch, args.dtype)
     r = 1
@@ -143,18 +216,8 @@ def main(argv=None) -> int:
                 # the K loop of a block: steps (taps x Cin chunks) for the
                 # forward and data kernels, pixel tiles for the weight
                 steps = plan["steps"] if "steps" in plan else plan["tiles"]
-                buf = (ctypes.c_ulonglong * 8)()
-                for _ in range(3):
-                    call()
-                torch.cuda.synchronize()
-                libs[name].dcn_read_phases(buf)   # clears the warm-up's
-                call()
-                torch.cuda.synchronize()
-                if libs[name].dcn_read_phases(buf) != 0:
-                    raise SystemExit(f"dcn_phases: reading {symbol}'s "
-                                     f"counters failed")
-                cycles = {p: buf[i] / plan["blocks"]
-                          for i, p in enumerate(phases)}
+                cycles = _cycles(libs[name], call, plan["blocks"], phases,
+                                 symbol)
                 print(json.dumps({
                     "kernel": symbol, "batch": b, "hw": [h, w], "cin": cin,
                     "cout": cout, "chunk": plan["chunk"],

@@ -30,6 +30,19 @@ process tree on one card: it runs this script on DIR, on this checkout,
 on this checkout again and on DIR (in that order, one process each) and
 prints one JSON object with every shape's times of both, their ratio,
 and the per-image sums over the 16 neck launches of a 544x960 frame.
+``--exact`` times the exact forward of the dtype instead
+(``dcn_exact_fwd``, or ``dcn_exact_fwd_bf16`` at ``--dtype bfloat16``,
+through ``ops/dcn.launch_exact_fwd[_bf16]``) at the neck shapes, B=1 and
+B=6 (``chip_smoke.EXACT_BATCH``), on two kinds of offsets: ~N(0, 3)
+(``chip_smoke.exact_offsets``, with ``dcn_inputs``' x, mask and weight)
+and "trained", every launch of one eager ``dcn`` forward of the bench's
+first synthetic frame on the exact-trained checkpoint
+(``chip_smoke.trained_exact_inputs``: the nodes' own inputs, repeated
+to B=6), each node its own row. Where the package has
+``exact_tile_routes``, each row gives the share of its tiles that take
+the window route. ``--max-n-tile N`` caps the exact plans' N tile
+(``ops/dcn.EXACT_MAX_N_TILE``) for the run.
+
 Without a GPU it exits with an error.
 """
 
@@ -67,15 +80,51 @@ def _smoke():
     return smoke
 
 
-def measure(root: str, dtype: str = "bfloat16") -> dict:
-    """Times of both kernels of `dtype` of the checkout at `root`, every
-    neck shape and batch."""
-    sys.path.insert(0, root)
-    import torch
-    from centertrack_tpu_torch.ops import dcn
-    if not torch.cuda.is_available():
-        raise SystemExit("dcn_times: no CUDA device")
-    smoke = _smoke()
+def measure_exact(smoke, dcn, torch, dtype: str) -> list:
+    """Rows of the exact forward of `dtype` (``--exact``)."""
+    low = dtype == "bfloat16"
+    kernel = "dcn_exact_fwd" + ("_bf16" if low else "")
+    launch = getattr(dcn, "launch_exact_fwd" + ("_bf16" if low else ""))
+    plan_of = getattr(dcn, "exact_fwd_bf16_plan" if low
+                      else "exact_fwd_fp32_plan", None)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    trained = smoke.trained_exact_inputs()["dcn", dtype]
+    rows = []
+    for b in (1, smoke.EXACT_BATCH):
+        for name, h, w, cin, cout, per, _ in smoke.NECK_SHAPES:
+            x, _, mask, weight, bias, _ = smoke.dcn_inputs(
+                gen, b, h, w, cin, cout, 1, getattr(torch, dtype))
+            off = smoke.exact_offsets(gen, b, h, w, 3.0,
+                                      getattr(torch, dtype))
+            cases = [("n3", None, per, (x, off, mask, weight, bias))]
+            nodes = [a for a in trained
+                     if (tuple(a[0].shape[1:]), a[3].shape[3])
+                     == ((h, w, cin), cout)]
+            cases += [("trained", i, 1, (
+                *(t.repeat(b, 1, 1, 1) for t in a[:3]), *a[3:]))
+                for i, a in enumerate(nodes)]
+            for kind, node, n, args in cases:
+                def fn(args=args):
+                    with torch.no_grad():
+                        return launch(*args)
+                row = {"kernel": kernel, "map": name, "batch": b,
+                       "hw": [h, w], "cin": cin, "cout": cout,
+                       "offsets": kind, "node": node,
+                       "launches_per_image": n,
+                       "ms": smoke.time_ms(fn, 3, 20),
+                       "device_ms": smoke.queued_us(fn, 20) / 1e3}
+                if plan_of is not None:
+                    plan = plan_of(b, h, w, cin, cout)
+                    win, gat = dcn.exact_tile_routes(args[1], h, w, plan)
+                    row["window_share"] = win / (win + gat)
+                    row["n_tile"] = plan["n_tile"]
+                    row["box_capacity"] = plan["box_capacity"]
+                rows.append(row)
+    return rows
+
+
+def measure_clamped(smoke, dcn, torch, dtype: str) -> list:
+    """Rows of the three clamped kernels of `dtype`."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     r = 1
     (fwd, launch_fwd), (data, launch_data), (wgt, launch_wgt) = \
@@ -97,17 +146,37 @@ def measure(root: str, dtype: str = "bfloat16") -> dict:
                              "launches_per_image": per,
                              "ms": smoke.time_ms(fn, 3, 20),
                              "device_ms": smoke.queued_us(fn, 20) / 1e3})
+    return rows
+
+
+def measure(root: str, dtype: str = "bfloat16", exact: bool = False,
+            max_n_tile: int | None = None) -> dict:
+    """Times of the kernels of `dtype` of the checkout at `root`, every
+    neck shape and batch: the three clamped kernels, or with `exact` the
+    exact forward (its plans' N tile capped at `max_n_tile`)."""
+    sys.path.insert(0, root)
+    import torch
+    from centertrack_tpu_torch.ops import dcn
+    if not torch.cuda.is_available():
+        raise SystemExit("dcn_times: no CUDA device")
+    smoke = _smoke()
+    if max_n_tile:
+        dcn.EXACT_MAX_N_TILE[dtype] = max_n_tile
+    rows = (measure_exact if exact else measure_clamped)(smoke, dcn, torch,
+                                                         dtype)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    return {"root": root, "dtype": dtype,
+    return {"root": root, "dtype": dtype, "exact": exact,
+            "max_n_tile": max_n_tile,
             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "rows": rows}
 
 
-def _run(root: str, dtype: str) -> dict:
+def _run(root: str, dtype: str, exact: bool = False) -> dict:
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--root", root, "--dtype", dtype],
+                          "--root", root, "--dtype", dtype]
+                         + (["--exact"] if exact else []),
                          capture_output=True, text=True, cwd=root)
     if out.returncode != 0:
         raise SystemExit(f"dcn_times on {root} failed:\n{out.stdout}"
@@ -115,12 +184,15 @@ def _run(root: str, dtype: str) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def compare(parent: str, change: str, dtype: str = "bfloat16") -> dict:
+def compare(parent: str, change: str, dtype: str = "bfloat16",
+            exact: bool = False) -> dict:
     """Both checkouts in the order parent, change, change, parent; per
-    shape the two runs' times of each and change / parent."""
-    runs = [_run(parent, dtype), _run(change, dtype), _run(change, dtype),
-            _run(parent, dtype)]
-    key = lambda r: (r["kernel"], r["map"], r["batch"], r["cin"], r["cout"])
+    shape (and, with `exact`, offsets and node) the two runs' times of
+    each and change / parent."""
+    runs = [_run(parent, dtype, exact), _run(change, dtype, exact),
+            _run(change, dtype, exact), _run(parent, dtype, exact)]
+    fields = ("kernel", "map", "batch", "cin", "cout", "offsets", "node")
+    key = lambda r: tuple(r.get(f) for f in fields)
     times = {}
     for i, run in enumerate(runs):
         side = "parent" if i in (0, 3) else "change"
@@ -128,11 +200,17 @@ def compare(parent: str, change: str, dtype: str = "bfloat16") -> dict:
             t = times.setdefault(key(r), {"row": r})
             for m in ("ms", "device_ms"):
                 t.setdefault(f"{side}_{m}", []).append(r[m])
+            if side == "change" and "window_share" in r:
+                t["window_share"] = r["window_share"]
     rows, per_image = [], {}
-    for (kernel, name, b, cin, cout), t in times.items():
-        row = {"kernel": kernel, "map": name, "batch": b, "cin": cin,
-               "cout": cout}
-        acc = per_image.setdefault(f"{kernel} B={b}", {})
+    for k, t in times.items():
+        row = {f: v for f, v in zip(fields, k) if v is not None}
+        if "window_share" in t:
+            row["window_share"] = t["window_share"]
+        b = row["batch"]
+        label = f"{row['kernel']} B={b}" + (
+            f" {row['offsets']}" if "offsets" in row else "")
+        acc = per_image.setdefault(label, {})
         for m in ("ms", "device_ms"):
             p, c = min(t[f"parent_{m}"]), min(t[f"change_{m}"])
             row.update({f"parent_{m}": t[f"parent_{m}"],
@@ -146,6 +224,7 @@ def compare(parent: str, change: str, dtype: str = "bfloat16") -> dict:
         for m in ("ms", "device_ms"):
             v[f"speedup_{m}"] = v[f"parent_{m}"] / v[f"change_{m}"]
     return {"parent": parent, "change": change, "dtype": dtype,
+            "exact": exact,
             "device": runs[0]["device"],
             "nvidia_smi": [r["nvidia_smi"] for r in runs],
             "order": ["parent", "change", "change", "parent"],
@@ -160,12 +239,18 @@ def main(argv=None) -> int:
                     help="checkout to compare with, run in turns")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(KERNELS),
                     help="the kernels of this dtype (default: bfloat16)")
+    ap.add_argument("--exact", action="store_true",
+                    help="time the exact forward of the dtype")
+    ap.add_argument("--max-n-tile", type=int, default=None,
+                    choices=(64, 128, 256),
+                    help="cap the exact plans' N tile (with --exact)")
     args = ap.parse_args(argv)
     if args.against:
         print(json.dumps(compare(os.path.abspath(args.against), ROOT,
-                                 args.dtype)))
+                                 args.dtype, args.exact)))
     else:
-        print(json.dumps(measure(os.path.abspath(args.root), args.dtype)))
+        print(json.dumps(measure(os.path.abspath(args.root), args.dtype,
+                                 args.exact, args.max_n_tile)))
     return 0
 
 

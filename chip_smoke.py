@@ -68,10 +68,18 @@ Phases, each printing one JSON line with its elapsed seconds:
   exact    dcn_exact_fwd and dcn_exact_fwd_bf16 (csrc/dcn_exact.cu, the
            exact DCNv2 of dla_node dcn and dcn_mix) against
            deform_conv2d_plain at the seven neck shapes at B=1 and B=6,
-           the ragged and the odd-widths shapes, on offsets ~N(0, 3),
-           ~N(0, 40), all zero and +/-1e6: float32 within REL_TOL, bf16
-           within BF16_ULPS ulps + BF16_REL_OF_MAX max|plain|, each call
-           one launch of its kernel; times, bounds, launches per frame
+           the ragged and the odd-widths shapes and a map smaller than a
+           tile, on offsets ~N(0, 3), ~N(0, 40), all zero, +/-1e6 and,
+           at the neck shapes, "trained": every launch of one eager
+           forward of the bench's first frame on the exact-trained
+           checkpoint (each node's own inputs; dcn at the kernel's
+           dtype, and dcn_mix's 5 bf16 launches as exact_dcn_mix):
+           float32 within REL_TOL, bf16 within BF16_ULPS ulps +
+           BF16_REL_OF_MAX max|plain|; each call through the launcher
+           with a route counter equal to ops/dcn.exact_tile_routes, one
+           launch of its kernel and of nothing else, a second launch bit
+           for bit the first; plans, window shares, times on ~N(0, 3)
+           and on the trained inputs, bounds, launches per frame
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame a CUDA graph replay (the
@@ -114,6 +122,12 @@ Phases, each printing one JSON line with its elapsed seconds:
            at every step against a single-stream bf16 detector started
            from that stream's state, then the bench's 6-stream leg at
            lag 4: aggregate fps, peak memory
+  lifetimes  three dcn_local1 detectors (float32, bf16, float32) made,
+           served 3 frames through their graphs and deleted in turn:
+           device memory after gc before each and after each deletion,
+           then after freeing cuBLAS's per-stream workspaces; what the
+           deleted detectors leave allocated must stay within
+           LIFETIME_BOUND_MB (ROADMAP C8)
   path_dcn, path_dcn_bf16, path_dcn_mix_bf16  the path's checks on the
            committed exact-trained assets/selftest_dcn_fp16.ckpt at
            dla_node "dcn" (float32: both packages' default configuration;
@@ -243,6 +257,14 @@ RECORD_KIND = {"dcn_local_fwd": "fwd", "dcn_local_fwd_bf16": "bf16",
 # +/-1e6 and small ones) and the batch of the multi-stream serving leg
 EXACT_OFFSETS = (3.0, 40.0, 0.0, "1e6")
 EXACT_BATCH = 6
+# the lifetimes phase (C8): detectors made, served and deleted in turn,
+# and what may stay allocated after the last deletion
+LIFETIME_DETECTORS = (("dcn_local1", "float32"), ("dcn_local1", "bfloat16"),
+                      ("dcn_local1", "float32"))
+LIFETIME_FRAMES = 3
+LIFETIME_BOUND_MB = 16
+EXACT_LAUNCHERS = {"dcn_exact_fwd": "launch_exact_fwd",
+                   "dcn_exact_fwd_bf16": "launch_exact_fwd_bf16"}
 # the path phases of the exact-trained checkpoint: (phase, dla_node,
 # compute dtype); the float32 "dcn" is both packages' default
 # configuration, the two bf16 ones the bench's exact legs (bench.py:319)
@@ -259,6 +281,9 @@ PLAIN_SCORE_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 # (float32 exp on the card and on the CPU) with the same support
 TRACKER_KERNELS = ("greedy_assign", "splat_pre_hm")
 SPLAT_TOL = 1e-6
+# seconds the counted runs' profiler window stays open, idle, before the
+# first replay and after the last has finished (device_kernel_counts)
+PROFILE_EDGE_S = 0.05
 # the first frames of a path run again on the eager step (no graph),
 # which must give the replays' rows bit for bit
 EAGER_FRAMES = 3
@@ -1444,16 +1469,17 @@ def phase_gather_routes():
 def _exact_cases():
     """(map, B, H, W, Cin, Cout, launches per frame by dla_node, layers)
     of the exact kernels' checks: the neck shapes at B=1 and at
-    EXACT_BATCH (the multi-stream leg's batch), then the ragged shape
-    and the odd widths of ``_dcn_cases``. dcn_mix runs the exact op on
-    the stride-16 and -32 maps only."""
+    EXACT_BATCH (the multi-stream leg's batch), then the ragged shape and
+    the odd widths of ``_dcn_cases`` and a map smaller than one tile.
+    dcn_mix runs the exact op on the stride-16 and -32 maps only."""
     neck = [(n, b, h, w, ci, co,
              {"dcn": k, "dcn_mix": k if n in ("s16", "s32") else 0}, lay)
             for b in (1, EXACT_BATCH)
             for n, h, w, ci, co, k, lay in NECK_SHAPES]
-    return neck + [
-        ("ragged", 1, 17, 30, 72, 40, {"dcn": 0, "dcn_mix": 0}, "ragged"),
-        ("odd", 1, 17, 30, 69, 37, {"dcn": 0, "dcn_mix": 0}, "odd widths")]
+    none = {"dcn": 0, "dcn_mix": 0}
+    return neck + [("ragged", 1, 17, 30, 72, 40, none, "ragged"),
+                   ("odd", 1, 17, 30, 69, 37, none, "odd widths"),
+                   ("tiny", 2, 3, 5, 69, 37, none, "smaller than a tile")]
 
 
 def exact_offsets(gen, b, h, w, spread, dtype):
@@ -1470,15 +1496,124 @@ def exact_offsets(gen, b, h, w, spread, dtype):
     return off.to(dtype)
 
 
-def phase_exact():
+def trained_exact_inputs():
+    """The inputs (x, offset, mask, weight, bias) of every exact launch
+    of one eager forward of the bench's first synthetic frame through
+    FusedDetector's step on the exact-trained checkpoint, by (dla_node,
+    compute dtype) of EXACT_PATHS: the nodes' own offsets and masks, in
+    the order the network launches them (16 at dcn, 5 at dcn_mix)."""
+    params, batch_stats = load_jax_ckpt(CKPT_DCN)
+    frame = synth_frames(1, seed=0)
+    out = {}
+    for _, node, dtype in EXACT_PATHS:
+        cfg = set_heads(parse_task(Config(
+            task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
+            max_age=3, dla_node=node, compute_dtype=dtype)), MOT_META)
+        det = FusedDetector(cfg, params, batch_stats, MOT_META,
+                            device="cuda")
+        kind = "exact" + ("_bf16" if dtype == "bfloat16" else "")
+        rec = _RecordLaunches((kind,))
+        _eager_rows(det, [frame], (rec,))
+        out[node, dtype] = [tuple(args) for _, args, _ in rec.calls]
+        want = sum(k for *_, k, _ in NECK_SHAPES) if node == "dcn" else 5
+        if len(out[node, dtype]) != want:
+            raise RuntimeError(f"{node} {dtype}: {len(out[node, dtype])} "
+                               f"exact launches in a forward, not {want}")
+        del det
+    return out
+
+
+def _exact_plan_row(plan):
+    return {k: plan[k] for k in ("n_tile", "box_capacity", "window_slots",
+                                 "resident", "split_rule", "splits",
+                                 "blocks", "smem_bytes")}
+
+
+def exact_check(kernel, args, scale_of=None):
+    """One checked launch of an exact kernel on ``args`` (x, offset,
+    mask, weight, bias): through its launcher with a route counter, every
+    launch count set to 0 just before; exactly one launch of it and of
+    nothing else; the counter equal to ``exact_tile_routes``; the result
+    finite, of x's dtype, within the kernel phases' tolerance of
+    deform_conv2d_plain (float32 REL_TOL of max|plain|, bf16 every element
+    within BF16_ULPS ulps + BF16_REL_OF_MAX max|plain|); and a second
+    launch bit for bit the first. Returns (errors, (window, gather)
+    tiles, the plain version's ms)."""
+    x, off, mask, weight, bias = args
+    low = x.dtype == torch.bfloat16
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    plan = (dcn.exact_fwd_bf16_plan if low else dcn.exact_fwd_fp32_plan)(
+        b, h, w, cin, cout)
+    launch = getattr(dcn, EXACT_LAUNCHERS[kernel])
+    if dcn.exact_route(x.device, x.dtype) is not launch:
+        raise RuntimeError(f"{kernel}: the CUDA route is not its launcher")
+    counts = torch.zeros(2, dtype=torch.int32, device="cuda")
+    _reset_launches()
+    with torch.no_grad():
+        got = launch(x, off, mask, weight, bias, counts)
+        again = launch(x, off, mask, weight, bias)
+    if _launches()[kernel] != 2 or sum(_launches().values()) != 2:
+        raise RuntimeError(f"{kernel}: launches {_launches()}")
+    routes = tuple(counts.tolist())
+    want = dcn.exact_tile_routes(off, h, w, plan)
+    if routes != want:
+        raise RuntimeError(f"{kernel} {b}x{h}x{w} {cin}->{cout}: route "
+                           f"counts {routes}, the rule says {want}")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{kernel} {b}x{h}x{w} {cin}->{cout}: two "
+                           f"launches differ")
+    ref, plain_ms = _timed(lambda: dcn.deform_conv2d_plain(*args))
+    if got.dtype != x.dtype or not torch.isfinite(got).all():
+        raise RuntimeError(f"{kernel} {b}x{h}x{w} {cin}->{cout}: "
+                           f"{got.dtype} output, or not finite")
+    scale = ref.float().abs().max().item()
+    if low:
+        err, past_ulp, past = bf16_agreement(got, ref)
+        bad = past > 0
+    else:
+        err, past_ulp = (got - ref).abs().max().item(), None
+        bad = err > REL_TOL * scale
+    if bad:
+        raise RuntimeError(f"{kernel} {b}x{h}x{w} {cin}->{cout}: max abs "
+                           f"err {err} (max|plain| {scale}) past the "
+                           f"tolerance")
+    errs = {"max_abs_err": err, "max_abs_ref": scale,
+            "window_tiles": routes[0], "gather_tiles": routes[1]}
+    if low:
+        errs["elements_past_1_ulp"] = past_ulp
+    return errs, routes, plain_ms
+
+
+def _exact_times(kernel, args):
+    """(ms per launch by CUDA events, spin-queued device ms) of an exact
+    launch through its launcher."""
+    launch = getattr(dcn, EXACT_LAUNCHERS[kernel])
+
+    def call():
+        with torch.no_grad():
+            return launch(*args)
+    return time_ms(call, 3, 20), queued_us(call, 20) / 1e3
+
+
+def _batched(args, b):
+    """A B=1 launch's inputs repeated to batch ``b``."""
+    x, off, mask, weight, bias = args
+    return (*(t.repeat(b, 1, 1, 1) for t in (x, off, mask)), weight, bias)
+
+
+def phase_exact(trained):
     """dcn_exact_fwd and dcn_exact_fwd_bf16 (csrc/dcn_exact.cu) against
-    deform_conv2d_plain on the same inputs at ``_exact_cases()``, each on
-    offsets of every EXACT_OFFSETS kind: float32 within REL_TOL of
-    max|plain|, bf16 every element within BF16_ULPS ulps +
-    BF16_REL_OF_MAX max|plain|; each call one launch of its kernel and
-    of nothing else. Times (per launch, spin-queued device time, the
-    plain version's) on the ~N(0, 3) offsets, the bound and the launches
-    per frame of each path."""
+    deform_conv2d_plain by ``exact_check`` at ``_exact_cases()``, each on
+    offsets of every EXACT_OFFSETS kind and, at the neck shapes, on
+    ``trained`` (``trained_exact_inputs``): every launch of the dcn
+    forward of the kernel's dtype whose shape it is, repeated to the
+    case's batch. Times (per launch, spin-queued device time, the plain
+    version's) on the ~N(0, 3) offsets and on the trained inputs (their
+    mean over the shape's nodes), the plan, the window share of each
+    kind, the bound and the launches per frame of each path; then the 5
+    exact launches of dcn_mix's bf16 forward, each checked and timed
+    (phase ``exact_dcn_mix``)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     rows = []
     for dtype in ("float32", "bfloat16"):
@@ -1491,50 +1626,55 @@ def phase_exact():
             errs, timed = {}, None
             for spread in EXACT_OFFSETS:
                 off = exact_offsets(gen, b, h, w, spread, tdt)
-                _reset_launches()
-                with torch.no_grad():
-                    out = dcn.deform_conv2d(x, off, mask, weight, bias)
-                if _launches()[kernel] != 1 or sum(_launches().values()) != 1:
-                    raise RuntimeError(f"{kernel}: launches {_launches()}")
-                ref, plain_ms = _timed(lambda: dcn.deform_conv2d_plain(
-                    x, off, mask, weight, bias))
-                if out.dtype != tdt or not torch.isfinite(out).all():
-                    raise RuntimeError(f"{kernel} {name} {cin}->{cout}: "
-                                       f"{out.dtype} output, or not finite")
-                scale = ref.float().abs().max().item()
-                if low:
-                    err, past_ulp, past = bf16_agreement(out, ref)
-                    bad = past > 0
-                else:
-                    err, past_ulp = (out - ref).abs().max().item(), None
-                    bad = err > REL_TOL * scale
-                if bad:
-                    raise RuntimeError(
-                        f"{kernel} {name} B={b} {cin}->{cout} offsets "
-                        f"{spread}: max abs err {err} (max|plain| {scale}) "
-                        f"past the tolerance")
-                errs[str(spread)] = {"max_abs_err": err, "max_abs_ref": scale,
-                                     **({"elements_past_1_ulp": past_ulp}
-                                        if low else {})}
+                errs[str(spread)], _, plain_ms = exact_check(
+                    kernel, (x, off, mask, weight, bias))
                 if timed is None:
-                    timed = (off, plain_ms)
-            off, plain_ms = timed
-
-            def call():
-                with torch.no_grad():
-                    return dcn.deform_conv2d(x, off, mask, weight, bias)
+                    timed = ((x, off, mask, weight, bias), plain_ms)
+            args, plain_ms = timed
+            ms, device_ms = _exact_times(kernel, args)
+            nodes = [a for a in trained["dcn", dtype]
+                     if (a[0].shape[1:], a[3].shape[3]) == ((h, w, cin),
+                                                           cout)]
+            if per_frame["dcn"] and len(nodes) != per_frame["dcn"]:
+                raise RuntimeError(f"{name} {cin}->{cout}: {len(nodes)} "
+                                   f"trained launches, expected "
+                                   f"{per_frame['dcn']}")
+            trained_rows = []
+            for i, node in enumerate(nodes):
+                node = _batched(node, b)
+                errs[f"trained_{i}"], _, node_plain = exact_check(kernel,
+                                                                   node)
+                t_ms, t_dev = _exact_times(kernel, node)
+                trained_rows.append({"ms": t_ms, "device_ms": t_dev,
+                                     "plain_ms": node_plain})
+            plan = (dcn.exact_fwd_bf16_plan if low else
+                    dcn.exact_fwd_fp32_plan)(b, h, w, cin, cout)
             bound, bound_by = (dcn_bound_ms_bf16 if low else
                                dcn_bound_ms_3xtf32)(b * h * w, cin, cout)
+            mean = lambda k: (statistics.mean(r[k] for r in trained_rows)
+                              if trained_rows else None)
+            share = lambda kinds: (
+                sum(e["window_tiles"] for k, e in errs.items() if kinds(k))
+                / max(1, sum(e["window_tiles"] + e["gather_tiles"]
+                             for k, e in errs.items() if kinds(k))))
             row = {"kernel": kernel, "map": name, "batch": b, "hw": [h, w],
                    "cin": cin, "cout": cout,
                    "launches_per_frame": per_frame, "layers": layers,
+                   "plan": _exact_plan_row(plan),
+                   "window_share": {
+                       "n3": share(lambda k: k == "3.0"),
+                       "trained": (share(lambda k: k.startswith("trained"))
+                                   if trained_rows else None)},
                    "max_abs_err": max(e["max_abs_err"]
                                       for e in errs.values()),
                    "by_offsets": errs,
                    "tol": ({"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX}
                            if low else {"rel": REL_TOL}),
-                   "ms": time_ms(call, 3, 20),
-                   "device_ms": queued_us(call, 20) / 1e3,
+                   "two_launches_bitwise_equal": True,
+                   "ms": ms, "device_ms": device_ms,
+                   "ms_trained": mean("ms"),
+                   "device_ms_trained": mean("device_ms"),
+                   "trained_nodes": trained_rows,
                    "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": bound_by, "library_ms": None}
             if not low:
@@ -1542,7 +1682,26 @@ def phase_exact():
                     b * h * w, cin, cout)[0]
             rows.append(row)
             emit("exact", **row)
-    return rows
+    mix = []
+    for args in trained["dcn_mix", "bfloat16"]:
+        errs, routes, plain_ms = exact_check("dcn_exact_fwd_bf16", args)
+        ms, device_ms = _exact_times("dcn_exact_fwd_bf16", args)
+        x, weight = args[0], args[3]
+        mix.append({"hw": list(x.shape[1:3]), "cin": x.shape[3],
+                    "cout": weight.shape[3], **errs, "ms": ms,
+                    "device_ms": device_ms, "plain_ms": plain_ms,
+                    "bound_ms": dcn_bound_ms_bf16(
+                        x.shape[1] * x.shape[2], x.shape[3],
+                        weight.shape[3])[0]})
+    mix_row = {"kernel": "dcn_exact_fwd_bf16", "node": "dcn_mix",
+               "launches": mix,
+               "ms_per_frame": sum(r["ms"] for r in mix),
+               "device_ms_per_frame": sum(r["device_ms"] for r in mix),
+               "bound_ms_per_frame": sum(r["bound_ms"] for r in mix),
+               "window_share": sum(r["window_tiles"] for r in mix) / sum(
+                   r["window_tiles"] + r["gather_tiles"] for r in mix)}
+    emit("exact_dcn_mix", **mix_row)
+    return rows, mix_row
 
 
 def phase_path_exact(phase, node, dtype, ref_packed=None, n_profile=0):
@@ -1611,6 +1770,57 @@ def phase_path_exact(phase, node, dtype, ref_packed=None, n_profile=0):
     return row, packed
 
 
+def phase_lifetimes(check=True):
+    """Device memory a deleted detector leaves behind (ROADMAP C8): makes
+    and deletes the LIFETIME_DETECTORS in turn, each serving
+    LIFETIME_FRAMES frames through its graph (the first call captures),
+    reading torch.cuda.memory_allocated() after gc.collect() and a
+    synchronise before each construction and after each deletion, then
+    once more after torch._C._cuda_clearCublasWorkspaces(), which frees
+    the cuBLAS workspace kept for every stream cuBLAS has run on: what
+    that reading drops is what the workspaces held. With ``check``, what
+    is still allocated after the last deletion must lie within
+    LIFETIME_BOUND_MB of what was allocated before the first
+    construction."""
+    params, batch_stats = load_jax_ckpt(CKPT)
+    frames = synth_frames(LIFETIME_FRAMES, seed=0)
+
+    def live_mb():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() / 2 ** 20
+    start = live_mb()
+    readings = []
+    for node, dtype in LIFETIME_DETECTORS:
+        cfg = set_heads(parse_task(Config(
+            task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
+            max_age=3, dla_node=node, compute_dtype=dtype)), MOT_META)
+        before = live_mb()
+        det = FusedDetector(cfg, params, batch_stats, MOT_META,
+                            device="cuda")
+        for f in frames:
+            FusedDetector.fetch(det.run(f), cfg.out_thresh)
+        serving = live_mb()
+        del det
+        readings.append({"dla_node": node, "compute_dtype": dtype,
+                         "mb_before": before, "mb_serving": serving,
+                         "mb_after_delete": live_mb()})
+    end = live_mb()
+    torch._C._cuda_clearCublasWorkspaces()
+    cleared = live_mb()
+    row = {"detectors": readings, "frames_each": LIFETIME_FRAMES,
+           "mb_before_first": start, "mb_after_last": end,
+           "mb_left_behind": end - start,
+           "mb_after_clearing_cublas_workspaces": cleared,
+           "mb_held_by_cublas_workspaces": end - cleared,
+           "bound_mb": LIFETIME_BOUND_MB if check else None}
+    emit("lifetimes", **row)
+    if check and end - start > LIFETIME_BOUND_MB:
+        raise RuntimeError(f"deleted detectors left {end - start:.1f} MB "
+                           f"allocated (bound {LIFETIME_BOUND_MB} MB)")
+    return row
+
+
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
     """The rows above ``out_thresh``, without those within ``margin`` of
     it; with ``collapse_ties``, a row is left out whose score equals that
@@ -1642,15 +1852,21 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
     ``margin`` and ``collapse_ties`` as in ``_kept_rows``: at bf16 a
     score may land on either side of the threshold, and two
     neighbouring peaks whose bf16 logits tie exactly both pass the 3x3
-    max-pool NMS. ``unpaired_scores`` are the scores of the rows left
+    max-pool NMS. With ``collapse_ties``, two pairs of a frame that swap
+    their track ids are also counted apart (``pairs_swapped_on_exact_tie``,
+    left out of the one-to-one map) where the two rows of one path have
+    exactly equal scores: such rows have no score order, so the order in
+    which the tracker numbered them is the decode's tie-break and not
+    the network's. ``unpaired_scores`` are the scores of the rows left
     unpaired."""
-    counts, unpaired, pairs, same_ids = [], [], 0, 0
+    counts, unpaired, pairs, same_ids, swapped = [], [], 0, 0, 0
     score, box, id_map = 0.0, 0.0, {}
     for a, b in zip(packed, ref_packed):
         ra = _kept_rows(a, out_thresh, margin, collapse_ties)
         rb = _kept_rows(b, out_thresh, margin, collapse_ties)
         counts.append([len(ra), len(rb)])
         free = list(rb)
+        differ = []
         for da in ra:
             dist = [float(np.abs(da["ct"] - db["ct"]).max()) for db in free]
             if not dist or min(dist) > MATCH_PX:
@@ -1658,15 +1874,35 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
                 continue
             db = free.pop(int(np.argmin(dist)))
             pairs += 1
-            same_ids += da["tracking_id"] == db["tracking_id"]
-            id_map.setdefault(da["tracking_id"], set()).add(
-                db["tracking_id"])
+            if da["tracking_id"] == db["tracking_id"]:
+                same_ids += 1
+                id_map.setdefault(da["tracking_id"], set()).add(
+                    db["tracking_id"])
+            else:
+                differ.append((da, db))
             score = max(score, abs(da["score"] - db["score"]))
             box = max(box, float(np.abs(da["bbox"] - db["bbox"]).max()))
+        tied = set()
+        if collapse_ties:
+            for i, (a1, b1) in enumerate(differ):
+                for j, (a2, b2) in enumerate(differ[:i]):
+                    if (a1["tracking_id"] == b2["tracking_id"]
+                            and a2["tracking_id"] == b1["tracking_id"]
+                            and (a1["score"] == a2["score"]
+                                 or b1["score"] == b2["score"])
+                            and not {i, j} & tied):
+                        tied |= {i, j}
+        swapped += len(tied)
+        for i, (da, db) in enumerate(differ):
+            if i not in tied:
+                id_map.setdefault(da["tracking_id"], set()).add(
+                    db["tracking_id"])
         unpaired += [db["score"] for db in free]
     mapped = [next(iter(v)) for v in id_map.values() if len(v) == 1]
     return {"rows_per_frame": counts, "rows_unpaired": len(unpaired),
-            "unpaired_scores": unpaired, "pairs": pairs, "pairs_same_track_id": same_ids,
+            "unpaired_scores": unpaired, "pairs": pairs,
+            "pairs_same_track_id": same_ids,
+            "pairs_swapped_on_exact_tie": swapped,
             "track_ids_one_to_one": (len(mapped) == len(id_map) ==
                                      len(set(mapped))),
             "max_score_diff": score, "max_bbox_diff_px": box}
@@ -1691,9 +1927,15 @@ def device_kernel_counts(run_once, n, names):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # idle margins inside the window: the trace drops device events
+        # that it places past either end of it, which took the first
+        # kernel of the first replay or the last ones of the last replay
+        # out of the count in some runs
+        time.sleep(PROFILE_EDGE_S)
         for _ in range(n):
             run_once()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_EDGE_S)
     counts = dict.fromkeys(names, 0)
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2198,8 +2440,9 @@ def phase_path(dtype="float32", ref_packed=None, node="dcn_local1",
     margin = PLAIN_SCORE_TOL[dtype] if low else 0.0
     vs_plain = rows_against(packed[:PLAIN_FRAMES], plain_packed,
                             cfg.out_thresh, margin, collapse_ties=low)
-    if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or \
-            vs_plain["pairs_same_track_id"] != vs_plain["pairs"]:
+    if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or (
+            vs_plain["pairs_same_track_id"]
+            + vs_plain["pairs_swapped_on_exact_tie"] != vs_plain["pairs"]):
         raise RuntimeError(f"rows or track ids differ between the kernel "
                            f"and the plain DCN at {dtype}: {vs_plain}")
     if vs_plain["max_score_diff"] > PLAIN_SCORE_TOL[dtype]:
@@ -2231,6 +2474,8 @@ def phase_path(dtype="float32", ref_packed=None, node="dcn_local1",
            "plain_vs_kernel_score_tol": PLAIN_SCORE_TOL[dtype],
            "plain_vs_kernel_rows": vs_plain["rows_per_frame"],
            "plain_vs_kernel_pairs": vs_plain["pairs"],
+           "plain_vs_kernel_pairs_swapped_on_exact_tie":
+               vs_plain["pairs_swapped_on_exact_tie"],
            "first_frame_launch_worst_rel_err": launch_worst,
            "max_memory_allocated_mb": peak_mb,
            "memory_allocated_mb_at_start": live_mb}
@@ -2988,7 +3233,7 @@ def main(argv):
         gather_rows = {dt: phase_gather(dt)
                        for dt in ("float32", "bfloat16")}
         route_rows = phase_gather_routes()
-        exact_rows = phase_exact()
+        exact_rows, exact_mix = phase_exact(trained_exact_inputs())
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
@@ -3002,6 +3247,7 @@ def main(argv):
     del det
     torch.cuda.empty_cache()
     multistream = phase_multistream(packed)
+    phase_lifetimes()
     exact_paths, exact_packed = {}, None
     for phase, node, dtype in EXACT_PATHS:
         exact_paths[phase], rows_ = phase_path_exact(
@@ -3186,9 +3432,14 @@ def main(argv):
     for low in (False, True):
         kname = "dcn_exact_fwd" + ("_bf16" if low else "")
         rs = [r for r in exact_rows if r["kernel"] == kname]
-        one = [r for r in rs if r["batch"] == 1]
-        frame = lambda key, node="dcn": sum(
-            r[key] * r["launches_per_frame"][node] for r in one)
+        neck_rows = [r for r in rs if r["launches_per_frame"]["dcn"]]
+        one = [r for r in neck_rows if r["batch"] == 1]
+        frame = lambda key, node="dcn", rows_=one: sum(
+            r[key] * r["launches_per_frame"][node] for r in rows_)
+        six = [r for r in neck_rows if r["batch"] == EXACT_BATCH]
+        tiles = lambda kind: sum(
+            e[kind + "_tiles"] for r in one
+            for k, e in r["by_offsets"].items() if k.startswith("trained"))
         exact_row = {
             "name": kname, "route": "cuda",
             "source": "centertrack_tpu_torch/csrc/dcn_exact.cu",
@@ -3197,27 +3448,41 @@ def main(argv):
                              "pl.pallas_call): _deform_conv2d_slot at "
                              "h*w >= 4096, _deform_conv2d_onehot below",
             "at": "bfloat16 inputs" if low else "float32 inputs",
-            "design": "the clamped op's first gather design with the exact "
-                      "op's corners: 64 pixels x 64 channels a block, "
-                      "corners read from global memory"
-                      + (", wmma bf16" if low else ", CUDA-core FMAs"),
+            "design": "a 4x16 tile by up to 256 output channels a block, "
+                      "the tile's own bounding box of live corners copied "
+                      "by cp.async where it fits the plan's capacity, the "
+                      "corners gathered from global memory where not, "
+                      + ("bf16 wgmma" if low else "3xTF32 wgmma")
+                      + ", K splits by waves",
             "launches": exact_paths[
                 "path_dcn_bf16" if low else "path_dcn"]["launches"][kname],
             "launches_by_path": by_path(kname),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "per": "one 544x960 frame at dla_node dcn: the 16 launches of "
-                   "the neck shapes",
-            "ms": frame("ms"), "device_ms": frame("device_ms"),
-            "ms_per_frame_dcn_mix": frame("ms", "dcn_mix"),
-            "ms_per_image_at_b6": sum(
-                r["ms"] * r["launches_per_frame"]["dcn"] for r in rs
-                if r["batch"] == EXACT_BATCH) / EXACT_BATCH,
+                   "the neck shapes at B=1, each on its node's own inputs "
+                   "from one forward of the first synthetic frame",
+            "ms": frame("ms_trained"), "device_ms": frame(
+                "device_ms_trained"),
+            "ms_n3_offsets": frame("ms"),
+            "device_ms_n3_offsets": frame("device_ms"),
+            "window_share_trained": tiles("window") / max(
+                1, tiles("window") + tiles("gather")),
+            "ms_per_image_at_b6": frame("ms_trained", rows_=six)
+            / EXACT_BATCH,
             "plain_ms": frame("plain_ms"),
             "bound_ms": frame("bound_ms"),
             "bound_by": ("operations" if all(r["bound_by"] == "operations"
                                              for r in one) else "bytes"),
+            "plans": {f"{r['map']} {r['cin']}->{r['cout']}": r["plan"]
+                      for r in one},
             "library_ms": None}
-        if not low:
+        if low:
+            exact_row.update({
+                "ms_per_frame_dcn_mix": exact_mix["ms_per_frame"],
+                "device_ms_per_frame_dcn_mix":
+                    exact_mix["device_ms_per_frame"],
+                "window_share_dcn_mix": exact_mix["window_share"]})
+        else:
             exact_row["bound_ms_fp32_cuda_cores"] = frame(
                 "bound_ms_fp32_cuda_cores")
         kernels.append(exact_row)

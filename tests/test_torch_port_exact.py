@@ -197,9 +197,11 @@ def test_cuda_route_launches_the_kernel_of_its_dtype(monkeypatch, dtype,
                                                      symbol):
     """The CUDA route of a call without gradient is the launcher of its
     dtype: it calls its symbol with the inputs' pointers, a fresh output
-    and the sizes (B, H, W, Cin, Cout), as many as its _SIGNATURES entry
-    says, and counts one launch of its own kernel only (the ctypes call
-    is a stand-in here). A failed launch raises."""
+    and the sizes (B, H, W, Cin, Cout) followed by its plan's ints (tile,
+    chunk, N tile, box capacity, window slots, splits, shared memory), as
+    many as its _SIGNATURES entry says, and counts one launch of its own
+    kernel only (the ctypes call is a stand-in here). A failed launch
+    raises."""
     args = [torch.from_numpy(a).to(dtype)
             for a in _inputs(6, (7, 9), "n3", b=1, cin=8, cout=16)]
     calls, rc = [], [0]
@@ -224,8 +226,12 @@ def test_cuda_route_launches_the_kernel_of_its_dtype(monkeypatch, dtype,
     low = dtype == torch.bfloat16
     assert (dcn.EXACT_FWD_LAUNCHES, dcn.EXACT_FWD_BF16_LAUNCHES) == (
         before[0] + (not low), before[1] + low)
+    plan = (dcn.exact_fwd_bf16_plan if low else dcn.exact_fwd_fp32_plan)(
+        1, 7, 9, 8, 16)
     assert calls == [(symbol, tuple(t.data_ptr() for t in args),
-                      (1, 7, 9, 8, 16))]
+                      (1, 7, 9, 8, 16, 4, 16, plan["chunk"], plan["n_tile"],
+                       plan["box_capacity"], plan["window_slots"],
+                       plan["splits"], plan["smem_bytes"]))]
     assert out.dtype == dtype and out.shape == (1, 7, 9, 16)
     rc[0] = 719
     with pytest.raises(RuntimeError, match=f"{symbol} launch failed: CUDA "

@@ -393,6 +393,35 @@ def test_rows_against_leaves_out_near_threshold_rows_and_tied_peaks():
     assert kept["unpaired_scores"] == [pytest.approx(0.5)]
 
 
+def test_rows_against_counts_id_swaps_on_exact_ties_apart():
+    """With ties collapsed (bf16), two pairs of a frame that swap track
+    ids are counted apart where one path scores the two rows exactly
+    equal (no score order: the tracker numbered them by the decode's
+    tie-break), and they stay out of the one-to-one map; a swap of rows
+    whose scores differ in both paths, and any swap without
+    ``collapse_ties``, still counts as differing ids."""
+    def packed(rows):
+        p = np.zeros((6, 13), np.float32)
+        for i, (score, tid, x) in enumerate(rows):
+            p[i, 0], p[i, 10], p[i, 2] = score, tid, x
+            p[i, 6:10] = (x - 5, 0, x + 5, 10)
+        return p
+
+    kernel = packed([(0.9, 1, 100), (0.615, 8, 144), (0.615, 9, 1752)])
+    plain = packed([(0.9, 1, 100), (0.615, 8, 1752), (0.608, 9, 144)])
+    tie = chip_smoke.rows_against([kernel, kernel], [plain, kernel], 0.3,
+                                  1e-2, collapse_ties=True)
+    assert tie["pairs"] == 6 and tie["pairs_same_track_id"] == 4
+    assert tie["pairs_swapped_on_exact_tie"] == 2
+    assert tie["track_ids_one_to_one"]
+    strict = chip_smoke.rows_against([kernel], [plain], 0.3)
+    assert strict["pairs_swapped_on_exact_tie"] == 0
+    apart = packed([(0.9, 1, 100), (0.62, 8, 144), (0.615, 9, 1752)])
+    untied = chip_smoke.rows_against([apart], [plain], 0.3, 1e-2, True)
+    assert untied["pairs_same_track_id"] == 1
+    assert untied["pairs_swapped_on_exact_tie"] == 0
+
+
 def test_dcn_bwd_bound_bf16_counts_tensor_and_fp32_work_against_bytes():
     """The backward kernels' operations at bf16: the contraction at the
     bf16 tensor-core peak, the bilinear work (38 and 8 per sampled
