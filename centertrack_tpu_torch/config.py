@@ -42,8 +42,8 @@ class Config:
     arch: str = "dla_34"
     # the neck's nodes (JAX config.py:65): dcn (exact DCNv2) | dcn_mix
     # (clamped at R=2 on maps of stride <= CT_MIX_STRIDE, default 8, exact
-    # above) | dcn_local (clamped, R=2) | dcn_local1 (R=1) | conv; the
-    # exact op serves on CUDA and trains on the CPU only (ROADMAP A4b)
+    # above) | dcn_local (clamped, R=2) | dcn_local1 (R=1) | conv; both
+    # ops serve and train on CUDA through hand-written kernels
     dla_node: str = "dcn"
     head_conv: int = -1            # -1 => 256 for dla, 64 otherwise
     down_ratio: int = 4

@@ -1,9 +1,9 @@
 // Device code of the exact modulated 3x3 deformable convolution (DCNv2)
-// shared by its kernels (dcn_exact.cu; its backward kernels are to take
-// the same window): the corners of a tap at the absolute, clipped,
-// floor-based sample position; a tile's bounding box of the corners it
-// reads; and the copy of one Cin chunk of that box global -> shared by
-// cp.async.
+// shared by its kernels (the forward, dcn_exact.cu, and the backward,
+// dcn_exact_bwd.cu): the corners of a tap at the absolute, clipped,
+// floor-based sample position, and for the backward their derivative
+// weights; a tile's bounding box of the corners it reads; and the copy of
+// one Cin chunk of that box global -> shared by cp.async.
 //
 // A block takes a TH x TW tile of output pixels of one image. Every
 // corner it reads lies inside the map: the exact op's positions are
@@ -67,8 +67,8 @@ __device__ __forceinline__ void corners(int y, int xx, int t, float dy,
   }
 }
 
-// The rows and columns of a live corner set (`live` of `corners`) folded
-// into a running minimum and maximum.
+// The rows and columns of a corner set (`live` of `corners`, or `needed`
+// of `grad_corners`) folded into a running minimum and maximum.
 __device__ __forceinline__ void fold_box(int iy, int ix, int live, int& rmin,
                                          int& rmax, int& cmin, int& cmax) {
 #pragma unroll
@@ -82,12 +82,73 @@ __device__ __forceinline__ void fold_box(int iy, int ix, int live, int& rmin,
   }
 }
 
+// clip'(u) of the position clip to [-1, size], JAX's rule (jnp.clip): 1
+// inside, 1/2 at exactly -1 or size, 0 outside
+__device__ __forceinline__ float clip_slope(float u, int size) {
+  if (u > -1.f && u < (float)size) return 1.f;
+  return u == -1.f || u == (float)size ? 0.5f : 0.f;
+}
+
+// The backward's view of tap t at pixel (y, xx), its offset (dy, dx) and
+// mask m, on a map of H x W, as the plain version's autograd takes it
+// (floor' = 0, clip' by clip_slope): the top-left corner (iy, ix) and the
+// hats of `corners`, unmasked ((1 - fy) * (1 - fx), ...), which weigh
+// grad mask; the derivative weights gy[k] = clip'(py) m d(hat_k)/dfy and
+// gx[k] = clip'(px) m d(hat_k)/dfx, which weigh grad dy and grad dx; and
+// `needed`, bit k set where corner k lies inside the map and one of its
+// three weights is not 0: the corners whose x the three sums read (a
+// corner outside the map reads 0; one of weights all 0 adds 0). At an
+// integer position fy = 0, so the corners of row iy + 1 have hat 0 but a
+// derivative weight that is not: they are needed though no forward reads
+// them. The position and the hats round as in `corners`.
+__device__ __forceinline__ void grad_corners(int y, int xx, int t, float dy,
+                                             float dx, float m, int H, int W,
+                                             int& iy, int& ix,
+                                             float (&hat)[4], float (&gy)[4],
+                                             float (&gx)[4], int& needed) {
+  const float uy = __fadd_rn((float)(y + t / 3 - 1), dy);
+  const float ux = __fadd_rn((float)(xx + t % 3 - 1), dx);
+  const float py = fminf(fmaxf(uy, -1.f), (float)H);
+  const float px = fminf(fmaxf(ux, -1.f), (float)W);
+  const float y0 = floorf(py);
+  const float x0 = floorf(px);
+  const float fy = __fsub_rn(py, y0);
+  const float fx = __fsub_rn(px, x0);
+  const float ry = __fsub_rn(1.f, fy);
+  const float rx = __fsub_rn(1.f, fx);
+  hat[0] = __fmul_rn(ry, rx);
+  hat[1] = __fmul_rn(ry, fx);
+  hat[2] = __fmul_rn(fy, rx);
+  hat[3] = __fmul_rn(fy, fx);
+  const float cy = __fmul_rn(clip_slope(uy, H), m);
+  const float cx = __fmul_rn(clip_slope(ux, W), m);
+  gy[0] = -__fmul_rn(rx, cy);
+  gy[1] = -__fmul_rn(fx, cy);
+  gy[2] = __fmul_rn(rx, cy);
+  gy[3] = __fmul_rn(fx, cy);
+  gx[0] = -__fmul_rn(ry, cx);
+  gx[1] = __fmul_rn(ry, cx);
+  gx[2] = -__fmul_rn(fy, cx);
+  gx[3] = __fmul_rn(fy, cx);
+  iy = (int)y0;
+  ix = (int)x0;
+  needed = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int yy = iy + (k >> 1);
+    const int xc = ix + (k & 1);
+    const bool inside = yy >= 0 && yy < H && xc >= 0 && xc < W;
+    if (inside && (hat[k] != 0.f || gy[k] != 0.f || gx[k] != 0.f))
+      needed |= 1 << k;
+  }
+}
+
 // rows r0 .. r0 + bh - 1, columns c0 .. c0 + bw - 1 of one image
 struct Box {
   int r0, c0, bh, bw;
 };
 
-// The block's box: the smallest rectangle that holds the live corners of
+// The block's box: the smallest rectangle that holds the corners of
 // every thread (each passes its own running minimum and maximum, INT_MAX /
 // INT_MIN when it has none); 1 x 1 at (0, 0) when no corner is live.
 // Every thread of the block calls it; `s` is 4 ints of shared memory. Its

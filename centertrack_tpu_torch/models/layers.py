@@ -157,9 +157,9 @@ class DCNLayer(nn.Module):
     ``weight`` keeps the JAX (3, 3, Cin, Cout) layout the kernels take.
     The clamped op is differentiable at float32 and bf16 on both devices
     (the kernels' autograd function on CUDA, autograd through the plain
-    version on the CPU). The exact op serves on CUDA through its forward
-    kernels and is differentiable on the CPU only: a CUDA call that needs
-    a gradient raises (its backward kernels are ROADMAP A4b). At bf16 the
+    version on the CPU), and so is the exact op: on CUDA its forward
+    kernels serve, and a call that needs a gradient goes to ``DCNExact``,
+    whose backward launches its data and weight kernels. At bf16 the
     offsets, the mask (the sigmoid of the bf16 mask channels), the weight
     and the bias are bf16, as the JAX layer hands them to its op
     (models/layers.py:150-155). ``plain=True`` routes either op to its

@@ -1,6 +1,6 @@
 """Modulated 3x3 deformable convolution (DCNv2) in two forms: the
-clamped op ``dcn_local`` (forward and backward) and the exact op
-(forward kernels; its backward runs on the CPU only).
+clamped op ``dcn_local`` and the exact op, each with forward and
+backward kernels.
 
 Both take the JAX package's layout: x (B, H, W, Cin), offset (B, H, W,
 18) interleaved (dy, dx) per tap with taps row-major, mask (B, H, W, 9)
@@ -37,10 +37,18 @@ that needs no gradient launches ``dcn_exact_fwd`` (float32) or
 / ``exact_fwd_bf16_plan``: each block copies its tile's own bounding box
 of live corners into shared memory where the box fits the plan's
 capacity and gathers the corners from global memory where it does not
-(``exact_tile_routes`` is that rule in plain PyTorch); a CUDA call
-that needs a gradient raises ``NotImplementedError`` (the backward
-kernels are ROADMAP A4b); a CPU tensor goes to ``deform_conv2d_plain``,
-the plain version and the kernels' oracle, whose autograd is JAX's vjp.
+(``exact_tile_routes`` is that rule in plain PyTorch). A CUDA call that
+needs a gradient goes to ``DCNExact``, whose forward launches the same
+kernel and whose backward launches ``dcn_exact_bwd_data`` (grad x,
+offset, mask) and ``dcn_exact_bwd_weight`` (grad weight), or their bf16
+twins (``csrc/dcn_exact_bwd.cu``), by ``exact_bwd_data_fp32_plan`` /
+``exact_bwd_data_bf16_plan`` / ``exact_bwd_weight_fp32_plan`` /
+``exact_bwd_weight_bf16_plan``: the data kernels window each tile's box
+of every corner the gradient reads (``exact_bwd_tile_routes``), the
+weight kernels each tile's box of live corners (``exact_tile_routes``),
+and both gather from global memory where a box does not fit. A CPU
+tensor goes to ``deform_conv2d_plain``, the plain version and the
+kernels' oracle, whose autograd is JAX's vjp.
 JAX's environment
 variable CT_EXACT_IMPL, which picks among its implementations of the
 op, has no counterpart: the port has one kernel a dtype.
@@ -118,6 +126,11 @@ BWD_WEIGHT_GATHER_BF16_LAUNCHES = 0  # dcn_local_bwd_weight_gather_bf16
 # the exact (unclamped) DCNv2 forward, ``deform_conv2d``
 EXACT_FWD_LAUNCHES = 0       # dcn_exact_fwd
 EXACT_FWD_BF16_LAUNCHES = 0  # dcn_exact_fwd_bf16
+# its backward, ``DCNExact``
+EXACT_BWD_DATA_LAUNCHES = 0         # dcn_exact_bwd_data
+EXACT_BWD_DATA_BF16_LAUNCHES = 0    # dcn_exact_bwd_data_bf16
+EXACT_BWD_WEIGHT_LAUNCHES = 0       # dcn_exact_bwd_weight
+EXACT_BWD_WEIGHT_BF16_LAUNCHES = 0  # dcn_exact_bwd_weight_bf16
 
 # symbol -> (source in csrc/, pointer arguments, int arguments); every
 # launcher ends with the stream
@@ -136,6 +149,10 @@ _SIGNATURES = {
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
     "dcn_exact_fwd": ("dcn_exact", 9, 13),
     "dcn_exact_fwd_bf16": ("dcn_exact", 8, 13),
+    "dcn_exact_bwd_data": ("dcn_exact_bwd", 11, 13),
+    "dcn_exact_bwd_data_bf16": ("dcn_exact_bwd", 11, 13),
+    "dcn_exact_bwd_weight": ("dcn_exact_bwd", 8, 14),
+    "dcn_exact_bwd_weight_bf16": ("dcn_exact_bwd", 7, 14),
 }
 
 # blocks a split launch aims for: four per SM of an H100 (the wave rule
@@ -202,6 +219,28 @@ EXACT_BOX_MIN = 576
 EXACT_BOX_MAX = 1024
 # the widest N tile of each dtype's plan (64, 128 or 256)
 EXACT_MAX_N_TILE = {"float32": 256, "bfloat16": 256}
+# The exact data-gradient kernels (csrc/dcn_exact_bwd.cu): a block takes a
+# 4 x 16 tile and walks K in steps of (a Cin chunk, a tap); the (chunk,
+# warpgroups) of each dtype, widest first. The plan takes the first
+# chunk whose window (the tile's box of x) still holds
+# EXACT_DATA_BOX_MIN pixels, at two resident blocks an SM where each
+# window still does, else at one; else the last chunk. On the trained
+# inputs of the 16 dcn launches (PERF.md, tools/exact_bwd_times.py) a
+# minimum of 128, 256 or 320 gave the same device time within 2% (two
+# blocks an SM at most neck shapes); 256 keeps every tile on the window
+# route there. The output grad is contracted in pieces of at most
+# EXACT_DATA_MAX_K channels.
+EXACT_DATA_CHUNKS = {"float32": ((32, 2), (16, 2), (8, 1)),
+                     "bfloat16": ((64, 2), (32, 1))}
+EXACT_DATA_BOX_MIN = 256
+EXACT_DATA_MAX_K = 256
+# The exact weight-gradient kernels: the clamped weight kernels' blocks
+# (WEIGHT_CHUNK channels, WEIGHT_TAPS taps, th x 16 pixel tiles) with a
+# window of the tile's box of live corners; the first (th, window slots)
+# of EXACT_WEIGHT_FITS whose slots hold EXACT_WEIGHT_BOX_MIN pixels each,
+# else the last at what fits.
+EXACT_WEIGHT_FITS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+EXACT_WEIGHT_BOX_MIN = 256
 
 
 def _kernel(symbol: str):
@@ -681,60 +720,273 @@ def exact_fwd_bf16_plan(b: int, h: int, w: int, cin: int,
     return _exact_plan("bfloat16", b, h, w, cin, cout)
 
 
-def exact_tile_routes(offset: torch.Tensor, h: int, w: int,
-                      plan: dict) -> tuple:
-    """(window tiles, gather tiles) of an exact forward launch on
-    ``offset`` (B, h, w, 18) under ``plan``: the kernels' rule in plain
-    PyTorch, on any device. A tile's box is the smallest rectangle of map
-    positions holding every corner of its pixels' 9 taps that lies inside
-    the map with a bilinear (hat) weight that is not 0, the positions
-    taken as the kernels take them (``deform_conv2d_plain``'s float32
-    arithmetic); the tile takes the window route where the box's area is
-    at most ``plan["box_capacity"]`` (or it holds no such corner)."""
-    off = offset.float()
-    b = off.shape[0]
-    dev = off.device
+def _exact_data_smem(dtype: str, k_tile: int, chunk: int, cap: int) -> int:
+    """The output-grad tile and one weight slot (float32: hi and lo of
+    each), the window of ``cap`` pixels, the tile's offsets and mask, the
+    sums and the box of the exact data kernel (csrc/dcn_exact_bwd.cu
+    data_smem_bytes)."""
+    size, parts = (4, 2) if dtype == "float32" else (2, 1)
     th, tw = TILE
-    big = 2 ** 40
+    return (parts * (th * tw + chunk) * k_tile * size
+            + cap * (chunk * size + 16) + 2 * 27 * th * tw * 4 + 16)
+
+
+def _exact_data_plan(dtype: str, b: int, h: int, w: int, cin: int,
+                     cout: int) -> dict:
+    size = 4 if dtype == "float32" else 2
+    ka = 8 if dtype == "float32" else 16
+    k_tile = (max(ka, -(-cout // ka) * ka) if cout <= EXACT_DATA_MAX_K
+              else EXACT_DATA_MAX_K)
+    pieces = max(1, -(-cout // k_tile))
+    for chunk, warpgroups in EXACT_DATA_CHUNKS[dtype]:
+        base = _exact_data_smem(dtype, k_tile, chunk, 0)
+        pixel = chunk * size + 16
+        # two resident blocks where each window still holds the minimum
+        two = (SMEM_PER_SM // 2 - 1024 - base) // pixel
+        cap = min(EXACT_BOX_MAX, two if two >= EXACT_DATA_BOX_MIN
+                  else (SMEM_LIMIT - base) // pixel)
+        if cap >= EXACT_DATA_BOX_MIN:
+            break
+    cap = max(1, cap)
+    smem = _exact_data_smem(dtype, k_tile, chunk, cap)
+    resident = _resident(smem, 128 * warpgroups)
+    tiles = _tiles(b, h, w)
+    steps = 9 * max(1, -(-cin // chunk))
+    splits = _wave_splits(tiles, steps, resident) if tiles else 1
+    npix = b * h * w
+    plan = {"tile": TILE, "chunk": chunk, "warpgroups": warpgroups,
+            "k_tile": k_tile, "pieces": pieces, "box_capacity": cap,
+            "resident": resident, "tiles": tiles, "steps": steps,
+            "split_rule": "waves", "splits": splits,
+            "k_ranges": _k_ranges(steps, splits),
+            "blocks": tiles * splits, "smem_bytes": smem,
+            "scratch": splits * npix * 27 if splits > 1 else 0}
+    if dtype == "float32":
+        plan["weight_split"] = 2 * 9 * cin * pieces * k_tile
+    else:
+        plan["grad_acc"] = npix * cin
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def exact_bwd_data_fp32_plan(b: int, h: int, w: int, cin: int,
+                             cout: int) -> dict:
+    """Launch plan of ``dcn_exact_bwd_data``: the Cin chunk and warpgroups
+    (the first of ``EXACT_DATA_CHUNKS`` whose window holds
+    ``EXACT_DATA_BOX_MIN`` pixels, at two resident blocks where it can:
+    32 channels and two warpgroups up to Cout 128, 16 and two at Cout
+    256; two blocks an SM at Cout 64), the output grad's K pieces
+    (``k_tile`` channels each, Cout padded to 8 up to 256), the window
+    (``box_capacity`` pixels; a tile whose data box is larger takes the
+    gather route), the resident blocks, the K splits (by ``_wave_splits``),
+    the blocks, the dynamic shared memory and the float32 scratch: the
+    weight split into TF32 hi and lo (``weight_split``) and, when split,
+    the grad offset / mask partials (``scratch``). Any shape and offset
+    has a plan. Cached per shape: callers read it and never change it."""
+    return _exact_data_plan("float32", b, h, w, cin, cout)
+
+
+@functools.lru_cache(maxsize=256)
+def exact_bwd_data_bf16_plan(b: int, h: int, w: int, cin: int,
+                             cout: int) -> dict:
+    """Launch plan of ``dcn_exact_bwd_data_bf16``, as
+    ``exact_bwd_data_fp32_plan`` with chunks of 64 channels and two
+    warpgroups (32 and one where that window would be too small), Cout
+    padded to 16, no weight split, and grad x's float32 accumulator
+    (``grad_acc``)."""
+    return _exact_data_plan("bfloat16", b, h, w, cin, cout)
+
+
+def _exact_weight_smem(dtype: str, n_tile: int, th: int, slots: int,
+                       cap: int) -> int:
+    """Two A slots and two output-grad slots (float32: hi and lo, A's
+    8-channel groups padded by 16 bytes), the window slots of ``cap``
+    pixels, two corner tables and the box of the exact weight kernel
+    (csrc/dcn_exact_bwd.cu weight_smem_bytes)."""
+    tp = th * TILE[1]
+    taps = WEIGHT_TAPS[n_tile]
+    if dtype == "float32":
+        fixed = 4 * 8 * (tp * 32 + 16) + 4 * n_tile * tp * 4
+        pixel = WEIGHT_CHUNK * 4
+    else:
+        fixed = 2 * tp * WEIGHT_CHUNK * 2 + 2 * tp * n_tile * 2
+        pixel = WEIGHT_CHUNK * 2
+    return fixed + slots * cap * pixel + 2 * taps * tp * 20 + 16
+
+
+def _exact_weight_plan(dtype: str, b: int, h: int, w: int, cin: int,
+                       cout: int) -> dict:
+    n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    pixel = WEIGHT_CHUNK * (4 if dtype == "float32" else 2)
+    for th, slots in EXACT_WEIGHT_FITS:
+        room = SMEM_LIMIT - _exact_weight_smem(dtype, n_tile, th, 0, 0)
+        cap = min(EXACT_BOX_MAX, room // (slots * pixel))
+        if cap >= EXACT_WEIGHT_BOX_MIN:
+            break
+    cap = max(1, cap)
+    smem = _exact_weight_smem(dtype, n_tile, th, slots, cap)
+    taps = WEIGHT_TAPS[n_tile]
+    col_tiles = -(-cout // n_tile)
+    groups = -(-9 // taps)
+    chunks = -(-cin // WEIGHT_CHUNK)
+    tiles = _tiles(b, h, w, th)
+    units = chunks * groups * col_tiles
+    splits = _wave_splits(units, tiles, 1) if tiles else 1
+    plan = {"tile": (th, TILE[1]), "chunk": WEIGHT_CHUNK, "n_tile": n_tile,
+            "taps": taps, "groups": groups, "chunks": chunks,
+            "col_tiles": col_tiles, "window_slots": slots,
+            "box_capacity": cap, "tiles": tiles, "resident": 1,
+            "split_rule": "waves", "splits": splits,
+            "tile_ranges": _k_ranges(tiles, splits),
+            "blocks": units * splits, "smem_bytes": smem,
+            "scratch": splits * 9 * cin * cout if splits > 1 else 0}
+    if dtype == "float32":
+        plan["grad_split"] = tiles * col_tiles * 2 * n_tile * th * TILE[1]
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def exact_bwd_weight_fp32_plan(b: int, h: int, w: int, cin: int,
+                               cout: int) -> dict:
+    """Launch plan of ``dcn_exact_bwd_weight``: the N tile (64, 128 or
+    256), the taps of a block (``WEIGHT_TAPS``) and their groups, the
+    tile rows and window slots (the first of ``EXACT_WEIGHT_FITS`` whose
+    slots hold ``EXACT_WEIGHT_BOX_MIN`` pixels), the window's
+    ``box_capacity`` (a tile whose box of live corners is larger builds
+    A_t from global memory), the pixel tiles and their splits by the wave
+    rule (units chunks x tap groups x N tiles, one block an SM), the
+    blocks, the dynamic shared memory and the float32 scratch: the output
+    grad split into TF32 hi and lo by tile (``grad_split``) and the split
+    partials (``scratch``). Any shape and offset has a plan. Cached per
+    shape: callers read it and never change it."""
+    return _exact_weight_plan("float32", b, h, w, cin, cout)
+
+
+@functools.lru_cache(maxsize=256)
+def exact_bwd_weight_bf16_plan(b: int, h: int, w: int, cin: int,
+                               cout: int) -> dict:
+    """Launch plan of ``dcn_exact_bwd_weight_bf16``, as
+    ``exact_bwd_weight_fp32_plan`` without the split output grad."""
+    return _exact_weight_plan("bfloat16", b, h, w, cin, cout)
+
+
+def _exact_corner_sets(offset: torch.Tensor, mask, h: int, w: int,
+                       needed: bool):
+    """Per tap, the four corners of every pixel as (row, column, used):
+    ``used`` the forward's live corners (inside the map, hat weight not
+    0), or with ``needed`` the data gradient's (inside the map, one of the
+    hat and the two derivative weights not 0: dcn_exact.cuh
+    ``grad_corners``), in the kernels' float32 arithmetic."""
+    off = offset.float()
+    dev = off.device
     rows = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1)
     cols = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w)
-    lo = [torch.full((b, h, w), big, dtype=torch.int64, device=dev)
-          for _ in range(2)]
-    hi = [torch.full((b, h, w), -big, dtype=torch.int64, device=dev)
-          for _ in range(2)]
+
+    def slope(u, size):
+        return torch.where((u > -1) & (u < size), 1.0,
+                           torch.where((u == -1) | (u == size), 0.5, 0.0))
+
+    taps = []
     for i in range(3):
         for j in range(3):
             t = 3 * i + j
-            py = ((rows + (i - 1)) + off[..., 2 * t]).clamp(-1.0, float(h))
-            px = ((cols + (j - 1)) + off[..., 2 * t + 1]).clamp(-1.0,
-                                                                float(w))
+            uy = (rows + (i - 1)) + off[..., 2 * t]
+            ux = (cols + (j - 1)) + off[..., 2 * t + 1]
+            py = uy.clamp(-1.0, float(h))
+            px = ux.clamp(-1.0, float(w))
             y0 = torch.floor(py)
             x0 = torch.floor(px)
             fy = py - y0
             fx = px - x0
             gy = 1 - fy
             gx = 1 - fx
-            for k, hat in enumerate((gy * gx, gy * fx, fy * gx, fy * fx)):
+            hats = (gy * gx, gy * fx, fy * gx, fy * fx)
+            if needed:
+                m = mask.float()[..., t]
+                cy = slope(uy, h) * m
+                cx = slope(ux, w) * m
+                dys = (gx * cy, fx * cy, gx * cy, fx * cy)
+                dxs = (gy * cx, gy * cx, fy * cx, fy * cx)
+            corners = []
+            for k, hat in enumerate(hats):
                 r = y0.long() + (k >> 1)
                 c = x0.long() + (k & 1)
-                live = ((r >= 0) & (r < h) & (c >= 0) & (c < w)
-                        & (hat != 0))
-                for n, v in enumerate((r, c)):
-                    lo[n] = torch.minimum(lo[n], torch.where(live, v, big))
-                    hi[n] = torch.maximum(hi[n], torch.where(live, v, -big))
+                used = hat != 0
+                if needed:
+                    used = used | (dys[k] != 0) | (dxs[k] != 0)
+                used = used & (r >= 0) & (r < h) & (c >= 0) & (c < w)
+                corners.append((r, c, used))
+            taps.append(corners)
+    return taps
+
+
+def _exact_routes(taps, b: int, h: int, w: int, tile, per_group: int,
+                  capacity: int) -> tuple:
+    """(window, gather) tiles of ``tile`` = (rows, columns), each tap group
+    of ``per_group`` taps a box of its own: a box is the smallest rectangle
+    holding every used corner of its pixels and taps, and its tile takes
+    the window route where its area is at most ``capacity`` (or it holds
+    no corner)."""
+    th, tw = tile
     ty, tx = -(-h // th), -(-w // tw)
+    dev = taps[0][0][0].device
+    big = 2 ** 40
+    n_window = n_all = 0
+    for g0 in range(0, 9, per_group):
+        lo = [torch.full((b, h, w), big, dtype=torch.int64, device=dev)
+              for _ in range(2)]
+        hi = [torch.full((b, h, w), -big, dtype=torch.int64, device=dev)
+              for _ in range(2)]
+        for corners in taps[g0:g0 + per_group]:
+            for r, c, used in corners:
+                for n, v in enumerate((r, c)):
+                    lo[n] = torch.minimum(lo[n], torch.where(used, v, big))
+                    hi[n] = torch.maximum(hi[n], torch.where(used, v, -big))
 
-    def per_tile(m, fill, reduce):
-        m = F.pad(m, (0, tx * tw - w, 0, ty * th - h), value=fill)
-        return reduce(reduce(m.view(b, ty, th, tx, tw), 4)[0], 2)[0]
+        def per_tile(m, fill, reduce):
+            m = F.pad(m, (0, tx * tw - w, 0, ty * th - h), value=fill)
+            return reduce(reduce(m.view(b, ty, th, tx, tw), 4)[0], 2)[0]
 
-    rmin, cmin = (per_tile(m, big, torch.min) for m in lo)
-    rmax, cmax = (per_tile(m, -big, torch.max) for m in hi)
-    empty = rmin > rmax
-    area = (rmax - rmin + 1) * (cmax - cmin + 1)
-    window = empty | (area <= plan["box_capacity"])
-    n_window = int(window.sum())
-    return n_window, b * ty * tx - n_window
+        rmin, cmin = (per_tile(m, big, torch.min) for m in lo)
+        rmax, cmax = (per_tile(m, -big, torch.max) for m in hi)
+        area = (rmax - rmin + 1) * (cmax - cmin + 1)
+        window = (rmin > rmax) | (area <= capacity)
+        n_window += int(window.sum())
+        n_all += b * ty * tx
+    return n_window, n_all - n_window
+
+
+def exact_tile_routes(offset: torch.Tensor, h: int, w: int,
+                      plan: dict) -> tuple:
+    """(window tiles, gather tiles) of an exact forward or weight-gradient
+    launch on ``offset`` (B, h, w, 18) under ``plan``: the kernels' rule in
+    plain PyTorch, on any device. A tile's box is the smallest rectangle
+    of map positions holding every corner of its pixels' taps that lies
+    inside the map with a bilinear (hat) weight that is not 0, the
+    positions taken as the kernels take them (``deform_conv2d_plain``'s
+    float32 arithmetic); the tile takes the window route where the box's
+    area is at most ``plan["box_capacity"]`` (or it holds no such corner).
+    The forward's tile is 4 x 16 and its box spans all 9 taps; a weight
+    plan's tile is ``plan["tile"]`` and each group of ``plan["taps"]``
+    taps has a box (and a route) of its own."""
+    return _exact_routes(_exact_corner_sets(offset, None, h, w, False),
+                         offset.shape[0], h, w, plan.get("tile", TILE),
+                         plan.get("taps", 9), plan["box_capacity"])
+
+
+def exact_bwd_tile_routes(offset: torch.Tensor, mask: torch.Tensor, h: int,
+                          w: int, plan: dict) -> tuple:
+    """(window tiles, gather tiles) of an exact data-gradient launch on
+    ``offset`` (B, h, w, 18) and ``mask`` (B, h, w, 9) under ``plan``: as
+    ``exact_tile_routes``, with a box over every corner the gradient
+    reads, whatever its hat weight: inside the map, with the hat or one of
+    the two derivative weights (clip' m dhat/dfy, clip' m dhat/dfx) not 0.
+    At an integer position fy = 0 and the corners of the next row have
+    hat 0 but a derivative weight that is not, so the box is one row (and
+    one column) larger than the forward's there."""
+    return _exact_routes(_exact_corner_sets(offset, mask, h, w, True),
+                         offset.shape[0], h, w, plan.get("tile", TILE), 9,
+                         plan["box_capacity"])
 
 
 def _plan_ints(plan: dict, *keys: str) -> tuple:
@@ -1207,20 +1459,173 @@ def launch_exact_fwd_bf16(x, offset, mask, weight, bias, route_counts=None):
     return out
 
 
+def launch_exact_bwd_data(x, offset, mask, weight, grad_out,
+                          route_counts=None):
+    """The float32 exact data gradient on checked float32 CUDA tensors ->
+    (grad x, grad offset, grad mask), by ``exact_bwd_data_fp32_plan``:
+    ``dcn_exact_bwd_data`` (csrc/dcn_exact_bwd.cu). ``route_counts``
+    (optional, int32 (2,)) gets the launch's window and gather tiles
+    added."""
+    global EXACT_BWD_DATA_LAUNCHES
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    _check_grad(grad_out, x, cout)
+    counts = _route_counts(route_counts, x)
+    grad_x = torch.zeros_like(x)   # the blocks add into it with atomics
+    if b * h * w == 0 or cin == 0 or cout == 0:
+        return grad_x, torch.zeros_like(offset), torch.zeros_like(mask)
+    plan = exact_bwd_data_fp32_plan(b, h, w, cin, cout)
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    partial = _scratch(plan, "scratch", x.device)
+    wsplit = _scratch(plan, "weight_split", x.device)
+    _ok(_kernel("dcn_exact_bwd_data")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        grad_out.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
+        grad_mask.data_ptr(), _ptr(partial), _ptr(wsplit), counts,
+        b, h, w, cin, cout,
+        *_plan_ints(plan, "warpgroups", "k_tile", "box_capacity", "splits"),
+        _stream(x)), "dcn_exact_bwd_data")
+    EXACT_BWD_DATA_LAUNCHES += 1
+    return grad_x, grad_offset, grad_mask
+
+
+def launch_exact_bwd_data_bf16(x, offset, mask, weight, grad_out,
+                               route_counts=None):
+    """The bf16 exact data gradient on checked bf16 CUDA tensors -> bf16
+    (grad x, grad offset, grad mask), by ``exact_bwd_data_bf16_plan``:
+    ``dcn_exact_bwd_data_bf16``; grad x summed in a float32 scratch and
+    rounded once; ``route_counts`` as ``launch_exact_bwd_data``."""
+    global EXACT_BWD_DATA_BF16_LAUNCHES
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    _check_grad(grad_out, x, cout)
+    counts = _route_counts(route_counts, x)
+    if b * h * w == 0 or cin == 0 or cout == 0:
+        return (torch.zeros_like(x), torch.zeros_like(offset),
+                torch.zeros_like(mask))
+    plan = exact_bwd_data_bf16_plan(b, h, w, cin, cout)
+    grad_acc = torch.zeros(x.shape, device=x.device, dtype=torch.float32)
+    grad_x = torch.empty_like(x)
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    partial = _scratch(plan, "scratch", x.device)
+    _ok(_kernel("dcn_exact_bwd_data_bf16")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+        grad_out.data_ptr(), grad_acc.data_ptr(), grad_x.data_ptr(),
+        grad_offset.data_ptr(), grad_mask.data_ptr(), _ptr(partial), counts,
+        b, h, w, cin, cout,
+        *_plan_ints(plan, "warpgroups", "k_tile", "box_capacity", "splits"),
+        _stream(x)), "dcn_exact_bwd_data_bf16")
+    EXACT_BWD_DATA_BF16_LAUNCHES += 1
+    return grad_x, grad_offset, grad_mask
+
+
+def launch_exact_bwd_weight(x, offset, mask, grad_out, cout,
+                            route_counts=None):
+    """The float32 exact weight gradient on checked float32 CUDA tensors
+    -> grad weight (3, 3, Cin, Cout), by ``exact_bwd_weight_fp32_plan``:
+    ``dcn_exact_bwd_weight``; ``route_counts`` (optional, int32 (2,)) gets
+    the launch's window and gather (tile, tap group)s added."""
+    global EXACT_BWD_WEIGHT_LAUNCHES
+    b, h, w, cin = x.shape
+    _check_grad(grad_out, x, cout)
+    counts = _route_counts(route_counts, x)
+    if b * h * w == 0 or cin == 0 or cout == 0:
+        return torch.zeros((3, 3, cin, cout), device=x.device,
+                           dtype=x.dtype)
+    plan = exact_bwd_weight_fp32_plan(b, h, w, cin, cout)
+    grad_w = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    # one allocation for both scratches: the split output grad, then the
+    # partials (16-byte aligned: grad_split is a multiple of 4 floats)
+    scratch = torch.empty(plan["grad_split"] + plan["scratch"],
+                          device=x.device, dtype=torch.float32)
+    gsplit = scratch.data_ptr()
+    partial = gsplit + 4 * plan["grad_split"] if plan["scratch"] else None
+    _ok(_kernel("dcn_exact_bwd_weight")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+        grad_out.data_ptr(), grad_w.data_ptr(), partial, gsplit, counts,
+        b, h, w, cin, cout,
+        *_plan_ints(plan, "n_tile", "taps", "window_slots", "box_capacity",
+                    "splits"), _stream(x)), "dcn_exact_bwd_weight")
+    EXACT_BWD_WEIGHT_LAUNCHES += 1
+    return grad_w
+
+
+def launch_exact_bwd_weight_bf16(x, offset, mask, grad_out, cout,
+                                 route_counts=None):
+    """The bf16 exact weight gradient on checked bf16 CUDA tensors -> bf16
+    grad weight (3, 3, Cin, Cout), by ``exact_bwd_weight_bf16_plan``:
+    ``dcn_exact_bwd_weight_bf16``, summed in float32 and rounded once;
+    ``route_counts`` as ``launch_exact_bwd_weight``."""
+    global EXACT_BWD_WEIGHT_BF16_LAUNCHES
+    b, h, w, cin = x.shape
+    _check_grad(grad_out, x, cout)
+    counts = _route_counts(route_counts, x)
+    if b * h * w == 0 or cin == 0 or cout == 0:
+        return torch.zeros((3, 3, cin, cout), device=x.device,
+                           dtype=x.dtype)
+    plan = exact_bwd_weight_bf16_plan(b, h, w, cin, cout)
+    grad_w = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    partial = _scratch(plan, "scratch", x.device)
+    _ok(_kernel("dcn_exact_bwd_weight_bf16")(
+        x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+        grad_out.data_ptr(), grad_w.data_ptr(), _ptr(partial), counts,
+        b, h, w, cin, cout,
+        *_plan_ints(plan, "n_tile", "taps", "window_slots", "box_capacity",
+                    "splits"), _stream(x)), "dcn_exact_bwd_weight_bf16")
+    EXACT_BWD_WEIGHT_BF16_LAUNCHES += 1
+    return grad_w
+
+
+class DCNExact(torch.autograd.Function):
+    """The exact op's kernels, by the inputs' dtype: at float32 forward
+    ``dcn_exact_fwd``, backward ``dcn_exact_bwd_data`` +
+    ``dcn_exact_bwd_weight``; at bfloat16 forward ``dcn_exact_fwd_bf16``,
+    backward ``dcn_exact_bwd_data_bf16`` + ``dcn_exact_bwd_weight_bf16``;
+    the bias grad is a float32 sum over (B, H, W) in the bias's dtype.
+    Inputs are checked by ``deform_conv2d``."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias):
+        ctx.save_for_backward(x, offset, mask, weight)
+        ctx.has_bias = bias is not None
+        low = x.dtype == torch.bfloat16
+        return (launch_exact_fwd_bf16 if low else launch_exact_fwd)(
+            x, offset, mask, weight, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x, offset, mask, weight = ctx.saved_tensors
+        g = grad_out.contiguous()
+        need = ctx.needs_input_grad
+        low = x.dtype == torch.bfloat16
+        grad_x = grad_offset = grad_mask = grad_w = grad_b = None
+        if need[0] or need[1] or need[2]:
+            grad_x, grad_offset, grad_mask = (
+                launch_exact_bwd_data_bf16 if low else launch_exact_bwd_data)(
+                x, offset, mask, weight, g)
+        if need[3]:
+            grad_w = (launch_exact_bwd_weight_bf16 if low
+                      else launch_exact_bwd_weight)(
+                x, offset, mask, g, weight.shape[3])
+        if ctx.has_bias and need[4]:
+            grad_b = g.float().sum(dim=(0, 1, 2)).to(g.dtype)
+        return grad_x, grad_offset, grad_mask, grad_w, grad_b
+
+
 def exact_route(device: torch.device, dtype: torch.dtype = torch.float32,
                 needs_grad: bool = False):
     """What ``deform_conv2d`` calls for tensors on ``device``: the plain
     version on the CPU (autograd differentiates it); on CUDA the forward
-    kernel of the dtype. A CUDA call that needs a gradient raises: the
-    exact op's backward kernels are ROADMAP A4b, and nothing autograds
-    through the plain version on the card in their place."""
+    kernel of the dtype for a call that needs no gradient, else
+    ``DCNExact``, whose backward is the data and weight kernels of the
+    dtype. Nothing on CUDA reaches the plain version."""
     if device.type == "cpu":
         return deform_conv2d_plain
     if needs_grad:
-        raise NotImplementedError(
-            "exact DCNv2 (deform_conv2d) on CUDA with a gradient: its "
-            "backward kernels are not ported yet (ROADMAP A4b); serve it "
-            "under torch.no_grad(), or train the clamped dcn_local nodes")
+        return DCNExact.apply
     return (launch_exact_fwd_bf16 if dtype == torch.bfloat16
             else launch_exact_fwd)
 
@@ -1229,8 +1634,8 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor,
                   bias: torch.Tensor | None = None) -> torch.Tensor:
     """Exact DCNv2, 3x3, stride 1, padding 1 (JAX ops/dcn.py:315): the
-    forward kernel of the dtype on a CUDA tensor (no gradient there), the
-    plain PyTorch version on a CPU tensor."""
+    kernels of the dtype on a CUDA tensor (differentiable at float32 and
+    bfloat16), the plain PyTorch version on a CPU tensor."""
     _check(x, offset, mask, weight, bias, None, op="dcn")
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad

@@ -13,6 +13,8 @@ JSON line per kernel and shape.
     python3 -m centertrack_tpu_torch.tools.dcn_phases --dtype float32
     python3 -m centertrack_tpu_torch.tools.dcn_phases --exact \
         [--dtype float32]
+    python3 -m centertrack_tpu_torch.tools.dcn_phases --exact-bwd \
+        [--dtype float32]
 
 With ``--exact`` the exact forward of the dtype (``dcn_exact_fwd`` or
 ``dcn_exact_fwd_bf16``) runs instead, at B=1 on every launch of one
@@ -20,7 +22,19 @@ eager ``dcn`` forward of the bench's first synthetic frame
 (``chip_smoke.trained_exact_inputs``: each neck node's own inputs), one
 line per node, with its window share (``ops/dcn.exact_tile_routes``).
 Its phases are the float32 forward's four and `prologue` (the corner
-table, the tile's box and its route).
+table, the tile's box and its route). With ``--exact-bwd`` the exact
+backward's data and weight kernels of the dtype (``dcn_exact_bwd_data``,
+``dcn_exact_bwd_weight`` or their bf16 twins, csrc/dcn_exact_bwd.cu) run
+on the same inputs with a seeded output grad, one line per node and
+kernel, with its window share (``exact_bwd_tile_routes`` for the data
+kernel, ``exact_tile_routes`` for the weight kernel). The exact data
+kernel's phases: `wait` (the tile's staging, its box, and each step's
+copy wait and barrier), `product` (G on the tensor cores, its wait and
+barrier), `walk` (the corner walk, its sums and grad x's reductions),
+`chunk_barrier` (the chunk's barrier, the next chunk's copies). The
+exact weight kernel's: the weight kernels' below, `next_box` in place
+of `next_window` and `next_entries` (the next tile's corners, its box,
+and its window copy issued).
 
 Phases of the bf16 forward: `prologue` (first copies, and each step's
 product and next copies), `wait` (copy wait and barrier), `sample`
@@ -94,6 +108,19 @@ KERNELS = {
                                  "launch_bwd_weight",
                                  "bwd_weight_fp32_plan")},
 }
+EXACT_DATA_PHASES = ["wait", "product", "walk", "chunk_barrier"]
+EXACT_WEIGHT_PHASES = ["window_wait", "build", "product", "flush", "table",
+                       "barrier", "next_box"]
+EXACT_BWD = {
+    dtype: {"dcn_exact_bwd_data" + sfx: ("dcn_exact_bwd", EXACT_DATA_PHASES,
+                                         "launch_exact_bwd_data" + sfx,
+                                         "exact_bwd_data_" + plan),
+            "dcn_exact_bwd_weight" + sfx: ("dcn_exact_bwd",
+                                           EXACT_WEIGHT_PHASES,
+                                           "launch_exact_bwd_weight" + sfx,
+                                           "exact_bwd_weight_" + plan)}
+    for dtype, sfx, plan in (("bfloat16", "_bf16", "bf16_plan"),
+                             ("float32", "", "fp32_plan"))}
 EXACT = {"bfloat16": {"dcn_exact_fwd_bf16": ("dcn_exact", EXACT_PHASES,
                                              "launch_exact_fwd_bf16",
                                              "exact_fwd_bf16_plan")},
@@ -159,14 +186,55 @@ def _exact_phases(kernels, libs, dcn, torch, dtype):
                       for p, c in cycles.items()}}), flush=True)
 
 
+def _exact_bwd_phases(kernels, libs, dcn, torch, dtype):
+    """``--exact-bwd``: one line per launch of the dcn forward of `dtype`
+    and backward kernel, with a seeded output grad."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for node, args in enumerate(smoke.trained_exact_inputs()["dcn", dtype]):
+        x, offset, mask, weight, _ = args
+        b, h, w, cin = x.shape
+        cout = weight.shape[3]
+        g = torch.randn(b, h, w, cout, generator=gen,
+                        device="cuda").to(x.dtype)
+        for symbol, (name, phases, launch, planner) in kernels.items():
+            plan = getattr(dcn, planner)(b, h, w, cin, cout)
+            if phases is EXACT_DATA_PHASES:
+                call = lambda: getattr(dcn, launch)(x, offset, mask, weight,
+                                                    g)
+                win, gat = dcn.exact_bwd_tile_routes(offset, mask, h, w,
+                                                     plan)
+            else:
+                call = lambda: getattr(dcn, launch)(x, offset, mask, g, cout)
+                win, gat = dcn.exact_tile_routes(offset, h, w, plan)
+            cycles = _cycles(libs[name], call, plan["blocks"], phases,
+                             symbol)
+            print(json.dumps({
+                "kernel": symbol, "node": node, "batch": b, "hw": [h, w],
+                "cin": cin, "cout": cout, "chunk": plan["chunk"],
+                "box_capacity": plan["box_capacity"],
+                "resident": plan["resident"], "blocks": plan["blocks"],
+                "splits": plan["splits"], "window_share": win / (win + gat),
+                "cycles_per_block": cycles,
+                "share": {p: c / sum(cycles.values())
+                          for p, c in cycles.items()}}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(KERNELS),
                     help="the kernels of this dtype (default: bfloat16)")
     ap.add_argument("--exact", action="store_true",
                     help="the exact forward, on trained offsets")
+    ap.add_argument("--exact-bwd", action="store_true",
+                    help="the exact backward kernels, on trained offsets")
     args = ap.parse_args(argv)
-    kernels = (EXACT if args.exact else KERNELS)[args.dtype]
+    kernels = (EXACT_BWD if args.exact_bwd else EXACT if args.exact
+               else KERNELS)[args.dtype]
     sys.path.insert(0, ROOT)
     import torch
     from centertrack_tpu_torch.ops import _build, dcn
@@ -182,9 +250,10 @@ def main(argv=None) -> int:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         launchers[symbol] = fn
-    if args.exact:
+    if args.exact or args.exact_bwd:
         with mock.patch.dict(_build._symbols, launchers):
-            _exact_phases(kernels, libs, dcn, torch, args.dtype)
+            (_exact_bwd_phases if args.exact_bwd else _exact_phases)(
+                kernels, libs, dcn, torch, args.dtype)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip())

@@ -7,8 +7,9 @@ Phases, each printing one JSON line with its elapsed seconds:
   device   the card's name and power limit (nvidia-smi); fails without CUDA
   build    nvcc builds of the port's kernel sources (csrc/dcn_local.cu,
            csrc/dcn_local_bwd.cu, csrc/dcn_local_bf16.cu,
-           csrc/dcn_local_bwd_bf16.cu, csrc/dcn_exact.cu, csrc/probes.cu,
-           csrc/tracker.cu) into build/, all started together
+           csrc/dcn_local_bwd_bf16.cu, csrc/dcn_exact.cu,
+           csrc/dcn_exact_bwd.cu, csrc/probes.cu, csrc/tracker.cu) into
+           build/, all started together
   probes   the 13 toolchain-probe kernels of csrc/probes.cu (the JAX
            package's tools/pallas_probe.py P0-P6 and pallas_probe2.py
            P10-P15) against their plain versions on seeded and on
@@ -80,6 +81,21 @@ Phases, each printing one JSON line with its elapsed seconds:
            launch of its kernel and of nothing else, a second launch bit
            for bit the first; plans, window shares, times on ~N(0, 3)
            and on the trained inputs, bounds, launches per frame
+  exact_grad, exact_grad_bf16  the exact op's backward kernels
+           (csrc/dcn_exact_bwd.cu: dcn_exact_bwd_data[_bf16],
+           dcn_exact_bwd_weight[_bf16]) through DCNExact, the wrapper's
+           CUDA route for a call that needs a gradient, against autograd
+           of deform_conv2d_plain at the exact phase's cases and offsets,
+           trained inputs included, with a seeded output grad: each call
+           launches the forward, data and weight kernels of its dtype
+           once and nothing else; every gradient float32 within
+           GRAD_REL_TOL of max|plain|, bf16 within BF16_ULPS ulps +
+           BF16_REL_OF_MAX max|plain|; through the launchers with route
+           counters equal to ops/dcn.exact_bwd_tile_routes (data) and
+           exact_tile_routes (weight, per tile and tap group); grad w,
+           grad offset and grad mask bit for bit over two launches;
+           plans, window shares, times on ~N(0, 3) and on the trained
+           inputs, plain times and bounds
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame a CUDA graph replay (the
@@ -155,14 +171,22 @@ Phases, each printing one JSON line with its elapsed seconds:
            the plain bf16 version; the B=1 kernel step's gradients must
            lie no further from a plain bf16 step's than twice that
            step's distance from a plain float32 step
+  train_dcn, train_dcn_bf16, train_dcn_mix, train_dcn_mix_bf16  the
+           train phases on the exact-trained checkpoint at dla_node "dcn"
+           (each exact kernel of the dtype, forward, bwd data and bwd
+           weight, 16 launches a step and no clamped one) and "dcn_mix"
+           (5 of each exact kernel and 11 of each clamped one, R=2), both
+           dtypes: a falling finite loss, the launches of every step, each
+           launch of a 13th step and of the B=1 step against the plain
+           version, the B=1 step's gradients against a plain-DCN step's
   kernels  one JSON line: the port's kernel table
 
 `--profile N` adds a phase after `path`, `path_bf16`, the three exact
 paths, `chunk` and
-`chunk_bf16` and one after the timed steps of `train` and of
-`train_bf16`: torch.profiler over N frames (graph replays) of each
-path, N chunk replays and N B=8 steps of each dtype, device time by
-kernel, kernels per frame and the device's idle share.
+`chunk_bf16` and one after the timed steps of every train phase:
+torch.profiler over N frames (graph replays) of each path, N chunk
+replays and N B=8 steps of each train phase, device time by kernel,
+kernels per frame and the device's idle share.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
@@ -238,7 +262,8 @@ PATH_FRAMES = 30
 PATH_WARMUP = 5
 PLAIN_FRAMES = 3
 SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16",
-           "dcn_local_bwd_bf16", "dcn_exact", "probes", "tracker")
+           "dcn_local_bwd_bf16", "dcn_exact", "dcn_exact_bwd", "probes",
+           "tracker")
 # the DCN kernels a serving path launches per frame, by (dla_node, compute
 # dtype): dcn_mix's 5 exact nodes run on the stride-16 and -32 maps, its
 # 11 clamped ones (R=2) on the stride-4 and -8 maps
@@ -265,6 +290,11 @@ LIFETIME_FRAMES = 3
 LIFETIME_BOUND_MB = 16
 EXACT_LAUNCHERS = {"dcn_exact_fwd": "launch_exact_fwd",
                    "dcn_exact_fwd_bf16": "launch_exact_fwd_bf16"}
+# the exact backward's launchers by dtype: (data, weight)
+EXACT_BWD_LAUNCHERS = {
+    "float32": ("launch_exact_bwd_data", "launch_exact_bwd_weight"),
+    "bfloat16": ("launch_exact_bwd_data_bf16",
+                 "launch_exact_bwd_weight_bf16")}
 # the path phases of the exact-trained checkpoint: (phase, dla_node,
 # compute dtype); the float32 "dcn" is both packages' default
 # configuration, the two bf16 ones the bench's exact legs (bench.py:319)
@@ -518,15 +548,109 @@ def dcn_bwd_bound_ms_bf16(n, cin, cout):
     return data, weight
 
 
-# the DCN kernels a training step launches, by compute dtype, and the
-# _RecordLaunches kinds that record them
-TRAIN_KERNELS = {
-    "float32": ("dcn_local_fwd", "dcn_local_bwd_data",
-                "dcn_local_bwd_weight"),
-    "bfloat16": ("dcn_local_fwd_bf16", "dcn_local_bwd_data_bf16",
-                 "dcn_local_bwd_weight_bf16")}
-TRAIN_KINDS = {"float32": ("fwd", "data", "weight"),
-               "bfloat16": ("bf16", "data_bf16", "weight_bf16")}
+def exact_corner_counts(offset, mask):
+    """(needed, live) corners of an exact call on these offsets and mask,
+    summed over pixels and taps: the corners the data kernel reads (inside
+    the map, one of its three weights not 0) and those the forward and
+    the weight kernel read (inside the map, hat weight not 0), as
+    ops/dcn's route rules take them."""
+    h, w = offset.shape[1:3]
+    needed = sum(int(u.sum()) for corners in dcn._exact_corner_sets(
+        offset, mask, h, w, True) for _, _, u in corners)
+    live = sum(int(u.sum()) for corners in dcn._exact_corner_sets(
+        offset, None, h, w, False) for _, _, u in corners)
+    return needed, live
+
+
+def _exact_bwd_bound(contraction, walk, elems, low):
+    """The larger of the operations (the contraction three times at the
+    TF32 peak at float32, at the bf16 peak at bf16; the corner walk at the
+    fp32 peak) and the bytes of ``elems`` values (4 or 2 bytes each) over
+    the memory rate, and which it is."""
+    if low:
+        t_ops = contraction / PEAK_BF16_FLOPS + walk / PEAK_FP32_FLOPS
+        t_bytes = 2.0 * elems / PEAK_BYTES_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+    return _bound_3xtf32_ms(contraction, walk, 4.0 * elems)
+
+
+def exact_bwd_data_bound_ms_3xtf32(n, cin, cout, needed, live):
+    """Least H100 time of ``dcn_exact_bwd_data`` on one call's inputs: the
+    G contraction, 2 n 9 Cin Cout operations, three times at the TF32
+    peak; the corner walk at the fp32 peak: per needed corner (``needed``
+    of ``exact_corner_counts``) 2 Cin operations for d_k and 6 for the
+    three sums, per live corner 2 Cin for the scatter into grad x; against
+    x, offset, mask, weight and the output grad read once and grad x,
+    grad offset and grad mask written once, 4 bytes a value."""
+    return _exact_bwd_bound(
+        2.0 * n * 9 * cin * cout, (2.0 * cin + 6) * needed + 2.0 * cin * live,
+        2 * n * cin + 2 * n * 27 + 9 * cin * cout + n * cout, False)
+
+
+def exact_bwd_data_bound_ms_bf16(n, cin, cout, needed, live):
+    """``exact_bwd_data_bound_ms_3xtf32`` for ``dcn_exact_bwd_data_bf16``:
+    the contraction once at the bf16 peak, 2 bytes a value."""
+    return _exact_bwd_bound(
+        2.0 * n * 9 * cin * cout, (2.0 * cin + 6) * needed + 2.0 * cin * live,
+        2 * n * cin + 2 * n * 27 + 9 * cin * cout + n * cout, True)
+
+
+def exact_bwd_weight_bound_ms_3xtf32(n, cin, cout, live):
+    """Least H100 time of ``dcn_exact_bwd_weight`` on one call's inputs:
+    the contraction over pixels, 2 n 9 Cin Cout operations, three times
+    at the TF32 peak; the sample A_t at the fp32 peak, 2 Cin operations a
+    live corner (``exact_corner_counts``); against x, offset, mask and
+    the output grad read once and grad w written once, 4 bytes a value."""
+    return _exact_bwd_bound(2.0 * n * 9 * cin * cout, 2.0 * cin * live,
+                            n * cin + n * 27 + n * cout + 9 * cin * cout,
+                            False)
+
+
+def exact_bwd_weight_bound_ms_bf16(n, cin, cout, live):
+    """``exact_bwd_weight_bound_ms_3xtf32`` for
+    ``dcn_exact_bwd_weight_bf16``: the contraction once at the bf16
+    peak, 2 bytes a value."""
+    return _exact_bwd_bound(2.0 * n * 9 * cin * cout, 2.0 * cin * live,
+                            n * cin + n * 27 + n * cout + 9 * cin * cout,
+                            True)
+
+
+# the DCN kernels a training step launches, by (dla_node, compute dtype),
+# each with its launches a step, and the _RecordLaunches kinds that record
+# them: dcn_mix's 5 exact nodes and 11 clamped ones (R=2)
+_LOCAL = {"float32": ("dcn_local_fwd", "dcn_local_bwd_data",
+                      "dcn_local_bwd_weight"),
+          "bfloat16": ("dcn_local_fwd_bf16", "dcn_local_bwd_data_bf16",
+                       "dcn_local_bwd_weight_bf16")}
+_EXACT = {"float32": ("dcn_exact_fwd", "dcn_exact_bwd_data",
+                      "dcn_exact_bwd_weight"),
+          "bfloat16": ("dcn_exact_fwd_bf16", "dcn_exact_bwd_data_bf16",
+                       "dcn_exact_bwd_weight_bf16")}
+_LOCAL_KINDS = {"float32": ("fwd", "data", "weight"),
+                "bfloat16": ("bf16", "data_bf16", "weight_bf16")}
+_EXACT_KINDS = {"float32": ("exact", "exact_data", "exact_weight"),
+                "bfloat16": ("exact_bf16", "exact_data_bf16",
+                             "exact_weight_bf16")}
+TRAIN_NODES = {"dcn_local1": (16, 0), "dcn": (0, 16), "dcn_mix": (11, 5)}
+
+
+def _per_step(local, exact, node, dt):
+    nl, ne = TRAIN_NODES[node]
+    return {k: n for names, n in ((local[dt], nl), (exact[dt], ne)) if n
+            for k in names}
+
+
+TRAIN_KERNELS = {(node, dt): _per_step(_LOCAL, _EXACT, node, dt)
+                 for node in TRAIN_NODES for dt in ("float32", "bfloat16")}
+TRAIN_KINDS = {(node, dt): _per_step(_LOCAL_KINDS, _EXACT_KINDS, node, dt)
+               for node in TRAIN_NODES for dt in ("float32", "bfloat16")}
+# the train phases of the exact-trained checkpoint: (phase, dla_node,
+# compute dtype)
+EXACT_TRAINS = (("train_dcn", "dcn", "float32"),
+                ("train_dcn_bf16", "dcn", "bfloat16"),
+                ("train_dcn_mix", "dcn_mix", "float32"),
+                ("train_dcn_mix_bf16", "dcn_mix", "bfloat16"))
 
 
 def _launches():
@@ -545,7 +669,12 @@ def _launches():
             "dcn_local_bwd_weight_gather_bf16":
                 dcn.BWD_WEIGHT_GATHER_BF16_LAUNCHES,
             "dcn_exact_fwd": dcn.EXACT_FWD_LAUNCHES,
-            "dcn_exact_fwd_bf16": dcn.EXACT_FWD_BF16_LAUNCHES}
+            "dcn_exact_fwd_bf16": dcn.EXACT_FWD_BF16_LAUNCHES,
+            "dcn_exact_bwd_data": dcn.EXACT_BWD_DATA_LAUNCHES,
+            "dcn_exact_bwd_data_bf16": dcn.EXACT_BWD_DATA_BF16_LAUNCHES,
+            "dcn_exact_bwd_weight": dcn.EXACT_BWD_WEIGHT_LAUNCHES,
+            "dcn_exact_bwd_weight_bf16":
+                dcn.EXACT_BWD_WEIGHT_BF16_LAUNCHES}
 
 
 def _tracker_modules():
@@ -568,6 +697,8 @@ def _reset_launches():
     dcn.FWD_GATHER_LAUNCHES = dcn.FWD_GATHER_BF16_LAUNCHES = 0
     dcn.BWD_DATA_GATHER_LAUNCHES = dcn.BWD_DATA_GATHER_BF16_LAUNCHES = 0
     dcn.EXACT_FWD_LAUNCHES = dcn.EXACT_FWD_BF16_LAUNCHES = 0
+    dcn.EXACT_BWD_DATA_LAUNCHES = dcn.EXACT_BWD_DATA_BF16_LAUNCHES = 0
+    dcn.EXACT_BWD_WEIGHT_LAUNCHES = dcn.EXACT_BWD_WEIGHT_BF16_LAUNCHES = 0
     for name, module in _tracker_modules().items():
         module.LAUNCHES[name] = 0
 
@@ -1702,6 +1833,234 @@ def phase_exact(trained):
                    r["window_tiles"] + r["gather_tiles"] for r in mix)}
     emit("exact_dcn_mix", **mix_row)
     return rows, mix_row
+
+
+def _exact_grad_ref(x, offset, mask, weight, g):
+    """Autograd of deform_conv2d_plain on CUDA: the grads of x, offset,
+    mask and weight, in x's dtype (bf16: the float32 vjp on the bf16
+    values, each gradient rounded once)."""
+    ts = [t.clone().requires_grad_() for t in (x, offset, mask, weight)]
+    return torch.autograd.grad(dcn.deform_conv2d_plain(*ts), ts, g)
+
+
+def _exact_bwd_plan_row(plan):
+    return {k: plan[k] for k in (
+        "tile", "chunk", "warpgroups", "k_tile", "pieces", "n_tile", "taps",
+        "window_slots", "box_capacity", "resident", "splits", "blocks",
+        "smem_bytes") if k in plan}
+
+
+def exact_grad_check(args, g):
+    """One checked backward of the exact op on ``args`` (x, offset, mask,
+    weight, bias) and output grad ``g``: through ``deform_conv2d`` with
+    every input needing a gradient, which must route to DCNExact and
+    launch the forward, data and weight kernels of the dtype once each
+    and nothing else (every launch count set to 0 just before); each
+    gradient finite, of x's dtype, against autograd of
+    deform_conv2d_plain (float32 within GRAD_REL_TOL of max|plain|, bf16
+    every element within BF16_ULPS ulps + BF16_REL_OF_MAX max|plain|),
+    the bias grad the float32 sum of g; then the data and weight
+    launchers with route counters, equal to ``exact_bwd_tile_routes`` and
+    ``exact_tile_routes``, and a second launch of each whose grad offset,
+    grad mask and grad w are bit for bit the first's. Returns (errors,
+    data routes, weight routes, the plain autograd's ms)."""
+    x, off, mask, weight, bias = args
+    low = x.dtype == torch.bfloat16
+    sfx = "_bf16" if low else ""
+    b, h, w, cin = x.shape
+    cout = weight.shape[3]
+    what = f"exact backward{sfx} {b}x{h}x{w} {cin}->{cout}"
+    if dcn.exact_route(x.device, x.dtype, True) != dcn.DCNExact.apply:
+        raise RuntimeError(f"{what}: the CUDA route with a gradient is not "
+                           f"DCNExact")
+    ins = [t.clone().requires_grad_() for t in args]
+    _reset_launches()
+    dcn.deform_conv2d(*ins).backward(g)
+    mine = {k + sfx for k in ("dcn_exact_fwd", "dcn_exact_bwd_data",
+                              "dcn_exact_bwd_weight")}
+    if _launches() != {k: int(k in mine) for k in _launches()}:
+        raise RuntimeError(f"{what}: launches {_launches()}")
+    ref, plain_ms = _timed(lambda: _exact_grad_ref(x, off, mask, weight, g))
+    errs = {}
+    for name, got, rf in zip(("x", "offset", "mask", "weight"),
+                             (t.grad for t in ins), ref):
+        if got.dtype != x.dtype or not torch.isfinite(got).all():
+            raise RuntimeError(f"{what}: grad {name} {got.dtype}, or not "
+                               f"finite")
+        scale = rf.float().abs().max().item()
+        if low:
+            err, past_ulp, past = bf16_agreement(got, rf)
+            bad = past > 0
+        else:
+            err, past_ulp = (got - rf).abs().max().item(), None
+            bad = err > GRAD_REL_TOL * scale
+        if bad:
+            raise RuntimeError(f"{what}: grad {name} max abs err {err} "
+                               f"(max|plain| {scale}) past the tolerance")
+        errs[name] = {"max_abs_err": err, "max_abs_ref": scale}
+        if low:
+            errs[name]["elements_past_1_ulp"] = past_ulp
+    if not torch.equal(ins[4].grad, g.float().sum((0, 1, 2)).to(g.dtype)):
+        raise RuntimeError(f"{what}: grad bias is not the sum of g")
+    data, weight_fn = (getattr(dcn, f) for f in EXACT_BWD_LAUNCHERS[
+        "bfloat16" if low else "float32"])
+    counts = [torch.zeros(2, dtype=torch.int32, device="cuda")
+              for _ in range(2)]
+    first = (*data(x, off, mask, weight, g, counts[0])[1:],
+             weight_fn(x, off, mask, g, cout, counts[1]))
+    second = (*data(x, off, mask, weight, g)[1:],
+              weight_fn(x, off, mask, g, cout))
+    if not all(torch.equal(a, c) for a, c in zip(first, second)):
+        raise RuntimeError(f"{what}: grad offset, mask or weight differ "
+                           f"over two launches")
+    planners = ((dcn.exact_bwd_data_bf16_plan, dcn.exact_bwd_weight_bf16_plan)
+                if low else (dcn.exact_bwd_data_fp32_plan,
+                             dcn.exact_bwd_weight_fp32_plan))
+    want = (dcn.exact_bwd_tile_routes(off, mask, h, w,
+                                      planners[0](b, h, w, cin, cout)),
+            dcn.exact_tile_routes(off, h, w, planners[1](b, h, w, cin,
+                                                         cout)))
+    routes = tuple(tuple(c.tolist()) for c in counts)
+    if routes != want:
+        raise RuntimeError(f"{what}: route counts (data, weight) {routes}, "
+                           f"the rules say {want}")
+    errs["data_routes"], errs["weight_routes"] = routes
+    return errs, routes, plain_ms
+
+
+def _exact_bwd_times(args, g):
+    """(data ms, data device ms, weight ms, weight device ms, plain data
+    ms, plain weight ms): the two launchers by CUDA events and
+    spin-queued device time, and the plain version's autograd of the
+    same gradients (from one forward, as phase_grad times it)."""
+    x, off, mask, weight, _ = args
+    low = x.dtype == torch.bfloat16
+    data, weight_fn = (getattr(dcn, f) for f in EXACT_BWD_LAUNCHERS[
+        "bfloat16" if low else "float32"])
+    cout = weight.shape[3]
+    call_d = lambda: data(x, off, mask, weight, g)
+    call_w = lambda: weight_fn(x, off, mask, g, cout)
+    pins = [t.clone().requires_grad_() for t in (x, off, mask, weight)]
+    pout = dcn.deform_conv2d_plain(*pins)
+    out = (time_ms(call_d, 3, 20), queued_us(call_d, 20) / 1e3,
+           time_ms(call_w, 3, 20), queued_us(call_w, 20) / 1e3,
+           time_ms(lambda: torch.autograd.grad(pout, pins[:3], g,
+                                               retain_graph=True), 1, 3),
+           time_ms(lambda: torch.autograd.grad(pout, pins[3:], g,
+                                               retain_graph=True), 1, 3))
+    del pout, pins
+    return out
+
+
+def _exact_bwd_bounds(args, low):
+    """(data bound, its kind, weight bound, its kind) of one call on
+    these inputs, from their corner counts."""
+    x, off, mask, weight, _ = args
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    cin, cout = x.shape[3], weight.shape[3]
+    needed, live = exact_corner_counts(off, mask)
+    data = (exact_bwd_data_bound_ms_bf16 if low else
+            exact_bwd_data_bound_ms_3xtf32)(n, cin, cout, needed, live)
+    weight_ = (exact_bwd_weight_bound_ms_bf16 if low else
+               exact_bwd_weight_bound_ms_3xtf32)(n, cin, cout, live)
+    return (*data, *weight_)
+
+
+def phase_exact_grad(trained, dtype):
+    """The exact op's backward kernels of ``dtype`` by
+    ``exact_grad_check`` at ``_exact_cases()`` and one output grad wider
+    than a G piece (Cout 384), each on offsets of every
+    EXACT_OFFSETS kind and, at the neck shapes, on ``trained``
+    (``trained_exact_inputs``: every launch of the dcn forward of the
+    dtype whose shape it is, repeated to the case's batch), each with a
+    seeded output grad. Times of both kernels (per launch, spin-queued
+    device time, the plain autograd's) and their bounds on the ~N(0, 3)
+    offsets and on the trained inputs (their mean over the shape's
+    nodes), both plans, the window shares, the launches per training
+    step and image by dla_node."""
+    low = dtype == "bfloat16"
+    phase = "exact_grad" + ("_bf16" if low else "")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    tdt = getattr(torch, dtype)
+    rows = []
+    wide = ("wide", 1, 17, 30, 64, 384, {"dcn": 0, "dcn_mix": 0},
+            "an output grad past one G piece (EXACT_DATA_MAX_K)")
+    for name, b, h, w, cin, cout, per_frame, layers in (_exact_cases()
+                                                        + [wide]):
+        x, _, mask, weight, bias, g = dcn_inputs(gen, b, h, w, cin, cout, 1,
+                                                 tdt)
+        errs, timed = {}, None
+        for spread in EXACT_OFFSETS:
+            off = exact_offsets(gen, b, h, w, spread, tdt)
+            args = (x, off, mask, weight, bias)
+            errs[str(spread)], _, plain_ms = exact_grad_check(args, g)
+            if timed is None:
+                timed = args
+        t_n3 = _exact_bwd_times(timed, g)
+        bounds_n3 = _exact_bwd_bounds(timed, low)
+        nodes = [a for a in trained["dcn", dtype]
+                 if (a[0].shape[1:], a[3].shape[3]) == ((h, w, cin), cout)]
+        if per_frame["dcn"] and len(nodes) != per_frame["dcn"]:
+            raise RuntimeError(f"{name} {cin}->{cout}: {len(nodes)} trained "
+                               f"launches, expected {per_frame['dcn']}")
+        trained_rows = []
+        for i, node in enumerate(nodes):
+            node = _batched(node, b)
+            gt = torch.randn(b, h, w, cout, generator=gen,
+                             device="cuda").to(tdt)
+            errs[f"trained_{i}"], _, _ = exact_grad_check(node, gt)
+            t = _exact_bwd_times(node, gt)
+            bd = _exact_bwd_bounds(node, low)
+            trained_rows.append({
+                "data_ms": t[0], "data_device_ms": t[1], "weight_ms": t[2],
+                "weight_device_ms": t[3], "data_plain_ms": t[4],
+                "weight_plain_ms": t[5], "data_bound_ms": bd[0],
+                "weight_bound_ms": bd[2]})
+        mean = lambda k: (statistics.mean(r[k] for r in trained_rows)
+                          if trained_rows else None)
+        share = lambda which, kinds: (
+            sum(e[which + "_routes"][0] for k, e in errs.items() if kinds(k))
+            / max(1, sum(sum(e[which + "_routes"]) for k, e in errs.items()
+                         if kinds(k))))
+        planners = ((dcn.exact_bwd_data_bf16_plan,
+                     dcn.exact_bwd_weight_bf16_plan) if low else
+                    (dcn.exact_bwd_data_fp32_plan,
+                     dcn.exact_bwd_weight_fp32_plan))
+        row = {"map": name, "batch": b, "hw": [h, w], "cin": cin,
+               "cout": cout, "launches_per_step_and_image": per_frame,
+               "layers": layers,
+               "data_plan": _exact_bwd_plan_row(planners[0](b, h, w, cin,
+                                                            cout)),
+               "weight_plan": _exact_bwd_plan_row(planners[1](b, h, w, cin,
+                                                              cout)),
+               "window_share": {
+                   which: {"n3": share(which, lambda k: k == "3.0"),
+                           "trained": (share(which, lambda k: k.startswith(
+                               "trained")) if trained_rows else None)}
+                   for which in ("data", "weight")},
+               "data_max_abs_err": max(e[k]["max_abs_err"]
+                                       for e in errs.values()
+                                       for k in ("x", "offset", "mask")),
+               "weight_max_abs_err": max(e["weight"]["max_abs_err"]
+                                         for e in errs.values()),
+               "by_offsets": errs,
+               "tol": ({"ulps": BF16_ULPS, "of_max": BF16_REL_OF_MAX}
+                       if low else {"rel": GRAD_REL_TOL}),
+               "weight_offset_mask_bit_identical_over_two_launches": True,
+               "data_ms": t_n3[0], "data_device_ms": t_n3[1],
+               "weight_ms": t_n3[2], "weight_device_ms": t_n3[3],
+               "data_plain_ms": t_n3[4], "weight_plain_ms": t_n3[5],
+               "data_bound_ms": bounds_n3[0], "data_bound_by": bounds_n3[1],
+               "weight_bound_ms": bounds_n3[2],
+               "weight_bound_by": bounds_n3[3],
+               **{k + "_trained": mean(k) for k in (
+                   "data_ms", "data_device_ms", "weight_ms",
+                   "weight_device_ms", "data_plain_ms", "weight_plain_ms",
+                   "data_bound_ms", "weight_bound_ms")},
+               "trained_nodes": trained_rows, "library_ms": None}
+        rows.append(row)
+        emit(phase, **row)
+    return rows
 
 
 def phase_path_exact(phase, node, dtype, ref_packed=None, n_profile=0):
@@ -2840,14 +3199,22 @@ class _RecordLaunches:
     """While active, keeps a copy of the inputs and outputs of every
     launch of the DCN kernels of ``kinds`` (the three float32 kernels by
     default; "bf16", "data_bf16" and "weight_bf16" are the bf16 ones,
-    "exact" and "exact_bf16" the exact forwards), to hold each against
-    the plain version on the same inputs afterwards (``check``)."""
+    "exact" and "exact_bf16" the exact forwards, "exact_data",
+    "exact_weight" and their "_bf16" twins the exact backward's), to hold
+    each against the plain version on the same inputs afterwards
+    (``check``)."""
 
     ALL = {"fwd": "launch_fwd", "data": "launch_bwd_data",
            "weight": "launch_bwd_weight", "bf16": "launch_fwd_bf16",
            "data_bf16": "launch_bwd_data_bf16",
            "weight_bf16": "launch_bwd_weight_bf16",
-           "exact": "launch_exact_fwd", "exact_bf16": "launch_exact_fwd_bf16"}
+           "exact": "launch_exact_fwd", "exact_bf16": "launch_exact_fwd_bf16",
+           "exact_data": "launch_exact_bwd_data",
+           "exact_weight": "launch_exact_bwd_weight",
+           "exact_data_bf16": "launch_exact_bwd_data_bf16",
+           "exact_weight_bf16": "launch_exact_bwd_weight_bf16"}
+    LOW = ("bf16", "data_bf16", "weight_bf16", "exact_bf16",
+           "exact_data_bf16", "exact_weight_bf16")
 
     def __init__(self, kinds=("fwd", "data", "weight")):
         self.LAUNCHERS = {k: self.ALL[k] for k in kinds}
@@ -2890,10 +3257,21 @@ class _RecordLaunches:
                                f"{per_kind} of each kernel")
         worst = dict.fromkeys(self.LAUNCHERS, 0.0)
         for kind, args, outs in self.calls:
-            if kind in ("bf16", "data_bf16", "weight_bf16", "exact_bf16"):
+            if kind in ("exact_data", "exact_weight", "exact_data_bf16",
+                        "exact_weight_bf16"):
+                if "data" in kind:
+                    ref = _exact_grad_ref(*args[:5])[:3]
+                else:
+                    x, offset, mask, g, cout = args[:5]
+                    w = torch.zeros(3, 3, x.shape[3], cout, device=x.device,
+                                    dtype=x.dtype)
+                    ref = _exact_grad_ref(x, offset, mask, w, g)[3:]
+            if kind in self.LOW:
                 if kind == "exact_bf16":
                     with torch.no_grad():
                         ref = [dcn.deform_conv2d_plain(*args)]
+                elif kind in ("exact_data_bf16", "exact_weight_bf16"):
+                    pass
                 elif kind == "bf16":
                     with torch.no_grad():
                         ref = [dcn.deform_conv2d_local_plain(*args)]
@@ -2920,6 +3298,10 @@ class _RecordLaunches:
                 with torch.no_grad():
                     ref = [plain(*args)]
                 names, tol = ("out",), REL_TOL
+            elif kind == "exact_data":
+                names, tol = ("x", "offset", "mask"), GRAD_REL_TOL
+            elif kind == "exact_weight":
+                names, tol = ("weight",), GRAD_REL_TOL
             elif kind == "data":
                 x, offset, mask, weight, g, r = args
                 ts = [t.clone().requires_grad_() for t in (x, offset, mask)]
@@ -3032,17 +3414,17 @@ def _fresh_model(cfg, params, batch_stats, plain=False):
     return model
 
 
-def _train_cfg(dtype):
+def _train_cfg(dtype, node="dcn_local1"):
     return set_heads(parse_task(Config(
-        task="tracking", pre_hm=True, dla_node="dcn_local1",
+        task="tracking", pre_hm=True, dla_node=node,
         batch_size=TRAIN_B, lr=TRAIN_LR, compute_dtype=dtype)), MOT_META)
 
 
 def _b1_step(cfg, params, batch_stats, one, plain, kinds=None):
     """One B=1 training step from the checkpoint, DCN on the kernels or
-    on its plain version; with ``kinds`` every DCN launch is recorded
-    and held against the plain version. Returns (the step's record, its
-    gradients)."""
+    on its plain version; with ``kinds`` (each kind's launches a step)
+    every DCN launch is recorded and held against the plain version.
+    Returns (the step's record, its gradients)."""
     model = _fresh_model(cfg, params, batch_stats, plain)
     t1 = Trainer(cfg, model, "cuda")
     torch.cuda.synchronize()
@@ -3058,7 +3440,7 @@ def _b1_step(cfg, params, batch_stats, one, plain, kinds=None):
                "launches": {k: v - before[k]
                             for k, v in _launches().items()}}
     if kinds:
-        rec_row["launch_worst_rel_err"] = rec.check(16)
+        rec_row["launch_worst_rel_err"] = rec.check(kinds)
     grads = {n: p.grad.detach().clone()
              for n, p in model.named_parameters() if p.grad is not None}
     if any(g.dtype != torch.float32 for g in grads.values()):
@@ -3076,14 +3458,18 @@ def _rel_l2(grads, ref):
             / sum((g ** 2).sum().item() for g in ref.values())) ** .5
 
 
-def phase_train(n_profile=0, dtype="float32"):
+def phase_train(n_profile=0, dtype="float32", node="dcn_local1",
+                phase=None):
     """``n_profile`` > 0 adds a torch.profiler pass over that many
-    B=8 steps after the timed ones."""
-    phase = "train" if dtype == "float32" else "train_bf16"
+    B=8 steps after the timed ones. ``node`` "dcn_local1" trains the
+    local1 checkpoint (phases train, train_bf16), "dcn" and "dcn_mix" the
+    exact-trained one (EXACT_TRAINS)."""
+    phase = phase or ("train" if dtype == "float32" else "train_bf16")
     low = dtype != "float32"
-    cfg = _train_cfg(dtype)
-    kernels, kinds = TRAIN_KERNELS[dtype], TRAIN_KINDS[dtype]
-    params, batch_stats = load_jax_ckpt(CKPT)
+    cfg = _train_cfg(dtype, node)
+    kernels, kinds = TRAIN_KERNELS[node, dtype], TRAIN_KINDS[node, dtype]
+    params, batch_stats = load_jax_ckpt(CKPT if node == "dcn_local1"
+                                        else CKPT_DCN)
     frames, boxes = synth_clip(TRAIN_B + 1, seed=1)
     batch = train_batch(cfg, frames, boxes, "cuda")
     trainer = Trainer(cfg, _fresh_model(cfg, params, batch_stats), "cuda")
@@ -3111,10 +3497,10 @@ def phase_train(n_profile=0, dtype="float32"):
     if not tot[-1] < tot[0]:
         raise RuntimeError(f"loss did not fall over {TRAIN_STEPS} steps at "
                            f"{dtype}: {tot}")
-    want = {k: 16 * TRAIN_STEPS if k in kernels else 0 for k in counts}
+    want = {k: kernels.get(k, 0) * TRAIN_STEPS for k in counts}
     if counts != want:
         raise RuntimeError(f"DCN launches over {TRAIN_STEPS} steps at "
-                           f"{dtype}: {counts}, expected {want}")
+                           f"{node} {dtype}: {counts}, expected {want}")
     if any(p.dtype != torch.float32 or (p.grad is not None and
                                         p.grad.dtype != torch.float32)
            for p in trainer.model.parameters()):
@@ -3122,7 +3508,7 @@ def phase_train(n_profile=0, dtype="float32"):
     # one more B=8 step, every launch held against the plain version
     with _RecordLaunches(kinds) as rec:
         trainer.train_step(batch, TRAIN_LR)
-    b8_worst = rec.check(16)
+    b8_worst = rec.check(kinds)
     del rec
     if n_profile:
         _profile(lambda: float(trainer.train_step(batch, TRAIN_LR)["tot"]),
@@ -3137,17 +3523,17 @@ def phase_train(n_profile=0, dtype="float32"):
                                              False, kinds)
     b1["plain"], grads["plain"] = _b1_step(cfg, params, batch_stats, one,
                                            True)
-    if b1["kernel"]["launches"] != {k: 16 if k in kernels else 0
-                                    for k in counts}:
+    if b1["kernel"]["launches"] != {k: kernels.get(k, 0) for k in counts}:
         raise RuntimeError(f"DCN launches of the B=1 kernel step at "
-                           f"{dtype}: {b1['kernel']['launches']}, expected "
-                           f"16 of each of {kernels}")
+                           f"{node} {dtype}: {b1['kernel']['launches']}, "
+                           f"expected {kernels}")
     if any(b1["plain"]["launches"].values()):
         raise RuntimeError(f"the plain-DCN step launched kernels: "
                            f"{b1['plain']['launches']}")
     ref = grads["plain"]
     l2 = _rel_l2(grads["kernel"], ref)
-    row = {"compute_dtype": dtype, "input": [cfg.input_h, cfg.input_w],
+    row = {"dla_node": node, "compute_dtype": dtype,
+           "input": [cfg.input_h, cfg.input_w],
            "flags_outside": flags_outside,
            "flags_inside_train_step": flags_inside[0],
            "batch": TRAIN_B, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
@@ -3166,8 +3552,8 @@ def phase_train(n_profile=0, dtype="float32"):
            "b1_grad_tensors": len(ref), "b1_grad_rel_l2": l2}
     if low:
         # the yardstick: the plain bf16 step against the plain fp32 step
-        b1["plain_fp32"], fp32 = _b1_step(_train_cfg("float32"), params,
-                                          batch_stats, one, True)
+        b1["plain_fp32"], fp32 = _b1_step(_train_cfg("float32", node),
+                                          params, batch_stats, one, True)
         dist = _rel_l2(ref, fp32)
         tol = BF16_GRAD_L2_OF_FP32_DIST * dist
         if not l2 <= tol:
@@ -3233,7 +3619,11 @@ def main(argv):
         gather_rows = {dt: phase_gather(dt)
                        for dt in ("float32", "bfloat16")}
         route_rows = phase_gather_routes()
-        exact_rows, exact_mix = phase_exact(trained_exact_inputs())
+        trained = trained_exact_inputs()
+        exact_rows, exact_mix = phase_exact(trained)
+        exact_grad_rows = {dt: phase_exact_grad(trained, dt)
+                           for dt in ("float32", "bfloat16")}
+        del trained
     path, det, frames, cfg, packed = phase_path()
     if n_profile:
         phase_profile(det, frames, cfg, n_profile)
@@ -3258,6 +3648,8 @@ def main(argv):
         torch.cuda.empty_cache()
     train = phase_train(n_profile)
     train_bf16 = phase_train(n_profile, "bfloat16")
+    train_exact = {phase: phase_train(n_profile, dtype, node, phase)
+                   for phase, node, dtype in EXACT_TRAINS}
 
     neck = [r for r in rows if r["launches_per_frame"] and r["batch"] == 1]
     neck8 = [r for r in rows
@@ -3298,6 +3690,9 @@ def main(argv):
             "tracker_launches"])[name],
         "train_bf16": (launches_bf16 if name in launches_bf16 else
                        train_bf16["tracker_launches"])[name],
+        **{phase: (r["dcn_launches"] if name in r["dcn_launches"] else
+                   r["tracker_launches"])[name]
+           for phase, r in train_exact.items()},
         "probes": probe_dcn_launches.get(name, 0)}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "
@@ -3486,6 +3881,67 @@ def main(argv):
             exact_row["bound_ms_fp32_cuda_cores"] = frame(
                 "bound_ms_fp32_cuda_cores")
         kernels.append(exact_row)
+    for low in (False, True):
+        dt = "bfloat16" if low else "float32"
+        rs = exact_grad_rows[dt]
+        one = [r for r in rs if r["launches_per_step_and_image"]["dcn"]
+               and r["batch"] == 1]
+        six = [r for r in rs if r["launches_per_step_and_image"]["dcn"]
+               and r["batch"] == EXACT_BATCH]
+        image = lambda key, rows_=one: sum(
+            r[key] * r["launches_per_step_and_image"]["dcn"] for r in rows_)
+        for kind in ("data", "weight"):
+            kname = f"dcn_exact_bwd_{kind}" + ("_bf16" if low else "")
+            tiles = lambda route: sum(
+                e[kind + "_routes"][route] for r in one
+                for k, e in r["by_offsets"].items() if k.startswith("trained"))
+            kernels.append({
+                "name": kname, "route": "cuda",
+                "source": "centertrack_tpu_torch/csrc/dcn_exact_bwd.cu",
+                "replaces": "centertrack_tpu/ops/dcn.py:315",
+                "replaces_kind": "the backward of deform_conv2d, jax.vjp of "
+                                 "its XLA gather (no pl.pallas_call): "
+                                 "_deform_conv2d_slot at h*w >= 4096, "
+                                 "_deform_conv2d_onehot below",
+                "at": dt + " inputs",
+                "design": (
+                    "a 4x16 tile a block: G = g w^T on "
+                    + ("bf16 wgmma" if low else "3xTF32 wgmma")
+                    + ", the tile's box of every needed corner copied by "
+                      "cp.async, grad x summed by shared-memory atomics, "
+                      "the corners gathered from global memory where the "
+                      "box does not fit, K splits by waves"
+                    if kind == "data" else
+                    "wgmma over pixels (" + ("bf16" if low else "3xTF32")
+                    + "), A_t from each tile's box of live corners copied "
+                      "by cp.async a tile ahead, or from global memory "
+                      "where it does not fit, pixel splits by waves"),
+                "launches": train_exact[
+                    "train_dcn_bf16" if low else "train_dcn"][
+                    "dcn_launches"][kname],
+                "launches_by_path": by_path(kname),
+                "max_abs_err": max(r[kind + "_max_abs_err"] for r in rs),
+                "per": "one 544x960 image of a training step at dla_node "
+                       "dcn: the 16 launches of the neck shapes at B=1, each "
+                       "on its node's own inputs from one forward of the "
+                       "first synthetic frame, with a seeded output grad",
+                "ms": image(kind + "_ms_trained"),
+                "device_ms": image(kind + "_device_ms_trained"),
+                "ms_n3_offsets": image(kind + "_ms"),
+                "device_ms_n3_offsets": image(kind + "_device_ms"),
+                "device_ms_per_image_at_b6": image(
+                    kind + "_device_ms_trained", six) / EXACT_BATCH,
+                "window_share_trained": tiles(0) / max(
+                    1, tiles(0) + tiles(1)),
+                "plain_ms": image(kind + "_plain_ms_trained"),
+                "bound_ms": image(kind + "_bound_ms_trained"),
+                "bound_ms_n3_offsets": image(kind + "_bound_ms"),
+                "bound_by": ("operations" if all(
+                    r[kind + "_bound_by"] == "operations" for r in one)
+                    else "bytes"),
+                "plans": {f"{r['map']} {r['cin']}->{r['cout']}":
+                          r[kind + "_plan"] for r in one},
+                "library_ms": None})
     replaces = {"greedy_assign": "centertrack_tpu/engine/device_tracker.py:70",
                 "splat_pre_hm": "centertrack_tpu/ops/gaussian.py:214"}
     designs = {"greedy_assign": "one block per stream: a parallel pass of "

@@ -183,10 +183,13 @@ def test_cpu_wrapper_takes_the_plain_version_and_launches_nothing():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_call_that_needs_a_gradient_raises(dtype):
-    """No backward kernel yet: the CUDA route refuses a gradient and names
-    the queued work, and never falls back to the plain version there."""
-    with pytest.raises(NotImplementedError, match="A4b"):
-        dcn.exact_route(torch.device("cuda"), dtype, needs_grad=True)
+    """(The name is the earlier contract's, when this route raised.) A
+    CUDA call that needs a gradient no longer raises: its route is
+    ``DCNExact.apply``, whose forward and backward launch the kernels of
+    the dtype, and never the plain version, which stays the CPU route."""
+    route = dcn.exact_route(torch.device("cuda"), dtype, needs_grad=True)
+    assert route == dcn.DCNExact.apply
+    assert route is not dcn.deform_conv2d_plain
     assert dcn.exact_route(torch.device("cpu"), dtype,
                            needs_grad=True) is dcn.deform_conv2d_plain
 

@@ -489,7 +489,7 @@ def test_record_launches_holds_the_bf16_backward_kernels(monkeypatch,
                                                        (2, 5, 6, 18)),
                     rng.rand(2, 5, 6, 9), rng.randn(3, 3, 4, 3),
                     rng.randn(3))]
-    kinds = chip_smoke.TRAIN_KINDS["bfloat16"]
+    kinds = chip_smoke.TRAIN_KINDS["dcn_local1", "bfloat16"]
     with chip_smoke._RecordLaunches(kinds) as rec:
         dcn.DCNLocal.apply(*ts, 1).backward(
             torch.from_numpy(rng.randn(2, 5, 6, 3)).bfloat16())
