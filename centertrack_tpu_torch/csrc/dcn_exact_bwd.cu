@@ -67,7 +67,12 @@
 //       neighbouring tiles, may hit one corner. A float32 grad-x tile in
 //       shared memory would need atomics there, which sm_90 runs as
 //       compare-and-swap loops (ATOMS.CAST.SPIN): such a tile made this
-//       kernel about twice as slow (PERF.md).
+//       kernel about twice as slow (PERF.md). Summing grad x over the
+//       tile's box on the tensor cores instead (S_t^T G_t in 3xTF32,
+//       flushed once a chunk) cut the reductions 8x and made it slower at
+//       both dtypes (PERF.md): no thread waits for a reduction, and they
+//       take 6-13% (float32) and 11-29% (bf16) of a block's cycles, the
+//       walk's reads and sums 40-59%.
 //   grad offset and grad mask are summed over a thread's channels, then its
 //   quad by shuffles, then its warpgroups and the chunks in a fixed order,
 //   so they are the same bit for bit on every launch; grad x sums in an
@@ -101,7 +106,11 @@
 // A launch given `route_counts` (two ints) adds each tile's route to them:
 // window tiles, gather tiles (the weight kernels: each tile and tap group
 // once). ops/dcn.exact_bwd_tile_routes and exact_tile_routes are the two
-// rules in PyTorch.
+// rules in PyTorch. A data launch given `reductions` (one 64-bit int) adds
+// to it the float32 values its blocks added into grad x (or the scratch)
+// by global reductions: it runs the kernel's COUNT instance, in which each
+// thread counts them as it sends them and each warp adds its sum once at
+// the end; a launch without runs the instance that does not count.
 //
 // What bounds them on the H100: the G and grad-w contractions, 2 * 9 * Cin
 // * Cout operations a pixel each (three times at the dense TF32 peak at
@@ -266,6 +275,7 @@ struct DataArgs {
   T* grad_mask;
   float* partial;
   int* route_counts;
+  unsigned long long* reductions;
   int64_t npix;
   int H, W, Cin, Cout, KC, pieces, KP;
   int tiles_x, tiles_y, nsteps, splits, cap;
@@ -273,8 +283,9 @@ struct DataArgs {
 
 // The data kernel for chunks of CK input channels, NWG warpgroups, each
 // with NW = CK / NWG of them (its wgmma N); the warpgroups share the
-// tile's shared memory and touch distinct channels of it.
-template <typename T, int CK, int NWG>
+// tile's shared memory and touch distinct channels of it. COUNT: add the
+// reductions into grad x to a.reductions.
+template <typename T, int CK, int NWG, bool COUNT>
 __global__ void __launch_bounds__(128 * NWG)
     dcn_exact_bwd_data_kernel(const DataArgs<T> a) {
   constexpr bool LOW = is_low<T>();
@@ -458,6 +469,7 @@ __global__ void __launch_bounds__(128 * NWG)
   // summed in a fixed order: by step, then by warpgroup.
   float pend[2][3];
   int pend_t = -1;
+  int reduced = 0;  // floats this thread added into grad x
   const auto add_sums = [&](int tap, const float (&v)[2][3]) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -575,8 +587,11 @@ __global__ void __launch_bounds__(128 * NWG)
 #pragma unroll
         for (int i = 0; i < CPT; ++i)
           add[i] = wt * G[4 * (i >> 1) + 2 * hh + (i & 1)];
+        DCN_PHASE(2);
         scatter<CPT>(acc_img + ((int64_t)yy * W + xc) * Cin + ch0, add,
                      Cin - ch0, acc_al);
+        DCN_PHASE(4);  // phase 4: grad x's global reductions
+        if constexpr (COUNT) reduced += min(max(Cin - ch0, 0), CPT);
       }
     }
 #pragma unroll
@@ -597,7 +612,7 @@ __global__ void __launch_bounds__(128 * NWG)
         pend_t = t;
       }
     }
-    DCN_PHASE(2);  // phase 2: the corner walk and its sums
+    DCN_PHASE(2);  // phase 2: the corner walk's reads and its sums
     if (chunk_ends) {
       __syncthreads();  // the chunk's walks are done: its window is free
       DCN_PHASE(3);  // phase 3: the chunk's barrier
@@ -610,6 +625,13 @@ __global__ void __launch_bounds__(128 * NWG)
   }
   DCN_PHASE(0);
   DCN_PHASES_END;
+  if constexpr (COUNT) {
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1)
+      reduced += __shfl_xor_sync(0xffffffffu, reduced, k);
+    if (lane == 0 && reduced)
+      atomicAdd(a.reductions, (unsigned long long)reduced);
+  }
   __syncthreads();
   if (pend_t >= 0) add_sums(pend_t, pend);
   __syncthreads();
@@ -681,19 +703,28 @@ __global__ void dcn_exact_round_kernel(const float* __restrict__ src,
   if (e < count) dst[e] = __float2bfloat16_rn(src[e]);
 }
 
-template <typename T, int CK, int NWG>
-int launch_data_kernel(const DataArgs<T>& a, dim3 grid, int smem,
-                       cudaStream_t s) {
+template <typename T, int CK, int NWG, bool COUNT>
+int launch_data_instance(const DataArgs<T>& a, dim3 grid, int smem,
+                         cudaStream_t s) {
   static int smem_set = 0;  // the dynamic shared memory allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dcn_exact_bwd_data_kernel<T, CK, NWG>,
+        dcn_exact_bwd_data_kernel<T, CK, NWG, COUNT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  dcn_exact_bwd_data_kernel<T, CK, NWG><<<grid, 128 * NWG, smem, s>>>(a);
+  dcn_exact_bwd_data_kernel<T, CK, NWG, COUNT>
+      <<<grid, 128 * NWG, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int CK, int NWG>
+int launch_data_kernel(const DataArgs<T>& a, dim3 grid, int smem,
+                       cudaStream_t s) {
+  if (a.reductions)
+    return launch_data_instance<T, CK, NWG, true>(a, grid, smem, s);
+  return launch_data_instance<T, CK, NWG, false>(a, grid, smem, s);
 }
 
 // The plan's checks, the weight split (float32), the launch, the split
@@ -1374,7 +1405,8 @@ int launch_weight(WeightArgs<T> a, int B, int H, int W, int Cin, int Cout,
 // cudaGetLastError() as an int (0 = ok). The plan comes in as ints, each
 // checked against this file's constants and the shapes; a mismatch
 // returns cudaErrorInvalidValue before any launch. `route_counts` (2 ints:
-// window tiles, gather tiles, added to) may be null. Any offset.
+// window tiles, gather tiles, added to) and a data launcher's `reductions`
+// (1 64-bit int, added to) may be null. Any offset.
 
 // The data gradient at float32 (ops/dcn.exact_bwd_data_fp32_plan):
 // tile_h, tile_w, chunk (32, 16 or 8), warpgroups (2, 2 or 1), k_tile (the
@@ -1390,8 +1422,10 @@ extern "C" int dcn_exact_bwd_data(const float* x, const float* offset,
                                   const float* grad_out, float* grad_x,
                                   float* grad_offset, float* grad_mask,
                                   float* partial, float* wsplit,
-                                  int* route_counts, int B, int H, int W,
-                                  int Cin, int Cout, int tile_h, int tile_w,
+                                  int* route_counts,
+                                  unsigned long long* reductions, int B,
+                                  int H, int W, int Cin, int Cout,
+                                  int tile_h, int tile_w,
                                   int chunk, int warpgroups, int k_tile,
                                   int box_capacity, int splits, int smem,
                                   void* stream) {
@@ -1407,6 +1441,7 @@ extern "C" int dcn_exact_bwd_data(const float* x, const float* offset,
   a.grad_mask = grad_mask;
   a.partial = partial;
   a.route_counts = route_counts;
+  a.reductions = reductions;
   return launch_data(a, weight, grad_x, B, H, W, Cin, Cout, tile_h, tile_w,
                      chunk, warpgroups, k_tile, box_capacity, splits, smem,
                      (cudaStream_t)stream);
@@ -1420,7 +1455,8 @@ extern "C" int dcn_exact_bwd_data(const float* x, const float* offset,
 extern "C" int dcn_exact_bwd_data_bf16(
     const bf16* x, const bf16* offset, const bf16* mask, const bf16* weight,
     const bf16* grad_out, float* grad_acc, bf16* grad_x, bf16* grad_offset,
-    bf16* grad_mask, float* partial, int* route_counts, int B, int H, int W,
+    bf16* grad_mask, float* partial, int* route_counts,
+    unsigned long long* reductions, int B, int H, int W,
     int Cin, int Cout, int tile_h, int tile_w, int chunk, int warpgroups,
     int k_tile, int box_capacity, int splits, int smem, void* stream) {
   DataArgs<bf16> a{};
@@ -1434,6 +1470,7 @@ extern "C" int dcn_exact_bwd_data_bf16(
   a.grad_mask = grad_mask;
   a.partial = partial;
   a.route_counts = route_counts;
+  a.reductions = reductions;
   return launch_data(a, nullptr, grad_x, B, H, W, Cin, Cout, tile_h, tile_w,
                      chunk, warpgroups, k_tile, box_capacity, splits, smem,
                      (cudaStream_t)stream);

@@ -149,8 +149,8 @@ _SIGNATURES = {
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
     "dcn_exact_fwd": ("dcn_exact", 9, 13),
     "dcn_exact_fwd_bf16": ("dcn_exact", 8, 13),
-    "dcn_exact_bwd_data": ("dcn_exact_bwd", 11, 13),
-    "dcn_exact_bwd_data_bf16": ("dcn_exact_bwd", 11, 13),
+    "dcn_exact_bwd_data": ("dcn_exact_bwd", 12, 13),
+    "dcn_exact_bwd_data_bf16": ("dcn_exact_bwd", 12, 13),
     "dcn_exact_bwd_weight": ("dcn_exact_bwd", 8, 14),
     "dcn_exact_bwd_weight_bf16": ("dcn_exact_bwd", 7, 14),
 }
@@ -1415,6 +1415,19 @@ def _route_counts(route_counts, x):
     return route_counts.data_ptr()
 
 
+def _reductions(reductions, x):
+    """The optional reduction counter of an exact data launch: None, or an
+    int64 CUDA tensor of one element on x's device."""
+    if reductions is None:
+        return None
+    if (reductions.dtype != torch.int64 or reductions.device != x.device
+            or reductions.shape != (1,)):
+        raise ValueError("dcn: reductions must be an int64 tensor of 1 "
+                         f"element on x's device, got {reductions.dtype} "
+                         f"{tuple(reductions.shape)} on {reductions.device}")
+    return reductions.data_ptr()
+
+
 def launch_exact_fwd(x, offset, mask, weight, bias, route_counts=None):
     """The float32 exact forward on checked float32 CUDA tensors ->
     (B, H, W, Cout), by ``exact_fwd_fp32_plan``: ``dcn_exact_fwd``
@@ -1460,17 +1473,20 @@ def launch_exact_fwd_bf16(x, offset, mask, weight, bias, route_counts=None):
 
 
 def launch_exact_bwd_data(x, offset, mask, weight, grad_out,
-                          route_counts=None):
+                          route_counts=None, reductions=None):
     """The float32 exact data gradient on checked float32 CUDA tensors ->
     (grad x, grad offset, grad mask), by ``exact_bwd_data_fp32_plan``:
     ``dcn_exact_bwd_data`` (csrc/dcn_exact_bwd.cu). ``route_counts``
     (optional, int32 (2,)) gets the launch's window and gather tiles
-    added."""
+    added, ``reductions`` (optional, int64 (1,)) the float values the
+    kernel added into grad x by global reductions, counted on the
+    device."""
     global EXACT_BWD_DATA_LAUNCHES
     b, h, w, cin = x.shape
     cout = weight.shape[3]
     _check_grad(grad_out, x, cout)
     counts = _route_counts(route_counts, x)
+    reduced = _reductions(reductions, x)
     grad_x = torch.zeros_like(x)   # the blocks add into it with atomics
     if b * h * w == 0 or cin == 0 or cout == 0:
         return grad_x, torch.zeros_like(offset), torch.zeros_like(mask)
@@ -1482,7 +1498,7 @@ def launch_exact_bwd_data(x, offset, mask, weight, grad_out,
     _ok(_kernel("dcn_exact_bwd_data")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
-        grad_mask.data_ptr(), _ptr(partial), _ptr(wsplit), counts,
+        grad_mask.data_ptr(), _ptr(partial), _ptr(wsplit), counts, reduced,
         b, h, w, cin, cout,
         *_plan_ints(plan, "warpgroups", "k_tile", "box_capacity", "splits"),
         _stream(x)), "dcn_exact_bwd_data")
@@ -1491,16 +1507,18 @@ def launch_exact_bwd_data(x, offset, mask, weight, grad_out,
 
 
 def launch_exact_bwd_data_bf16(x, offset, mask, weight, grad_out,
-                               route_counts=None):
+                               route_counts=None, reductions=None):
     """The bf16 exact data gradient on checked bf16 CUDA tensors -> bf16
     (grad x, grad offset, grad mask), by ``exact_bwd_data_bf16_plan``:
     ``dcn_exact_bwd_data_bf16``; grad x summed in a float32 scratch and
-    rounded once; ``route_counts`` as ``launch_exact_bwd_data``."""
+    rounded once; ``route_counts`` and ``reductions`` (into the scratch)
+    as ``launch_exact_bwd_data``."""
     global EXACT_BWD_DATA_BF16_LAUNCHES
     b, h, w, cin = x.shape
     cout = weight.shape[3]
     _check_grad(grad_out, x, cout)
     counts = _route_counts(route_counts, x)
+    reduced = _reductions(reductions, x)
     if b * h * w == 0 or cin == 0 or cout == 0:
         return (torch.zeros_like(x), torch.zeros_like(offset),
                 torch.zeros_like(mask))
@@ -1514,7 +1532,7 @@ def launch_exact_bwd_data_bf16(x, offset, mask, weight, grad_out,
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_acc.data_ptr(), grad_x.data_ptr(),
         grad_offset.data_ptr(), grad_mask.data_ptr(), _ptr(partial), counts,
-        b, h, w, cin, cout,
+        reduced, b, h, w, cin, cout,
         *_plan_ints(plan, "warpgroups", "k_tile", "box_capacity", "splits"),
         _stream(x)), "dcn_exact_bwd_data_bf16")
     EXACT_BWD_DATA_BF16_LAUNCHES += 1

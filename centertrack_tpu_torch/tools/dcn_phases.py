@@ -14,7 +14,7 @@ JSON line per kernel and shape.
     python3 -m centertrack_tpu_torch.tools.dcn_phases --exact \
         [--dtype float32]
     python3 -m centertrack_tpu_torch.tools.dcn_phases --exact-bwd \
-        [--dtype float32]
+        [--dtype float32] [--root DIR]
 
 With ``--exact`` the exact forward of the dtype (``dcn_exact_fwd`` or
 ``dcn_exact_fwd_bf16``) runs instead, at B=1 on every launch of one
@@ -28,10 +28,15 @@ backward's data and weight kernels of the dtype (``dcn_exact_bwd_data``,
 on the same inputs with a seeded output grad, one line per node and
 kernel, with its window share (``exact_bwd_tile_routes`` for the data
 kernel, ``exact_tile_routes`` for the weight kernel). The exact data
-kernel's phases: `wait` (the tile's staging, its box, and each step's
+kernel's phases: `wait` (the tile's staging and box, and each step's
 copy wait and barrier), `product` (G on the tensor cores, its wait and
-barrier), `walk` (the corner walk, its sums and grad x's reductions),
-`chunk_barrier` (the chunk's barrier, the next chunk's copies). The
+barrier), `walk` (the corner walk's corners, reads of x and sums),
+`reductions` (the walk's global reductions into grad x, one a live
+corner: sending only, as no thread waits for a reduction),
+`chunk_barrier` (the chunk's barrier, the next chunk's copies).
+``--root DIR`` runs the package of the checkout in DIR instead of this
+one (built under build/phases by its source directory; the trained
+inputs still come from this checkout's ``chip_smoke.py``). The
 exact weight kernel's: the weight kernels' below, `next_box` in place
 of `next_window` and `next_entries` (the next tile's corners, its box,
 and its window copy issued).
@@ -65,15 +70,16 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
 import sys
 from unittest import mock
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(os.path.dirname(HERE))
-OUT_DIR = os.path.join(ROOT, "build", "phases")
+from centertrack_tpu_torch.tools import _turns
+
+OUT_DIR = os.path.join(_turns.ROOT, "build", "phases")
 
 # (B, H, W, Cin, Cout) at R=1: two neck shapes at the training batch and
 # two at the serving batch
@@ -108,7 +114,8 @@ KERNELS = {
                                  "launch_bwd_weight",
                                  "bwd_weight_fp32_plan")},
 }
-EXACT_DATA_PHASES = ["wait", "product", "walk", "chunk_barrier"]
+EXACT_DATA_PHASES = ["wait", "product", "walk", "chunk_barrier",
+                     "reductions"]
 EXACT_WEIGHT_PHASES = ["window_wait", "build", "product", "flush", "table",
                        "barrier", "next_box"]
 EXACT_BWD = {
@@ -130,9 +137,13 @@ EXACT = {"bfloat16": {"dcn_exact_fwd_bf16": ("dcn_exact", EXACT_PHASES,
 
 
 def _instrumented(_build, name):
-    """csrc/<name>.cu built with -DDCN_PHASES; its library."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    lib = os.path.join(OUT_DIR, name + ".so")
+    """csrc/<name>.cu of the package `_build` belongs to, built with
+    -DDCN_PHASES under build/phases/<its source directory's hash>; its
+    library."""
+    out = os.path.join(OUT_DIR, hashlib.sha1(
+        _build.CSRC_DIR.encode()).hexdigest()[:12])
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, name + ".so")
     subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-DDCN_PHASES",
                     "-o", lib, os.path.join(_build.CSRC_DIR, name + ".cu")],
                    check=True, capture_output=True, text=True)
@@ -157,11 +168,7 @@ def _cycles(lib, call, blocks, phases, symbol):
 
 def _exact_phases(kernels, libs, dcn, torch, dtype):
     """``--exact``: one line per launch of the dcn forward of `dtype`."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _turns.smoke()
     (symbol, (name, phases, launch, planner)), = kernels.items()
     for node, args in enumerate(smoke.trained_exact_inputs()["dcn", dtype]):
         x, offset, _, weight, _ = args
@@ -189,11 +196,7 @@ def _exact_phases(kernels, libs, dcn, torch, dtype):
 def _exact_bwd_phases(kernels, libs, dcn, torch, dtype):
     """``--exact-bwd``: one line per launch of the dcn forward of `dtype`
     and backward kernel, with a seeded output grad."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _turns.smoke()
     gen = torch.Generator(device="cuda").manual_seed(3)
     for node, args in enumerate(smoke.trained_exact_inputs()["dcn", dtype]):
         x, offset, mask, weight, _ = args
@@ -232,10 +235,12 @@ def main(argv=None) -> int:
                     help="the exact forward, on trained offsets")
     ap.add_argument("--exact-bwd", action="store_true",
                     help="the exact backward kernels, on trained offsets")
+    ap.add_argument("--root", default=_turns.ROOT,
+                    help="checkout whose port is run (default: this one)")
     args = ap.parse_args(argv)
     kernels = (EXACT_BWD if args.exact_bwd else EXACT if args.exact
                else KERNELS)[args.dtype]
-    sys.path.insert(0, ROOT)
+    _turns.use_root(args.root)
     import torch
     from centertrack_tpu_torch.ops import _build, dcn
     if not torch.cuda.is_available():

@@ -49,14 +49,13 @@ Without a GPU it exits with an error.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(os.path.dirname(HERE))
+from centertrack_tpu_torch.tools import _turns
+
 BATCHES = (1, 8)
 # dtype -> (kernel, its launcher in ops/dcn) of the forward, the data
 # gradient and the weight gradient
@@ -67,17 +66,6 @@ KERNELS = {"bfloat16": (("dcn_local_fwd_bf16", "launch_fwd_bf16"),
            "float32": (("dcn_local_fwd", "launch_fwd"),
                        ("dcn_local_bwd_data", "launch_bwd_data"),
                        ("dcn_local_bwd_weight", "launch_bwd_weight"))}
-
-
-def _smoke():
-    """This checkout's chip_smoke.py as a module. The port's package must
-    be imported first: the smoke then uses the package already loaded,
-    whichever checkout it came from."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
 
 
 def measure_exact(smoke, dcn, torch, dtype: str) -> list:
@@ -154,12 +142,12 @@ def measure(root: str, dtype: str = "bfloat16", exact: bool = False,
     """Times of the kernels of `dtype` of the checkout at `root`, every
     neck shape and batch: the three clamped kernels, or with `exact` the
     exact forward (its plans' N tile capped at `max_n_tile`)."""
-    sys.path.insert(0, root)
+    _turns.use_root(root)
     import torch
     from centertrack_tpu_torch.ops import dcn
     if not torch.cuda.is_available():
         raise SystemExit("dcn_times: no CUDA device")
-    smoke = _smoke()
+    smoke = _turns.smoke()
     if max_n_tile:
         dcn.EXACT_MAX_N_TILE[dtype] = max_n_tile
     rows = (measure_exact if exact else measure_clamped)(smoke, dcn, torch,
@@ -174,14 +162,8 @@ def measure(root: str, dtype: str = "bfloat16", exact: bool = False,
 
 
 def _run(root: str, dtype: str, exact: bool = False) -> dict:
-    out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--root", root, "--dtype", dtype]
-                         + (["--exact"] if exact else []),
-                         capture_output=True, text=True, cwd=root)
-    if out.returncode != 0:
-        raise SystemExit(f"dcn_times on {root} failed:\n{out.stdout}"
-                         f"{out.stderr}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return _turns.run("dcn_times", root, "--dtype", dtype,
+                      *(["--exact"] if exact else []))[-1]
 
 
 def compare(parent: str, change: str, dtype: str = "bfloat16",
@@ -189,13 +171,12 @@ def compare(parent: str, change: str, dtype: str = "bfloat16",
     """Both checkouts in the order parent, change, change, parent; per
     shape (and, with `exact`, offsets and node) the two runs' times of
     each and change / parent."""
-    runs = [_run(parent, dtype, exact), _run(change, dtype, exact),
-            _run(change, dtype, exact), _run(parent, dtype, exact)]
+    runs = _turns.in_turns(lambda root: _run(root, dtype, exact), parent,
+                           change)
     fields = ("kernel", "map", "batch", "cin", "cout", "offsets", "node")
     key = lambda r: tuple(r.get(f) for f in fields)
     times = {}
-    for i, run in enumerate(runs):
-        side = "parent" if i in (0, 3) else "change"
+    for side, run in runs:
         for r in run["rows"]:
             t = times.setdefault(key(r), {"row": r})
             for m in ("ms", "device_ms"):
@@ -225,15 +206,15 @@ def compare(parent: str, change: str, dtype: str = "bfloat16",
             v[f"speedup_{m}"] = v[f"parent_{m}"] / v[f"change_{m}"]
     return {"parent": parent, "change": change, "dtype": dtype,
             "exact": exact,
-            "device": runs[0]["device"],
-            "nvidia_smi": [r["nvidia_smi"] for r in runs],
-            "order": ["parent", "change", "change", "parent"],
+            "device": runs[0][1]["device"],
+            "nvidia_smi": [r["nvidia_smi"] for _, r in runs],
+            "order": list(_turns.ORDER),
             "per_image_ms_best_of_two": per_image, "rows": rows}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=ROOT,
+    ap.add_argument("--root", default=_turns.ROOT,
                     help="checkout whose port is timed (default: this one)")
     ap.add_argument("--against", default=None,
                     help="checkout to compare with, run in turns")
@@ -246,7 +227,7 @@ def main(argv=None) -> int:
                     help="cap the exact plans' N tile (with --exact)")
     args = ap.parse_args(argv)
     if args.against:
-        print(json.dumps(compare(os.path.abspath(args.against), ROOT,
+        print(json.dumps(compare(os.path.abspath(args.against), _turns.ROOT,
                                  args.dtype, args.exact)))
     else:
         print(json.dumps(measure(os.path.abspath(args.root), args.dtype,

@@ -27,34 +27,22 @@ with an error.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(os.path.dirname(HERE))
-
-
-def _smoke():
-    """This checkout's chip_smoke.py as a module, over the package
-    already imported (whichever checkout it came from)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
+from centertrack_tpu_torch.tools import _turns
 
 
 def measure(root: str) -> dict:
     """Device µs per call of both kernels of the checkout at ``root``."""
-    sys.path.insert(0, root)
+    _turns.use_root(root)
     import torch
     from centertrack_tpu_torch.ops import gaussian, tracker
     if not torch.cuda.is_available():
         raise SystemExit("tracker_times: no CUDA device")
-    smoke = _smoke()
+    smoke = _turns.smoke()
     rows = []
     for ci, name in enumerate(smoke.GREEDY_CASES):
         for s in smoke.TRACKER_STREAMS:
@@ -83,22 +71,15 @@ def measure(root: str) -> dict:
 
 
 def _run(root: str) -> dict:
-    out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--root", root], capture_output=True, text=True,
-                         cwd=root)
-    if out.returncode != 0:
-        raise SystemExit(f"tracker_times on {root} failed:\n{out.stdout}"
-                         f"{out.stderr}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return _turns.run("tracker_times", root)[-1]
 
 
 def compare(parent: str, change: str) -> dict:
     """Both checkouts in the order parent, change, change, parent; per
     case the two runs' times of each and parent / change (best of two)."""
-    runs = [_run(parent), _run(change), _run(change), _run(parent)]
+    runs = _turns.in_turns(lambda root: _run(root), parent, change)
     times = {}
-    for i, run in enumerate(runs):
-        side = "parent" if i in (0, 3) else "change"
+    for side, run in runs:
         for r in run["rows"]:
             t = times.setdefault((r["kernel"], r["case"], *r["shape"]),
                                  {"kernel": r["kernel"], "case": r["case"],
@@ -107,21 +88,23 @@ def compare(parent: str, change: str) -> dict:
     for t in times.values():
         t["speedup"] = min(t["parent_device_us"]) / min(
             t["change_device_us"])
-    return {"parent": parent, "change": change, "device": runs[0]["device"],
-            "nvidia_smi": [r["nvidia_smi"] for r in runs],
-            "order": ["parent", "change", "change", "parent"],
+    return {"parent": parent, "change": change,
+            "device": runs[0][1]["device"],
+            "nvidia_smi": [r["nvidia_smi"] for _, r in runs],
+            "order": list(_turns.ORDER),
             "rows": list(times.values())}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=ROOT,
+    ap.add_argument("--root", default=_turns.ROOT,
                     help="checkout whose port is timed (default: this one)")
     ap.add_argument("--against", default=None,
                     help="checkout to compare with, run in turns")
     args = ap.parse_args(argv)
     if args.against:
-        print(json.dumps(compare(os.path.abspath(args.against), ROOT)))
+        print(json.dumps(compare(os.path.abspath(args.against),
+                                 _turns.ROOT)))
     else:
         print(json.dumps(measure(os.path.abspath(args.root))))
     return 0

@@ -95,7 +95,9 @@ Phases, each printing one JSON line with its elapsed seconds:
            exact_tile_routes (weight, per tile and tap group); grad w,
            grad offset and grad mask bit for bit over two launches;
            plans, window shares, times on ~N(0, 3) and on the trained
-           inputs, plain times and bounds
+           inputs, plain times and bounds, and the float values the data
+           kernel added into grad x by global reductions, counted on the
+           device (at most 36 Cin a pixel: 9 taps x 4 corners)
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame a CUDA graph replay (the
@@ -1861,7 +1863,9 @@ def exact_grad_check(args, g):
     every element within BF16_ULPS ulps + BF16_REL_OF_MAX max|plain|),
     the bias grad the float32 sum of g; then the data and weight
     launchers with route counters, equal to ``exact_bwd_tile_routes`` and
-    ``exact_tile_routes``, and a second launch of each whose grad offset,
+    ``exact_tile_routes``, the data launch also counting its reductions
+    into grad x on the device (at most 36 Cin a pixel, in the errors as
+    ``data_reductions``), and a second launch of each whose grad offset,
     grad mask and grad w are bit for bit the first's. Returns (errors,
     data routes, weight routes, the plain autograd's ms)."""
     x, off, mask, weight, bias = args
@@ -1906,7 +1910,8 @@ def exact_grad_check(args, g):
         "bfloat16" if low else "float32"])
     counts = [torch.zeros(2, dtype=torch.int32, device="cuda")
               for _ in range(2)]
-    first = (*data(x, off, mask, weight, g, counts[0])[1:],
+    reduced = torch.zeros(1, dtype=torch.int64, device="cuda")
+    first = (*data(x, off, mask, weight, g, counts[0], reduced)[1:],
              weight_fn(x, off, mask, g, cout, counts[1]))
     second = (*data(x, off, mask, weight, g)[1:],
               weight_fn(x, off, mask, g, cout))
@@ -1925,6 +1930,10 @@ def exact_grad_check(args, g):
         raise RuntimeError(f"{what}: route counts (data, weight) {routes}, "
                            f"the rules say {want}")
     errs["data_routes"], errs["weight_routes"] = routes
+    errs["data_reductions"] = int(reduced)
+    if not 0 <= errs["data_reductions"] <= 36 * cin * b * h * w:
+        raise RuntimeError(f"{what}: {errs['data_reductions']} reductions "
+                           f"into grad x, past 36 Cin a pixel")
     return errs, routes, plain_ms
 
 
@@ -2015,7 +2024,8 @@ def phase_exact_grad(trained, dtype):
                 "data_ms": t[0], "data_device_ms": t[1], "weight_ms": t[2],
                 "weight_device_ms": t[3], "data_plain_ms": t[4],
                 "weight_plain_ms": t[5], "data_bound_ms": bd[0],
-                "weight_bound_ms": bd[2]})
+                "weight_bound_ms": bd[2],
+                "data_reductions": errs[f"trained_{i}"]["data_reductions"]})
         mean = lambda k: (statistics.mean(r[k] for r in trained_rows)
                           if trained_rows else None)
         share = lambda which, kinds: (
@@ -2056,7 +2066,7 @@ def phase_exact_grad(trained, dtype):
                **{k + "_trained": mean(k) for k in (
                    "data_ms", "data_device_ms", "weight_ms",
                    "weight_device_ms", "data_plain_ms", "weight_plain_ms",
-                   "data_bound_ms", "weight_bound_ms")},
+                   "data_bound_ms", "weight_bound_ms", "data_reductions")},
                "trained_nodes": trained_rows, "library_ms": None}
         rows.append(row)
         emit(phase, **row)
@@ -3908,9 +3918,10 @@ def main(argv):
                     "a 4x16 tile a block: G = g w^T on "
                     + ("bf16 wgmma" if low else "3xTF32 wgmma")
                     + ", the tile's box of every needed corner copied by "
-                      "cp.async, grad x summed by shared-memory atomics, "
-                      "the corners gathered from global memory where the "
-                      "box does not fit, K splits by waves"
+                      "cp.async, m hat_k G added into grad x per corner by "
+                      "red.global.add.v4.f32, the corners gathered from "
+                      "global memory where the box does not fit, K splits "
+                      "by waves"
                     if kind == "data" else
                     "wgmma over pixels (" + ("bf16" if low else "3xTF32")
                     + "), A_t from each tile's box of live corners copied "
@@ -3941,6 +3952,8 @@ def main(argv):
                     else "bytes"),
                 "plans": {f"{r['map']} {r['cin']}->{r['cout']}":
                           r[kind + "_plan"] for r in one},
+                **({"reductions_per_image": image("data_reductions_trained")}
+                   if kind == "data" else {}),
                 "library_ms": None})
     replaces = {"greedy_assign": "centertrack_tpu/engine/device_tracker.py:70",
                 "splat_pre_hm": "centertrack_tpu/ops/gaussian.py:214"}

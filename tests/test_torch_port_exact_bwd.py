@@ -16,6 +16,11 @@ and ``DCNExact``'s wiring. The kernels themselves run only on the card,
 where chip_smoke.py holds them against the plain version. Each tolerance
 is stated beside its test."""
 
+import os
+import re
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -491,7 +496,8 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
                                                          dtype):
     """Each launcher calls its own symbol with the inputs' pointers, the
     outputs and scratches the plan sizes (the route counter's pointer
-    last), then B, H, W, Cin, Cout and the plan's ints (tile, chunk,
+    last, then the data launchers' reduction counter's), then B, H, W,
+    Cin, Cout and the plan's ints (tile, chunk,
     then the data plan's warpgroups, K piece, capacity, splits or the
     weight plan's N tile, taps, window slots, capacity, splits; then
     shared memory), counts one launch of its own kernel only, returns
@@ -504,11 +510,12 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
     rc = [0]
     calls = _fake_kernels(monkeypatch, rc)
     counts = torch.zeros(2, dtype=torch.int32)
+    reduced = torch.zeros(1, dtype=torch.int64)
     before = {c: getattr(dcn, c) for c in COUNTERS}
     low = dtype == torch.bfloat16
     dname = "bfloat16" if low else "float32"
     if kind == "data":
-        out = getattr(dcn, fn)(x, off, mask, weight, g, counts)
+        out = getattr(dcn, fn)(x, off, mask, weight, g, counts, reduced)
         plan = DATA_PLANS[dname](b, h, w, cin, cout)
         keys = ("warpgroups", "k_tile", "box_capacity", "splits")
         assert [t.shape for t in out] == [x.shape, off.shape, mask.shape]
@@ -523,7 +530,11 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
     assert name == symbol
     assert argv[:3] == (x.data_ptr(), off.data_ptr(), mask.data_ptr())
     assert argv[3] == (weight if kind == "data" else g).data_ptr()
-    assert argv[n_ptr - 1] == counts.data_ptr()
+    if kind == "data":
+        assert argv[n_ptr - 2:n_ptr] == (counts.data_ptr(),
+                                         reduced.data_ptr())
+    else:
+        assert argv[n_ptr - 1] == counts.data_ptr()
     assert argv[n_ptr:n_ptr + n_int] == (
         b, h, w, cin, cout, *plan["tile"], plan["chunk"],
         *(plan[k] for k in keys), plan["smem_bytes"])
@@ -579,3 +590,160 @@ def test_deform_conv2d_on_cuda_with_a_gradient_is_dcn_exact(monkeypatch,
         else dcn.launch_exact_fwd)
     assert dcn.exact_route(torch.device("cpu"), dtype,
                            needs_grad=True) is dcn.deform_conv2d_plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_data_launcher_takes_no_counter_or_an_int64_one(monkeypatch, dtype):
+    """A data launcher passes a null reduction counter where none is given
+    and raises, before any launch, on a counter that is not one int64
+    element on x's device."""
+    fn = LAUNCHERS["data", dtype][0]
+    x, off, mask, weight, g = _tensors(dtype, h=9, w=20, cin=8, cout=16)
+    calls = _fake_kernels(monkeypatch)
+    getattr(dcn, fn)(x, off, mask, weight, g)
+    (name, argv), = calls
+    assert argv[dcn._SIGNATURES[name][1] - 1] is None
+    for bad in (torch.zeros(1, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="reductions must be"):
+            getattr(dcn, fn)(x, off, mask, weight, g, None, bad)
+    assert len(calls) == 1
+
+
+# --- the measurement tools ----------------------------------------------------
+
+def _source(name):
+    from centertrack_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def test_phase_tool_names_every_data_kernel_mark():
+    """``tools/dcn_phases``' names of the exact data kernel's phases are
+    the slots its source marks, and the reductions' slot closes each
+    per-corner reduction into grad x, the walk's slot opening it."""
+    from centertrack_tpu_torch.tools import dcn_phases
+    src = _source("dcn_exact_bwd.cu")
+    body = src[src.index("dcn_exact_bwd_data_kernel("):
+               src.index("dcn_exact_bwd_data_reduce_kernel(")]
+    slots = {int(k) for k in re.findall(r"DCN_PHASE\((\d)\)", body)}
+    assert slots == set(range(len(dcn_phases.EXACT_DATA_PHASES)))
+    assert dcn_phases.EXACT_DATA_PHASES[4] == "reductions"
+    scatters = re.findall(r"(DCN_PHASE\(\d\));\s*scatter<CPT>[^;]*;\s*"
+                          r"(DCN_PHASE\(\d\))", body)
+    assert scatters == [("DCN_PHASE(2)", "DCN_PHASE(4)")]
+    assert body.count("scatter<CPT>") == 1
+
+
+def test_exact_bwd_times_needs_a_gpu(monkeypatch):
+    """``tools/exact_bwd_times`` exits with an error where no GPU is
+    available (it never falls back to the CPU)."""
+    from centertrack_tpu_torch.tools import exact_bwd_times
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        exact_bwd_times.main([])
+
+
+@pytest.mark.parametrize("tool", ["dcn_phases", "exact_bwd_times",
+                                  "dcn_times", "tracker_times"])
+def test_tools_root_imports_that_checkouts_package(tool, tmp_path):
+    """``--root DIR`` makes a tool import DIR's port package, also where
+    this checkout's was imported first (``python3 -m``): a stand-in
+    package in DIR without the launchers is the one that fails to
+    import."""
+    import importlib
+    import sys
+    module = importlib.import_module("centertrack_tpu_torch.tools." + tool)
+    pkg = tmp_path / "centertrack_tpu_torch"
+    (pkg / "ops").mkdir(parents=True)
+    (pkg / "__init__.py").write_text("")
+    (pkg / "ops" / "__init__.py").write_text("")
+    ours = lambda: [m for m in sys.modules
+                    if m.split(".")[0] == "centertrack_tpu_torch"]
+    saved = {m: sys.modules[m] for m in ours()}
+    path = list(sys.path)
+    argv = ["--root", str(tmp_path)] + (["--exact-bwd"]
+                                        if tool == "dcn_phases" else [])
+    try:
+        with pytest.raises(ImportError, match=str(tmp_path)):
+            module.main(argv)
+    finally:
+        for m in ours():
+            del sys.modules[m]
+        sys.modules.update(saved)
+        sys.path[:] = path
+
+
+def test_turns_run_parent_change_change_parent():
+    """``tools/_turns.in_turns`` measures the parent, the change, the
+    change again and the parent again, in that order."""
+    from centertrack_tpu_torch.tools import _turns
+    seen = []
+    got = _turns.in_turns(lambda root: seen.append(root) or len(seen),
+                          "p", "c")
+    assert seen == ["p", "c", "c", "p"]
+    assert got == [("parent", 1), ("change", 2), ("change", 3),
+                   ("parent", 4)]
+
+
+def test_turns_run_a_tool_from_this_checkout(monkeypatch):
+    """``tools/_turns.run`` starts ``python3 -m`` of the tool from this
+    checkout with ``--root``, keeps the JSON lines it prints, and exits
+    with its output where it fails."""
+    from centertrack_tpu_torch.tools import _turns
+    seen = []
+
+    def fake(cmd, capture_output, text, cwd):
+        seen.append((cmd, cwd))
+        rc = 0 if "ok" in cmd else 1
+        return subprocess.CompletedProcess(cmd, rc, 'x\n{"a": 1}\n', "err")
+    monkeypatch.setattr(_turns.subprocess, "run", fake)
+    assert _turns.run("exact_bwd_times", "DIR", "ok") == [{"a": 1}]
+    assert seen == [([sys.executable, "-m",
+                      "centertrack_tpu_torch.tools.exact_bwd_times",
+                      "--root", "DIR", "ok"], _turns.ROOT)]
+    with pytest.raises(SystemExit, match="tracker_times on DIR failed"):
+        _turns.run("tracker_times", "DIR")
+
+
+def test_exact_bwd_times_compares_best_of_two(monkeypatch):
+    """``tools/exact_bwd_times --against``: the four runs are matched by
+    (kernel, dtype, case), each side's best of two kept, parent / change
+    the speedup, and the change's device-counted reductions carried."""
+    from centertrack_tpu_torch.tools import exact_bwd_times
+
+    def side(ms, reductions):
+        case = {"device_ms_per_image": ms, "window_tiles": 3,
+                "gather_tiles": 1, "shapes": {}}
+        if reductions is not None:
+            case["reductions_per_image"] = reductions
+        return [{"root": "r", "device": "card", "nvidia_smi": "card, 700 W"},
+                {"dtype": "float32", "kernel": "data",
+                 "cases": {"trained": case}}]
+    runs = iter([side(3.0, None), side(2.0, 7.0), side(1.5, 7.0),
+                 side(3.3, None)])
+    monkeypatch.setattr(exact_bwd_times, "_side",
+                        lambda root, kernel: next(runs))
+    got = exact_bwd_times.compare("parent", "change", "data")
+    row = got["rows"]["data float32 trained"]
+    assert row["parent_ms"] == [3.0, 3.3] and row["change_ms"] == [2.0, 1.5]
+    assert row["speedup"] == 2.0
+    assert row["change_reductions_per_image"] == 7.0
+    assert "parent_reductions_per_image" not in row
+    assert got["order"] == ["parent", "change", "change", "parent"]
+    assert got["nvidia_smi"] == ["card, 700 W"] * 4
+
+
+def test_tracker_times_compares_in_turns(monkeypatch):
+    """``tools/tracker_times --against``: per case both sides' two device
+    times, in turn order, and parent / change of the best of each."""
+    from centertrack_tpu_torch.tools import tracker_times
+    runs = iter([{"device": "card", "nvidia_smi": "s", "rows": [
+        {"kernel": "greedy_assign", "case": "path", "shape": [1, 100, 256],
+         "device_us": us}]} for us in (40.0, 10.0, 8.0, 42.0)])
+    monkeypatch.setattr(tracker_times, "_run", lambda root: next(runs))
+    got = tracker_times.compare("parent", "change")
+    row, = got["rows"]
+    assert row["parent_device_us"] == [40.0, 42.0]
+    assert row["change_device_us"] == [10.0, 8.0]
+    assert row["speedup"] == 5.0
