@@ -81,27 +81,41 @@
 //   mask go to float32 partials per split that a second kernel sums in
 //   split order.
 //
-//   dcn_exact_bwd_weight[_bf16]: grad w[t] = sum_p A_t(p)^T g(p), the
-//   design of the clamped weight kernels (dcn_local_bwd.cu,
-//   dcn_local_bwd_bf16.cu) with the forward's window: D = A_t^T g with M =
-//   a chunk of 64 input channels, N = Cout (up to 256, half per
-//   warpgroup), K = pixels. A block takes a chunk, a group of taps (3, or
-//   1 at N 256) and walks its split's pixel tiles (th x 16, th 4, 2 or 1)
-//   in order. Per tile it computes its taps' corners and the box of their
-//   live corners (dcn_exact.cuh `corners`, `block_box`, as the forward
-//   does); where the box fits the plan's capacity its x (64 channels a
-//   pixel) comes in by cp.async a tile ahead (two slots, or one from the
-//   tile's last build on), else the tile builds A_t from global memory.
-//   A_t is built as the forward builds it, term by term without fused
-//   multiply-adds, so at bf16 it is the bf16 sample the forward
-//   contracted. float32: A_t laid K-major (4 pixels of one channel per 16
-//   bytes) and split into TF32 hi and lo, g^T split and laid out per tile
-//   by a small kernel into a scratch and copied as it is; 3xTF32 wgmma.
-//   bf16: A_t MN-major (8 channels of one pixel per 16 bytes, read with
-//   trans-a), g in its own layout (trans-b); bf16 wgmma. The pixel tiles
-//   are split over blocks by waves; the splits' float32 partials are summed
-//   in split order by a second kernel (at bf16 rounded once), so grad w is
-//   bit-identical on every launch.
+//   dcn_exact_bwd_weight[_bf16]: grad w[t] = sum_p A_t(p)^T g(p),
+//   computed transposed: D_t[o, c] = sum_p g(p, o) A_t(p, c), with M = 64
+//   output channels (an M tile), N = a chunk of 64 input channels, K =
+//   pixels, so every product is m64n64 whatever Cout. A block takes a
+//   chunk, a group of taps (5 at Cout 64, 3 at 128, 1 at 256: what its
+//   consumers' registers hold), up to 256 output channels (128 at
+//   float32) and walks its split's pixel tiles (th x 16, th 4 at bf16, 2
+//   at float32) in order, warp-specialised on mbarriers (WRoles):
+//     - one producer warpgroup stages: per tile its corners (dcn_exact.cuh
+//       `corners`, as the forward computes them, from offsets and mask
+//       loaded a tile ahead) and their box of live corners, whose x (64
+//       channels a pixel) comes by cp.async into a window slot where it
+//       fits the plan's capacity, and its output grad by cp.async, each
+//       completing on an mbarrier (bulk copies, a row each, were slower:
+//       PERF.md); two slots of each, so it stages a tile ahead;
+//     - the other producer warpgroups (two at Cout 64, else one) build:
+//       stage by stage in turn, each tap's sample A_t from the window (or
+//       from global memory) as the forward builds it, term by term
+//       without fused multiply-adds (at bf16 the bf16 sample the forward
+//       contracted), two items' corner reads before either's sums, into
+//       the next free stage of a ring;
+//     - consumer warpgroups (one at Cout 64, else two, each with its M
+//       tiles) only issue wgmma: per tile they load g^T of their M tiles
+//       from shared memory into registers once (float32: split into TF32
+//       hi and lo as it is loaded) and take it as wgmma's register A for
+//       every tap of the block; B is the stage's sample (float32: K-major
+//       hi and lo, 3xTF32; bf16: MN-major, trans-b). A stage is freed
+//       when its product is done.
+//   setmaxnreg gives the consumers their accumulators and g^T's fragment
+//   (232 registers for one, 160 for two), the producers the rest (88,
+//   96). No barrier of the whole block is left in the tile loop (the
+//   stager's box reduction has one of its own). The pixel tiles are split
+//   over blocks by waves (a block's flush counted as steps); the splits'
+//   float32 partials are summed in split order by a second kernel (at
+//   bf16 rounded once), so grad w is bit-identical on every launch.
 //
 // A launch given `route_counts` (two ints) adds each tile's route to them:
 // window tiles, gather tiles (the weight kernels: each tile and tap group
@@ -532,7 +546,7 @@ __global__ void __launch_bounds__(128 * NWG)
       hopper::fence_acc(G);
       __syncthreads();  // the product is done: the g and weight slots free
     }
-    DCN_PHASE(1);  // phase 1: G on the tensor cores
+    DCN_PHASE(1);  // consumer 1: G on the tensor cores
     if (a.pieces == 1 && !chunk_ends) {
       load_weights(s + 1, 0);  // flies during the walk
       hopper::cp_async_commit();
@@ -590,7 +604,7 @@ __global__ void __launch_bounds__(128 * NWG)
         DCN_PHASE(2);
         scatter<CPT>(acc_img + ((int64_t)yy * W + xc) * Cin + ch0, add,
                      Cin - ch0, acc_al);
-        DCN_PHASE(4);  // phase 4: grad x's global reductions
+        DCN_PHASE(4);  // consumer 4: grad x's global reductions
         if constexpr (COUNT) reduced += min(max(Cin - ch0, 0), CPT);
       }
     }
@@ -612,10 +626,10 @@ __global__ void __launch_bounds__(128 * NWG)
         pend_t = t;
       }
     }
-    DCN_PHASE(2);  // phase 2: the corner walk's reads and its sums
+    DCN_PHASE(2);  // consumer 2: the corner walk's reads and its sums
     if (chunk_ends) {
       __syncthreads();  // the chunk's walks are done: its window is free
-      DCN_PHASE(3);  // phase 3: the chunk's barrier
+      DCN_PHASE(3);  // consumer 3: the chunk's barrier
       if (s + 1 < s_end) {
         if (window) load_window(chunk + 1);
         if (a.pieces == 1) load_weights(s + 1, 0);
@@ -813,42 +827,86 @@ int launch_data(DataArgs<T> a, const float* weight32, T* grad_x, int B,
 
 // ---- the weight kernels -------------------------------------------------
 
-constexpr int WNT = 256;  // threads, two warpgroups
-constexpr int WCK = 64;   // input channels per block (wgmma M)
-constexpr int WTW = 16;   // tile columns
-constexpr int A_LBO = (WCK / 8) * 128;  // bf16 A: bytes between 8-pixel
-                                        // groups
-
-// taps per block by N tile (64 nb output channels): its accumulators, nb
-// 16 float32 a thread and tap, in registers
-__host__ __device__ constexpr int weight_taps(int nb) {
-  return nb == 4 ? 1 : 3;
+constexpr int WCK = 64;  // input channels per block (the wgmma N)
+constexpr int WTW = 16;  // tile columns
+constexpr int WMAX_STAGES = 8;  // the barriers' room for stages
+constexpr int WKS = 4;     // k steps of a tile at most (th 4 bf16, th 2
+                           // float32): the consumers' g fragment
+constexpr int WENT = 20;   // bytes of a corner-table entry
+constexpr int A_LBO = (WCK / 8) * 128;  // bf16 sample: bytes between
+                                        // 8-pixel groups
+// the stages of the sample ring: float32 3 (hi and lo, 4 KB each a tap
+// at th 2), bf16 6
+template <typename T>
+__host__ __device__ constexpr int weight_stages() {
+  return is_low<T>() ? 6 : 3;
 }
+static_assert(weight_stages<float>() <= WMAX_STAGES &&
+                  weight_stages<bf16>() <= WMAX_STAGES,
+              "the barriers hold WMAX_STAGES stages");
+// the barriers (full and empty per stage; g full, g empty, window full
+// and built per slot), the stager warps' box partials and each slot's box
+// and route
+constexpr int WBAR_B = (2 * WMAX_STAGES + 8) * 8 + 2 * 4 * 16 + 2 * 32;
 
-// float32 A (64 channels x th 16 pixels, K-major): bytes between
+// The roles by the block's output channels (np, M tiles of 64): NPROD
+// producer warpgroups, one staging the tiles and NPROD - 1 building the
+// samples (stage by stage in turn); NCONS consumer warpgroups hold MPW M
+// tiles each and accumulators for TPW taps (MPW * TPW * 32 float32 a
+// thread) beside g^T's fragment. np 64: three producers (two building),
+// one consumer (5 taps); np 128: two and two, an M tile each (3 taps);
+// np 256: two and two, two M tiles each (1 tap). setmaxnreg: one consumer 232 and
+// the producers 88 (128 x 232 + 384 x 88), two consumers 160 and the
+// producers 96 (256 x 160 + 256 x 96), within the 512 x 128 registers
+// of the launch.
+template <int NP_>
+struct WRoles;
+template <>
+struct WRoles<64> {
+  static constexpr int NPROD = 3, NCONS = 1, MPW = 1, TPW = 5;
+  static constexpr int PREGS = 88, CREGS = 232;
+};
+template <>
+struct WRoles<128> {
+  static constexpr int NPROD = 2, NCONS = 2, MPW = 1, TPW = 3;
+  static constexpr int PREGS = 96, CREGS = 160;
+};
+template <>
+struct WRoles<256> {
+  static constexpr int NPROD = 2, NCONS = 2, MPW = 2, TPW = 1;
+  static constexpr int PREGS = 96, CREGS = 160;
+};
+
+// float32 sample (64 channels x th 16 pixels, K-major): bytes between
 // 8-channel groups, padded by 16 so that the 8 channels a quarter-warp
 // stores at once fall in 8 bank groups
 __host__ __device__ constexpr int weight_asbo(int th) {
   return th * WTW * 32 + 16;
 }
 
-// bytes of a window pixel: 64 channels
+// one stage of the ring: a tap's sample (float32: hi and lo)
 template <typename T>
-__host__ __device__ constexpr int wpix_bytes() {
-  return WCK * (int)sizeof(T);
+__host__ __device__ constexpr int weight_stage_bytes(int th) {
+  return is_low<T>() ? th * WTW * WCK * 2 : 2 * 8 * weight_asbo(th);
 }
 
-// two A slots and two g slots (float32: hi and lo of each), the window
-// slots of `cap` pixels, two corner tables (per tap and pixel the
-// top-left corner's position and 4 weights), the box
+// bytes of a g row (np output channels of one pixel), padded so that the
+// rows a consumer warp reads at once fall in distinct bank groups
 template <typename T>
-__host__ __device__ constexpr int weight_smem_bytes(int nb, int th, int ws,
-                                                    int cap) {
+__host__ __device__ constexpr int weight_gpitch(int np) {
+  return np * (int)sizeof(T) + (is_low<T>() ? 16 : 32);
+}
+
+// the barriers, the sample stages, two g slots, two corner tables (per
+// tap and pixel the top-left corner and 4 weights), the window slots of
+// `cap` pixels (64 channels each)
+template <typename T>
+__host__ __device__ constexpr int weight_smem_bytes(int np, int th, int taps,
+                                                    int ws, int cap) {
   const int tp = th * WTW;
-  const int taps = weight_taps(nb);
-  return (is_low<T>() ? 2 * tp * WCK * 2 + 2 * tp * 64 * nb * 2
-                      : 4 * 8 * weight_asbo(th) + 4 * 64 * nb * tp * 4) +
-         ws * cap * wpix_bytes<T>() + 2 * taps * tp * 20 + BOX_B;
+  return WBAR_B + weight_stages<T>() * weight_stage_bytes<T>(th) +
+         2 * tp * weight_gpitch<T>(np) + 2 * taps * tp * WENT +
+         ws * cap * WCK * (int)sizeof(T);
 }
 
 template <typename T>
@@ -856,12 +914,11 @@ struct WeightArgs {
   const T* x;
   const T* offset;
   const T* mask;
-  const T* grad_out;    // bf16: read by the kernel
-  const float* gsplit;  // float32: the split output grad it reads
+  const T* grad_out;
   T* grad_w;
   float* partial;
   int* route_counts;
-  int H, W, Cin, Cout, th, ws, cap;
+  int H, W, Cin, Cout, th, taps, ws, cap;
   int tiles_x, tiles_y, tiles, groups, col_tiles, splits;
 };
 
@@ -876,80 +933,60 @@ __device__ __forceinline__ void tile_origin(int tile, int tiles_x,
   y0 = (r - b * tiles_y) * th;
 }
 
-// gsplit[tile][col][hl][o / 8][p / 4][o % 8][p % 4] = the TF32 hi (hl =
-// 0) or lo (1) part of the output grad at the tile's pixel p and output
-// channel np col + o (0 past the map and past Cout): each tile's g^T,
-// K-major by 4 pixels, in the shared-memory image the weight kernel
-// copies as it is. One thread per (tile, col, 4 pixels, channel).
-__global__ void dcn_exact_bwd_split_grad_kernel(
-    const float* __restrict__ g, float* __restrict__ gsplit, int H, int W,
-    int Cout, int th, int tiles_x, int tiles_y, int np, int col_tiles,
-    int64_t items) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= items) return;
-  const int tp = th * WTW;
-  const int o = (int)(e % np);
-  int64_t r = e / np;
-  const int pq = (int)(r % (tp / 4));
-  r /= tp / 4;
-  const int col = (int)(r % col_tiles);
-  const int tile = (int)(r / col_tiles);
-  int b, y0, x0;
-  tile_origin(tile, tiles_x, tiles_y, th, b, y0, x0);
-  const int y = y0 + (4 * pq) / WTW;
-  const int xs = x0 + (4 * pq) % WTW;
-  const int oc = col * np + o;
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (y < H && oc < Cout) {
-    const float* src = g + ((int64_t)b * H + y) * W * Cout + oc;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (xs + i < W) v[i] = src[(int64_t)(xs + i) * Cout];
-  }
-  const float4 val = make_float4(v[0], v[1], v[2], v[3]);
-  const float4 hi = hopper::tf32_hi(val);
-  float* dst = gsplit + ((int64_t)tile * col_tiles + col) * 2 * np * tp +
-               (o >> 3) * (tp * 8) + pq * 32 + (o & 7) * 4;
-  *reinterpret_cast<float4*>(dst) = hi;
-  *reinterpret_cast<float4*>(dst + np * tp) = hopper::tf32_lo(val, hi);
-}
-
-// The weight-gradient kernel for N tiles of 64 NB output channels. Block
-// (chunk of 64 input channels, group of TPB taps, N tile, pixel split):
-// it walks its split's pixel tiles (th x 16 pixels each) in order; per
-// tile it builds each tap's A_t from the tile's box window (or from global
-// memory) and adds A_t^T g into that tap's accumulators, half of the N
-// tile per warpgroup.
-template <typename T, int NB>
-__global__ void __launch_bounds__(WNT, 1)
+// The weight-gradient kernel for blocks of NP_ output channels. Block
+// (chunk of 64 input channels, group of taps, NP_ output channels, pixel
+// split), warpgroups in two roles (WRoles):
+//   - the producers (the last NPROD warpgroups) walk the split's pixel
+//     tiles in order. Per tile they find the next tile's corners and
+//     their box of live corners (two barriers of their own), copy the
+//     next tile's window (where the box fits the capacity) and output
+//     grad by cp.async, each completing on an mbarrier, then build each
+//     tap's sample from the window (or from global memory) into the next
+//     free stage of the ring and mark it full;
+//   - the consumers (the first NCONS warpgroups) only issue wgmma: per
+//     tile they take g^T of their M tiles (64 output channels, the M)
+//     from the g slot into registers (float32: split into TF32 hi and
+//     lo), free the slot, and per full stage add g^T A_t into that tap's
+//     accumulators (K the tile's pixels, N the 64 channels), freeing the
+//     stage once the product is done.
+// At the end the consumers write their accumulators: grad w, or the
+// split's float32 partial.
+template <typename T, int NP_>
+__global__ void __launch_bounds__(
+    128 * (WRoles<NP_>::NPROD + WRoles<NP_>::NCONS), 1)
     dcn_exact_bwd_weight_kernel(const WeightArgs<T> a) {
+  using R = WRoles<NP_>;
   constexpr bool LOW = is_low<T>();
-  constexpr int TPB = weight_taps(NB);  // taps of a block at most
-  constexpr int NP = 64 * NB;           // output channels of a block
-  constexpr int NH = NP / 2;            // of each warpgroup
-  constexpr int TWID = NH < 64 ? NH : 64;  // its wgmma N
-  constexpr int NTW = NH / TWID;           // its wgmma N tiles
+  constexpr int MPW = R::MPW;
+  constexpr int TPW = R::TPW;
+  constexpr int NC = 128 * R::NCONS;  // consumer threads
   constexpr int EK = 16 / (int)sizeof(T);  // channels of a 16-byte piece
   constexpr int NPC = WCK / EK;            // pieces of a window pixel
-  constexpr int PIX = wpix_bytes<T>();
-  constexpr int G_LBO = NP * 16;  // bf16 g: bytes between 8-pixel groups
+  constexpr int PIX = WCK * (int)sizeof(T);
+  constexpr int NB = R::NPROD - 1;  // sampler warpgroups
+  constexpr int EPT = (9 * 64 + 127) / 128;  // table entries a stager
+                                             // thread fills at most
   extern __shared__ __align__(128) unsigned char smem[];
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
-  const int th = a.th;
-  const int TPX = th * WTW;  // pixels of a tile: the K of one tile
-  const int ASBO = weight_asbo(th);  // float32 A: bytes between 8-channel
-                                     // groups
-  const int GSBO = TPX * 32;  // float32 g: bytes between 8-channel groups
-  const int a_bytes = LOW ? TPX * WCK * 2 : 8 * ASBO;  // one A part
-  const int g_bytes = NP * TPX * (int)sizeof(T);       // one g part
-  constexpr int PARTS = LOW ? 1 : 2;
+  const int TPX = a.th * WTW;  // pixels of a tile: the K of a product
+  constexpr int S = weight_stages<T>();
+  const int stage_b = weight_stage_bytes<T>(a.th);
+  const int gpitch = weight_gpitch<T>(NP_);
+  const int g_b = TPX * gpitch;
+  const int tab_b = a.taps * TPX * WENT;
   const int win_b = a.cap * PIX;
-  const int tab_b = TPB * TPX * 20;
-  unsigned char* s_a = smem;                          // [slot][part]
-  unsigned char* s_g = s_a + 2 * PARTS * a_bytes;     // [slot][part]
-  unsigned char* s_win = s_g + 2 * PARTS * g_bytes;   // 1 or 2 slots
-  unsigned char* s_tab = s_win + a.ws * win_b;        // 2 slots
-  int* s_box = reinterpret_cast<int*>(s_tab + 2 * tab_b);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + WMAX_STAGES;
+  uint64_t* g_full = empty + WMAX_STAGES;  // [2]
+  uint64_t* g_empty = g_full + 2;          // [2]
+  uint64_t* win_full = g_empty + 2;        // [2]
+  uint64_t* built = win_full + 2;          // [2]
+  int4* s_boxp = reinterpret_cast<int4*>(built + 2);  // [2][4]
+  int4* s_info = s_boxp + 2 * 4;  // [2][2]: the box, the route
+  unsigned char* s_stage = smem + WBAR_B;
+  unsigned char* s_g = s_stage + S * stage_b;
+  unsigned char* s_tab = s_g + 2 * g_b;
+  unsigned char* s_win = s_tab + 2 * tab_b;
 
   const int tid = threadIdx.x;
   int bx = blockIdx.x;
@@ -957,358 +994,586 @@ __global__ void __launch_bounds__(WNT, 1)
   bx /= a.col_tiles;
   const int group = bx % a.groups;
   const int c0 = (bx / a.groups) * WCK;
-  const int n0 = col * NP;
-  const int t0 = group * TPB;
-  const int ntaps = min(TPB, 9 - t0);
+  const int n0 = col * NP_;
+  const int t0 = group * a.taps;
+  const int ntaps = min(a.taps, 9 - t0);
   const int split = blockIdx.y;
   const int tbeg = (int)((int64_t)split * a.tiles / a.splits);
-  const int tend = (int)((int64_t)(split + 1) * a.tiles / a.splits);
-  const bool x_al = Cin % EK == 0 && hopper::aligned16(a.x);
-  const bool g_al = Cout % 8 == 0 && hopper::aligned16(a.grad_out);
-  const bool counts = a.route_counts && tid == 0 && c0 == 0 && col == 0;
+  const int ntiles = (int)((int64_t)(split + 1) * a.tiles / a.splits) - tbeg;
 
-  // corner table slot: [TPB][TPX] the top-left corner's position (in the
-  // box, or in the image on the gather route), [TPB][4][TPX] its weights
-  const auto tab_pos = [&](int slot) {
-    return reinterpret_cast<int*>(s_tab + slot * tab_b);
-  };
-  const auto tab_w = [&](int slot) {
-    return reinterpret_cast<float*>(s_tab + slot * tab_b + TPB * TPX * 4);
-  };
-  // a tile's box of x of this block's channels into window slot `slot`:
-  // NPC pieces a pixel, piece q at q ^ (pos & 7)
-  const auto load_window = [&](int tile, int slot, const dcn_exact::Box& bx_) {
-    int b, y0, x0;
-    tile_origin(tile, a.tiles_x, a.tiles_y, th, b, y0, x0);
-    unsigned char* dst = s_win + slot * win_b;
-    const int n = bx_.bh * bx_.bw * NPC;
-    for (int e = tid; e < n; e += WNT) {
-      const int pos = e / NPC;
-      const int q = e - pos * NPC;
-      const int wr = pos / bx_.bw;
-      const int yy = bx_.r0 + wr;
-      const int xc = bx_.c0 + (pos - wr * bx_.bw);
-      const int ch = c0 + EK * q;
-      copy_piece(dst + pos * PIX + ((q ^ (pos & 7)) << 4),
-                 a.x + (((int64_t)b * H + yy) * W + xc) * Cin + ch, Cin - ch,
-                 x_al);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(full + s, 128);
+      hopper::mbar_init(empty + s, NC);
     }
-  };
-  // a tile's output grad into g slot `slot`: float32 its split g^T, hi
-  // and lo, one contiguous copy; bf16 MN-major (8 output channels of one
-  // pixel per 16 bytes, K = pixel), 0 past the map and past Cout
-  const auto load_g = [&](int tile, int slot) {
-    unsigned char* dst = s_g + slot * PARTS * g_bytes;
-    if constexpr (!LOW) {
-      const float* src =
-          a.gsplit + ((int64_t)tile * a.col_tiles + col) * 2 * NP * TPX;
-      for (int e = tid; e < NP * TPX / 2; e += WNT)
-        hopper::cp_async16(dst + 16 * e, src + 4 * e, 16);
-    } else {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(g_full + i, 128);
+      hopper::mbar_init(g_empty + i, NC);
+      hopper::mbar_init(win_full + i, 128);
+      hopper::mbar_init(built + i, 128 * NB);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();  // the barriers initialised; the roles never meet again
+
+  if (tid >= NC) {
+    // ---- the producers ---------------------------------------------------
+    hopper::setmaxnreg_dec<R::PREGS>();
+    const int pt = tid - NC;
+    // producer warpgroup 0 stages the tiles (its threads pt 0..127), the
+    // others build: sampler warpgroup bwg fills stages n with n % NB ==
+    // bwg, by its 128 threads bt
+    const int pwg = pt >> 7;
+    const int bwg = pwg - 1;
+    const int bt = pt & 127;
+    const bool x_al = Cin % EK == 0 && hopper::aligned16(a.x);
+    const bool g_al = Cout % EK == 0 && hopper::aligned16(a.grad_out);
+    const bool counts = a.route_counts && pt == 0 && c0 == 0 && col == 0;
+    DCN_PHASES_BEGIN;
+    // table slot: [taps][TPX] the top-left corner (row, column as two
+    // int16), [taps][4][TPX] its weights
+    const auto tab_pos = [&](int slot) {
+      return reinterpret_cast<int*>(s_tab + slot * tab_b);
+    };
+    const auto tab_w = [&](int slot) {
+      return reinterpret_cast<float*>(s_tab + slot * tab_b +
+                                      a.taps * TPX * 4);
+    };
+    // this stager thread's entries (tap j, pixel p) = e / TPX, e % TPX for
+    // e = pt + 128 i: their offsets and mask (in their own type, so that
+    // no conversion waits for the loads)
+    T ev[EPT][3];
+    const auto load_entries = [&](int tile) {
       int b, y0, x0;
-      tile_origin(tile, a.tiles_x, a.tiles_y, th, b, y0, x0);
-      for (int e = tid; e < TPX * (NP / 8); e += WNT) {
-        const int p = e / (NP / 8);
-        const int q = e - p * (NP / 8);
+      tile_origin(tile, a.tiles_x, a.tiles_y, a.th, b, y0, x0);
+#pragma unroll
+      for (int i = 0; i < EPT; ++i) {
+        const int e = pt + 128 * i;
+        const int j = e / TPX;
+        const int p = e - j * TPX;
         const int y = y0 + p / WTW;
         const int xx = x0 + p % WTW;
-        const int o = n0 + 8 * q;
-        const bool in = y < H && xx < W;
-        hopper::copy8(
-            dst + (p >> 3) * G_LBO + q * 128 + (p & 7) * 16,
-            in ? a.grad_out + (((int64_t)b * H + y) * W + xx) * Cout + o
-               : a.grad_out,
-            in ? Cout - o : 0, g_al);
+        ev[i][0] = ev[i][1] = ev[i][2] = from_f32<T>(0.f);
+        if (j < ntaps && y < H && xx < W) {
+          const int64_t n = ((int64_t)b * H + y) * W + xx;
+          const int t = t0 + j;
+          ev[i][0] = a.offset[n * 18 + 2 * t];
+          ev[i][1] = a.offset[n * 18 + 2 * t + 1];
+          ev[i][2] = a.mask[n * 9 + t];
+        }
       }
-    }
-  };
-  // This thread's corner-table entry, tap t0 + ej at pixel ep, computed
-  // at the start of the tile before (its box first) and written at that
-  // tile's end.
-  static_assert(TPB * 64 <= WNT, "one corner-table entry per thread");
-  const int ej = tid / TPX;
-  const int ep = tid - ej * TPX;
-  int e_iy = 0, e_ix = 0;
-  float e_w[4] = {0.f, 0.f, 0.f, 0.f};
-  // the entries of `tile` and its box of live corners; every thread calls
-  // it (block_box's barriers)
-  const auto entries = [&](int tile) {
-    int b, y0, x0;
-    tile_origin(tile, a.tiles_x, a.tiles_y, th, b, y0, x0);
-    const int y = y0 + ep / WTW;
-    const int xx = x0 + ep % WTW;
-    int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
-    e_iy = e_ix = 0;
+    };
+    // the entries of `tile` into table slot `slot` and the box of their
+    // live corners (dcn_exact.cuh corners, the forward's arithmetic), by
+    // the stager warps with a barrier of their own
+    const auto finish_entries = [&](int tile, int slot) {
+      int b, y0, x0;
+      tile_origin(tile, a.tiles_x, a.tiles_y, a.th, b, y0, x0);
+      int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) e_w[k] = 0.f;
-    if (ej < ntaps && y < H && xx < W) {
-      const int64_t n = ((int64_t)b * H + y) * W + xx;
-      const int t = t0 + ej;
-      int live;
-      dcn_exact::corners(y, xx, t, f32(a.offset[n * 18 + 2 * t]),
-                         f32(a.offset[n * 18 + 2 * t + 1]),
-                         f32(a.mask[n * 9 + t]), H, W, e_iy, e_ix, e_w, live);
-      dcn_exact::fold_box(e_iy, e_ix, live, rmin, rmax, cmin, cmax);
-    }
-    return dcn_exact::block_box(rmin, rmax, cmin, cmax, s_box);
-  };
-  const auto write_entries = [&](int slot, const dcn_exact::Box& bx_,
-                                 bool window) {
-    if (ej >= ntaps) return;
-    tab_pos(slot)[ej * TPX + ep] =
-        window ? (e_iy - bx_.r0) * bx_.bw + (e_ix - bx_.c0) : e_iy * W + e_ix;
+      for (int i = 0; i < EPT; ++i) {
+        const int e = pt + 128 * i;
+        const int j = e / TPX;
+        const int p = e - j * TPX;
+        if (j >= ntaps) continue;
+        const int y = y0 + p / WTW;
+        const int xx = x0 + p % WTW;
+        int iy = 0, ix = 0, live = 0;
+        float w4[4] = {0.f, 0.f, 0.f, 0.f};
+        if (y < H && xx < W) {
+          dcn_exact::corners(y, xx, t0 + j, f32(ev[i][0]), f32(ev[i][1]),
+                             f32(ev[i][2]), H, W, iy, ix, w4, live);
+          dcn_exact::fold_box(iy, ix, live, rmin, rmax, cmin, cmax);
+        }
+        tab_pos(slot)[j * TPX + p] =
+            (int)(((uint32_t)iy & 0xffffu) | ((uint32_t)ix << 16));
 #pragma unroll
-    for (int k = 0; k < 4; ++k) tab_w(slot)[(ej * 4 + k) * TPX + ep] = e_w[k];
-  };
-  // A_t of tap t0 + j into A slot s_ai, from the window `win` (box of width
-  // bw and area `area`) or, with win null, from the image at `img`
-  const auto build = [&](int j, int tslot, const unsigned char* win, int bw,
-                         int area, const T* img, unsigned char* s_ai) {
-    const int* tp_ = tab_pos(tslot) + j * TPX;
-    const float* tw_ = tab_w(tslot) + j * 4 * TPX;
-    const int stride = win ? bw : W;
-    if constexpr (!LOW) {
-      // an item is 4 pixels 4 pq .. 4 pq + 3 x 4 channels 4 q .. 4 q + 3,
-      // each sample summed over its corners as the forward sums it, then
-      // transposed to 4 pixels of one channel per 16 bytes and split into
-      // TF32 hi and lo
-      const int q = tid & 15;
-      const int ch = c0 + 4 * q;
-      for (int pq = tid >> 4; pq < TPX / 4; pq += WNT / 16) {
-        float4 v[4];
+        for (int k = 0; k < 4; ++k) tab_w(slot)[(j * 4 + k) * TPX + p] = w4[k];
+      }
+      rmin = __reduce_min_sync(0xffffffffu, rmin);
+      rmax = __reduce_max_sync(0xffffffffu, rmax);
+      cmin = __reduce_min_sync(0xffffffffu, cmin);
+      cmax = __reduce_max_sync(0xffffffffu, cmax);
+      int4* bp = s_boxp + 4 * slot;
+      if ((pt & 31) == 0) bp[pt >> 5] = make_int4(rmin, rmax, cmin, cmax);
+      hopper::bar_sync(1, 128);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int p = 4 * pq + i;
-          const int base = tp_[p];
-          v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < 4; ++w) {
+        const int4 v = bp[w];
+        rmin = min(rmin, v.x);
+        rmax = max(rmax, v.y);
+        cmin = min(cmin, v.z);
+        cmax = max(cmax, v.w);
+      }
+      return rmin <= rmax ? dcn_exact::Box{rmin, cmin, rmax - rmin + 1,
+                                           cmax - cmin + 1}
+                          : dcn_exact::Box{0, 0, 1, 1};
+    };
+    // the copies this thread issued so far complete `bar`'s phase
+    const auto arrive_copies = [&](uint64_t* bar) {
+      hopper::mbar_arrive_cp_async(bar);
+      hopper::mbar_arrive(bar);
+    };
+    // A tile's box of x of this block's channels into window slot
+    // `wslot` (where `copy`; the arrival always), NPC pieces a pixel by
+    // cp.async, row by row: bf16 piece q at q ^ (pos & 7), so that the
+    // build's lanes (32 pixels) read 8 bank groups; float32 unswizzled
+    // (its lanes read one pixel's 256 contiguous bytes).
+    const auto load_window = [&](int tile, int wslot,
+                                 const dcn_exact::Box& bx_, bool copy,
+                                 uint64_t* bar) {
+      int b, y0, x0;
+      tile_origin(tile, a.tiles_x, a.tiles_y, a.th, b, y0, x0);
+      unsigned char* dst = s_win + wslot * win_b;
+      const int n = bx_.bw * NPC;  // pieces a box row
+      for (int wr = 0; copy && wr < bx_.bh; ++wr) {
+        const T* row = a.x + (((int64_t)b * H + bx_.r0 + wr) * W + bx_.c0) *
+                                 Cin + c0;
+        for (int e = pt; e < n; e += 128) {
+          const int wc = e / NPC;  // NPC a power of two
+          const int q = e % NPC;
+          const int pos = wr * bx_.bw + wc;
+          copy_piece(dst + pos * PIX + ((LOW ? q ^ (pos & 7) : q) << 4),
+                     row + (int64_t)wc * Cin + EK * q, Cin - c0 - EK * q,
+                     x_al);
+        }
+      }
+      arrive_copies(bar);
+    };
+    // a tile's output grad (NP_ channels from n0 of each pixel, a row of
+    // gpitch bytes) into g slot `gslot`, 0 past the map and past Cout
+    const auto load_g = [&](int tile, int gslot, uint64_t* bar) {
+      int b, y0, x0;
+      tile_origin(tile, a.tiles_x, a.tiles_y, a.th, b, y0, x0);
+      unsigned char* dst = s_g + gslot * g_b;
+      constexpr int PPR = NP_ / EK;  // pieces a row, a power of two
+      for (int e = pt; e < TPX * PPR; e += 128) {
+        const int p = e / PPR;
+        const int q = e % PPR;
+        const int y = y0 + p / WTW;
+        const int xx = x0 + p % WTW;
+        const int o = n0 + EK * q;
+        const bool in = y < H && xx < W;
+        copy_piece(dst + p * gpitch + q * 16,
+                   in ? a.grad_out + (((int64_t)b * H + y) * W + xx) * Cout +
+                            o
+                      : a.grad_out,
+                   in ? Cout - o : 0, g_al);
+      }
+      arrive_copies(bar);
+    };
+    // tap j's sample of the tile into stage `st`, from the window `win`
+    // (box bx_) or, with win null, from the image at `img`: summed over
+    // its corners as the forward sums it, term by term
+    const auto build = [&](int j, int tslot, const unsigned char* win,
+                           const dcn_exact::Box& bx_, const T* img,
+                           unsigned char* st) {
+      const int* tp_ = tab_pos(tslot) + j * TPX;
+      const float* tw_ = tab_w(tslot) + j * 4 * TPX;
+      const int stride = win ? bx_.bw : W;
+      const int area = bx_.bh * bx_.bw;
+      const auto base_of = [&](int p) {
+        const int v = tp_[p];
+        const int iy = (int)(int16_t)(v & 0xffff);
+        const int ix = v >> 16;
+        return win ? (iy - bx_.r0) * bx_.bw + (ix - bx_.c0) : iy * W + ix;
+      };
+      if constexpr (!LOW) {
+        // an item is 2 pixels 2 pp, 2 pp + 1 x 2 channels 2 q2, 2 q2 + 1
+        // (a warp: one pixel pair, all 64 channels), stored as 2 pixels
+        // of one channel per 8 bytes (K-major: 4 pixels a 16-byte row)
+        // and split into TF32 hi and lo
+        const int asbo = weight_asbo(a.th);
+        // channels 2 q2, 2 q2 + 1 of pixels 2 pp, 2 pp + 1
+        const auto store = [&](int pp, int q2, float2 v0, float2 v1) {
+          const float2 u[2] = {make_float2(v0.x, v1.x),
+                               make_float2(v0.y, v1.y)};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float wk = tw_[k * TPX + p];
-            int pos = base + (k & 1) + (k >> 1) * stride;
-            if (win) {
-              pos = min(max(pos, 0), area - 1);
-              const float4 c = *reinterpret_cast<const float4*>(
-                  win + pos * PIX + ((q ^ (pos & 7)) << 4));
-              if (wk != 0.f) add4(v[i], c, wk);
-            } else if (wk != 0.f && Cin - ch > 0) {
-              add4(v[i], load_piece(img + (int64_t)pos * Cin + ch, Cin - ch,
-                                    x_al),
-                   wk);
+          for (int c = 0; c < 2; ++c) {
+            const int cc = 2 * q2 + c;
+            const int at = (cc >> 3) * asbo + (pp >> 1) * 128 +
+                           (cc & 7) * 16 + (pp & 1) * 8;
+            const float2 hi = make_float2(hopper::tf32_rna(u[c].x),
+                                          hopper::tf32_rna(u[c].y));
+            *reinterpret_cast<float2*>(st + at) = hi;
+            *reinterpret_cast<float2*>(st + 8 * asbo + at) = make_float2(
+                hopper::tf32_rna(u[c].x - hi.x),
+                hopper::tf32_rna(u[c].y - hi.y));
+          }
+        };
+        if (win) {
+          // two items (pixel pairs pp and pp + 4) at once: their 16
+          // corner reads issued before any sum, for the latency
+          const int q2 = bt & 31;
+          for (int pp0 = bt >> 5; pp0 < TPX / 2; pp0 += 8) {
+            float2 c[2][2][4];
+            float w[2][2][4];
+#pragma unroll
+            for (int it = 0; it < 2; ++it)
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const int p = 2 * (pp0 + 4 * it) + i;
+                const int base = base_of(p);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  w[it][i][k] = tw_[k * TPX + p];
+                  const int pos = min(
+                      max(base + (k & 1) + (k >> 1) * stride, 0), area - 1);
+                  c[it][i][k] = *reinterpret_cast<const float2*>(
+                      win + pos * PIX + 8 * q2);
+                }
+              }
+#pragma unroll
+            for (int it = 0; it < 2; ++it) {
+              float2 v[2];
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                v[i] = make_float2(0.f, 0.f);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  if (w[it][i][k] != 0.f) {
+                    v[i].x = __fadd_rn(v[i].x,
+                                       __fmul_rn(c[it][i][k].x, w[it][i][k]));
+                    v[i].y = __fadd_rn(v[i].y,
+                                       __fmul_rn(c[it][i][k].y, w[it][i][k]));
+                  }
+                }
+              }
+              store(pp0 + 4 * it, q2, v[0], v[1]);
             }
           }
+          return;
         }
-        const float4 u[4] = {make_float4(v[0].x, v[1].x, v[2].x, v[3].x),
-                             make_float4(v[0].y, v[1].y, v[2].y, v[3].y),
-                             make_float4(v[0].z, v[1].z, v[2].z, v[3].z),
-                             make_float4(v[0].w, v[1].w, v[2].w, v[3].w)};
+        // from the image: a half-warp a pixel, 4 channels (16 bytes) a
+        // lane, two items' 8 corner reads before either's sums; the
+        // halves then trade 2 channels so that each lane stores 2
+        // channels of both pixels
+        const int h = (bt >> 4) & 1;
+        const int q4 = bt & 15;
+        const int ch = c0 + 4 * q4;
+        const int left = Cin - ch;  // channels of this lane's piece
+        for (int pp0 = bt >> 5; pp0 < TPX / 2; pp0 += 8) {
+          float4 c[2][4];
+          float w[2][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int cc = 4 * q + c;
-          const int at = (cc >> 3) * ASBO + pq * 128 + (cc & 7) * 16;
-          const float4 hi = hopper::tf32_hi(u[c]);
-          *reinterpret_cast<float4*>(s_ai + at) = hi;
-          *reinterpret_cast<float4*>(s_ai + a_bytes + at) =
-              hopper::tf32_lo(u[c], hi);
-        }
-      }
-    } else {
-      // 8 channels of one pixel per item, MN-major
-      const int p = tid & (TPX - 1);
-      const int base = tp_[p];
-      int pos[4];
-      float wk[4];
+          for (int it = 0; it < 2; ++it) {
+            const int p = 2 * (pp0 + 4 * it) + h;
+            const int base = base_of(p);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        wk[k] = tw_[k * TPX + p];
-        pos[k] = base + (k & 1) + (k >> 1) * stride;
-        if (win) pos[k] = min(max(pos[k], 0), area - 1);
-      }
-      for (int q = tid / TPX; q < 8; q += WNT / TPX) {
-        const int ch = c0 + 8 * q;
-        float s8[8];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) s8[c] = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (win) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(
-                win + pos[k] * PIX + ((q ^ (pos[k] & 7)) << 4));
-            if (wk[k] != 0.f) add8(s8, raw, wk[k]);
-          } else if (wk[k] != 0.f && Cin - ch > 0) {
-            add8(s8,
-                 load_piece(img + (int64_t)pos[k] * Cin + ch, Cin - ch, x_al),
-                 wk[k]);
+            for (int k = 0; k < 4; ++k) {
+              w[it][k] = tw_[k * TPX + p];
+              c[it][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+              if (w[it][k] == 0.f || left <= 0) continue;
+              const float* src =
+                  img + (int64_t)(base + (k & 1) + (k >> 1) * stride) * Cin +
+                  ch;
+              if (x_al)
+                c[it][k] = __ldg(reinterpret_cast<const float4*>(src));
+              else
+                c[it][k] = make_float4(src[0], left > 1 ? src[1] : 0.f,
+                                       left > 2 ? src[2] : 0.f,
+                                       left > 3 ? src[3] : 0.f);
+            }
           }
-        }
-        uint4 packed;
-        bf162* pk = reinterpret_cast<bf162*>(&packed);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          pk[c] = __floats2bfloat162_rn(s8[2 * c], s8[2 * c + 1]);
-        *reinterpret_cast<uint4*>(s_ai + (p >> 3) * A_LBO + q * 128 +
-                                  (p & 7) * 16) = packed;
-      }
-    }
-  };
-
-  const int wg = tid >> 7;  // warpgroup: output channels n0 + NH wg ..
-  float acc[TPB][NTW][TWID / 2];
+          for (int it = 0; it < 2; ++it) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int j = 0; j < TPB; ++j)
-#pragma unroll
-    for (int nb = 0; nb < NTW; ++nb)
-#pragma unroll
-      for (int i = 0; i < TWID / 2; ++i) acc[j][nb][i] = 0.f;
-#pragma unroll
-  for (int j = 0; j < TPB; ++j)
-#pragma unroll
-    for (int nb = 0; nb < NTW; ++nb) hopper::fence_acc(acc[j][nb]);
-
-  // The tile loop, software-pipelined: each tap's A is built while the
-  // product of the tap before it (of this tile or the last) runs; the
-  // next tile's box is found at the start of this tile and its window
-  // flies during this tile (two slots; with one, from the last tap's
-  // build on), its g from this tile's first product on.
-  DCN_PHASES_BEGIN;  // phase 0 (with the first tile's staging): copy wait
-  dcn_exact::Box box{0, 0, 1, 1};
-  bool window = true;
-  if (tbeg < tend) {
-    box = entries(tbeg);
-    window = (int64_t)box.bh * box.bw <= a.cap;
-    if (counts) atomicAdd(a.route_counts + (window ? 0 : 1), 1);
-    write_entries(0, box, window);
-    if (window) load_window(tbeg, 0, box);
-    load_g(tbeg, 0);
-    hopper::cp_async_commit();
-  }
-  int step = 0;  // products issued: A slot step & 1
-  for (int tile = tbeg; tile < tend; ++tile) {
-    const int slot = (tile - tbeg) & 1;
-    const bool next = tile + 1 < tend;
-    const unsigned char* win =
-        window ? s_win + (a.ws == 2 ? slot * win_b : 0) : nullptr;
-    int b, y0, x0;
-    tile_origin(tile, a.tiles_x, a.tiles_y, th, b, y0, x0);
-    const T* img = a.x + (int64_t)b * H * W * Cin;
-    hopper::cp_async_wait_all();
-    DCN_PHASE(0);  // phase 0: the wait for the tile's copies
-    hopper::fence_async_shared();
-    __syncthreads();  // the tile's window, g and table visible; the last
-                      // tile's builds done
-    DCN_PHASE(5);     // phase 5: the barrier after it
-    dcn_exact::Box nbox{0, 0, 1, 1};
-    bool nwindow = true;
-    if (next) {
-      nbox = entries(tile + 1);
-      nwindow = (int64_t)nbox.bh * nbox.bw <= a.cap;
-      if (counts) atomicAdd(a.route_counts + (nwindow ? 0 : 1), 1);
-      if (a.ws == 2 && nwindow) {
-        load_window(tile + 1, slot ^ 1, nbox);
-        hopper::cp_async_commit();
-      }
-    }
-    DCN_PHASE(6);  // phase 6: the next tile's corners, box and window copy
-#pragma unroll
-    for (int j = 0; j < TPB; ++j) {
-      if (j >= ntaps) break;
-      unsigned char* s_ai = s_a + (step & 1) * PARTS * a_bytes;
-      build(j, slot, win, box.bw, box.bh * box.bw, img, s_ai);
-      hopper::fence_async_shared();
-      __syncthreads();  // A_t visible to both warpgroups
-      DCN_PHASE(1);     // phase 1: building A_t
-      if (next && nwindow && a.ws == 1 && j == ntaps - 1) {
-        load_window(tile + 1, 0, nbox);  // the window's last build is done
-        hopper::cp_async_commit();
-      }
-      hopper::wgmma_fence();
-      if constexpr (!LOW) {
-        // this warpgroup's NH columns: 3xTF32 per 8 pixels and N tile
-        const unsigned char* gs =
-            s_g + slot * 2 * g_bytes + wg * (NH / 8) * GSBO;
-        for (int ks = 0; ks < TPX / 8; ++ks) {
-          const uint64_t a_hi = hopper::desc(s_ai + ks * 256, 128, ASBO);
-          const uint64_t a_lo =
-              hopper::desc(s_ai + a_bytes + ks * 256, 128, ASBO);
-#pragma unroll
-          for (int nb = 0; nb < NTW; ++nb) {
-            const unsigned char* bt = gs + nb * (TWID / 8) * GSBO + ks * 256;
-            hopper::wgmma_3xtf32<TWID>(
-                acc[j][nb], a_hi, a_lo, hopper::desc(bt, 128, GSBO),
-                hopper::desc(bt + g_bytes, 128, GSBO));
+            for (int k = 0; k < 4; ++k) {
+              if (w[it][k] != 0.f) {
+                const float wk = w[it][k];
+                v.x = __fadd_rn(v.x, __fmul_rn(c[it][k].x, wk));
+                v.y = __fadd_rn(v.y, __fmul_rn(c[it][k].y, wk));
+                v.z = __fadd_rn(v.z, __fmul_rn(c[it][k].z, wk));
+                v.w = __fadd_rn(v.w, __fmul_rn(c[it][k].w, wk));
+              }
+            }
+            // half 0 keeps channels 0, 1 of its piece and takes pixel 2
+            // pp + 1's from half 1, which keeps 2, 3 and takes pixel 2 pp's
+            const float2 mine = h ? make_float2(v.z, v.w)
+                                  : make_float2(v.x, v.y);
+            const float2 give = h ? make_float2(v.x, v.y)
+                                  : make_float2(v.z, v.w);
+            const float2 got = make_float2(
+                __shfl_xor_sync(0xffffffffu, give.x, 16),
+                __shfl_xor_sync(0xffffffffu, give.y, 16));
+            store(pp0 + 4 * it, 2 * q4 + h, h ? got : mine, h ? mine : got);
           }
         }
       } else {
-        const unsigned char* gs = s_g + slot * g_bytes + wg * (NH / 8) * 128;
-        for (int ks = 0; ks < TPX / 16; ++ks) {
-          const uint64_t da = hopper::desc(s_ai + 2 * ks * A_LBO, A_LBO, 128);
+        // 8 channels of one pixel per item, MN-major (read with trans-b):
+        // the forward's bf16 sample; a thread takes one pixel, its corners
+        // once, and the channel groups q0, q0 + 128 / TPX, ...
+        const int p = bt & (TPX - 1);
+        const int base = base_of(p);
+        int pos[4];
+        float wk[4];
 #pragma unroll
-          for (int nb = 0; nb < NTW; ++nb)
-            hopper::wgmma_bf16<TWID, 1, 1>(
-                acc[j][nb], da,
-                hopper::desc(gs + nb * (TWID / 8) * 128 + 2 * ks * G_LBO,
-                             G_LBO, 128),
-                1);
+        for (int k = 0; k < 4; ++k) {
+          wk[k] = tw_[k * TPX + p];
+          pos[k] = base + (k & 1) + (k >> 1) * stride;
+          if (win) pos[k] = min(max(pos[k], 0), area - 1);
+        }
+        const auto store = [&](int q, const float (&s8)[8]) {
+          uint4 packed;
+          bf162* pk = reinterpret_cast<bf162*>(&packed);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            pk[c] = __floats2bfloat162_rn(s8[2 * c], s8[2 * c + 1]);
+          *reinterpret_cast<uint4*>(st + (p >> 3) * A_LBO + q * 128 +
+                                    (p & 7) * 16) = packed;
+        };
+        const int qs = 128 / TPX;  // channel-group step
+        if (win) {
+          // two channel groups at once: their 8 corner reads issued
+          // before any sum
+          for (int q = bt / TPX; q < 8; q += 2 * qs) {
+            const bool two = q + qs < 8;
+            uint4 raw[2][4];
+#pragma unroll
+            for (int it = 0; it < 2; ++it) {
+              const int qq = min(q + it * qs, 7);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                raw[it][k] = *reinterpret_cast<const uint4*>(
+                    win + pos[k] * PIX + ((qq ^ (pos[k] & 7)) << 4));
+            }
+#pragma unroll
+            for (int it = 0; it < 2; ++it) {
+              if (it == 1 && !two) break;
+              float s8[8];
+#pragma unroll
+              for (int c = 0; c < 8; ++c) s8[c] = 0.f;
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                if (wk[k] != 0.f) add8(s8, raw[it][k], wk[k]);
+              store(q + it * qs, s8);
+            }
+          }
+          return;
+        }
+        for (int q = bt / TPX; q < 8; q += qs) {
+          const int ch = c0 + 8 * q;
+          float s8[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) s8[c] = 0.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (wk[k] != 0.f && Cin - ch > 0)
+              add8(s8,
+                   load_piece(img + (int64_t)pos[k] * Cin + ch, Cin - ch,
+                              x_al),
+                   wk[k]);
+          store(q, s8);
         }
       }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait_one();  // this warpgroup's product before is done
-      __syncthreads();  // every product before is done: its A slot, and at
-                        // the tile's first tap the last tile's g slot, free
-      if (next && j == 0) {
-        load_g(tile + 1, slot ^ 1);
-        hopper::cp_async_commit();
-      }
-      ++step;
-      DCN_PHASE(2);  // phase 2: the product issued, the one before waited
-    }
-    if (next) {
-      write_entries(slot ^ 1, nbox, nwindow);
-      box = nbox;
-      window = nwindow;
-    }
-    DCN_PHASE(4);  // phase 4: the next tile's corner table
-  }
-  hopper::wgmma_wait_all();
-#pragma unroll
-  for (int j = 0; j < TPB; ++j)
-#pragma unroll
-    for (int nb = 0; nb < NTW; ++nb) hopper::fence_acc(acc[j][nb]);
+    };
 
-  // epilogue from the fragments: rows (input channels) 16 warp + lane / 4
-  // (+ 8), columns (output channels) 8 jj + 2 (lane % 4) (+ 1) of each N
-  // tile; grad w when the pixels are not split (bf16: rounded), else this
-  // split's float32 partial
-  const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
+    if (pwg == 0) {
+      // the stager: tile li into table, info, g and window slots li & 1
+      // (one window slot: 0), once the samplers are done with the tile
+      // that used them; the next tile's entry loads fly meanwhile
+      if (ntiles > 0) load_entries(tbeg);
+      for (int li = 0; li < ntiles; ++li) {
+        const int tile = tbeg + li;
+        const int slot = li & 1;
+        if (li >= 2) hopper::mbar_wait(built + slot, ((li >> 1) - 1) & 1);
+        DCN_PHASE(0);  // stager 0: the wait for the samplers
+        const dcn_exact::Box box = finish_entries(tile, slot);
+        const bool window = (int64_t)box.bh * box.bw <= a.cap;
+        if (counts) atomicAdd(a.route_counts + (window ? 0 : 1), 1);
+        if (pt == 0) {
+          s_info[2 * slot] = make_int4(box.r0, box.c0, box.bh, box.bw);
+          s_info[2 * slot + 1] = make_int4(window, 0, 0, 0);
+        }
+        DCN_PHASE(1);  // stager 1: corners, box and route of a tile
+        if (li + 1 < ntiles) load_entries(tile + 1);
+        DCN_PHASE(2);  // stager 2: the next tile's entry loads
+        const int gu = (li >> 1) - 1;  // the g slot's use before
+        if (gu >= 0) hopper::mbar_wait(g_empty + slot, gu & 1);
+        load_g(tile, slot, g_full + slot);
+        if (a.ws == 1 && li >= 1)  // the window's builds of the tile before
+          hopper::mbar_wait(built + (slot ^ 1), ((li - 1) >> 1) & 1);
+        load_window(tile, a.ws == 2 ? slot : 0, box, window,
+                    win_full + (a.ws == 2 ? slot : 0));
+        DCN_PHASE(3);  // stager 3: issuing a tile's copies
+      }
+    } else {
+      // the samplers: tile li once its window (and the table and info
+      // written before the copies' arrival) is in
+      for (int li = 0; li < ntiles; ++li) {
+        const int tile = tbeg + li;
+        const int slot = li & 1;
+        const int wslot = a.ws == 2 ? slot : 0;
+        int b, y0, x0;
+        tile_origin(tile, a.tiles_x, a.tiles_y, a.th, b, y0, x0);
+        const T* img = a.x + (int64_t)b * H * W * Cin;
+        hopper::mbar_wait(win_full + wslot, (a.ws == 2 ? li >> 1 : li) & 1);
+        DCN_PHASE(4);  // sampler 4: the wait for the tile's window
+        const int4 bi = s_info[2 * slot];
+        const dcn_exact::Box box{bi.x, bi.y, bi.z, bi.w};
+        const unsigned char* win =
+            s_info[2 * slot + 1].x ? s_win + wslot * win_b : nullptr;
+        for (int j = 0; j < ntaps; ++j) {
+          const int n = li * ntaps + j;  // stage n % S, its (n / S)-th use
+          if (n % NB != bwg) continue;
+          const int s = n % S;
+          const int u = n / S;
+          if (u > 0) hopper::mbar_wait(empty + s, (u - 1) & 1);
+          DCN_PHASE(5);  // sampler 5: the wait for a free stage
+          build(j, slot, win, box, img, s_stage + s * stage_b);
+          DCN_PHASE(6);  // sampler 6: building a sample
+          hopper::fence_async_shared();
+          hopper::mbar_arrive(full + s);
+          DCN_PHASE(7);  // sampler 7: publishing it (fence, arrive)
+        }
+        hopper::mbar_arrive(built + slot);
+      }
+    }
+    DCN_PHASES_END_IF(pt == 0 || pt == 128);
+  } else {
+    // ---- the consumers ---------------------------------------------------
+    hopper::setmaxnreg_inc<R::CREGS>();
+    const int wg = tid >> 7;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int m0 = wg * MPW;  // this warpgroup's first M tile
+    const int ksn = LOW ? TPX / 16 : TPX / 8;  // k steps of a product
+    DCN_PHASES_BEGIN;
+    float acc[TPW][MPW][32];
 #pragma unroll
-  for (int j = 0; j < TPB; ++j) {
-    if (j >= ntaps) break;
-    const int t = t0 + j;
+    for (int j = 0; j < TPW; ++j)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int c = c0 + 16 * warp + lane / 4 + 8 * hh;
-      if (c >= Cin) continue;
-      const int64_t row = ((int64_t)t * Cin + c) * Cout;
+      for (int m = 0; m < MPW; ++m) {
 #pragma unroll
-      for (int nb = 0; nb < NTW; ++nb) {
+        for (int i = 0; i < 32; ++i) acc[j][m][i] = 0.f;
+        hopper::fence_acc(acc[j][m]);
+      }
+    // g^T of this warpgroup's M tiles, the A fragments of a tile's k
+    // steps (float32: TF32 hi, lo; bf16: gh only)
+    uint32_t gh[MPW][WKS][4], gl[MPW][WKS][4];
+    for (int li = 0; li < ntiles; ++li) {
+      const int slot = li & 1;
+      hopper::mbar_wait(g_full + slot, (li >> 1) & 1);
+      DCN_PHASE(8);  // consumer 8: the wait for the tile's output grad
+      const unsigned char* gs = s_g + slot * g_b;
 #pragma unroll
-        for (int jj = 0; jj < TWID / 8; ++jj) {
-          const int o = n0 + NH * wg + TWID * nb + 8 * jj + 2 * (lane & 3);
+      for (int m = 0; m < MPW; ++m) {
+        const int o = 64 * (m0 + m) + 16 * warp + (lane >> 2);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (o + e >= Cout) continue;
-            const float v = acc[j][nb][4 * jj + 2 * hh + e];
-            if (a.splits > 1)
-              a.partial[(int64_t)split * 9 * Cin * Cout + row + o + e] = v;
-            else
-              a.grad_w[row + o + e] = from_f32<T>(v);
+        for (int ks = 0; ks < WKS; ++ks) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int oo = o + 8 * (i & 1);
+            gh[m][ks][i] = gl[m][ks][i] = 0u;
+            if (ks >= ksn) continue;
+            if constexpr (!LOW) {
+              const int k = 8 * ks + (lane & 3) + 4 * (i >> 1);
+              const float v =
+                  *reinterpret_cast<const float*>(gs + k * gpitch + oo * 4);
+              const float hi = hopper::tf32_rna(v);
+              gh[m][ks][i] = __float_as_uint(hi);
+              gl[m][ks][i] = __float_as_uint(hopper::tf32_rna(v - hi));
+            } else {
+              const int k = 16 * ks + 2 * (lane & 3) + 8 * (i >> 1);
+              const uint32_t lo16 = *reinterpret_cast<const uint16_t*>(
+                  gs + k * gpitch + oo * 2);
+              const uint32_t hi16 = *reinterpret_cast<const uint16_t*>(
+                  gs + (k + 1) * gpitch + oo * 2);
+              gh[m][ks][i] = lo16 | (hi16 << 16);
+            }
+          }
+        }
+      }
+      hopper::mbar_arrive(g_empty + slot);
+      DCN_PHASE(9);  // consumer 9: g^T into registers
+#pragma unroll
+      for (int j = 0; j < TPW; ++j) {
+        if (j >= ntaps) break;
+        const int n = li * ntaps + j;
+        const int s = n % S;
+        hopper::mbar_wait(full + s, (n / S) & 1);
+        DCN_PHASE(10);  // consumer 10: the wait for a full stage
+        const unsigned char* st = s_stage + s * stage_b;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < MPW; ++m) {
+#pragma unroll
+          for (int ks = 0; ks < WKS; ++ks) {
+            if (ks >= ksn) break;
+            if constexpr (!LOW) {
+              const int asbo = weight_asbo(a.th);
+              const uint64_t bh = hopper::desc(st + ks * 256, 128, asbo);
+              const uint64_t bl =
+                  hopper::desc(st + 8 * asbo + ks * 256, 128, asbo);
+              hopper::wgmma_tf32_rs<64>(acc[j][m], gl[m][ks], bh, 1);
+              hopper::wgmma_tf32_rs<64>(acc[j][m], gh[m][ks], bl, 1);
+              hopper::wgmma_tf32_rs<64>(acc[j][m], gh[m][ks], bh, 1);
+            } else {
+              hopper::wgmma_bf16_rs<64, 1>(
+                  acc[j][m], gh[m][ks],
+                  hopper::desc(st + 2 * ks * A_LBO, A_LBO, 128), 1);
+            }
+          }
+        }
+        hopper::wgmma_commit();
+        DCN_PHASE(11);  // consumer 11: issuing a product
+        // the product done, its stage is free at once: a consumer holds
+        // no stage while it waits, so the producers may fill the whole
+        // ring ahead of it (the tensor cores run one product at a time)
+        hopper::wgmma_wait_all();
+        hopper::mbar_arrive(empty + s);
+        DCN_PHASE(12);  // consumer 12: the wait for the product
+      }
+#pragma unroll
+      for (int m = 0; m < MPW; ++m)
+#pragma unroll
+        for (int ks = 0; ks < WKS; ++ks) {
+          hopper::fence_regs(gh[m][ks]);  // g^T's registers are free again
+          hopper::fence_regs(gl[m][ks]);
+        }
+      DCN_PHASE(13);  // consumer 13: the tile's end
+    }
+#pragma unroll
+    for (int j = 0; j < TPW; ++j)
+#pragma unroll
+      for (int m = 0; m < MPW; ++m) hopper::fence_acc(acc[j][m]);
+
+    // epilogue from the fragments: rows (output channels) 16 warp + lane
+    // / 4 (+ 8) of each M tile, columns (input channels) 8 jc + 2 (lane %
+    // 4) (+ 1); grad w when the pixels are not split (bf16: rounded),
+    // else this split's float32 partial
+#pragma unroll
+    for (int j = 0; j < TPW; ++j) {
+      if (j >= ntaps) break;
+      const int t = t0 + j;
+#pragma unroll
+      for (int m = 0; m < MPW; ++m) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int o =
+              n0 + 64 * (m0 + m) + 16 * warp + (lane >> 2) + 8 * hh;
+          if (o >= Cout) continue;
+#pragma unroll
+          for (int jc = 0; jc < 8; ++jc) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = c0 + 8 * jc + 2 * (lane & 3) + e;
+              if (c >= Cin) continue;
+              const int64_t idx = ((int64_t)t * Cin + c) * Cout + o;
+              const float v = acc[j][m][4 * jc + 2 * hh + e];
+              if (a.splits > 1)
+                a.partial[(int64_t)split * 9 * Cin * Cout + idx] = v;
+              else
+                a.grad_w[idx] = from_f32<T>(v);
+            }
           }
         }
       }
     }
+    DCN_PHASE(14);  // consumer 14: the flush of the accumulators
+    DCN_PHASES_END_IF(tid == 0);
   }
-  DCN_PHASE(3);  // phase 3: the flush of the accumulators
-  DCN_PHASES_END;
 }
 
 // grad_w[e] = the sum over the splits of partial[s, e], in split order
@@ -1324,19 +1589,21 @@ __global__ void dcn_exact_bwd_weight_reduce_kernel(
   grad_w[e] = from_f32<T>(s);
 }
 
-template <typename T, int NB>
+template <typename T, int NP_>
 int launch_weight_kernel(const WeightArgs<T>& a, int chunks, int smem,
                          cudaStream_t s) {
+  using R = WRoles<NP_>;
   static int smem_set = 0;  // the dynamic shared memory allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dcn_exact_bwd_weight_kernel<T, NB>,
+        dcn_exact_bwd_weight_kernel<T, NP_>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
   const dim3 grid(chunks * a.groups * a.col_tiles, a.splits);
-  dcn_exact_bwd_weight_kernel<T, NB><<<grid, WNT, smem, s>>>(a);
+  dcn_exact_bwd_weight_kernel<T, NP_>
+      <<<grid, 128 * (R::NPROD + R::NCONS), smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1346,52 +1613,48 @@ int launch_weight(WeightArgs<T> a, int B, int H, int W, int Cin, int Cout,
                   int window_slots, int box_capacity, int splits, int smem,
                   cudaStream_t s) {
   constexpr bool LOW = is_low<T>();
-  const int nb = n_tile / 64;
+  const int widest = LOW ? 256 : 128;  // ops/dcn.EXACT_WEIGHT_MAX_N_TILE
+  const int most = n_tile == 64    ? WRoles<64>::TPW
+                   : n_tile == 128 ? WRoles<128>::TPW
+                                   : WRoles<256>::TPW;
   const int tiles_x = (W + WTW - 1) / WTW;
   const int tiles_y = tile_h > 0 ? (H + tile_h - 1) / tile_h : 0;
   const int64_t tiles = (int64_t)B * tiles_y * tiles_x;
   if (Cin <= 0 || Cout <= 0 || tiles <= 0 || tiles > 0x7fffffff ||
-      tile_w != WTW || (tile_h != 4 && tile_h != 2 && tile_h != 1) ||
-      chunk != WCK || (nb != 1 && nb != 2 && nb != 4) || n_tile != 64 * nb ||
-      (n_tile < Cout && n_tile != 256) || taps != weight_taps(nb) ||
-      (window_slots != 1 && window_slots != 2) || box_capacity < 1 ||
-      splits < 1 || splits > tiles || splits > 65535 ||
-      smem != weight_smem_bytes<T>(nb, tile_h, window_slots, box_capacity) ||
-      smem > 232448 || (!LOW && a.gsplit == nullptr) ||
-      (splits > 1 && a.partial == nullptr))
+      H > 32766 || W > 32766 || tile_w != WTW ||
+      (tile_h != 4 && tile_h != 2 && tile_h != 1) ||
+      tile_h * WTW > WKS * (LOW ? 16 : 8) || chunk != WCK ||
+      (n_tile != 64 && n_tile != 128 && n_tile != 256) ||
+      n_tile > widest || (n_tile < Cout && n_tile != widest) ||
+      (n_tile > 64 && n_tile / 2 >= Cout) ||
+      taps < 1 || taps > 9 || taps > most ||
+      (window_slots != 1 && window_slots != 2) ||
+      box_capacity < 1 || splits < 1 || splits > tiles || splits > 65535 ||
+      smem != weight_smem_bytes<T>(n_tile, tile_h, taps, window_slots,
+                                   box_capacity) ||
+      smem > 232448 || (splits > 1 && a.partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int col_tiles = (Cout + n_tile - 1) / n_tile;
-  const int threads = 256;
-  if constexpr (!LOW) {
-    const int64_t items =
-        tiles * col_tiles * (tile_h * WTW / 4) * (int64_t)n_tile;
-    dcn_exact_bwd_split_grad_kernel<<<(unsigned)((items + threads - 1) /
-                                                 threads),
-                                      threads, 0, s>>>(
-        a.grad_out, const_cast<float*>(a.gsplit), H, W, Cout, tile_h,
-        tiles_x, tiles_y, n_tile, col_tiles, items);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
   a.H = H;
   a.W = W;
   a.Cin = Cin;
   a.Cout = Cout;
   a.th = tile_h;
+  a.taps = taps;
   a.ws = window_slots;
   a.cap = box_capacity;
   a.tiles_x = tiles_x;
   a.tiles_y = tiles_y;
   a.tiles = (int)tiles;
   a.groups = (9 + taps - 1) / taps;
-  a.col_tiles = col_tiles;
+  a.col_tiles = (Cout + n_tile - 1) / n_tile;
   a.splits = splits;
   const int chunks = (Cin + WCK - 1) / WCK;
-  int err = nb == 1   ? launch_weight_kernel<T, 1>(a, chunks, smem, s)
-            : nb == 2 ? launch_weight_kernel<T, 2>(a, chunks, smem, s)
-                      : launch_weight_kernel<T, 4>(a, chunks, smem, s);
+  int err = n_tile == 64    ? launch_weight_kernel<T, 64>(a, chunks, smem, s)
+            : n_tile == 128 ? launch_weight_kernel<T, 128>(a, chunks, smem, s)
+                            : launch_weight_kernel<T, 256>(a, chunks, smem, s);
   if (err != 0 || splits == 1) return err;
   const int64_t count = (int64_t)9 * Cin * Cout;
+  const int threads = 256;
   dcn_exact_bwd_weight_reduce_kernel<T>
       <<<(unsigned)((count + threads - 1) / threads), threads, 0, s>>>(
           a.partial, a.grad_w, count, splits);
@@ -1477,40 +1740,41 @@ extern "C" int dcn_exact_bwd_data_bf16(
 }
 
 // The weight gradient at float32 (ops/dcn.exact_bwd_weight_fp32_plan):
-// tile_h (4, 2 or 1), tile_w, chunk, n_tile (64, 128 or 256), taps (per
-// block), window_slots (1 or 2), box_capacity, splits (of the pixel tiles)
-// and the dynamic shared memory. grad_w (3, 3, Cin, Cout) is fully written;
-// `gsplit` holds tiles * col_tiles * 2 * n_tile * tile_h * tile_w floats of
-// scratch; `partial` holds splits * 9 * Cin * Cout floats when splits > 1
-// and may be null otherwise.
+// tile_h (2 or 1), tile_w, chunk, n_tile (64 or 128: the block's output
+// channels, its M tiles x 64; past 128 in blocks of 128), taps (per
+// block: at most 5 at n_tile 64, 3 at 128), window_slots (1 or 2),
+// box_capacity, splits (of the pixel tiles) and the dynamic shared
+// memory; the ring's stages are the kernel's (weight_stages). grad_w (3,
+// 3, Cin, Cout) is fully written; `partial` holds splits * 9 * Cin * Cout
+// floats when splits > 1 and may be null otherwise. H and W are at most
+// 32766.
 extern "C" int dcn_exact_bwd_weight(
     const float* x, const float* offset, const float* mask,
-    const float* grad_out, float* grad_w, float* partial, float* gsplit,
-    int* route_counts, int B, int H, int W, int Cin, int Cout, int tile_h,
-    int tile_w, int chunk, int n_tile, int taps, int window_slots,
+    const float* grad_out, float* grad_w, float* partial, int* route_counts,
+    int B, int H, int W, int Cin, int Cout, int tile_h, int tile_w,
+    int chunk, int n_tile, int taps, int window_slots,
     int box_capacity, int splits, int smem, void* stream) {
   WeightArgs<float> a{};
   a.x = x;
   a.offset = offset;
   a.mask = mask;
   a.grad_out = grad_out;
-  a.gsplit = gsplit;
   a.grad_w = grad_w;
   a.partial = partial;
   a.route_counts = route_counts;
   return launch_weight(a, B, H, W, Cin, Cout, tile_h, tile_w, chunk, n_tile,
-                       taps, window_slots, box_capacity, splits, smem,
-                       (cudaStream_t)stream);
+                       taps, window_slots, box_capacity, splits,
+                       smem, (cudaStream_t)stream);
 }
 
-// The same at bfloat16 (ops/dcn.exact_bwd_weight_bf16_plan): no split
-// output grad; grad_w bf16, rounded once.
+// The same at bfloat16 (ops/dcn.exact_bwd_weight_bf16_plan: tile_h 4, 2
+// or 1; n_tile 256 with 1 tap past Cout 128); grad_w bf16, rounded once.
 extern "C" int dcn_exact_bwd_weight_bf16(
     const bf16* x, const bf16* offset, const bf16* mask,
     const bf16* grad_out, bf16* grad_w, float* partial, int* route_counts,
     int B, int H, int W, int Cin, int Cout, int tile_h, int tile_w,
-    int chunk, int n_tile, int taps, int window_slots, int box_capacity,
-    int splits, int smem, void* stream) {
+    int chunk, int n_tile, int taps, int window_slots,
+    int box_capacity, int splits, int smem, void* stream) {
   WeightArgs<bf16> a{};
   a.x = x;
   a.offset = offset;
@@ -1520,6 +1784,6 @@ extern "C" int dcn_exact_bwd_weight_bf16(
   a.partial = partial;
   a.route_counts = route_counts;
   return launch_weight(a, B, H, W, Cin, Cout, tile_h, tile_w, chunk, n_tile,
-                       taps, window_slots, box_capacity, splits, smem,
-                       (cudaStream_t)stream);
+                       taps, window_slots, box_capacity, splits,
+                       smem, (cudaStream_t)stream);
 }

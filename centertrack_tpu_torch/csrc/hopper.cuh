@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the DCN kernels
-// (dcn_local.cu, dcn_local_bwd.cu, dcn_local_bf16.cu, dcn_local_bwd_bf16.cu):
-// asynchronous global -> shared copies (cp.async, 16 bytes, zero-filled
-// past the source), the shared-memory matrix descriptor of wgmma for the
-// layout without swizzle, the warpgroup products m64nNk16 bf16 x bf16 ->
-// float32 (N = 32, 64; either operand K-major or MN-major), and the TF32
-// products m64nNk8 (N = 8, 16, 32, 64) with the
-// hi/lo split by which the float32 kernels run them three times
-// ("3xTF32") to keep float32 accuracy.
+// (dcn_local.cu, dcn_local_bwd.cu, dcn_local_bf16.cu, dcn_local_bwd_bf16.cu,
+// dcn_exact.cu, dcn_exact_bwd.cu): asynchronous global -> shared copies
+// (cp.async, 16 bytes, zero-filled past the source), the shared-memory
+// matrix descriptor of wgmma for the layout without swizzle, the
+// warpgroup products m64nNk16 bf16 x bf16 -> float32 (N = 32, 64; either
+// operand K-major or MN-major), the TF32 products m64nNk8 (N = 8, 16, 32,
+// 64) with the hi/lo split by which the float32 kernels run them three
+// times ("3xTF32") to keep float32 accuracy, their forms with A from
+// registers (TF32 m64n64k8, bf16 m64n64k16), and what warp-specialised
+// kernels use: mbarriers (init, arrive, arrive on cp.async completion,
+// wait by parity), setmaxnreg and named barriers.
 //
 // Operand layout in shared memory ("interleaved", no swizzle): a core
 // matrix is 8 rows of 16 bytes (8 bf16 or 4 tf32), stored as 128
@@ -306,17 +309,165 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2],
   wgmma_tf32<N>(d, a_hi, b_hi, 1);
 }
 
+// ---- A from registers ----------------------------------------------------
+//
+// The register form of wgmma: A (64 x K) comes from the warpgroup's
+// registers, four 32-bit registers a thread, B from shared memory. Warp w
+// of the warpgroup holds rows 16 w .. 16 w + 15; in it, with g = lane / 4
+// and q = lane % 4, a[0] is row g, a[1] row g + 8, a[2] row g and a[3] row
+// g + 8, at the columns (K) q and q + 4 for tf32 (a[0], a[1] at q; a[2],
+// a[3] at q + 4) and, for bf16, the pairs 2 q, 2 q + 1 (a[0], a[1]) and
+// 2 q + 8, 2 q + 9 (a[2], a[3]), the lower column in the low 16 bits. The
+// product reads the registers after it is issued: they must not change
+// until wgmma_wait says it is done (fence_regs keeps them live to there).
+
+// d (64 x 64 float32) += A (64 x 8 tf32, registers) * B (8 x 64 tf32,
+// K-major in shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  static_assert(N == 64, "wgmma_tf32_rs: N is 64");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 64 float32) += A (64 x 16 bf16, registers) * B (16 x 64 bf16;
+// K-major when TRANS_B = 0, MN-major when 1)
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  static_assert(N == 64, "wgmma_bf16_rs: N is 64");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TRANS_B));
+}
+
+// Keeps the compiler from reusing or moving the registers of an A
+// fragment across the asynchronous product that reads them.
+template <int NR>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// ---- warp specialisation -------------------------------------------------
+//
+// mbarriers in shared memory: a barrier completes a phase when `count`
+// threads have arrived (and, for cp_async_arrive, their earlier cp.async
+// copies have landed); wait(parity) returns once the phase of that parity
+// has completed (the first phase has parity 0). setmaxnreg moves registers
+// between warpgroups: each warpgroup of a role runs it once, at the top
+// of its branch, and the branches never meet again.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after the barriers' init, before any thread uses them (with a
+// __syncthreads after it)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival, releasing this thread's earlier writes to shared memory
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// holds the barrier's phase open until this thread's earlier cp.async
+// copies have landed (one mbar_arrive of the same thread still counts)
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// a barrier of `count` threads (whole warps) on hardware barrier `id`
+// (1-15; __syncthreads is 0)
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 }  // namespace hopper
 
 // Phase counters of the DCN kernels, read by
 // centertrack_tpu_torch/tools/dcn_phases.py. Built with -DDCN_PHASES,
 // a kernel's thread 0 of each block adds the clock64() cycles between its
-// DCN_PHASE(k) marks to slot k of dcn_phase_cycles, and dcn_read_phases
-// copies and clears the slots; otherwise the marks compile to nothing.
+// DCN_PHASE(k) marks to slot k of dcn_phase_cycles (DCN_PHASES_END_IF:
+// the thread given, so that a warp-specialised kernel records one thread
+// of each role, each in slots of its own), and dcn_read_phases copies
+// and clears the 16 slots; otherwise the marks compile to nothing.
 #ifdef DCN_PHASES
-__device__ unsigned long long dcn_phase_cycles[8];
+__device__ unsigned long long dcn_phase_cycles[16];
 #define DCN_PHASES_BEGIN               \
-  unsigned long long dcn_p[8] = {};    \
+  unsigned long long dcn_p[16] = {};   \
   unsigned long long dcn_c0 = clock64()
 #define DCN_PHASE(k)                                \
   do {                                              \
@@ -324,14 +475,15 @@ __device__ unsigned long long dcn_phase_cycles[8];
     dcn_p[k] += dcn_c1 - dcn_c0;                    \
     dcn_c0 = dcn_c1;                                \
   } while (0)
-#define DCN_PHASES_END                                         \
+#define DCN_PHASES_END_IF(cond)                                \
   do {                                                         \
-    if (threadIdx.x == 0)                                      \
-      for (int k = 0; k < 8; ++k)                              \
-        atomicAdd(&dcn_phase_cycles[k], dcn_p[k]);             \
+    if (cond)                                                  \
+      for (int k = 0; k < 16; ++k)                             \
+        if (dcn_p[k]) atomicAdd(&dcn_phase_cycles[k], dcn_p[k]); \
   } while (0)
+#define DCN_PHASES_END DCN_PHASES_END_IF(threadIdx.x == 0)
 extern "C" int dcn_read_phases(unsigned long long* out) {
-  const unsigned long long zero[8] = {};
+  const unsigned long long zero[16] = {};
   cudaError_t err = cudaMemcpyFromSymbol(out, dcn_phase_cycles,
                                          sizeof(zero));
   if (err == cudaSuccess)
@@ -341,5 +493,6 @@ extern "C" int dcn_read_phases(unsigned long long* out) {
 #else
 #define DCN_PHASES_BEGIN
 #define DCN_PHASE(k)
+#define DCN_PHASES_END_IF(cond)
 #define DCN_PHASES_END
 #endif

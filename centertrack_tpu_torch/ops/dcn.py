@@ -151,7 +151,7 @@ _SIGNATURES = {
     "dcn_exact_fwd_bf16": ("dcn_exact", 8, 13),
     "dcn_exact_bwd_data": ("dcn_exact_bwd", 12, 13),
     "dcn_exact_bwd_data_bf16": ("dcn_exact_bwd", 12, 13),
-    "dcn_exact_bwd_weight": ("dcn_exact_bwd", 8, 14),
+    "dcn_exact_bwd_weight": ("dcn_exact_bwd", 7, 14),
     "dcn_exact_bwd_weight_bf16": ("dcn_exact_bwd", 7, 14),
 }
 
@@ -234,12 +234,27 @@ EXACT_DATA_CHUNKS = {"float32": ((32, 2), (16, 2), (8, 1)),
                      "bfloat16": ((64, 2), (32, 1))}
 EXACT_DATA_BOX_MIN = 256
 EXACT_DATA_MAX_K = 256
-# The exact weight-gradient kernels: the clamped weight kernels' blocks
-# (WEIGHT_CHUNK channels, WEIGHT_TAPS taps, th x 16 pixel tiles) with a
-# window of the tile's box of live corners; the first (th, window slots)
-# of EXACT_WEIGHT_FITS whose slots hold EXACT_WEIGHT_BOX_MIN pixels each,
-# else the last at what fits.
-EXACT_WEIGHT_FITS = ((4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+# The exact weight-gradient kernels (csrc/dcn_exact_bwd.cu) own their
+# design (the roles of their warpgroups, WRoles); the planner keeps what
+# it needs of it. A block takes 64, 128 or 256 output channels (n_tile,
+# M tiles of 64) and as many taps as its consumers' registers hold
+# (EXACT_WEIGHT_TAPS, WRoles::TPW: 5 at n_tile 64, 3 at 128, 1 at 256),
+# in balanced groups; float32 takes Cout past 128 in blocks of 128
+# (EXACT_WEIGHT_MAX_N_TILE: at 256, one tap a block was slower,
+# PERF.md). Its shared memory: the barriers (EXACT_WEIGHT_BARRIER_BYTES,
+# WBAR_B), the ring's stages (EXACT_WEIGHT_STAGES, weight_stages), two
+# output-grad slots, two corner tables and the window slots. The consumers
+# hold g^T of a tile in registers, so the tile rows are at most 2 at
+# float32 and 4 at bf16: the first (rows, window slots) of
+# EXACT_WEIGHT_FITS whose slots hold EXACT_WEIGHT_BOX_MIN pixels each is
+# taken, else the last at what fits.
+EXACT_WEIGHT_TAPS = {64: 5, 128: 3, 256: 1}
+EXACT_WEIGHT_MAX_N_TILE = {"float32": 128, "bfloat16": 256}
+EXACT_WEIGHT_STAGES = {"float32": 3, "bfloat16": 6}
+EXACT_WEIGHT_BARRIER_BYTES = 384
+EXACT_WEIGHT_FITS = {"float32": ((2, 2), (1, 2), (2, 1), (1, 1)),
+                     "bfloat16": ((4, 2), (2, 2), (1, 2), (4, 1), (2, 1),
+                                  (1, 1))}
 EXACT_WEIGHT_BOX_MIN = 256
 
 
@@ -331,7 +346,8 @@ def _resident(smem: int, threads: int) -> int:
     return max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // threads))
 
 
-def _wave_splits(blocks: int, steps: int, resident: int) -> int:
+def _wave_splits(blocks: int, steps: int, resident: int, flush: int = 0,
+                 least_blocks: int = TARGET_BLOCKS // 2) -> int:
     """Splits of a launch of ``blocks`` independent units (pixel tiles,
     or the weight gradient's chunk x tap-group x N tiles) of ``steps``
     steps each (its K steps, or the weight gradient's pixel tiles),
@@ -343,13 +359,16 @@ def _wave_splits(blocks: int, steps: int, resident: int) -> int:
     fewest waves times the steps of a block, one step added for its
     staging; ties to fewer splits. A launch of 288 tiles at one block per
     SM runs in 3 waves (the third of 24 blocks): 5 splits run the same K
-    in 11 waves of a fifth of the steps, 330 step-times against 435."""
+    in 11 waves of a fifth of the steps, 330 step-times against 435.
+    ``flush``: the steps a block's flush of its partials costs, added to
+    each block's (the exact weight kernels'); ``least_blocks``: the
+    blocks a split launch aims for at least (their plan: one wave)."""
     cap = SMS * resident
     if blocks >= 4 * cap:
         return 1
-    least = min(steps, -(-(TARGET_BLOCKS // 2) // blocks))
+    least = min(steps, -(-least_blocks // blocks))
     return min(range(least, steps + 1), key=lambda s: (
-        -(-(blocks * s) // cap) * (-(-steps // s) + 1), s))
+        -(-(blocks * s) // cap) * (-(-steps // s) + 1 + flush), s))
 
 
 def _k_ranges(steps: int, splits: int) -> tuple:
@@ -797,68 +816,74 @@ def exact_bwd_data_bf16_plan(b: int, h: int, w: int, cin: int,
     return _exact_data_plan("bfloat16", b, h, w, cin, cout)
 
 
-def _exact_weight_smem(dtype: str, n_tile: int, th: int, slots: int,
-                       cap: int) -> int:
-    """Two A slots and two output-grad slots (float32: hi and lo, A's
-    8-channel groups padded by 16 bytes), the window slots of ``cap``
-    pixels, two corner tables and the box of the exact weight kernel
-    (csrc/dcn_exact_bwd.cu weight_smem_bytes)."""
+def _exact_weight_smem(dtype: str, n_tile: int, th: int, taps: int,
+                       slots: int, cap: int) -> int:
+    """The barriers, the sample stages (float32: hi and lo, 8-channel
+    groups padded by 16 bytes), two output-grad slots (rows of n_tile
+    channels padded by 32 bytes at float32, 16 at bf16), two corner
+    tables (20 bytes a tap and pixel) and the window slots of ``cap``
+    pixels of the exact weight kernel (csrc/dcn_exact_bwd.cu
+    weight_smem_bytes)."""
     tp = th * TILE[1]
-    taps = WEIGHT_TAPS[n_tile]
-    if dtype == "float32":
-        fixed = 4 * 8 * (tp * 32 + 16) + 4 * n_tile * tp * 4
-        pixel = WEIGHT_CHUNK * 4
-    else:
-        fixed = 2 * tp * WEIGHT_CHUNK * 2 + 2 * tp * n_tile * 2
-        pixel = WEIGHT_CHUNK * 2
-    return fixed + slots * cap * pixel + 2 * taps * tp * 20 + 16
+    fp32 = dtype == "float32"
+    size = 4 if fp32 else 2
+    stage = 2 * 8 * (tp * 32 + 16) if fp32 else tp * WEIGHT_CHUNK * 2
+    gpitch = n_tile * size + (32 if fp32 else 16)
+    return (EXACT_WEIGHT_BARRIER_BYTES + EXACT_WEIGHT_STAGES[dtype] * stage
+            + 2 * tp * gpitch + 2 * taps * tp * 20
+            + slots * cap * WEIGHT_CHUNK * size)
 
 
 def _exact_weight_plan(dtype: str, b: int, h: int, w: int, cin: int,
                        cout: int) -> dict:
-    n_tile = 64 if cout <= 64 else 128 if cout <= 128 else 256
-    pixel = WEIGHT_CHUNK * (4 if dtype == "float32" else 2)
-    for th, slots in EXACT_WEIGHT_FITS:
-        room = SMEM_LIMIT - _exact_weight_smem(dtype, n_tile, th, 0, 0)
+    fp32 = dtype == "float32"
+    n_tile = min(64 if cout <= 64 else 128 if cout <= 128 else 256,
+                 EXACT_WEIGHT_MAX_N_TILE[dtype])
+    m_tiles = n_tile // 64
+    groups = -(-9 // EXACT_WEIGHT_TAPS[n_tile])
+    taps = -(-9 // groups)
+    pixel = WEIGHT_CHUNK * (4 if fp32 else 2)
+    for th, slots in EXACT_WEIGHT_FITS[dtype]:
+        room = SMEM_LIMIT - _exact_weight_smem(dtype, n_tile, th, taps, 0,
+                                               0)
         cap = min(EXACT_BOX_MAX, room // (slots * pixel))
         if cap >= EXACT_WEIGHT_BOX_MIN:
             break
     cap = max(1, cap)
-    smem = _exact_weight_smem(dtype, n_tile, th, slots, cap)
-    taps = WEIGHT_TAPS[n_tile]
+    smem = _exact_weight_smem(dtype, n_tile, th, taps, slots, cap)
     col_tiles = -(-cout // n_tile)
-    groups = -(-9 // taps)
     chunks = -(-cin // WEIGHT_CHUNK)
     tiles = _tiles(b, h, w, th)
     units = chunks * groups * col_tiles
-    splits = _wave_splits(units, tiles, 1) if tiles else 1
-    plan = {"tile": (th, TILE[1]), "chunk": WEIGHT_CHUNK, "n_tile": n_tile,
-            "taps": taps, "groups": groups, "chunks": chunks,
+    splits = (_wave_splits(units, tiles, 1, flush=m_tiles, least_blocks=SMS)
+              if tiles else 1)
+    return {"tile": (th, TILE[1]), "chunk": WEIGHT_CHUNK, "n_tile": n_tile,
+            "m_tiles": m_tiles, "taps": taps, "groups": groups,
+            "stages": EXACT_WEIGHT_STAGES[dtype], "chunks": chunks,
             "col_tiles": col_tiles, "window_slots": slots,
             "box_capacity": cap, "tiles": tiles, "resident": 1,
-            "split_rule": "waves", "splits": splits,
-            "tile_ranges": _k_ranges(tiles, splits),
+            "split_rule": "waves", "flush_steps": m_tiles,
+            "splits": splits, "tile_ranges": _k_ranges(tiles, splits),
             "blocks": units * splits, "smem_bytes": smem,
             "scratch": splits * 9 * cin * cout if splits > 1 else 0}
-    if dtype == "float32":
-        plan["grad_split"] = tiles * col_tiles * 2 * n_tile * th * TILE[1]
-    return plan
 
 
 @functools.lru_cache(maxsize=256)
 def exact_bwd_weight_fp32_plan(b: int, h: int, w: int, cin: int,
                                cout: int) -> dict:
-    """Launch plan of ``dcn_exact_bwd_weight``: the N tile (64, 128 or
-    256), the taps of a block (``WEIGHT_TAPS``) and their groups, the
-    tile rows and window slots (the first of ``EXACT_WEIGHT_FITS`` whose
-    slots hold ``EXACT_WEIGHT_BOX_MIN`` pixels), the window's
-    ``box_capacity`` (a tile whose box of live corners is larger builds
-    A_t from global memory), the pixel tiles and their splits by the wave
-    rule (units chunks x tap groups x N tiles, one block an SM), the
-    blocks, the dynamic shared memory and the float32 scratch: the output
-    grad split into TF32 hi and lo by tile (``grad_split``) and the split
-    partials (``scratch``). Any shape and offset has a plan. Cached per
-    shape: callers read it and never change it."""
+    """Launch plan of ``dcn_exact_bwd_weight``: the block's output
+    channels (``n_tile``: 64 or 128, ``m_tiles`` of 64) and taps
+    (``taps`` in ``groups``: 5 at n_tile 64, 3 at 128, by the consumers'
+    registers), the kernel's ring ``stages``, the tile rows and window
+    slots (the first of ``EXACT_WEIGHT_FITS`` whose slots
+    hold ``EXACT_WEIGHT_BOX_MIN`` pixels), the window's ``box_capacity``
+    (a tile whose box of live corners is larger builds its samples from
+    global memory), the pixel tiles and their splits by the wave rule
+    (units chunks x tap groups x N tiles, one block an SM, at least one
+    wave, a block's flush counted as ``flush_steps``), the blocks, the
+    dynamic shared memory and the float32 scratch of the split partials
+    (``scratch``). Any shape and offset has a plan. Cached per shape:
+    callers read it and never change it."""
     return _exact_weight_plan("float32", b, h, w, cin, cout)
 
 
@@ -866,7 +891,7 @@ def exact_bwd_weight_fp32_plan(b: int, h: int, w: int, cin: int,
 def exact_bwd_weight_bf16_plan(b: int, h: int, w: int, cin: int,
                                cout: int) -> dict:
     """Launch plan of ``dcn_exact_bwd_weight_bf16``, as
-    ``exact_bwd_weight_fp32_plan`` without the split output grad."""
+    ``exact_bwd_weight_fp32_plan`` with tile rows up to 4."""
     return _exact_weight_plan("bfloat16", b, h, w, cin, cout)
 
 
@@ -1554,18 +1579,14 @@ def launch_exact_bwd_weight(x, offset, mask, grad_out, cout,
                            dtype=x.dtype)
     plan = exact_bwd_weight_fp32_plan(b, h, w, cin, cout)
     grad_w = torch.empty((3, 3, cin, cout), device=x.device, dtype=x.dtype)
-    # one allocation for both scratches: the split output grad, then the
-    # partials (16-byte aligned: grad_split is a multiple of 4 floats)
-    scratch = torch.empty(plan["grad_split"] + plan["scratch"],
-                          device=x.device, dtype=torch.float32)
-    gsplit = scratch.data_ptr()
-    partial = gsplit + 4 * plan["grad_split"] if plan["scratch"] else None
+    partial = _scratch(plan, "scratch", x.device)
     _ok(_kernel("dcn_exact_bwd_weight")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-        grad_out.data_ptr(), grad_w.data_ptr(), partial, gsplit, counts,
+        grad_out.data_ptr(), grad_w.data_ptr(), _ptr(partial), counts,
         b, h, w, cin, cout,
         *_plan_ints(plan, "n_tile", "taps", "window_slots", "box_capacity",
-                    "splits"), _stream(x)), "dcn_exact_bwd_weight")
+                    "splits"), _stream(x)),
+        "dcn_exact_bwd_weight")
     EXACT_BWD_WEIGHT_LAUNCHES += 1
     return grad_w
 
@@ -1591,7 +1612,8 @@ def launch_exact_bwd_weight_bf16(x, offset, mask, grad_out, cout,
         grad_out.data_ptr(), grad_w.data_ptr(), _ptr(partial), counts,
         b, h, w, cin, cout,
         *_plan_ints(plan, "n_tile", "taps", "window_slots", "box_capacity",
-                    "splits"), _stream(x)), "dcn_exact_bwd_weight_bf16")
+                    "splits"), _stream(x)),
+        "dcn_exact_bwd_weight_bf16")
     EXACT_BWD_WEIGHT_BF16_LAUNCHES += 1
     return grad_w
 

@@ -37,9 +37,22 @@ corner: sending only, as no thread waits for a reduction),
 ``--root DIR`` runs the package of the checkout in DIR instead of this
 one (built under build/phases by its source directory; the trained
 inputs still come from this checkout's ``chip_smoke.py``). The
-exact weight kernel's: the weight kernels' below, `next_box` in place
-of `next_window` and `next_entries` (the next tile's corners, its box,
-and its window copy issued).
+exact weight kernel is warp-specialised: one thread of each of its
+roles is recorded apart, in slots of its own (``EXACT_WEIGHT_PHASES``,
+``ROLE_SLOTS``: the stager's thread 0, the first sampler's first
+thread, a consumer's thread 0), each role's phases with their share of
+that role's cycles. Stager: `built_wait` (for the samplers to be done
+with the slot the tile takes), `entries` (its corners, box and route,
+with the stager's barrier), `entries_load` (issuing the next tile's
+offsets and mask loads), `copies` (issuing its output grad and window
+copies, with the waits for free slots). Sampler: `window_wait` (for the
+tile's window, table and box), `stage_wait` (for a free stage of the
+ring), `build` (a tap's sample into the stage), `publish` (the proxy
+fence and the stage's full arrive). Consumer: `g_wait` (for the tile's
+output grad), `g_load` (g^T into registers, split at float32),
+`full_wait` (for a full stage), `issue` (the product's wgmma),
+`product_wait` (for the product, then freeing its stage), `tile_end` (a
+tile's end), `flush` (the accumulators out).
 
 Phases of the bf16 forward: `prologue` (first copies, and each step's
 product and next copies), `wait` (copy wait and barrier), `sample`
@@ -116,8 +129,15 @@ KERNELS = {
 }
 EXACT_DATA_PHASES = ["wait", "product", "walk", "chunk_barrier",
                      "reductions"]
-EXACT_WEIGHT_PHASES = ["window_wait", "build", "product", "flush", "table",
-                       "barrier", "next_box"]
+# the exact weight kernel records one thread of each role, each role's
+# phases in slots from its ROLE_SLOTS on
+EXACT_WEIGHT_PHASES = {
+    "stager": ["built_wait", "entries", "entries_load", "copies"],
+    "sampler": ["window_wait", "stage_wait", "build", "publish"],
+    "consumer": ["g_wait", "g_load", "full_wait", "issue", "product_wait",
+                 "tile_end", "flush"]}
+ROLE_SLOTS = {"stager": 0, "sampler": 4, "consumer": 8}
+SLOTS = 16
 EXACT_BWD = {
     dtype: {"dcn_exact_bwd_data" + sfx: ("dcn_exact_bwd", EXACT_DATA_PHASES,
                                          "launch_exact_bwd_data" + sfx,
@@ -152,9 +172,11 @@ def _instrumented(_build, name):
 
 def _cycles(lib, call, blocks, phases, symbol):
     """Each phase's cycles per block of one call, after three warm-up
-    calls."""
+    calls: {name: cycles} for a list of names (slots 0..), or for the
+    exact weight kernel's roles {role: {name: cycles}} (each role's from
+    its ROLE_SLOTS)."""
     import torch
-    buf = (ctypes.c_ulonglong * 8)()
+    buf = (ctypes.c_ulonglong * SLOTS)()
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -163,7 +185,19 @@ def _cycles(lib, call, blocks, phases, symbol):
     torch.cuda.synchronize()
     if lib.dcn_read_phases(buf) != 0:
         raise SystemExit(f"dcn_phases: reading {symbol}'s counters failed")
+    if isinstance(phases, dict):
+        return {role: {p: buf[ROLE_SLOTS[role] + i] / blocks
+                       for i, p in enumerate(names)}
+                for role, names in phases.items()}
     return {p: buf[i] / blocks for i, p in enumerate(phases)}
+
+
+def _share(cycles):
+    """Each phase's share of its role's cycles (of all, for one role)."""
+    if all(isinstance(v, dict) for v in cycles.values()):
+        return {role: _share(c) for role, c in cycles.items()}
+    total = sum(cycles.values()) or 1
+    return {p: c / total for p, c in cycles.items()}
 
 
 def _exact_phases(kernels, libs, dcn, torch, dtype):
@@ -219,12 +253,13 @@ def _exact_bwd_phases(kernels, libs, dcn, torch, dtype):
             print(json.dumps({
                 "kernel": symbol, "node": node, "batch": b, "hw": [h, w],
                 "cin": cin, "cout": cout, "chunk": plan["chunk"],
+                **{k: plan[k] for k in ("tile", "taps", "stages",
+                                        "window_slots") if k in plan},
                 "box_capacity": plan["box_capacity"],
                 "resident": plan["resident"], "blocks": plan["blocks"],
                 "splits": plan["splits"], "window_share": win / (win + gat),
                 "cycles_per_block": cycles,
-                "share": {p: c / sum(cycles.values())
-                          for p, c in cycles.items()}}), flush=True)
+                "share": _share(cycles)}), flush=True)
 
 
 def main(argv=None) -> int:

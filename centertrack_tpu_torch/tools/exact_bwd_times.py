@@ -167,6 +167,8 @@ def _run(smoke, dcn, torch, kind, planners, cases, check, dtype, value, rep):
             plan = planners[0 if kind == "data" else 1](*x.shape, cout)
             shapes[f"{x.shape[1]}x{x.shape[2]} {x.shape[3]}->{cout}"] = {
                 "device_ms": ms, "chunk": plan["chunk"],
+                **{k: plan[k] for k in ("tile", "taps", "window_slots")
+                   if k in plan},
                 "box_capacity": plan["box_capacity"],
                 "resident": plan["resident"], "splits": plan["splits"]}
         out["cases"][case] = {"device_ms_per_image": total,

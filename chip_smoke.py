@@ -94,10 +94,12 @@ Phases, each printing one JSON line with its elapsed seconds:
            counters equal to ops/dcn.exact_bwd_tile_routes (data) and
            exact_tile_routes (weight, per tile and tap group); grad w,
            grad offset and grad mask bit for bit over two launches;
-           plans, window shares, times on ~N(0, 3) and on the trained
-           inputs, plain times and bounds, and the float values the data
-           kernel added into grad x by global reductions, counted on the
-           device (at most 36 Cin a pixel: 9 taps x 4 corners)
+           plans (the weight kernels': their M tiles, stages, taps and
+           window slots; their roles in the design string), window shares, times on ~N(0, 3) and on the
+           trained inputs, plain times and bounds, and the float values
+           the data kernel added into grad x by global reductions,
+           counted on the device (at most 36 Cin a pixel: 9 taps x 4
+           corners)
   path     the port's FusedDetector (DLA-34 dcn_local1, 544x960, the
            committed assets/selftest_local1_fp16.ckpt weights) over 30
            synthetic 1080p frames, every frame a CUDA graph replay (the
@@ -1847,9 +1849,10 @@ def _exact_grad_ref(x, offset, mask, weight, g):
 
 def _exact_bwd_plan_row(plan):
     return {k: plan[k] for k in (
-        "tile", "chunk", "warpgroups", "k_tile", "pieces", "n_tile", "taps",
-        "window_slots", "box_capacity", "resident", "splits", "blocks",
-        "smem_bytes") if k in plan}
+        "tile", "chunk", "warpgroups", "k_tile", "pieces", "n_tile",
+        "m_tiles", "stages", "taps", "groups", "window_slots",
+        "box_capacity", "resident", "splits", "blocks", "smem_bytes")
+        if k in plan}
 
 
 def exact_grad_check(args, g):
@@ -3923,10 +3926,21 @@ def main(argv):
                       "global memory where the box does not fit, K splits "
                       "by waves"
                     if kind == "data" else
-                    "wgmma over pixels (" + ("bf16" if low else "3xTF32")
-                    + "), A_t from each tile's box of live corners copied "
-                      "by cp.async a tile ahead, or from global memory "
-                      "where it does not fit, pixel splits by waves"),
+                    "output channels as the wgmma M: g^T from registers "
+                    "(wgmma's register A, " + (
+                        "bf16" if low else "3xTF32: split into hi and lo "
+                        "as it is loaded")
+                    + ", once a tile for every tap), each tap's sample as "
+                      "B; one producer warpgroup stages each tile "
+                      "(corners, the box of live corners and the output "
+                      "grad by cp.async a tile ahead on mbarriers, two "
+                      "window slots), the others build each tap's sample "
+                      "into a ring of stages, consumer warpgroups only "
+                      "issue wgmma (setmaxnreg; 1 stager, 2 samplers and "
+                      "1 consumer with 5 taps a block at Cout 64, 1, 1 "
+                      "and 2 above); samples from global memory where the "
+                      "box does not fit; pixel splits by waves, a block's "
+                      "flush counted"),
                 "launches": train_exact[
                     "train_dcn_bf16" if low else "train_dcn"][
                     "dcn_launches"][kname],

@@ -174,42 +174,116 @@ def test_data_plan_fits_and_covers(dtype, shape):
         assert p["grad_acc"] == npix * cin and "weight_split" not in p
 
 
+def _weight_design():
+    """The weight kernel's design as csrc/dcn_exact_bwd.cu states it: per
+    block width (n_tile) its WRoles (NPROD, NCONS, MPW, TPW, PREGS,
+    CREGS), the ring's stages per dtype (weight_stages), the barrier
+    bytes (WBAR_B), the consumers' k steps (WKS) and the widest block per
+    dtype (launch_weight's ``widest``)."""
+    src = _source("dcn_exact_bwd.cu")
+    roles = {int(m[0]): dict(zip(
+        ("NPROD", "NCONS", "MPW", "TPW", "PREGS", "CREGS"),
+        map(int, m[1:]))) for m in re.findall(
+        r"struct WRoles<(\d+)> \{\s*static constexpr int NPROD = (\d+), "
+        r"NCONS = (\d+), MPW = (\d+), TPW = (\d+);\s*static constexpr int "
+        r"PREGS = (\d+), CREGS = (\d+);", src)}
+    low, full = re.search(r"constexpr int weight_stages\(\) \{\s*return "
+                          r"is_low<T>\(\) \? (\d+) : (\d+);", src).groups()
+    wmax = re.search(r"constexpr int WMAX_STAGES = (\d+);", src).group(1)
+    bar = re.search(r"constexpr int WBAR_B = ([^;]+);", src).group(1)
+    wide_low, wide = re.search(r"const int widest = LOW \? (\d+) : (\d+);",
+                               src).groups()
+    return {"roles": roles,
+            "stages": {"float32": int(full), "bfloat16": int(low)},
+            "barrier_bytes": eval(bar.replace("WMAX_STAGES", wmax)),
+            "k_steps": int(re.search(r"constexpr int WKS = (\d+);",
+                                     src).group(1)),
+            "widest": {"float32": int(wide), "bfloat16": int(wide_low)}}
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_weight_plan_fits_and_covers(dtype, shape):
-    """Shared memory within 227 KB and as the kernel computes it, the
-    tile rows and window slots one of EXACT_WEIGHT_FITS, a window of 1 to
-    EXACT_BOX_MAX pixels a slot, the N tile, taps and groups, the pixel
-    tiles split in order, the blocks, and the scratch: the partials and
-    (float32) the output grad split by tile."""
+    """Shared memory within 227 KB and as the kernel computes it
+    (csrc/dcn_exact_bwd.cu weight_smem_bytes: barriers, sample stages,
+    two g slots, two corner tables, the window slots), the tile rows and
+    window slots one of EXACT_WEIGHT_FITS (two slots at every neck shape,
+    each of at least EXACT_WEIGHT_BOX_MIN pixels; tile rows 4 at bf16, 2
+    at float32 where the g^T fragment allows no more), a window of 1 to
+    EXACT_BOX_MAX pixels a slot; the planner's copy of the kernel's
+    design (taps by block width, stages, barrier bytes, widest block)
+    equal to the source's; the kernel's roles (four warpgroups, the
+    producers at least as many as the consumers, their setmaxnreg counts
+    within the SM's 64K registers: one block an SM; the consumers'
+    accumulators plus their g^T fragment within their setmaxnreg count);
+    the M tiles and taps (5 at Cout 64, 3 at 128, 1 at 256, in balanced
+    groups; float32 past Cout 128 in blocks of 128), the pixel tiles
+    split in order by the wave rule with the flush counted, the blocks,
+    the partials' scratch, and no split output grad at either dtype."""
     b, h, w, cin, cout = shape
     p = WEIGHT_PLANS[dtype](b, h, w, cin, cout)
+    design = _weight_design()
+    assert dcn.EXACT_WEIGHT_TAPS == {n: r["TPW"]
+                                     for n, r in design["roles"].items()}
+    assert dcn.EXACT_WEIGHT_STAGES == design["stages"]
+    assert dcn.EXACT_WEIGHT_BARRIER_BYTES == design["barrier_bytes"]
+    assert dcn.EXACT_WEIGHT_MAX_N_TILE == design["widest"]
     th, tw = p["tile"]
-    assert (th, p["window_slots"]) in dcn.EXACT_WEIGHT_FITS and tw == 16
+    assert (th, p["window_slots"]) in dcn.EXACT_WEIGHT_FITS[dtype]
+    assert tw == 16
+    assert th * 16 <= design["k_steps"] * (8 if dtype == "float32" else 16)
     assert p["smem_bytes"] <= dcn.SMEM_LIMIT
-    assert p["smem_bytes"] == dcn._exact_weight_smem(
-        dtype, p["n_tile"], th, p["window_slots"], p["box_capacity"])
+    size = 4 if dtype == "float32" else 2
+    tp = th * 16
+    stage = (2 * 8 * (tp * 32 + 16) if dtype == "float32" else tp * 128)
+    gpitch = p["n_tile"] * size + (32 if dtype == "float32" else 16)
+    assert p["stages"] == design["stages"][dtype]
+    assert p["smem_bytes"] == (
+        (2 * 8 + 8) * 8 + 2 * 4 * 16 + 2 * 32 + p["stages"] * stage
+        + 2 * tp * gpitch + 2 * p["taps"] * tp * 20
+        + p["window_slots"] * p["box_capacity"] * 64 * size
+    ) == dcn._exact_weight_smem(dtype, p["n_tile"], th, p["taps"],
+                                p["window_slots"], p["box_capacity"])
     assert 0 < p["box_capacity"] <= dcn.EXACT_BOX_MAX
-    assert p["n_tile"] == (64 if cout <= 64 else 128 if cout <= 128
-                           else 256)
-    assert p["taps"] == dcn.WEIGHT_TAPS[p["n_tile"]]
-    assert p["groups"] * p["taps"] >= 9
+    neck = (b, h, w, cin, cout) in {(bb, hh, ww, ci, co) for bb in (
+        1, chip_smoke.EXACT_BATCH, chip_smoke.TRAIN_B)
+        for _, hh, ww, ci, co, _, _ in chip_smoke.NECK_SHAPES}
+    if neck:
+        assert p["window_slots"] == 2
+        assert p["box_capacity"] >= dcn.EXACT_WEIGHT_BOX_MIN
+        assert th == (4 if dtype == "bfloat16" else 2)
+    r = design["roles"][p["n_tile"]]
+    assert r["NPROD"] + r["NCONS"] == 4
+    assert r["NPROD"] >= r["NCONS"] and r["NPROD"] >= 2
+    assert 128 * (r["NPROD"] * r["PREGS"] + r["NCONS"] * r["CREGS"]) <= 65536
+    assert r["PREGS"] % 8 == r["CREGS"] % 8 == 0
+    g_fragment = r["MPW"] * design["k_steps"] * 4 * (
+        2 if dtype == "float32" else 1)
+    assert r["MPW"] * r["TPW"] * 32 + g_fragment <= r["CREGS"] - 24
+    assert r["NCONS"] * r["MPW"] == p["m_tiles"]
+    assert p["n_tile"] == min(64 if cout <= 64 else 128 if cout <= 128
+                              else 256, dcn.EXACT_WEIGHT_MAX_N_TILE[dtype])
+    assert p["m_tiles"] == p["n_tile"] // 64
+    assert p["taps"] == {1: 5, 2: 3, 4: 1}[p["m_tiles"]] <= r["TPW"]
+    assert p["groups"] == -(-9 // p["taps"])
+    assert p["taps"] * (p["groups"] - 1) < 9 <= p["taps"] * p["groups"]
     assert p["col_tiles"] == -(-cout // p["n_tile"])
     assert p["chunks"] == -(-cin // 64)
     assert p["tiles"] == b * -(-h // th) * -(-w // 16)
+    assert p["resident"] == 1
     ranges = p["tile_ranges"]
     assert len(ranges) == p["splits"] and ranges[0][0] == 0
     assert ranges[-1][1] == p["tiles"]
+    assert all(e > s for s, e in ranges)
     units = p["chunks"] * p["groups"] * p["col_tiles"]
     assert p["blocks"] == units * p["splits"]
-    assert p["splits"] == dcn._wave_splits(units, p["tiles"], 1)
+    assert p["flush_steps"] == p["m_tiles"]
+    assert p["splits"] == dcn._wave_splits(units, p["tiles"], 1,
+                                           flush=p["m_tiles"],
+                                           least_blocks=dcn.SMS)
     assert p["scratch"] == (p["splits"] * 9 * cin * cout
                             if p["splits"] > 1 else 0)
-    if dtype == "float32":
-        assert p["grad_split"] == (p["tiles"] * p["col_tiles"] * 2
-                                   * p["n_tile"] * th * 16)
-    else:
-        assert "grad_split" not in p
+    assert "grad_split" not in p
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -445,6 +519,185 @@ def test_emulated_bf16_data_kernel_rounds_once(kind):
         assert (np.abs(a - p) <= bound).all(), name
 
 
+# --- the weight kernel's decomposition against JAX --------------------------
+
+def _tf32(a):
+    """float32 rounded to TF32 (10 mantissa bits), ties away from zero:
+    the kernels' cvt.rna.tf32.f32."""
+    u = np.asarray(a, F32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(F32)
+
+
+def _emulate_weight(x, off, mask, g, th, taps, cap, splits, low=False,
+                    n_tile=None):
+    """grad w (3, 3, Cin, Cout) as the weight kernel computes it: per
+    block of ``n_tile`` output channels (all where None), th x 16 pixel
+    tile and group of ``taps`` taps, the box of the group's live
+    corners; per tap the sample A_t built as the forward builds it (each
+    live corner's x times its weight hat m, added term by term in
+    float32), from a copy of the box where its area is within ``cap``
+    (an index outside it fails) else from the image; then D_t = g^T A_t
+    over the tile's pixels: float32 in 3xTF32 (g and A_t split into TF32
+    hi and lo, g_lo A_hi + g_hi A_lo + g_hi A_hi), bf16 on A_t rounded to
+    bf16 (the forward's sample) in float32. The tiles' products summed
+    per split of the tiles in order, the splits' partials in split order
+    (bf16: rounded once). Returns (grad w, window tiles, gather tiles)."""
+    b, h, w, cin = x.shape
+    cout = g.shape[3]
+    hat, _, _, rows, cols, _, live = _grad_corners(off, mask, h, w)
+    wts = np.where(live, hat * mask[..., None], F32(0)).astype(F32)
+    tiles = list(_tiles(b, h, w, th))
+    partials = np.zeros((splits, 9, cin, cout), F32)
+    n_win = n_gat = 0
+    for z in range(splits):
+        for ti in range(z * len(tiles) // splits,
+                        (z + 1) * len(tiles) // splits):
+            bi, ys, xs = tiles[ti]
+            ys = slice(ys.start, min(ys.stop, h))
+            xs = slice(xs.start, min(xs.stop, w))
+            gt = g[bi, ys, xs].reshape(-1, cout)
+            for g0 in range(0, 9, taps):
+                group = slice(g0, min(9, g0 + taps))
+                r0, c0, bh, bw = _box(live, rows, cols, (bi, ys, xs), group)
+                window = bh * bw <= cap
+                n_win += window
+                n_gat += not window
+                win = x[bi, r0:r0 + bh, c0:c0 + bw]
+                for t in range(group.start, group.stop):
+                    a = np.zeros((gt.shape[0], cin), F32)
+                    for k in range(4):
+                        wk = wts[bi, ys, xs, t, k].reshape(-1)
+                        r = rows[bi, ys, xs, t, k].reshape(-1)
+                        c = cols[bi, ys, xs, t, k].reshape(-1)
+                        on = wk != 0
+                        xv = np.zeros_like(a)
+                        if window:
+                            assert ((r[on] >= r0) & (r[on] < r0 + bh)
+                                    & (c[on] >= c0) & (c[on] < c0 + bw)).all()
+                            xv[on] = win[r[on] - r0, c[on] - c0]
+                        else:
+                            xv[on] = x[bi, r[on], c[on]]
+                        a = np.where(on[:, None], a + xv * wk[:, None], a)
+                        a = a.astype(F32)
+                    for n0 in range(0, cout, n_tile or cout):
+                        gb = gt[:, n0:n0 + (n_tile or cout)]
+                        if low:
+                            d = gb.T @ _bf16(a)
+                        else:
+                            gh, ah = _tf32(gb), _tf32(a)
+                            gl, al = _tf32(gb - gh), _tf32(a - ah)
+                            d = ((gl.T @ ah).astype(F32) + (gh.T @ al)
+                                 ).astype(F32) + (gh.T @ ah)
+                        partials[z, t][:, n0:n0 + gb.shape[1]] += \
+                            d.T.astype(F32)
+    out = np.zeros((9, cin, cout), F32)
+    for z in range(splits):
+        out = (out + partials[z]).astype(F32)
+    out = out.reshape(3, 3, cin, cout)
+    return (_bf16(out) if low else out), n_win, n_gat
+
+
+# the output channels of the emulated weight kernel's cases: one block
+# of 64 (5 taps a group) and, past 128, blocks of 128 at float32 (3 taps)
+# and one of 256 at bf16 (1 tap)
+WEIGHT_EMULATIONS = [6, 130]
+EMULATED = dict(b=1, h=9, w=37, cin=5)
+
+
+def _emulated_plan(dtype, cout):
+    """(tile rows, taps a group, splits, n_tile) of the kernel's plan at
+    the emulated shape."""
+    p = WEIGHT_PLANS[dtype](*EMULATED.values(), cout)
+    return p["tile"][0], p["taps"], p["splits"], p["n_tile"]
+
+
+def _median_area(off, mask, th, taps):
+    """The median area of the (tile, tap group) boxes of live corners: a
+    capacity that sends about half of them down the gather route."""
+    b, h, w, _ = off.shape
+    _, _, _, rows, cols, _, live = _grad_corners(off, mask, h, w)
+    return int(np.median([np.prod(_box(live, rows, cols, t,
+                                       slice(g0, g0 + taps))[2:])
+                          for t in _tiles(b, h, w, th)
+                          for g0 in range(0, 9, taps)]))
+
+
+@pytest.mark.parametrize("cout", WEIGHT_EMULATIONS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_weight_kernel_matches_jax_vjp(kind, cout):
+    """float32: the emulated weight kernel at the float32 plan's tile
+    rows, taps a group, splits and output-channel blocks (g^T A_t in
+    3xTF32 per block, tile and tap group, the split partials summed in
+    split order) against ``jax.vjp`` of JAX's ``deform_conv2d`` w.r.t.
+    the weight, within 1e-5 of max|JAX grad| (the data kernels'
+    emulation's tolerance: the summation orders differ), with tiles on
+    both routes (the median box as the capacity; the counts those of
+    ``exact_tile_routes``) and the pixels split."""
+    th, taps, splits, n_tile = _emulated_plan("float32", cout)
+    assert splits > 1
+    x, off, mask, weight, g = _case(11, kind, **EMULATED, cout=cout)
+    cap = _median_area(off, mask, th, taps) - 1
+    ref = _jax_grads((x, off, mask, weight, np.zeros(cout, F32)), g)[3]
+    got, n_win, n_gat = _emulate_weight(x, off, mask, g, th, taps, cap,
+                                        splits, n_tile=n_tile)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert (n_win, n_gat) == dcn.exact_tile_routes(
+        torch.from_numpy(off), 9, 37, _weight_plan(th, taps, cap))
+    if kind != "zero":
+        assert n_win and n_gat
+
+
+@pytest.mark.parametrize("cout", WEIGHT_EMULATIONS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_bf16_weight_kernel_rounds_once(kind, cout):
+    """bf16: on bf16 inputs the emulated weight kernel at the bf16 plan's
+    tile rows, taps a group, splits and output-channel blocks (the
+    forward's bf16 sample, float32 products and sums, one rounding, both
+    routes) against autograd of
+    the plain bf16 version (whose sample rounding passes the gradient
+    through) within one bf16 ulp of the larger of the two + 1e-5
+    max|plain| (the data kernels' emulation's bound), and against the
+    float32 ``jax.vjp`` of JAX's op on the same bf16 values within the
+    sample's rounding (2^-8 of sum_p |A_t| |g|, the unrounded sample's
+    gradient) plus that bound."""
+    th, taps, splits, n_tile = _emulated_plan("bfloat16", cout)
+    assert splits > 1
+    args = [_bf16(a) for a in _case(12, kind, **EMULATED, cout=cout)]
+    x, off, mask, weight, g = args
+    got, n_win, n_gat = _emulate_weight(
+        x, off, mask, g, th, taps, _median_area(off, mask, th, taps) - 1,
+        splits, low=True, n_tile=n_tile)
+    if kind != "zero":
+        assert n_win and n_gat
+    ts = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+          for a in (x, off, mask, weight)]
+    plain = torch.autograd.grad(dcn.deform_conv2d_plain(*ts), ts[3],
+                                torch.from_numpy(g).to(torch.bfloat16))[0]
+    plain = plain.float().numpy()
+    bound = (np.maximum(_ulp(got), _ulp(plain)) * 1.0001
+             + 1e-5 * np.abs(plain).max())
+    assert (np.abs(got - plain) <= bound).all()
+    ref = _jax_grads((x, off, mask, weight, np.zeros(cout, F32)), g)[3]
+    exact, _, _ = _emulate_weight(np.abs(x), off, np.abs(mask), np.abs(g),
+                                  th, taps, 80, splits)
+    assert (np.abs(got - ref) <= exact * 2.0 ** -8 + bound).all()
+
+
+def test_weight_kernel_source_has_no_block_barrier_or_split_grad():
+    """The weight kernel's tile loops hold no barrier of the whole block
+    (its one __syncthreads publishes the barriers' init, before the
+    roles part), each role sets its registers once, and the output grad
+    is no longer split by a kernel of its own into a scratch."""
+    src = _source("dcn_exact_bwd.cu")
+    body = src[src.index("dcn_exact_bwd_weight_kernel(const WeightArgs"):
+               src.index("dcn_exact_bwd_weight_reduce_kernel(")]
+    assert body.count("__syncthreads()") == 1
+    assert body.index("__syncthreads()") < body.index("setmaxnreg_dec")
+    assert body.count("setmaxnreg_dec<") == body.count("setmaxnreg_inc<") == 1
+    assert "split_grad" not in src and "gsplit" not in src
+    assert "block_box" not in body
+
+
 # --- the launchers and DCNExact ----------------------------------------------
 
 def _fake_kernels(monkeypatch, rc=None):
@@ -502,7 +755,9 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
     weight plan's N tile, taps, window slots, capacity, splits; then
     shared memory), counts one launch of its own kernel only, returns
     outputs of the inputs' dtype and shapes, and raises on a failed
-    launch."""
+    launch. The weight launchers pass no output-grad scratch: the
+    kernels read g itself (float32 split into TF32 hi and lo as the
+    consumers load it)."""
     fn, symbol, counter = LAUNCHERS[kind, dtype]
     x, off, mask, weight, g = _tensors(dtype)
     b, h, w, cin = x.shape
@@ -534,6 +789,9 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
         assert argv[n_ptr - 2:n_ptr] == (counts.data_ptr(),
                                          reduced.data_ptr())
     else:
+        assert n_ptr == 7
+        assert argv[4] == out.data_ptr()
+        assert argv[5] is None if plan["splits"] == 1 else argv[5] > 0
         assert argv[n_ptr - 1] == counts.data_ptr()
     assert argv[n_ptr:n_ptr + n_int] == (
         b, h, w, cin, cout, *plan["tile"], plan["chunk"],
@@ -635,13 +893,57 @@ def test_phase_tool_names_every_data_kernel_mark():
     assert body.count("scatter<CPT>") == 1
 
 
+def test_phase_tool_names_every_weight_kernel_mark():
+    """``tools/dcn_phases``' names of the exact weight kernel's phases are
+    exactly the slots its source marks, role by role: the stager's
+    branch marks its ROLE_SLOTS on (one per stager phase), the samplers'
+    branch theirs, the consumers' branch theirs; the roles' slots do not
+    overlap, the producers record one stager and one sampler thread and
+    the consumers one thread."""
+    from centertrack_tpu_torch.tools import dcn_phases
+    src = _source("dcn_exact_bwd.cu")
+    body = src[src.index("dcn_exact_bwd_weight_kernel(const WeightArgs"):
+               src.index("dcn_exact_bwd_weight_reduce_kernel(")]
+    producer = body[body.index("setmaxnreg_dec<"):
+                    body.index("setmaxnreg_inc<")]
+    branches = {"stager": producer[producer.index("if (pwg == 0) {"):
+                                   producer.index("// the samplers:")],
+                "sampler": producer[producer.index("// the samplers:"):],
+                "consumer": body[body.index("setmaxnreg_inc<"):]}
+    names = dcn_phases.EXACT_WEIGHT_PHASES
+    assert set(names) == set(branches) == set(dcn_phases.ROLE_SLOTS)
+    slots = lambda text: {int(k) for k in re.findall(r"DCN_PHASE\((\d+)\)",
+                                                     text)}
+    taken = set()
+    for role, text in branches.items():
+        own = {dcn_phases.ROLE_SLOTS[role] + k
+               for k in range(len(names[role]))}
+        assert slots(text) == own, role
+        assert not own & taken and max(own) < dcn_phases.SLOTS
+        taken |= own
+    assert producer.count("DCN_PHASES_END_IF(pt == 0 || pt == 128)") == 1
+    assert branches["consumer"].count("DCN_PHASES_END_IF(tid == 0)") == 1
+
+
 def test_exact_bwd_times_needs_a_gpu(monkeypatch):
     """``tools/exact_bwd_times`` exits with an error where no GPU is
-    available (it never falls back to the CPU)."""
+    available (it never falls back to the CPU). Its ``main`` imports the
+    port's package anew (``--root``); the modules imported before are put
+    back after, so that later tests in this process see one package."""
     from centertrack_tpu_torch.tools import exact_bwd_times
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
-        exact_bwd_times.main([])
+    ours = lambda: [m for m in sys.modules
+                    if m.split(".")[0] == "centertrack_tpu_torch"]
+    saved = {m: sys.modules[m] for m in ours()}
+    path = list(sys.path)
+    try:
+        with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+            exact_bwd_times.main([])
+    finally:
+        for m in ours():
+            del sys.modules[m]
+        sys.modules.update(saved)
+        sys.path[:] = path
 
 
 @pytest.mark.parametrize("tool", ["dcn_phases", "exact_bwd_times",
