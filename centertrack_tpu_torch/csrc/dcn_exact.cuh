@@ -68,7 +68,7 @@ __device__ __forceinline__ void corners(int y, int xx, int t, float dy,
 }
 
 // The rows and columns of a corner set (`live` of `corners`, or `needed`
-// of `grad_corners`) folded into a running minimum and maximum.
+// of `grad_needed`) folded into a running minimum and maximum.
 __device__ __forceinline__ void fold_box(int iy, int ix, int live, int& rmin,
                                          int& rmax, int& cmin, int& cmax) {
 #pragma unroll
@@ -82,46 +82,57 @@ __device__ __forceinline__ void fold_box(int iy, int ix, int live, int& rmin,
   }
 }
 
-// clip'(u) of the position clip to [-1, size], JAX's rule (jnp.clip): 1
-// inside, 1/2 at exactly -1 or size, 0 outside
-__device__ __forceinline__ float clip_slope(float u, int size) {
-  if (u > -1.f && u < (float)size) return 1.f;
-  return u == -1.f || u == (float)size ? 0.5f : 0.f;
+// clip'(u) of the position clip to [-1, size], JAX's rule (jnp.clip), as
+// a code: 2 inside (slope 1), 1 at exactly -1 or size (1/2), 0 outside
+// (0); clip_slope gives the slope of a code
+__device__ __forceinline__ int clip_code(float u, int size) {
+  if (u > -1.f && u < (float)size) return 2;
+  return u == -1.f || u == (float)size ? 1 : 0;
+}
+__device__ __forceinline__ float clip_slope(int code) {
+  return code == 2 ? 1.f : code == 1 ? 0.5f : 0.f;
 }
 
-// The backward's view of tap t at pixel (y, xx), its offset (dy, dx) and
-// mask m, on a map of H x W, as the plain version's autograd takes it
-// (floor' = 0, clip' by clip_slope): the top-left corner (iy, ix) and the
-// hats of `corners`, unmasked ((1 - fy) * (1 - fx), ...), which weigh
-// grad mask; the derivative weights gy[k] = clip'(py) m d(hat_k)/dfy and
-// gx[k] = clip'(px) m d(hat_k)/dfx, which weigh grad dy and grad dx; and
-// `needed`, bit k set where corner k lies inside the map and one of its
-// three weights is not 0: the corners whose x the three sums read (a
-// corner outside the map reads 0; one of weights all 0 adds 0). At an
-// integer position fy = 0, so the corners of row iy + 1 have hat 0 but a
-// derivative weight that is not: they are needed though no forward reads
-// them. The position and the hats round as in `corners`.
-__device__ __forceinline__ void grad_corners(int y, int xx, int t, float dy,
-                                             float dx, float m, int H, int W,
-                                             int& iy, int& ix,
-                                             float (&hat)[4], float (&gy)[4],
-                                             float (&gx)[4], int& needed) {
+// The backward's view of tap t at pixel (y, xx) and its offset (dy, dx)
+// on a map of H x W, as the plain version's autograd takes it (floor' =
+// 0, clip' by clip_code): the top-left corner (iy, ix), the fractions
+// (fy, fx) of the clipped position, and the clip's slope codes (sy, sx).
+// The position rounds as in `corners`.
+__device__ __forceinline__ void grad_position(int y, int xx, int t, float dy,
+                                              float dx, int H, int W,
+                                              int& iy, int& ix, float& fy,
+                                              float& fx, int& sy, int& sx) {
   const float uy = __fadd_rn((float)(y + t / 3 - 1), dy);
   const float ux = __fadd_rn((float)(xx + t % 3 - 1), dx);
   const float py = fminf(fmaxf(uy, -1.f), (float)H);
   const float px = fminf(fmaxf(ux, -1.f), (float)W);
   const float y0 = floorf(py);
   const float x0 = floorf(px);
-  const float fy = __fsub_rn(py, y0);
-  const float fx = __fsub_rn(px, x0);
+  fy = __fsub_rn(py, y0);
+  fx = __fsub_rn(px, x0);
+  sy = clip_code(uy, H);
+  sx = clip_code(ux, W);
+  iy = (int)y0;
+  ix = (int)x0;
+}
+
+// The weights of a position's corners from (fy, fx), the mask m and the
+// slope codes: the hats of `corners`, unmasked ((1 - fy) * (1 - fx), ...),
+// which weigh grad mask; the derivative weights gy[k] = clip'(py) m
+// d(hat_k)/dfy and gx[k] = clip'(px) m d(hat_k)/dfx, which weigh grad dy
+// and grad dx. The same arithmetic wherever they are computed, so a
+// kernel that stores (fy, fx, m, sy, sx) rebuilds them bit for bit.
+__device__ __forceinline__ void grad_weights(float fy, float fx, float m,
+                                             int sy, int sx, float (&hat)[4],
+                                             float (&gy)[4], float (&gx)[4]) {
   const float ry = __fsub_rn(1.f, fy);
   const float rx = __fsub_rn(1.f, fx);
   hat[0] = __fmul_rn(ry, rx);
   hat[1] = __fmul_rn(ry, fx);
   hat[2] = __fmul_rn(fy, rx);
   hat[3] = __fmul_rn(fy, fx);
-  const float cy = __fmul_rn(clip_slope(uy, H), m);
-  const float cx = __fmul_rn(clip_slope(ux, W), m);
+  const float cy = __fmul_rn(clip_slope(sy), m);
+  const float cx = __fmul_rn(clip_slope(sx), m);
   gy[0] = -__fmul_rn(rx, cy);
   gy[1] = -__fmul_rn(fx, cy);
   gy[2] = __fmul_rn(rx, cy);
@@ -130,9 +141,19 @@ __device__ __forceinline__ void grad_corners(int y, int xx, int t, float dy,
   gx[1] = __fmul_rn(ry, cx);
   gx[2] = -__fmul_rn(fy, cx);
   gx[3] = __fmul_rn(fy, cx);
-  iy = (int)y0;
-  ix = (int)x0;
-  needed = 0;
+}
+
+// `needed` of a corner set: bit k set where corner k lies inside the map
+// and one of its three weights is not 0, the corners whose x the three
+// sums read (a corner outside the map reads 0; one of weights all 0 adds
+// 0). At an integer position fy = 0, so the corners of row iy + 1 have
+// hat 0 but a derivative weight that is not: they are needed though no
+// forward reads them.
+__device__ __forceinline__ int grad_needed(int iy, int ix, int H, int W,
+                                           const float (&hat)[4],
+                                           const float (&gy)[4],
+                                           const float (&gx)[4]) {
+  int needed = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int yy = iy + (k >> 1);
@@ -141,6 +162,7 @@ __device__ __forceinline__ void grad_corners(int y, int xx, int t, float dy,
     if (inside && (hat[k] != 0.f || gy[k] != 0.f || gx[k] != 0.f))
       needed |= 1 << k;
   }
+  return needed;
 }
 
 // rows r0 .. r0 + bh - 1, columns c0 .. c0 + bw - 1 of one image

@@ -38,44 +38,69 @@
 //   dcn_exact_bwd_data[_bf16]: grad x, grad offset, grad mask. A block (one
 //   or two warpgroups) takes a 4 x 16 tile of output pixels of one image.
 //   It copies the tile's output grad (64 x Cout, float32 split into TF32 hi
-//   and lo in place) once by cp.async, and its offsets and mask. From them
-//   it finds the tile's data box: the smallest rectangle holding every
-//   corner its 64 pixels x 9 taps need (`needed` of grad_corners: inside
-//   the map, one weight not 0; one row and one column more than the
-//   forward's box of live corners at integer positions). Where the box's
-//   area is at most the plan's capacity the block takes its window route,
-//   else its gather route; the choice is per block, on the device. Its K
-//   loop runs over steps (Cin chunk of CK channels, tap), chunk-major:
-//     - per chunk, window route: the box of x (CK channels a pixel) comes
-//       in by cp.async, zero-filled past Cin;
-//     - G_t = g w[t]^T (64 pixels x CK channels) on the tensor cores,
-//       3xTF32 wgmma m64nNk8 at float32 (the weight split into hi and lo
-//       once per call by a small kernel into a scratch), bf16 wgmma
-//       m64n32k16 at bf16 (g and w read in their own layouts, K-major);
-//       the next step's weight slice flies during the walk. An output
-//       grad wider than 256 channels is contracted in pieces of 256, each
-//       piece's g and w copied per step;
+//   and lo in place) once by cp.async. Once a tile it computes each of the
+//   tile's 64 pixels x 9 taps' corners (dcn_exact.cuh grad_position) into
+//   a corner table in shared memory, 17 bytes an entry: (fy, fx, m, the
+//   top-left corner) and a byte of the needed corners and the clip's two
+//   slope codes, from which every walk rebuilds the 12 weights in the
+//   same arithmetic (grad_weights); the same pass finds the tile's data
+//   box: the smallest rectangle holding every corner its 64 pixels x 9
+//   taps need (`needed`: inside the map, one weight not 0; one row and
+//   one column more than the forward's box of live corners at integer
+//   positions). Where the box's area is at most the plan's capacity the
+//   block takes its window route, else its gather route; the choice is
+//   per block, on the device. Its K loop runs over steps (Cin chunk of CK
+//   channels, tap), chunk-major. Each warpgroup owns NW = CK / NWG of a
+//   chunk's channels and runs the loop on its own, one barrier of its
+//   own a step:
+//     - G_t = g w[t]^T (64 pixels x its NW channels) on the tensor cores,
+//       3xTF32 at float32 in two wgmma a K step (g_product: a_hi [b_hi |
+//       b_lo] at N 2 NW, then a_lo b_hi), bf16 wgmma m64n32k16 at bf16,
+//       issued a step ahead: step s + 1's G runs into a second register
+//       set during step s's walk, from the second of two weight slots,
+//       issued at the loop turn's start and waited for at its end (the
+//       kernel's FAST instance; a product in flight across the turn made
+//       ptxas serialize every wgmma). Issuing a float32 product still
+//       holds the warps for most of its length (small N): it overlaps
+//       the other warpgroups' walks. The weights
+//       are laid out for the slots once a call by a small kernel
+//       (float32: split into TF32 hi and lo), so that a step's share
+//       comes by one bulk copy, two steps ahead, completing on the slot's
+//       mbarrier apart from the window's cp.async groups;
+//     - window route: its channels of the chunk's box of x come by
+//       cp.async, zero-filled past Cin; with two window slots the next
+//       chunk's are copied at the chunk's first step and land during its
+//       walks, with one the chunk's are copied at its first step;
 //     - the corner walk: each thread takes two pixels and CPT channels,
-//       straight from its accumulator fragment (the weight slice's columns
-//       are permuted so that it holds CPT consecutive channels), computes
-//       each tap's corners and weights (grad_corners, in the forward's
-//       arithmetic), reads x of each needed corner from the window (or
-//       global memory), sums d_k over its channels against the three
-//       weights, and adds m hat_k G into grad x (float32, or the float32
-//       scratch at bf16) by global vector reductions (red.global.add.v4.f32,
-//       native on sm_90), since two pixels of a tile, and the halos of
-//       neighbouring tiles, may hit one corner. A float32 grad-x tile in
-//       shared memory would need atomics there, which sm_90 runs as
-//       compare-and-swap loops (ATOMS.CAST.SPIN): such a tile made this
-//       kernel about twice as slow (PERF.md). Summing grad x over the
-//       tile's box on the tensor cores instead (S_t^T G_t in 3xTF32,
-//       flushed once a chunk) cut the reductions 8x and made it slower at
-//       both dtypes (PERF.md): no thread waits for a reduction, and they
-//       take 6-13% (float32) and 11-29% (bf16) of a block's cycles, the
-//       walk's reads and sums 40-59%.
+//       straight from its accumulator fragment (the weight slots' columns
+//       are permuted so that it holds runs of 4 consecutive channels,
+//       fragment_column: a quad's reduction instruction then covers 64
+//       contiguous bytes of a pixel's grad x, whole sectors, which made
+//       the bf16 kernel 1.45x faster than runs of 8, half sectors per
+//       lane), reads each tap's table entry and rebuilds its weights,
+//       reads x of each
+//       needed corner from the window (or global memory), sums d_k over
+//       its channels against the three weights, and adds m hat_k G into
+//       grad x (float32, or the float32 scratch at bf16) by global vector
+//       reductions (red.global.add.v4.f32, native on sm_90), since two
+//       pixels of a tile, and the halos of neighbouring tiles, may hit
+//       one corner. A float32 grad-x tile in shared memory would need
+//       atomics there, which sm_90 runs as compare-and-swap loops
+//       (ATOMS.CAST.SPIN): such a tile made this kernel about twice as
+//       slow (PERF.md). Summing grad x over the tile's box on the tensor
+//       cores instead (S_t^T G_t in 3xTF32, flushed once a chunk) cut the
+//       reductions 8x and made it slower at both dtypes (PERF.md).
+//   Measured and dropped (PERF.md): issuing the next G in two
+//   halves inside the walk (the issue moved into the walk), float32
+//   chunks of 64 at Cout 64 (one block an SM: s4 slower), the table's
+//   loads batched with the first window landing under the first G.
+//   An output grad wider than 256 channels is contracted in pieces of
+//   256, each piece's g and weights copied per step by the whole block
+//   with block-wide barriers, serially (no model shape needs it).
 //   grad offset and grad mask are summed over a thread's channels, then its
-//   quad by shuffles, then its warpgroups and the chunks in a fixed order,
-//   so they are the same bit for bit on every launch; grad x sums in an
+//   quad by shuffles, kept in registers over the block's steps in order
+//   and added warpgroup 0 + warpgroup 1 at its end, a fixed order, so
+//   they are the same bit for bit on every launch; grad x sums in an
 //   order that changes from run to run (rounding-level differences only).
 //   Small maps split the K loop over blocks by waves: grad offset and grad
 //   mask go to float32 partials per split that a second kernel sums in
@@ -132,8 +157,10 @@
 // kernel about 38 * 9 * Cin float32 operations a pixel, the weight kernel
 // 8 * 9 * Cin), against the bytes of the inputs and outputs
 // (chip_smoke.py exact_bwd_data_bound_ms, exact_bwd_weight_bound_ms).
-// In practice the walk (its reads and grad x's reductions) and the
-// latency of each tile's copies decide the time.
+// In practice the data kernel's walk (its reads and grad x's reductions,
+// 50-79% of a block's cycles at s4) and, at float32, issuing the 3xTF32
+// products (20-46%) decide its time; the weight kernel's stager and the
+// latency of each tile's copies decide the weight kernel's.
 
 #include <climits>
 #include <type_traits>
@@ -165,14 +192,7 @@ __device__ __forceinline__ T from_f32(float v) {
     return v;
 }
 
-// v += c * w, term by term without fused multiply-adds
-__device__ __forceinline__ void add4(float4& v, const float4& c, float w) {
-  v.x = __fadd_rn(v.x, __fmul_rn(c.x, w));
-  v.y = __fadd_rn(v.y, __fmul_rn(c.y, w));
-  v.z = __fadd_rn(v.z, __fmul_rn(c.z, w));
-  v.w = __fadd_rn(v.w, __fmul_rn(c.w, w));
-}
-
+// s += the 8 bf16 of `raw` * w, term by term without fused multiply-adds
 __device__ __forceinline__ void add8(float (&s)[8], const uint4& raw,
                                      float w) {
   const bf162* v = reinterpret_cast<const bf162*>(&raw);
@@ -186,16 +206,6 @@ __device__ __forceinline__ void add8(float (&s)[8], const uint4& raw,
 
 // 16 bytes of x at `src` (`live` channels of it inside the row) from
 // global memory, zeros past them
-__device__ __forceinline__ float4 load_piece(const float* src, int live,
-                                             bool aligned) {
-  if (live >= 4 && aligned)
-    return __ldg(reinterpret_cast<const float4*>(src));
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = i < live ? src[i] : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
 __device__ __forceinline__ uint4 load_piece(const bf16* src, int live,
                                             bool aligned) {
   if (live >= 8 && aligned) return __ldg(reinterpret_cast<const uint4*>(src));
@@ -215,24 +225,31 @@ __device__ __forceinline__ void copy_piece(void* dst, const bf16* src,
   hopper::copy8(dst, src, live, aligned);
 }
 
-// The wgmma N column that holds channel c (0..N-1) of a warpgroup's N
+// The wgmma N column that holds channel c (0..nw-1) of a warpgroup's nw
 // channels: thread quad lane q holds columns 8 j + 2 q + e of its
-// fragment; channel CPT q + 2 j + e goes there, so that each thread holds
-// CPT = N / 4 consecutive channels.
-template <int N>
-__device__ __forceinline__ int fragment_column(int c) {
-  constexpr int CPT = N / 4;
-  const int q = c / CPT;
-  const int r = c - q * CPT;
-  return 8 * (r >> 1) + 2 * q + (r & 1);
+// fragment, its i-th value (i = 2 j + e) at column 8 (i / 2) + 2 q + i % 2.
+// Its cpt = nw / 4 channels come in groups of gc = min(cpt, 4)
+// consecutive ones, group k of the quad's lanes side by side: value i of
+// lane q is channel 4 gc (i / gc) + gc q + i % gc. So each lane holds
+// runs of 16 bytes (float32) and a quad's lanes one 64-byte run of a
+// pixel's grad x per run (a reduction instruction fills whole sectors).
+__host__ __device__ __forceinline__ int fragment_column(int c, int nw) {
+  const int gc = nw / 4 < 4 ? nw / 4 : 4;
+  const int k = c / (4 * gc);
+  const int r = c - k * 4 * gc;
+  const int q = r / gc;
+  const int i = k * gc + r % gc;
+  return 8 * (i >> 1) + 2 * q + (i & 1);
 }
 
 // ---- the data kernels ---------------------------------------------------
 
-constexpr int OM_B = TP * 27 * 4;       // the tile's offsets and mask
-constexpr int SUMS_B = 3 * 9 * TP * 4;  // grad mask, dy, dx sums
-constexpr int BOX_B = 16;               // block_box's 4 ints
-constexpr int MAX_KC = 256;             // output channels of a G piece
+constexpr int MAX_KC = 256;  // output channels of a G piece
+constexpr int DBAR_B = 64;   // the weight slots' barriers ([2][2]) and the box
+// bytes of a corner-table entry: a float4 (fy, fx, m, the top-left corner
+// as two int16) and a byte (the needed corners' bits, the two clip-slope
+// codes)
+constexpr int DENT_B = 17;
 
 // bytes of a window pixel (CK channels of x), padded by 16 so that
 // neighbouring pixels start in other bank groups
@@ -241,12 +258,15 @@ __host__ __device__ constexpr int x_pitch(int ck) {
   return ck * (int)sizeof(T) + 16;
 }
 
-// the g tile (float32: hi and lo), one weight slot (hi and lo), the window
-// of `cap` pixels, the offsets and mask, the sums, the box
+// the barriers and the box, the g tile (float32: hi and lo), two weight
+// slots (hi and lo), the corner table of the tile's 9 x 64 (tap, pixel)s
+// (after the walks: the second warpgroup's grad offset and grad mask
+// sums), `ws` window slots of `cap` pixels
 template <typename T>
-__host__ __device__ constexpr int data_smem_bytes(int kc, int ck, int cap) {
-  return (is_low<T>() ? 1 : 2) * (TP + ck) * kc * (int)sizeof(T) +
-         cap * x_pitch<T>(ck) + OM_B + SUMS_B + BOX_B;
+__host__ __device__ constexpr int data_smem_bytes(int kc, int ck, int ws,
+                                                  int cap) {
+  return DBAR_B + (is_low<T>() ? 1 : 2) * (TP + 2 * ck) * kc * (int)sizeof(T) +
+         9 * TP * DENT_B + ws * cap * x_pitch<T>(ck);
 }
 
 // v (n channels of one corner) added into grad x at `dst` by global
@@ -276,13 +296,73 @@ __device__ __forceinline__ void scatter(float* dst, const float (&v)[n],
     if (i < live) atomicAdd(dst + i, v[i]);
 }
 
+// Registers a thread holds for one product of G (64 pixels x NW
+// channels): its fragment, and at float32 a second half (g_product).
+template <typename T, int NW>
+__host__ __device__ constexpr int g_regs() {
+  return is_low<T>() ? NW / 2 : NW;
+}
+
+// Gd = g w^T over the K of one output-grad piece (accumulate: added to
+// Gd), for the warpgroup's NW channels: g at `sg` (float32: hi, then lo
+// g_part bytes on), the warpgroup's weight share at `sw`, both K-major in
+// core matrices; issued and committed, not waited for. bf16: one wgmma a
+// K step, Gd the fragment. float32, 3xTF32 in two wgmma a K step: a_hi
+// [b_hi | b_lo] (N = 2 NW: the share's hi and lo parts lie side by side,
+// NW / 8 core-matrix groups each), then a_lo b_hi into the first half, so
+// that G = the first half + the second (g_sum); three products of N NW
+// a K step took a third more of the warps' time, the tensor cores taking
+// about as long for a wgmma of N 8, 16 or 32. A free function, so that
+// the accumulators stay registers wherever it is called.
+template <typename T, int NW>
+__device__ __forceinline__ void g_product(float (&Gd)[g_regs<T, NW>()],
+                                          const unsigned char* sg,
+                                          const unsigned char* sw,
+                                          int g_part, int KC,
+                                          int accumulate) {
+  constexpr int KSTEP = is_low<T>() ? 16 : 8;  // K of one wgmma: 256 bytes
+  const int SBO = KC * (int)sizeof(T) * 8;
+  hopper::fence_acc(Gd);
+  hopper::wgmma_fence();
+  uint64_t dg = hopper::desc(sg, 128, SBO);
+  uint64_t dw = hopper::desc(sw, 128, SBO);
+  if constexpr (!is_low<T>()) {
+    float(&half)[NW / 2] = *reinterpret_cast<float(*)[NW / 2]>(&Gd[0]);
+    uint64_t dg_lo = hopper::desc(sg + g_part, 128, SBO);
+    for (int ks = 0; ks < KC / KSTEP; ++ks) {
+      hopper::wgmma_tf32<2 * NW>(Gd, dg, dw, accumulate || ks > 0);
+      hopper::wgmma_tf32<NW>(half, dg_lo, dw, 1);
+      dg += 16;
+      dg_lo += 16;
+      dw += 16;
+    }
+  } else {
+    for (int ks = 0; ks < KC / KSTEP; ++ks) {
+      hopper::wgmma_bf16<NW, 0, 0>(Gd, dg, dw, accumulate || ks > 0);
+      dg += 16;
+      dw += 16;
+    }
+  }
+  hopper::wgmma_commit();
+}
+
+// G (the walk's NW / 2 fragment values) from a finished product's
+// registers: at float32 the sum of its two halves
+template <typename T, int NW>
+__device__ __forceinline__ void g_sum(float (&G)[NW / 2],
+                                      const float (&Gd)[g_regs<T, NW>()]) {
+#pragma unroll
+  for (int k = 0; k < NW / 2; ++k)
+    G[k] = is_low<T>() ? Gd[k] : Gd[k] + Gd[g_regs<T, NW>() - NW / 2 + k];
+}
+
 template <typename T>
 struct DataArgs {
   const T* x;
   const T* offset;
   const T* mask;
-  const T* weight;      // bf16: read by the kernel
-  const float* wsplit;  // float32: (2, 9, Cin, KP), hi then lo
+  const T* weight;
+  const unsigned char* wlay;  // the weight slices in the slots' layout
   const T* grad_out;
   float* grad_acc;  // float32 grad x (float32), the scratch (bf16)
   T* grad_offset;
@@ -292,39 +372,53 @@ struct DataArgs {
   unsigned long long* reductions;
   int64_t npix;
   int H, W, Cin, Cout, KC, pieces, KP;
-  int tiles_x, tiles_y, nsteps, splits, cap;
+  int tiles_x, tiles_y, nsteps, splits, ws, cap;
 };
 
 // The data kernel for chunks of CK input channels, NWG warpgroups, each
-// with NW = CK / NWG of them (its wgmma N); the warpgroups share the
-// tile's shared memory and touch distinct channels of it. COUNT: add the
-// reductions into grad x to a.reductions.
-template <typename T, int CK, int NWG, bool COUNT>
+// with NW = CK / NWG of them (its wgmma N). The warpgroups share the
+// tile's output grad and corner table and touch distinct channels of the
+// rest: each copies and reads its own share of the window and weight
+// slots, issues its own G and meets the other only at the tile's start
+// and end. COUNT: add the reductions into grad x to a.reductions. FAST:
+// the output grad is one G piece (a.pieces 1), each step's G issued a
+// step ahead; else every G is computed serially, piece by piece.
+template <typename T, int CK, int NWG, bool COUNT, bool FAST>
 __global__ void __launch_bounds__(128 * NWG)
     dcn_exact_bwd_data_kernel(const DataArgs<T> a) {
   constexpr bool LOW = is_low<T>();
   constexpr int NT = 128 * NWG;
   constexpr int NW = CK / NWG;
   constexpr int CPT = NW / 4;  // channels per thread and pixel
+  constexpr int GC = CPT < 4 ? CPT : 4;  // ... in runs of GC
   constexpr int EK = 16 / (int)sizeof(T);  // elements of a 16-byte piece
-  constexpr int KSTEP = LOW ? 16 : 8;      // K of one wgmma: 256 bytes
   constexpr int XP = x_pitch<T>(CK);
-  constexpr int PER = (9 * TP + NT - 1) / NT;  // box entries per thread
+  constexpr int PER = (9 * TP + NT - 1) / NT;  // table entries per thread
   constexpr int PARTS = LOW ? 1 : 2;
+  constexpr int NPW = NW * (int)sizeof(T) / 16;  // a warpgroup's pieces of
+                                                 // a window pixel
   extern __shared__ __align__(128) unsigned char smem[];
   const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout, KC = a.KC;
   const int SBO = KC * (int)sizeof(T) * 8;  // g and weight slot: bytes
                                             // between 8-row groups
   const int g_part = TP * KC * (int)sizeof(T);
-  const int w_part = CK * KC * (int)sizeof(T);
-  unsigned char* s_g = smem;                         // [part] TP x KC
-  unsigned char* s_w = s_g + PARTS * g_part;         // [part] CK x KC
-  unsigned char* s_win = s_w + PARTS * w_part;       // cap x XP
-  float* s_om = reinterpret_cast<float*>(s_win + a.cap * XP);  // [TP][27]
-  float* sums = s_om + TP * 27;  // [3][9][TP]: grad mask, dy, dx
-  int* s_box = reinterpret_cast<int*>(sums + 27 * TP);
+  const int wgb = PARTS * NW * KC * (int)sizeof(T);  // a warpgroup's share
+                                                     // of a weight slot
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(smem);  // [wg][slot]
+  int* s_box = reinterpret_cast<int*>(smem + 32);
+  unsigned char* s_g = smem + DBAR_B;              // [part] TP x KC
+  unsigned char* s_w = s_g + PARTS * g_part;       // [slot][wg] wgb
+  float4* s_tab = reinterpret_cast<float4*>(s_w + 2 * NWG * wgb);  // [9][TP]
+  unsigned char* s_flag = reinterpret_cast<unsigned char*>(s_tab + 9 * TP);
+  unsigned char* s_win = s_flag + 9 * TP;  // [slot] cap x XP
+  float* s_stage = reinterpret_cast<float*>(s_tab);  // after the walks
 
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;          // warpgroup: channels NW wg ..
+  const int wt = tid & 127;         // its thread
+  const int warp = (tid >> 5) & 3;  // tile row
+  const int lane = tid & 31;
+  const int l4 = lane & 3;
   const int tile = blockIdx.x;
   const int txi = tile % a.tiles_x;
   const int tyi = (tile / a.tiles_x) % a.tiles_y;
@@ -334,68 +428,22 @@ __global__ void __launch_bounds__(128 * NWG)
   const int split = blockIdx.z;
   const int s_begin = (int)((int64_t)split * a.nsteps / a.splits);
   const int s_end = (int)((int64_t)(split + 1) * a.nsteps / a.splits);
+  const int n = s_end - s_begin;  // steps of this block, at least 1
+  const int c_first = s_begin / 9;
+  const int c_last = (s_end - 1) / 9;
+  constexpr bool fast = FAST;
   const bool x_al = Cin % EK == 0 && hopper::aligned16(a.x);
   const bool g_al = Cout % EK == 0 && hopper::aligned16(a.grad_out);
-  const bool w_al = Cout % EK == 0 && hopper::aligned16(a.weight);
   const bool acc_al = Cin % 4 == 0 && hopper::aligned16(a.grad_acc);
   const T* img = a.x + (int64_t)b * H * W * Cin;
   float* acc_img = a.grad_acc + (int64_t)b * H * W * Cin;
 
-  for (int e = tid; e < 27 * TP; e += NT) {
-    sums[e] = 0.f;
-    // the tile's offsets and mask, once; 0 past the map
-    const int p = e / 27;
-    const int k = e - 27 * p;
-    const int y = y0 + p / TW;
-    const int xx = x0 + p % TW;
-    float v = 0.f;
-    if (y < H && xx < W) {
-      const int64_t n = ((int64_t)b * H + y) * W + xx;
-      v = k < 18 ? f32(a.offset[n * 18 + k]) : f32(a.mask[n * 9 + k - 18]);
-    }
-    s_om[e] = v;
+  if (tid == 0) {
+    for (int i = 0; i < 2 * NWG; ++i) hopper::mbar_init(wfull + i, 1);
+    hopper::mbar_fence_init();
   }
-  __syncthreads();  // the offsets and mask visible
+  __syncthreads();  // the barriers initialised
 
-  // the tile's data box: every needed corner of its pixels' 9 taps
-  int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int e = tid + NT * j;
-    if (e >= 9 * TP) break;
-    const int t = e / TP;
-    const int p = e - t * TP;
-    const int y = y0 + p / TW;
-    const int xx = x0 + p % TW;
-    if (y >= H || xx >= W) continue;
-    const float* om = s_om + p * 27;
-    int iy, ix, needed;
-    float hat[4], gy[4], gx[4];
-    dcn_exact::grad_corners(y, xx, t, om[2 * t], om[2 * t + 1], om[18 + t],
-                            H, W, iy, ix, hat, gy, gx, needed);
-    dcn_exact::fold_box(iy, ix, needed, rmin, rmax, cmin, cmax);
-  }
-  const dcn_exact::Box box =
-      dcn_exact::block_box(rmin, rmax, cmin, cmax, s_box);
-  const bool window = (int64_t)box.bh * box.bw <= a.cap;
-  if (a.route_counts && tid == 0 && split == 0)
-    atomicAdd(a.route_counts + (window ? 0 : 1), 1);
-
-  // the box of x of a Cin chunk into the window: pieces of EK channels
-  const auto load_window = [&](int chunk) {
-    constexpr int NPC = CK / EK;
-    const int n = box.bh * box.bw * NPC;
-    for (int e = tid; e < n; e += NT) {
-      const int pos = e / NPC;
-      const int q = e - pos * NPC;
-      const int wr = pos / box.bw;
-      const int yy = box.r0 + wr;
-      const int xc = box.c0 + (pos - wr * box.bw);
-      const int ch = chunk * CK + EK * q;
-      copy_piece(s_win + pos * XP + 16 * q,
-                 img + ((int64_t)yy * W + xc) * Cin + ch, Cin - ch, x_al);
-    }
-  };
   // piece pc of the tile's output grad: (pixel, EK channels) pieces,
   // K-major; 0 past the map and past Cout
   const auto load_g = [&](int pc) {
@@ -407,9 +455,9 @@ __global__ void __launch_bounds__(128 * NWG)
       const int xx = x0 + p % TW;
       const int o = pc * KC + EK * q;
       const bool in = y < H && xx < W;
-      const int64_t n = ((int64_t)b * H + y) * W + xx;
+      const int64_t nn = ((int64_t)b * H + y) * W + xx;
       copy_piece(s_g + (p >> 3) * SBO + q * 128 + (p & 7) * 16,
-                 in ? a.grad_out + n * Cout + o : a.grad_out,
+                 in ? a.grad_out + nn * Cout + o : a.grad_out,
                  in ? Cout - o : 0, g_al);
     }
   };
@@ -425,187 +473,269 @@ __global__ void __launch_bounds__(128 * NWG)
       }
     }
   };
-  // step s's B = w[t]^T (K = output channel of piece pc, N = channel of
-  // the chunk), K-major, input channel c at B column NW (c / NW) +
-  // fragment_column(c % NW); float32 hi and lo from the split weight,
-  // bf16 from w
-  const auto load_weights = [&](int s, int pc) {
-    const int chunk = s / 9;
-    const int t = s - 9 * chunk;
-    const int QP = KC / EK;
-    for (int e = tid; e < PARTS * CK * QP; e += NT) {
-      const int row = e / QP;  // hl CK + c
-      const int q = e - row * QP;
-      const int hl = row / CK;
-      const int c = row - hl * CK;
-      const int ch = chunk * CK + c;
-      const bool in = ch < Cin;
-      const int n = c / NW * NW + fragment_column<NW>(c % NW);
-      unsigned char* dst =
-          s_w + hl * w_part + (n >> 3) * SBO + q * 128 + (n & 7) * 16;
-      if constexpr (!LOW) {
-        hopper::cp_async16(
-            dst,
-            in ? a.wsplit + (((int64_t)hl * 9 + t) * Cin + ch) * a.KP +
-                     pc * KC + 4 * q
-               : a.wsplit,
-            in ? 16 : 0);
-      } else {
-        const int o = pc * KC + EK * q;
-        copy_piece(dst,
-                   in ? a.weight + ((int64_t)t * Cin + ch) * Cout + o
-                      : a.weight,
-                   in ? Cout - o : 0, w_al);
-      }
+  // this warpgroup's share of step s's weight slice of piece pc, as
+  // dcn_exact_bwd_layout_kernel laid it out
+  const auto w_src = [&](int s, int pc) {
+    return a.wlay + (((int64_t)pc * (a.nsteps / 9) * 9 + s) * NWG + wg) * wgb;
+  };
+  uint64_t* my_full = wfull + 2 * wg;
+  // step s (the block's r-th) into weight slot r & 1 by one bulk copy,
+  // completing on the slot's barrier (issued by the warpgroup's thread 0)
+  const auto load_w = [&](int s, int r) {
+    hopper::mbar_arrive_expect_tx(my_full + (r & 1), wgb);
+    hopper::bulk_copy(s_w + ((r & 1) * NWG + wg) * wgb, w_src(s, 0), wgb,
+                      my_full + (r & 1));
+  };
+
+  DCN_PHASES_BEGIN;  // phase 0: the corner table and the box
+  if (fast) {
+    if (wt == 0) {
+      load_w(s_begin, 0);
+      if (n > 1) load_w(s_begin + 1, 1);
+    }
+    load_g(0);
+    hopper::cp_async_commit();
+  }
+
+  // The corner table, (tap, pixel) e t * TP + p: each entry's corners
+  // once a tile (grad_position, and grad_weights for `needed`), folded
+  // into the tile's data box: every needed corner of its pixels' 9 taps.
+  // Pixels past the map have no needed corner.
+  int rmin = INT_MAX, rmax = INT_MIN, cmin = INT_MAX, cmax = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int e = tid + NT * j;
+    if (e >= 9 * TP) break;
+    const int p = e / 9;  // consecutive threads: a pixel's taps
+    const int t = e - 9 * p;
+    const int y = y0 + p / TW;
+    const int xx = x0 + p % TW;
+    float4 ent = make_float4(0.f, 0.f, 0.f, 0.f);
+    int fl = 0;
+    if (y < H && xx < W) {
+      const int64_t nn = ((int64_t)b * H + y) * W + xx;
+      const float m = f32(a.mask[nn * 9 + t]);
+      int iy, ix, sy, sx;
+      float fy, fx, hat[4], gy[4], gx[4];
+      dcn_exact::grad_position(y, xx, t, f32(a.offset[nn * 18 + 2 * t]),
+                               f32(a.offset[nn * 18 + 2 * t + 1]), H, W, iy,
+                               ix, fy, fx, sy, sx);
+      dcn_exact::grad_weights(fy, fx, m, sy, sx, hat, gy, gx);
+      const int needed = dcn_exact::grad_needed(iy, ix, H, W, hat, gy, gx);
+      dcn_exact::fold_box(iy, ix, needed, rmin, rmax, cmin, cmax);
+      const uint32_t iyx = ((uint32_t)iy & 0xffffu) | ((uint32_t)ix << 16);
+      ent = make_float4(fy, fx, m, __int_as_float((int)iyx));
+      fl = needed | sy << 4 | sx << 6;
+    }
+    s_tab[t * TP + p] = ent;
+    s_flag[t * TP + p] = (unsigned char)fl;
+  }
+  // (its barriers publish the table)
+  const dcn_exact::Box box =
+      dcn_exact::block_box(rmin, rmax, cmin, cmax, s_box);
+  const bool window = (int64_t)box.bh * box.bw <= a.cap;
+  if (a.route_counts && tid == 0 && split == 0)
+    atomicAdd(a.route_counts + (window ? 0 : 1), 1);
+  DCN_PHASE(0);
+
+  // this warpgroup's channels of a Cin chunk's box of x into window slot
+  // `slot`: NPW pieces of EK channels a pixel
+  const auto load_window = [&](int chunk, int slot) {
+    unsigned char* dst = s_win + slot * a.cap * XP + wg * NW * (int)sizeof(T);
+    const int chw = chunk * CK + wg * NW;
+    const int np = box.bh * box.bw * NPW;
+    for (int e = wt; e < np; e += 128) {
+      const int pos = e / NPW;
+      const int q = e - pos * NPW;
+      const int wr = pos / box.bw;
+      const int yy = box.r0 + wr;
+      const int xc = box.c0 + (pos - wr * box.bw);
+      const int ch = chw + EK * q;
+      copy_piece(dst + pos * XP + 16 * q,
+                 img + ((int64_t)yy * W + xc) * Cin + ch, Cin - ch, x_al);
     }
   };
-  DCN_PHASES_BEGIN;  // phase 0: the tile's staging and each step's wait
-  if (window) load_window(s_begin / 9);
-  if (a.pieces == 1) {
-    load_g(0);
-    load_weights(s_begin, 0);
-  }
+  // piece pc of step s's output grad and this warpgroup's weight share
+  // into the g tile and weight slot 0, by the whole block: the serial G
+  // of an output grad wider than one piece (block-wide barriers)
+  const auto stage_piece = [&](int s, int pc) {
+    __syncthreads();  // the products before are done: the slots free
+    load_g(pc);
+    const unsigned char* src = w_src(s, pc);
+    unsigned char* dst = s_w + wg * wgb;
+    for (int e = wt; e < wgb / 16; e += 128)
+      hopper::cp_async16(dst + 16 * e, src + 16 * e, 16);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait_all();
+    __syncthreads();
+    split_g();
+    hopper::fence_async_shared();
+    __syncthreads();
+  };
+  if (window) load_window(c_first, 0);
   hopper::cp_async_commit();
   hopper::cp_async_wait_all();
-  __syncthreads();
-  if (a.pieces == 1) split_g();
-
-  const int wg = tid >> 7;          // warpgroup: channels NW wg ..
-  const int warp = (tid >> 5) & 3;  // tile row
-  const int lane = tid & 31;
-  const int l4 = lane & 3;
-  float G[NW / 2];
+  __syncthreads();  // the output grad and the first window in
+  // G of the step being walked (Gc) and of the next (Gn, in flight
+  // during the walk where the output grad is one piece). Each product
+  // is issued and waited for in one turn of the step loop, and Gn is
+  // cleared once copied into Gc: a product in flight across the loop's
+  // turn, or linked by value to Gc, lets the compiler copy its
+  // accumulators while it runs, and ptxas then serializes every wgmma.
+  constexpr int GR = g_regs<T, NW>();
+  float Gc[NW / 2], Gn[GR];
 #pragma unroll
-  for (int k = 0; k < NW / 2; ++k) G[k] = 0.f;
-  // The sums of grad mask, dy and dx of this thread's two pixels (its
-  // quad's lane 0) at a step: warpgroup 0 adds them at the end of its
-  // walk, warpgroup 1 after the next block-wide barrier, so they are
-  // summed in a fixed order: by step, then by warpgroup.
-  float pend[2][3];
-  int pend_t = -1;
-  int reduced = 0;  // floats this thread added into grad x
-  const auto add_sums = [&](int tap, const float (&v)[2][3]) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = 16 * warp + (lane >> 2) + 8 * hh;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) sums[(9 * k + tap) * TP + p] += v[hh][k];
+  for (int k = 0; k < GR; ++k) Gn[k] = 0.f;
+  if (fast) {
+    split_g();
+    hopper::fence_async_shared();
+    __syncthreads();  // the split output grad visible to wgmma
+    hopper::mbar_wait(my_full, 0);
+    g_product<T, NW>(Gn, s_g, s_w + wg * wgb, g_part, KC, 0);
+    hopper::wgmma_wait_all();
+    hopper::fence_acc(Gn);
+  } else {
+    for (int pc = 0; pc < a.pieces; ++pc) {
+      stage_piece(s_begin, pc);
+      g_product<T, NW>(Gn, s_g, s_w + wg * wgb, g_part, KC, pc > 0);
+      hopper::wgmma_wait_all();
+      hopper::fence_acc(Gn);
     }
-  };
-  for (int s = s_begin; s < s_end; ++s) {
+  }
+  g_sum<T, NW>(Gc, Gn);
+#pragma unroll
+  for (int k = 0; k < GR; ++k) Gn[k] = 0.f;
+  DCN_PHASE(1);  // phase 1: the first copies, the split, the first G
+
+  // The grad mask, dy and dx sums of this thread's two pixels: its quad
+  // holds them alike after the shuffles; lane l4 keeps taps l4, l4 + 4,
+  // l4 + 8, summed over the block's steps in order. The warpgroups' sums
+  // meet at the end (warpgroup 0 + warpgroup 1): a fixed order.
+  float sums[3][2][3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      sums[j][hh][0] = sums[j][hh][1] = sums[j][hh][2] = 0.f;
+  int reduced = 0;  // floats this thread added into grad x
+
+  // Step r of the block (s = s_begin + r: Cin chunk s / 9, tap s % 9),
+  // its G in Gc; the next step's goes into Gn under the walk and into Gc
+  // at the turn's end. One barrier of the warpgroup a step: its walk of
+  // the step before done, this step's G done (so its weight slot is
+  // free), the next step's weights in.
+  for (int r = 0; r < n; ++r) {
+    const int s = s_begin + r;
     const int chunk = s / 9;
     const int t = s - 9 * chunk;
-    const bool chunk_ends = s + 1 == s_end || (s + 1) / 9 != chunk;
-    hopper::cp_async_wait_all();
-    hopper::fence_async_shared();
-    __syncthreads();  // step s's copies (and g's split) visible; step
-                      // s - 1's walk done
-    DCN_PHASE(0);
-    if (pend_t >= 0) {
-      add_sums(pend_t, pend);
-      pend_t = -1;
+    const bool opens = r == 0 || t == 0;  // the chunk's first step here
+    const int wslot = a.ws == 2 ? (chunk - c_first) & 1 : 0;
+    if (window && opens && r > 0 && a.ws == 2)
+      hopper::cp_async_wait_all();  // the chunk's window, staged a chunk
+                                    // ago
+    if (fast && r + 1 < n)
+      hopper::mbar_wait(my_full + ((r + 1) & 1), ((r + 1) >> 1) & 1);
+    hopper::bar_sync(1 + wg, 128);
+    DCN_PHASE(3);  // phase 3: the copies' waits and the barrier
+    if (fast) {
+      // step s + 1's G from weight slot (r + 1) & 1, under this step's
+      // walk; at the block's last step a product whose result is never
+      // read, so that no path merges Gn in flight with Gn at rest
+      g_product<T, NW>(Gn, s_g, s_w + (((r + 1) & 1) * NWG + wg) * wgb,
+                       g_part, KC, 0);
+    } else if (r + 1 < n) {
+      for (int pc = 0; pc < a.pieces; ++pc) {
+        stage_piece(s + 1, pc);
+        g_product<T, NW>(Gn, s_g, s_w + wg * wgb, g_part, KC, pc > 0);
+        hopper::wgmma_wait_all();
+        hopper::fence_acc(Gn);
+      }
     }
-
-    // G_t = g w[t]^T, this warpgroup's NW columns, over the pieces of the
-    // output grad; the first K step overwrites G
-    for (int pc = 0; pc < a.pieces; ++pc) {
-      if (a.pieces > 1) {
-        load_g(pc);
-        load_weights(s, pc);
+    if (fast && r + 2 < n && wt == 0) load_w(s + 2, r + 2);
+    if (window && opens) {
+      if (a.ws == 2) {
+        if (chunk < c_last) {
+          load_window(chunk + 1, wslot ^ 1);  // lands during the chunk
+          hopper::cp_async_commit();
+        }
+      } else if (r > 0) {
+        load_window(chunk, 0);
         hopper::cp_async_commit();
         hopper::cp_async_wait_all();
-        __syncthreads();
-        split_g();
-        hopper::fence_async_shared();
-        __syncthreads();
+        hopper::bar_sync(1 + wg, 128);
       }
-      hopper::fence_acc(G);
-      hopper::wgmma_fence();
-      const unsigned char* s_wg = s_w + wg * (NW / 8) * SBO;
-      uint64_t dg = hopper::desc(s_g, 128, SBO);
-      uint64_t dw = hopper::desc(s_wg, 128, SBO);
-      if constexpr (!LOW) {
-        uint64_t dg_lo = hopper::desc(s_g + g_part, 128, SBO);
-        uint64_t dw_lo = hopper::desc(s_wg + w_part, 128, SBO);
-        for (int ks = 0; ks < KC / KSTEP; ++ks) {
-          hopper::wgmma_3xtf32<NW>(G, dg, dg_lo, dw, dw_lo, pc > 0 || ks > 0);
-          dg += 16;
-          dg_lo += 16;
-          dw += 16;
-          dw_lo += 16;
-        }
-      } else {
-        for (int ks = 0; ks < KC / KSTEP; ++ks) {
-          hopper::wgmma_bf16<NW, 0, 0>(G, dg, dw, pc > 0 || ks > 0);
-          dg += 16;
-          dw += 16;
-        }
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait_all();
-      hopper::fence_acc(G);
-      __syncthreads();  // the product is done: the g and weight slots free
     }
-    DCN_PHASE(1);  // consumer 1: G on the tensor cores
-    if (a.pieces == 1 && !chunk_ends) {
-      load_weights(s + 1, 0);  // flies during the walk
-      hopper::cp_async_commit();
-    }
+    DCN_PHASE(4);  // phase 4: issuing the next G and the copies
 
     // The corner walk. This thread holds G for two pixels (tile row
     // `warp`, columns lane / 4 and lane / 4 + 8) and, per pixel, the CPT
-    // channels NW wg + CPT l4 + i: G[4 (i / 2) + 2 hh + i % 2].
-    const int cl = NW * wg + CPT * l4;  // its first channel in the chunk
+    // channels NW wg + 4 GC (i / GC) + GC l4 + i % GC (fragment_column):
+    // Gc[4 (i / 2) + 2 hh + i % 2]. Each (pixel, tap)'s corners and
+    // weights come from the table.
+    const int cl = NW * wg + GC * l4;  // its first channel in the chunk
     const int ch0 = chunk * CK + cl;
+    const unsigned char* win =
+        s_win + wslot * a.cap * XP + cl * (int)sizeof(T);
     float v[2][3];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       v[hh][0] = v[hh][1] = v[hh][2] = 0.f;
-      const int p = 16 * warp + (lane >> 2) + 8 * hh;
-      const int y = y0 + warp;
-      const int xx = x0 + (lane >> 2) + 8 * hh;
-      if (y >= H || xx >= W) continue;
-      const float* om = s_om + p * 27;
-      const float m = om[18 + t];
-      int iy, ix, needed;
+      const int e = t * TP + 16 * warp + (lane >> 2) + 8 * hh;
+      const int fl = s_flag[e];
+      if (!(fl & 15)) continue;
+      const float4 ent = s_tab[e];
+      const float m = ent.z;
       float hat[4], gy[4], gx[4];
-      dcn_exact::grad_corners(y, xx, t, om[2 * t], om[2 * t + 1], m, H, W,
-                              iy, ix, hat, gy, gx, needed);
+      dcn_exact::grad_weights(ent.x, ent.y, m, (fl >> 4) & 3, fl >> 6, hat,
+                              gy, gx);
+      const int iyx = __float_as_int(ent.w);
+      const int iy = (int)(int16_t)(iyx & 0xffff);
+      const int ix = iyx >> 16;
+      const int wbase = (iy - box.r0) * box.bw + (ix - box.c0);
+      const int gbase = iy * W + ix;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        if (!(needed >> k & 1)) continue;
-        const int yy = iy + (k >> 1);
-        const int xc = ix + (k & 1);
+        if (!(fl >> k & 1)) continue;
+        const int gpos = gbase + (k >> 1) * W + (k & 1);
         float xv[CPT];
         if (window) {
-          const int pos = (yy - box.r0) * box.bw + (xc - box.c0);
-          const T* src = reinterpret_cast<const T*>(s_win + pos * XP) + cl;
-#pragma unroll
-          for (int i = 0; i < CPT; ++i) xv[i] = f32(src[i]);
-        } else {
-          const T* src = img + ((int64_t)yy * W + xc) * Cin + ch0;
+          const T* src = reinterpret_cast<const T*>(
+              win + (wbase + (k >> 1) * box.bw + (k & 1)) * XP);
 #pragma unroll
           for (int i = 0; i < CPT; ++i)
-            xv[i] = ch0 + i < Cin ? f32(src[i]) : 0.f;
+            xv[i] = f32(src[4 * GC * (i / GC) + i % GC]);
+        } else {
+          const T* src = img + (int64_t)gpos * Cin + ch0;
+#pragma unroll
+          for (int i = 0; i < CPT; ++i) {
+            const int c = 4 * GC * (i / GC) + i % GC;
+            xv[i] = ch0 + c < Cin ? f32(src[c]) : 0.f;
+          }
         }
         float d = 0.f;
 #pragma unroll
         for (int i = 0; i < CPT; ++i)
-          d = fmaf(G[4 * (i >> 1) + 2 * hh + (i & 1)], xv[i], d);
+          d = fmaf(Gc[4 * (i >> 1) + 2 * hh + (i & 1)], xv[i], d);
         v[hh][0] = fmaf(hat[k], d, v[hh][0]);
         v[hh][1] = fmaf(gy[k], d, v[hh][1]);
         v[hh][2] = fmaf(gx[k], d, v[hh][2]);
-        const float wt = __fmul_rn(hat[k], m);
-        if (wt == 0.f) continue;
-        float add[CPT];
+        const float wk = __fmul_rn(hat[k], m);
+        if (wk == 0.f) continue;
+        float add[CPT / GC][GC];
 #pragma unroll
         for (int i = 0; i < CPT; ++i)
-          add[i] = wt * G[4 * (i >> 1) + 2 * hh + (i & 1)];
-        DCN_PHASE(2);
-        scatter<CPT>(acc_img + ((int64_t)yy * W + xc) * Cin + ch0, add,
-                     Cin - ch0, acc_al);
-        DCN_PHASE(4);  // consumer 4: grad x's global reductions
-        if constexpr (COUNT) reduced += min(max(Cin - ch0, 0), CPT);
+          add[i / GC][i % GC] = wk * Gc[4 * (i >> 1) + 2 * hh + (i & 1)];
+        DCN_PHASE(5);
+#pragma unroll
+        for (int j = 0; j < CPT / GC; ++j)
+          scatter<GC>(acc_img + (int64_t)gpos * Cin + ch0 + 4 * GC * j,
+                      add[j], Cin - ch0 - 4 * GC * j, acc_al);
+        DCN_PHASE(6);  // phase 6: grad x's global reductions
+        if constexpr (COUNT) {
+#pragma unroll
+          for (int j = 0; j < CPT / GC; ++j)
+            reduced += min(max(Cin - ch0 - 4 * GC * j, 0), GC);
+        }
       }
     }
 #pragma unroll
@@ -615,30 +745,22 @@ __global__ void __launch_bounds__(128 * NWG)
 #pragma unroll
         for (int q = 0; q < 3; ++q)
           v[hh][q] += __shfl_xor_sync(0xffffffffu, v[hh][q], k);
-    if (l4 == 0) {
-      if (wg == 0) {
-        add_sums(t, v);
-      } else {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (t == l4 + 4 * j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-          for (int q = 0; q < 3; ++q) pend[hh][q] = v[hh][q];
-        pend_t = t;
-      }
-    }
-    DCN_PHASE(2);  // consumer 2: the corner walk's reads and its sums
-    if (chunk_ends) {
-      __syncthreads();  // the chunk's walks are done: its window is free
-      DCN_PHASE(3);  // consumer 3: the chunk's barrier
-      if (s + 1 < s_end) {
-        if (window) load_window(chunk + 1);
-        if (a.pieces == 1) load_weights(s + 1, 0);
-        hopper::cp_async_commit();
-      }
-    }
+          for (int q = 0; q < 3; ++q) sums[j][hh][q] += v[hh][q];
+    DCN_PHASE(5);  // phase 5: the corner walk's reads and its sums
+    hopper::wgmma_wait_all();
+    hopper::fence_acc(Gn);
+    g_sum<T, NW>(Gc, Gn);
+#pragma unroll
+    for (int k = 0; k < GR; ++k) Gn[k] = 0.f;
+    DCN_PHASE(2);  // phase 2: the wait for the next step's G
   }
-  DCN_PHASE(0);
-  DCN_PHASES_END;
+
   if constexpr (COUNT) {
 #pragma unroll
     for (int k = 16; k > 0; k >>= 1)
@@ -646,30 +768,54 @@ __global__ void __launch_bounds__(128 * NWG)
     if (lane == 0 && reduced)
       atomicAdd(a.reductions, (unsigned long long)reduced);
   }
-  __syncthreads();
-  if (pend_t >= 0) add_sums(pend_t, pend);
-  __syncthreads();
-  for (int e = tid; e < 9 * TP; e += NT) {
-    const int t = e / TP;
-    const int p = e - t * TP;
-    const int y = y0 + p / TW;
-    const int xx = x0 + p % TW;
-    if (y >= H || xx >= W) continue;
-    const int64_t n = ((int64_t)b * H + y) * W + xx;
-    const float gm = sums[t * TP + p];
-    const float gdy = sums[(9 + t) * TP + p];
-    const float gdx = sums[(18 + t) * TP + p];
-    if (a.splits > 1) {
-      float* dst = a.partial + ((int64_t)split * a.npix + n) * 27 + 3 * t;
-      dst[0] = gdy;
-      dst[1] = gdx;
-      dst[2] = gm;
-    } else {
-      a.grad_offset[n * 18 + 2 * t] = from_f32<T>(gdy);
-      a.grad_offset[n * 18 + 2 * t + 1] = from_f32<T>(gdx);
-      a.grad_mask[n * 9 + t] = from_f32<T>(gm);
+  __syncthreads();  // every walk done: the table's room takes the sums
+  if (NWG == 2 && wg == 1) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int t = l4 + 4 * j;
+      if (t >= 9) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = 16 * warp + (lane >> 2) + 8 * hh;
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          s_stage[(9 * q + t) * TP + p] = sums[j][hh][q];
+      }
     }
   }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int t = l4 + 4 * j;
+      if (t >= 9) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = 16 * warp + (lane >> 2) + 8 * hh;
+        const int y = y0 + warp;
+        const int xx = x0 + (lane >> 2) + 8 * hh;
+        if (y >= H || xx >= W) continue;
+        float g3[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          g3[q] = NWG == 2 ? sums[j][hh][q] + s_stage[(9 * q + t) * TP + p]
+                           : sums[j][hh][q];
+        const int64_t nn = ((int64_t)b * H + y) * W + xx;
+        if (a.splits > 1) {
+          float* dst = a.partial + ((int64_t)split * a.npix + nn) * 27 + 3 * t;
+          dst[0] = g3[1];
+          dst[1] = g3[2];
+          dst[2] = g3[0];
+        } else {
+          a.grad_offset[nn * 18 + 2 * t] = from_f32<T>(g3[1]);
+          a.grad_offset[nn * 18 + 2 * t + 1] = from_f32<T>(g3[2]);
+          a.grad_mask[nn * 9 + t] = from_f32<T>(g3[0]);
+        }
+      }
+    }
+  }
+  DCN_PHASE(7);  // phase 7: the sums' flush
+  DCN_PHASES_END;
 }
 
 // grad offset and grad mask = the sum over the splits of the partials, in
@@ -694,19 +840,50 @@ __global__ void dcn_exact_bwd_data_reduce_kernel(
   grad_mask[e] = from_f32<T>(gm);
 }
 
-// wsplit[hl][t][c][o] = the hi (hl = 0) or lo (1) TF32 part of w[t][c][o],
-// o padded to KP with zeros
-__global__ void dcn_exact_bwd_split_weight_kernel(
-    const float* __restrict__ w, float* __restrict__ wsplit, int64_t rows,
-    int Cout, int KP) {
+// The weight slices in the data kernel's slot layout, so that a
+// warpgroup takes its share of a step's slot by one bulk copy: per piece
+// pc of the output grad, Cin chunk, tap t and warpgroup, NW columns (the
+// warpgroup's input channels, channel c at fragment_column(c)) x KC
+// (output channels of the piece), K-major in core matrices as the slot
+// holds them; float32 the TF32 hi part, then the lo part; zeros past Cin
+// and past Cout. One thread per element of w's padded copy.
+template <typename T>
+__global__ void dcn_exact_bwd_layout_kernel(const T* __restrict__ w,
+                                            T* __restrict__ lay, int Cin,
+                                            int Cout, int CK, int NW, int KC,
+                                            int pieces, int nchunks) {
+  constexpr int PARTS = is_low<T>() ? 1 : 2;
+  constexpr int EK = 16 / (int)sizeof(T);
+  const int KP = pieces * KC;
+  const int CP = nchunks * CK;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= rows * KP) return;
-  const int64_t row = e / KP;
-  const int o = (int)(e - row * KP);
-  const float v = o < Cout ? w[row * Cout + o] : 0.f;
-  const float hi = hopper::tf32_rna(v);
-  wsplit[e] = hi;
-  wsplit[rows * KP + e] = hopper::tf32_rna(v - hi);
+  if (e >= (int64_t)PARTS * 9 * CP * KP) return;
+  const int o = (int)(e % KP);
+  int64_t rest = e / KP;
+  const int cp = (int)(rest % CP);
+  rest /= CP;
+  const int t = (int)(rest % 9);
+  const int part = (int)(rest / 9);
+  const int chunk = cp / CK;
+  const int c = cp - chunk * CK;
+  const int wg = c / NW;
+  const int cl = c - wg * NW;
+  const int nl = fragment_column(cl, NW);
+  const int pc = o / KC;
+  const int k = o - pc * KC;
+  const int64_t blob = (((int64_t)pc * nchunks + chunk) * 9 + t) * (CK / NW) +
+                       wg;
+  const int64_t at = blob * PARTS * NW * KC + (int64_t)part * NW * KC +
+                     (nl >> 3) * KC * 8 + (k / EK) * EK * 8 + (nl & 7) * EK +
+                     k % EK;
+  const float v =
+      cp < Cin && o < Cout ? f32(w[((int64_t)t * Cin + cp) * Cout + o]) : 0.f;
+  if constexpr (is_low<T>()) {
+    lay[at] = from_f32<T>(v);
+  } else {
+    const float hi = hopper::tf32_rna(v);
+    lay[at] = part == 0 ? hi : hopper::tf32_rna(v - hi);
+  }
 }
 
 // dst[e] = bf16(src[e])
@@ -717,59 +894,71 @@ __global__ void dcn_exact_round_kernel(const float* __restrict__ src,
   if (e < count) dst[e] = __float2bfloat16_rn(src[e]);
 }
 
-template <typename T, int CK, int NWG, bool COUNT>
+template <typename T, int CK, int NWG, bool COUNT, bool FAST>
 int launch_data_instance(const DataArgs<T>& a, dim3 grid, int smem,
                          cudaStream_t s) {
   static int smem_set = 0;  // the dynamic shared memory allowed so far
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dcn_exact_bwd_data_kernel<T, CK, NWG, COUNT>,
+        dcn_exact_bwd_data_kernel<T, CK, NWG, COUNT, FAST>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  dcn_exact_bwd_data_kernel<T, CK, NWG, COUNT>
+  dcn_exact_bwd_data_kernel<T, CK, NWG, COUNT, FAST>
       <<<grid, 128 * NWG, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int CK, int NWG, bool COUNT>
+int launch_data_counted(const DataArgs<T>& a, dim3 grid, int smem,
+                        cudaStream_t s) {
+  if (a.pieces == 1)
+    return launch_data_instance<T, CK, NWG, COUNT, true>(a, grid, smem, s);
+  return launch_data_instance<T, CK, NWG, COUNT, false>(a, grid, smem, s);
 }
 
 template <typename T, int CK, int NWG>
 int launch_data_kernel(const DataArgs<T>& a, dim3 grid, int smem,
                        cudaStream_t s) {
   if (a.reductions)
-    return launch_data_instance<T, CK, NWG, true>(a, grid, smem, s);
-  return launch_data_instance<T, CK, NWG, false>(a, grid, smem, s);
+    return launch_data_counted<T, CK, NWG, true>(a, grid, smem, s);
+  return launch_data_counted<T, CK, NWG, false>(a, grid, smem, s);
 }
 
-// The plan's checks, the weight split (float32), the launch, the split
+// The plan's checks, the weight slices' layout, the launch, the split
 // partials' sum and (bf16) grad x's rounding: see the extern "C"
 // launchers below.
 template <typename T>
-int launch_data(DataArgs<T> a, const float* weight32, T* grad_x, int B,
-                int H, int W, int Cin, int Cout, int tile_h, int tile_w,
-                int chunk, int warpgroups, int k_tile, int box_capacity,
-                int splits, int smem, cudaStream_t s) {
+int launch_data(DataArgs<T> a, T* wlay, T* grad_x, int B, int H, int W,
+                int Cin, int Cout, int tile_h, int tile_w, int chunk,
+                int warpgroups, int k_tile, int window_slots,
+                int box_capacity, int splits, int smem, cudaStream_t s) {
   constexpr bool LOW = is_low<T>();
   const int64_t npix = (int64_t)B * H * W;
-  if (B < 0 || H < 0 || W < 0 || Cin < 0 || Cout < 0 || npix > 0x7fffffff)
+  if (B < 0 || H < 0 || W < 0 || Cin < 0 || Cout < 0 || npix > 0x7fffffff ||
+      H > 32766 || W > 32766)
     return (int)cudaErrorInvalidValue;
   if (npix == 0 || Cin == 0) return (int)cudaSuccess;
   const int ka = LOW ? 16 : 8;  // the K of a G piece is a multiple of it
   const int want_kc = Cout == 0 ? ka
                       : Cout <= MAX_KC ? (Cout + ka - 1) / ka * ka
                                        : MAX_KC;
-  const int nsteps = 9 * ((Cin + chunk - 1) / (chunk > 0 ? chunk : 1));
+  const int nchunks = (Cin + chunk - 1) / (chunk > 0 ? chunk : 1);
+  const int nsteps = 9 * nchunks;
   const bool plan_ok =
       LOW ? (chunk == 64 && warpgroups == 2) || (chunk == 32 && warpgroups == 1)
           : (chunk == 32 && warpgroups == 2) ||
                 (chunk == 16 && warpgroups == 2) ||
                 (chunk == 8 && warpgroups == 1);
   if (!plan_ok || tile_h != TH || tile_w != TW || k_tile != want_kc ||
-      box_capacity < 1 || splits < 1 || splits > nsteps || splits > 65535 ||
-      smem != data_smem_bytes<T>(k_tile, chunk, box_capacity) ||
-      smem > 232448 || (!LOW && a.wsplit == nullptr) ||
+      (window_slots != 1 && window_slots != 2) || box_capacity < 1 ||
+      splits < 1 || splits > nsteps || splits > 65535 ||
+      smem != data_smem_bytes<T>(k_tile, chunk, window_slots, box_capacity) ||
+      smem > 232448 || wlay == nullptr ||
       (splits > 1 && a.partial == nullptr) || a.grad_acc == nullptr)
     return (int)cudaErrorInvalidValue;
+  a.wlay = reinterpret_cast<const unsigned char*>(wlay);
   a.npix = npix;
   a.H = H;
   a.W = W;
@@ -782,21 +971,16 @@ int launch_data(DataArgs<T> a, const float* weight32, T* grad_x, int B,
   a.tiles_y = (H + TH - 1) / TH;
   a.nsteps = nsteps;
   a.splits = splits;
+  a.ws = window_slots;
   a.cap = box_capacity;
   const int threads = 256;
-  cudaError_t err;
-  if constexpr (!LOW) {
-    const int64_t rows = (int64_t)9 * Cin;
-    const int64_t count = rows * a.KP;
-    dcn_exact_bwd_split_weight_kernel<<<(unsigned)((count + threads - 1) /
-                                                   threads),
-                                        threads, 0, s>>>(weight32,
-                                                         const_cast<float*>(
-                                                             a.wsplit),
-                                                         rows, Cout, a.KP);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int64_t count = (LOW ? 1 : 2) * (int64_t)nsteps * chunk * a.KP;
+  dcn_exact_bwd_layout_kernel<T>
+      <<<(unsigned)((count + threads - 1) / threads), threads, 0, s>>>(
+          a.weight, wlay, Cin, Cout, chunk, chunk / warpgroups, k_tile,
+          a.pieces, nchunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * a.tiles_y * a.tiles_x, 1, splits);
   int rc;
   if constexpr (LOW) {
@@ -817,13 +1001,14 @@ int launch_data(DataArgs<T> a, const float* weight32, T* grad_x, int B,
     if (err != cudaSuccess) return (int)err;
   }
   if constexpr (LOW) {
-    const int64_t count = npix * Cin;
-    dcn_exact_round_kernel<<<(unsigned)((count + threads - 1) / threads),
-                             threads, 0, s>>>(a.grad_acc, grad_x, count);
+    const int64_t cells = npix * Cin;
+    dcn_exact_round_kernel<<<(unsigned)((cells + threads - 1) / threads),
+                             threads, 0, s>>>(a.grad_acc, grad_x, cells);
     return (int)cudaGetLastError();
   }
   return 0;
 }
+
 
 // ---- the weight kernels -------------------------------------------------
 
@@ -1674,30 +1859,30 @@ int launch_weight(WeightArgs<T> a, int B, int H, int W, int Cin, int Cout,
 // The data gradient at float32 (ops/dcn.exact_bwd_data_fp32_plan):
 // tile_h, tile_w, chunk (32, 16 or 8), warpgroups (2, 2 or 1), k_tile (the
 // output channels of a G piece: Cout padded to 8 up to 256, else 256),
-// box_capacity, splits and the dynamic shared memory. grad_x must be
-// zero-filled by the caller (the blocks add into it with atomics);
-// `wsplit` holds 2 * 9 * Cin * KP floats of scratch (KP = Cout rounded up
-// to k_tile); `partial` holds splits * B * H * W * 27 floats when splits >
-// 1 and may be null otherwise; grad_offset (B, H, W, 18) and grad_mask
-// (B, H, W, 9) are fully written.
+// window_slots (1 or 2), box_capacity, splits and the dynamic shared
+// memory. grad_x must be zero-filled by the caller (the blocks add into
+// it with atomics); `wlayout` holds the plan's weight_layout floats of
+// scratch (the weight slices laid out for the slots, TF32 hi and lo);
+// `partial` holds splits * B * H * W * 27 floats when splits > 1 and may
+// be null otherwise; grad_offset (B, H, W, 18) and grad_mask (B, H, W, 9)
+// are fully written. H and W are at most 32766.
 extern "C" int dcn_exact_bwd_data(const float* x, const float* offset,
                                   const float* mask, const float* weight,
                                   const float* grad_out, float* grad_x,
                                   float* grad_offset, float* grad_mask,
-                                  float* partial, float* wsplit,
+                                  float* partial, float* wlayout,
                                   int* route_counts,
                                   unsigned long long* reductions, int B,
                                   int H, int W, int Cin, int Cout,
-                                  int tile_h, int tile_w,
-                                  int chunk, int warpgroups, int k_tile,
-                                  int box_capacity, int splits, int smem,
-                                  void* stream) {
+                                  int tile_h, int tile_w, int chunk,
+                                  int warpgroups, int k_tile,
+                                  int window_slots, int box_capacity,
+                                  int splits, int smem, void* stream) {
   DataArgs<float> a{};
   a.x = x;
   a.offset = offset;
   a.mask = mask;
   a.weight = weight;
-  a.wsplit = wsplit;
   a.grad_out = grad_out;
   a.grad_acc = grad_x;
   a.grad_offset = grad_offset;
@@ -1705,23 +1890,23 @@ extern "C" int dcn_exact_bwd_data(const float* x, const float* offset,
   a.partial = partial;
   a.route_counts = route_counts;
   a.reductions = reductions;
-  return launch_data(a, weight, grad_x, B, H, W, Cin, Cout, tile_h, tile_w,
-                     chunk, warpgroups, k_tile, box_capacity, splits, smem,
-                     (cudaStream_t)stream);
+  return launch_data(a, wlayout, grad_x, B, H, W, Cin, Cout, tile_h, tile_w,
+                     chunk, warpgroups, k_tile, window_slots, box_capacity,
+                     splits, smem, (cudaStream_t)stream);
 }
 
 // The same at bfloat16 (ops/dcn.exact_bwd_data_bf16_plan: chunk 64 and two
 // warpgroups or 32 and one, k_tile Cout padded to 16 up to 256): grad x
-// is summed in
-// `grad_acc` (B * H * W * Cin floats, zero-filled by the caller) and
-// rounded once into grad_x; no weight split.
+// is summed in `grad_acc` (B * H * W * Cin floats, zero-filled by the
+// caller) and rounded once into grad_x; `wlayout` holds the bf16 weight
+// slices laid out for the slots (the plan's weight_layout floats).
 extern "C" int dcn_exact_bwd_data_bf16(
     const bf16* x, const bf16* offset, const bf16* mask, const bf16* weight,
     const bf16* grad_out, float* grad_acc, bf16* grad_x, bf16* grad_offset,
-    bf16* grad_mask, float* partial, int* route_counts,
-    unsigned long long* reductions, int B, int H, int W,
-    int Cin, int Cout, int tile_h, int tile_w, int chunk, int warpgroups,
-    int k_tile, int box_capacity, int splits, int smem, void* stream) {
+    bf16* grad_mask, float* partial, bf16* wlayout, int* route_counts,
+    unsigned long long* reductions, int B, int H, int W, int Cin, int Cout,
+    int tile_h, int tile_w, int chunk, int warpgroups, int k_tile,
+    int window_slots, int box_capacity, int splits, int smem, void* stream) {
   DataArgs<bf16> a{};
   a.x = x;
   a.offset = offset;
@@ -1734,9 +1919,9 @@ extern "C" int dcn_exact_bwd_data_bf16(
   a.partial = partial;
   a.route_counts = route_counts;
   a.reductions = reductions;
-  return launch_data(a, nullptr, grad_x, B, H, W, Cin, Cout, tile_h, tile_w,
-                     chunk, warpgroups, k_tile, box_capacity, splits, smem,
-                     (cudaStream_t)stream);
+  return launch_data(a, wlayout, grad_x, B, H, W, Cin, Cout, tile_h, tile_w,
+                     chunk, warpgroups, k_tile, window_slots, box_capacity,
+                     splits, smem, (cudaStream_t)stream);
 }
 
 // The weight gradient at float32 (ops/dcn.exact_bwd_weight_fp32_plan):

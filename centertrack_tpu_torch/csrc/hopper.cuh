@@ -9,7 +9,8 @@
 // times ("3xTF32") to keep float32 accuracy, their forms with A from
 // registers (TF32 m64n64k8, bf16 m64n64k16), and what warp-specialised
 // kernels use: mbarriers (init, arrive, arrive on cp.async completion,
-// wait by parity), setmaxnreg and named barriers.
+// arrive expecting bulk-copy bytes, wait by parity), bulk copies,
+// setmaxnreg and named barriers.
 //
 // Operand layout in shared memory ("interleaved", no swizzle): a core
 // matrix is 8 rows of 16 bytes (8 bf16 or 4 tf32), stored as 128
@@ -421,6 +422,32 @@ __device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
+}
+
+// one arrival that also makes the barrier's current phase wait for
+// `bytes` more of bulk copies (bulk_copy) to land
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the bulk copy engine (one thread issues it), counted on
+// `bar`'s expected bytes as they land. Its completion is tracked by the
+// barrier alone, apart from the thread's cp.async groups.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {

@@ -149,8 +149,8 @@ _SIGNATURES = {
     "dcn_local_bwd_weight_gather_bf16": ("dcn_local_bwd_bf16", 6, 7),
     "dcn_exact_fwd": ("dcn_exact", 9, 13),
     "dcn_exact_fwd_bf16": ("dcn_exact", 8, 13),
-    "dcn_exact_bwd_data": ("dcn_exact_bwd", 12, 13),
-    "dcn_exact_bwd_data_bf16": ("dcn_exact_bwd", 12, 13),
+    "dcn_exact_bwd_data": ("dcn_exact_bwd", 12, 14),
+    "dcn_exact_bwd_data_bf16": ("dcn_exact_bwd", 13, 14),
     "dcn_exact_bwd_weight": ("dcn_exact_bwd", 7, 14),
     "dcn_exact_bwd_weight_bf16": ("dcn_exact_bwd", 7, 14),
 }
@@ -221,18 +221,27 @@ EXACT_BOX_MAX = 1024
 EXACT_MAX_N_TILE = {"float32": 256, "bfloat16": 256}
 # The exact data-gradient kernels (csrc/dcn_exact_bwd.cu): a block takes a
 # 4 x 16 tile and walks K in steps of (a Cin chunk, a tap); the (chunk,
-# warpgroups) of each dtype, widest first. The plan takes the first
-# chunk whose window (the tile's box of x) still holds
-# EXACT_DATA_BOX_MIN pixels, at two resident blocks an SM where each
-# window still does, else at one; else the last chunk. On the trained
-# inputs of the 16 dcn launches (PERF.md, tools/exact_bwd_times.py) a
-# minimum of 128, 256 or 320 gave the same device time within 2% (two
-# blocks an SM at most neck shapes); 256 keeps every tile on the window
-# route there. The output grad is contracted in pieces of at most
-# EXACT_DATA_MAX_K channels.
+# warpgroups) of each dtype, widest first. Each warpgroup issues the next
+# step's G under its walk of this one, from two weight slots, and reads
+# each (pixel, tap)'s corners from a table the block fills once a tile
+# (EXACT_DATA_TABLE_BYTES: 17 bytes an entry); with two window slots it
+# stages the next chunk's window during the chunk's walk. The plan takes
+# the first chunk and the first (resident blocks an SM, window slots) of
+# EXACT_DATA_FITS at which each window slot holds EXACT_DATA_BOX_MIN
+# pixels (two slots only where the tile has more than one chunk), else
+# the last chunk at one block and one slot. On the trained inputs of the
+# 16 dcn launches (PERF.md, tools/exact_bwd_times.py) a minimum of 128,
+# 256 or 320 gave the same device time within 2% in the kernels' first
+# design; 256 keeps every tile on the window route there. The output
+# grad is contracted in pieces of at most EXACT_DATA_MAX_K channels,
+# serially where it takes more than one. Measured and dropped (PERF.md):
+# float32 chunks of 64 at Cout 64 (one block an SM, s4 5% slower).
 EXACT_DATA_CHUNKS = {"float32": ((32, 2), (16, 2), (8, 1)),
                      "bfloat16": ((64, 2), (32, 1))}
+EXACT_DATA_FITS = ((2, 2), (2, 1), (1, 2), (1, 1))
 EXACT_DATA_BOX_MIN = 256
+EXACT_DATA_TABLE_BYTES = 9 * 64 * 17
+EXACT_DATA_BARRIER_BYTES = 64
 EXACT_DATA_MAX_K = 256
 # The exact weight-gradient kernels (csrc/dcn_exact_bwd.cu) own their
 # design (the roles of their warpgroups, WRoles); the planner keeps what
@@ -739,15 +748,32 @@ def exact_fwd_bf16_plan(b: int, h: int, w: int, cin: int,
     return _exact_plan("bfloat16", b, h, w, cin, cout)
 
 
-def _exact_data_smem(dtype: str, k_tile: int, chunk: int, cap: int) -> int:
-    """The output-grad tile and one weight slot (float32: hi and lo of
-    each), the window of ``cap`` pixels, the tile's offsets and mask, the
-    sums and the box of the exact data kernel (csrc/dcn_exact_bwd.cu
-    data_smem_bytes)."""
+def _exact_data_smem(dtype: str, k_tile: int, chunk: int, slots: int,
+                     cap: int) -> int:
+    """The barriers and the box, the output-grad tile and two weight slots
+    (float32: hi and lo of each), the corner table and ``slots`` window
+    slots of ``cap`` pixels of the exact data kernel
+    (csrc/dcn_exact_bwd.cu data_smem_bytes)."""
     size, parts = (4, 2) if dtype == "float32" else (2, 1)
     th, tw = TILE
-    return (parts * (th * tw + chunk) * k_tile * size
-            + cap * (chunk * size + 16) + 2 * 27 * th * tw * 4 + 16)
+    return (EXACT_DATA_BARRIER_BYTES
+            + parts * (th * tw + 2 * chunk) * k_tile * size
+            + EXACT_DATA_TABLE_BYTES + slots * cap * (chunk * size + 16))
+
+
+def _exact_data_fit(dtype: str, k_tile: int, chunk: int, cin: int):
+    """(window slots, capacity) of the first fit of EXACT_DATA_FITS whose
+    slots hold EXACT_DATA_BOX_MIN pixels each, or None."""
+    pixel = chunk * (4 if dtype == "float32" else 2) + 16
+    base = _exact_data_smem(dtype, k_tile, chunk, 0, 0)
+    for blocks, slots in EXACT_DATA_FITS:
+        if slots == 2 and cin <= chunk:
+            continue
+        room = (SMEM_PER_SM // 2 - 1024 if blocks == 2 else SMEM_LIMIT) - base
+        cap = min(EXACT_BOX_MAX, room // (slots * pixel))
+        if cap >= EXACT_DATA_BOX_MIN:
+            return slots, cap
+    return None
 
 
 def _exact_data_plan(dtype: str, b: int, h: int, w: int, cin: int,
@@ -758,31 +784,37 @@ def _exact_data_plan(dtype: str, b: int, h: int, w: int, cin: int,
               else EXACT_DATA_MAX_K)
     pieces = max(1, -(-cout // k_tile))
     for chunk, warpgroups in EXACT_DATA_CHUNKS[dtype]:
-        base = _exact_data_smem(dtype, k_tile, chunk, 0)
-        pixel = chunk * size + 16
-        # two resident blocks where each window still holds the minimum
-        two = (SMEM_PER_SM // 2 - 1024 - base) // pixel
-        cap = min(EXACT_BOX_MAX, two if two >= EXACT_DATA_BOX_MIN
-                  else (SMEM_LIMIT - base) // pixel)
-        if cap >= EXACT_DATA_BOX_MIN:
+        fit = _exact_data_fit(dtype, k_tile, chunk, cin)
+        if fit:
+            slots, cap = fit
             break
-    cap = max(1, cap)
-    smem = _exact_data_smem(dtype, k_tile, chunk, cap)
+    else:
+        slots = 1
+        cap = max(1, min(EXACT_BOX_MAX, (
+            SMEM_LIMIT - _exact_data_smem(dtype, k_tile, chunk, 0, 0))
+            // (chunk * size + 16)))
+    smem = _exact_data_smem(dtype, k_tile, chunk, slots, cap)
     resident = _resident(smem, 128 * warpgroups)
     tiles = _tiles(b, h, w)
-    steps = 9 * max(1, -(-cin // chunk))
-    splits = _wave_splits(tiles, steps, resident) if tiles else 1
+    nchunks = max(1, -(-cin // chunk))
+    steps = 9 * nchunks
+    # a block's prologue (its corner table, box and first copies) costs
+    # about two steps: counted, with one block an SM as the least
+    splits = (_wave_splits(tiles, steps, resident, flush=1,
+                           least_blocks=SMS * resident) if tiles else 1)
     npix = b * h * w
     plan = {"tile": TILE, "chunk": chunk, "warpgroups": warpgroups,
-            "k_tile": k_tile, "pieces": pieces, "box_capacity": cap,
-            "resident": resident, "tiles": tiles, "steps": steps,
-            "split_rule": "waves", "splits": splits,
+            "k_tile": k_tile, "pieces": pieces, "window_slots": slots,
+            "box_capacity": cap, "resident": resident, "tiles": tiles,
+            "steps": steps, "split_rule": "waves", "splits": splits,
             "k_ranges": _k_ranges(steps, splits),
             "blocks": tiles * splits, "smem_bytes": smem,
-            "scratch": splits * npix * 27 if splits > 1 else 0}
-    if dtype == "float32":
-        plan["weight_split"] = 2 * 9 * cin * pieces * k_tile
-    else:
+            "scratch": splits * npix * 27 if splits > 1 else 0,
+            # the weight slices laid out for the slots, in float32 words
+            "weight_layout": (2 * steps * chunk * pieces * k_tile
+                              if dtype == "float32"
+                              else steps * chunk * pieces * k_tile // 2)}
+    if dtype == "bfloat16":
         plan["grad_acc"] = npix * cin
     return plan
 
@@ -791,17 +823,20 @@ def _exact_data_plan(dtype: str, b: int, h: int, w: int, cin: int,
 def exact_bwd_data_fp32_plan(b: int, h: int, w: int, cin: int,
                              cout: int) -> dict:
     """Launch plan of ``dcn_exact_bwd_data``: the Cin chunk and warpgroups
-    (the first of ``EXACT_DATA_CHUNKS`` whose window holds
-    ``EXACT_DATA_BOX_MIN`` pixels, at two resident blocks where it can:
-    32 channels and two warpgroups up to Cout 128, 16 and two at Cout
-    256; two blocks an SM at Cout 64), the output grad's K pieces
-    (``k_tile`` channels each, Cout padded to 8 up to 256), the window
-    (``box_capacity`` pixels; a tile whose data box is larger takes the
-    gather route), the resident blocks, the K splits (by ``_wave_splits``),
-    the blocks, the dynamic shared memory and the float32 scratch: the
-    weight split into TF32 hi and lo (``weight_split``) and, when split,
-    the grad offset / mask partials (``scratch``). Any shape and offset
-    has a plan. Cached per shape: callers read it and never change it."""
+    and the window slots (the first chunk of ``EXACT_DATA_CHUNKS`` and
+    the first fit of ``EXACT_DATA_FITS`` whose slots hold
+    ``EXACT_DATA_BOX_MIN`` pixels each: 32 channels and two warpgroups up
+    to Cout 128, 16 and two at Cout 256; two blocks an SM and one slot at
+    Cout 64, one block and two slots at Cout 128), the output grad's K
+    pieces (``k_tile`` channels each, Cout padded to 8 up to 256), the
+    window (``box_capacity`` pixels a slot; a tile whose data box is
+    larger takes the gather route), the resident blocks, the K splits (by
+    ``_wave_splits``, a block's prologue counted as two steps and one
+    block an SM the least), the blocks, the dynamic shared memory and the
+    float32 scratch: the weight slices laid out for the slots in TF32 hi
+    and lo (``weight_layout``) and, when split, the grad offset / mask
+    partials (``scratch``). Any shape and offset has a plan. Cached per
+    shape: callers read it and never change it."""
     return _exact_data_plan("float32", b, h, w, cin, cout)
 
 
@@ -811,8 +846,9 @@ def exact_bwd_data_bf16_plan(b: int, h: int, w: int, cin: int,
     """Launch plan of ``dcn_exact_bwd_data_bf16``, as
     ``exact_bwd_data_fp32_plan`` with chunks of 64 channels and two
     warpgroups (32 and one where that window would be too small), Cout
-    padded to 16, no weight split, and grad x's float32 accumulator
-    (``grad_acc``)."""
+    padded to 16, the bf16 weight slices laid out for the slots
+    (``weight_layout``, in float32 words), and grad x's float32
+    accumulator (``grad_acc``)."""
     return _exact_data_plan("bfloat16", b, h, w, cin, cout)
 
 
@@ -1519,13 +1555,14 @@ def launch_exact_bwd_data(x, offset, mask, weight, grad_out,
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
     partial = _scratch(plan, "scratch", x.device)
-    wsplit = _scratch(plan, "weight_split", x.device)
+    layout = _scratch(plan, "weight_layout", x.device)
     _ok(_kernel("dcn_exact_bwd_data")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
-        grad_mask.data_ptr(), _ptr(partial), _ptr(wsplit), counts, reduced,
+        grad_mask.data_ptr(), _ptr(partial), _ptr(layout), counts, reduced,
         b, h, w, cin, cout,
-        *_plan_ints(plan, "warpgroups", "k_tile", "box_capacity", "splits"),
+        *_plan_ints(plan, "warpgroups", "k_tile", "window_slots",
+                    "box_capacity", "splits"),
         _stream(x)), "dcn_exact_bwd_data")
     EXACT_BWD_DATA_LAUNCHES += 1
     return grad_x, grad_offset, grad_mask
@@ -1553,12 +1590,14 @@ def launch_exact_bwd_data_bf16(x, offset, mask, weight, grad_out,
     grad_offset = torch.empty_like(offset)
     grad_mask = torch.empty_like(mask)
     partial = _scratch(plan, "scratch", x.device)
+    layout = _scratch(plan, "weight_layout", x.device)
     _ok(_kernel("dcn_exact_bwd_data_bf16")(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
         grad_out.data_ptr(), grad_acc.data_ptr(), grad_x.data_ptr(),
-        grad_offset.data_ptr(), grad_mask.data_ptr(), _ptr(partial), counts,
-        reduced, b, h, w, cin, cout,
-        *_plan_ints(plan, "warpgroups", "k_tile", "box_capacity", "splits"),
+        grad_offset.data_ptr(), grad_mask.data_ptr(), _ptr(partial),
+        _ptr(layout), counts, reduced, b, h, w, cin, cout,
+        *_plan_ints(plan, "warpgroups", "k_tile", "window_slots",
+                    "box_capacity", "splits"),
         _stream(x)), "dcn_exact_bwd_data_bf16")
     EXACT_BWD_DATA_BF16_LAUNCHES += 1
     return grad_x, grad_offset, grad_mask

@@ -28,12 +28,18 @@ backward's data and weight kernels of the dtype (``dcn_exact_bwd_data``,
 on the same inputs with a seeded output grad, one line per node and
 kernel, with its window share (``exact_bwd_tile_routes`` for the data
 kernel, ``exact_tile_routes`` for the weight kernel). The exact data
-kernel's phases: `wait` (the tile's staging and box, and each step's
-copy wait and barrier), `product` (G on the tensor cores, its wait and
-barrier), `walk` (the corner walk's corners, reads of x and sums),
-`reductions` (the walk's global reductions into grad x, one a live
-corner: sending only, as no thread waits for a reduction),
-`chunk_barrier` (the chunk's barrier, the next chunk's copies).
+kernel's warpgroups all walk, each issuing its own G and copies: one
+thread (the block's thread 0) is recorded, as the role `walker`
+(``EXACT_DATA_PHASES``, ``DATA_ROLE_SLOTS``), its phases with their
+share of its cycles: `table` (the corner table and the tile's box),
+`staging` (the first copies' wait, the output grad's split, the first
+G), `g_wait` (each step's wait for its G, issued a step ahead),
+`copy_wait` (the waits for the next step's weights and a chunk's
+window, and the warpgroup's barrier), `issue` (issuing the next step's
+G and the next copies), `walk` (the corner walk: the table's entries,
+reads of x and the sums), `reductions` (the walk's global reductions
+into grad x, one a live corner: sending only, as no thread waits for a
+reduction), `flush` (the sums of grad offset and grad mask out).
 ``--root DIR`` runs the package of the checkout in DIR instead of this
 one (built under build/phases by its source directory; the trained
 inputs still come from this checkout's ``chip_smoke.py``). The
@@ -127,8 +133,11 @@ KERNELS = {
                                  "launch_bwd_weight",
                                  "bwd_weight_fp32_plan")},
 }
-EXACT_DATA_PHASES = ["wait", "product", "walk", "chunk_barrier",
-                     "reductions"]
+# the exact data kernel records one walker thread, its phases from its
+# DATA_ROLE_SLOTS on
+EXACT_DATA_PHASES = {"walker": ["table", "staging", "g_wait", "copy_wait",
+                                "issue", "walk", "reductions", "flush"]}
+DATA_ROLE_SLOTS = {"walker": 0}
 # the exact weight kernel records one thread of each role, each role's
 # phases in slots from its ROLE_SLOTS on
 EXACT_WEIGHT_PHASES = {
@@ -170,11 +179,11 @@ def _instrumented(_build, name):
     return ctypes.CDLL(lib)
 
 
-def _cycles(lib, call, blocks, phases, symbol):
+def _cycles(lib, call, blocks, phases, symbol, slots=ROLE_SLOTS):
     """Each phase's cycles per block of one call, after three warm-up
     calls: {name: cycles} for a list of names (slots 0..), or for the
-    exact weight kernel's roles {role: {name: cycles}} (each role's from
-    its ROLE_SLOTS)."""
+    exact backward kernels' roles {role: {name: cycles}} (each role's from
+    its entry of ``slots``)."""
     import torch
     buf = (ctypes.c_ulonglong * SLOTS)()
     for _ in range(3):
@@ -186,7 +195,7 @@ def _cycles(lib, call, blocks, phases, symbol):
     if lib.dcn_read_phases(buf) != 0:
         raise SystemExit(f"dcn_phases: reading {symbol}'s counters failed")
     if isinstance(phases, dict):
-        return {role: {p: buf[ROLE_SLOTS[role] + i] / blocks
+        return {role: {p: buf[slots[role] + i] / blocks
                        for i, p in enumerate(names)}
                 for role, names in phases.items()}
     return {p: buf[i] / blocks for i, p in enumerate(phases)}
@@ -249,12 +258,14 @@ def _exact_bwd_phases(kernels, libs, dcn, torch, dtype):
                 call = lambda: getattr(dcn, launch)(x, offset, mask, g, cout)
                 win, gat = dcn.exact_tile_routes(offset, h, w, plan)
             cycles = _cycles(libs[name], call, plan["blocks"], phases,
-                             symbol)
+                             symbol, DATA_ROLE_SLOTS
+                             if phases is EXACT_DATA_PHASES else ROLE_SLOTS)
             print(json.dumps({
                 "kernel": symbol, "node": node, "batch": b, "hw": [h, w],
                 "cin": cin, "cout": cout, "chunk": plan["chunk"],
-                **{k: plan[k] for k in ("tile", "taps", "stages",
-                                        "window_slots") if k in plan},
+                **{k: plan[k] for k in ("tile", "warpgroups", "taps",
+                                        "stages", "window_slots")
+                   if k in plan},
                 "box_capacity": plan["box_capacity"],
                 "resident": plan["resident"], "blocks": plan["blocks"],
                 "splits": plan["splits"], "window_share": win / (win + gat),

@@ -3918,13 +3918,19 @@ def main(argv):
                                  "_deform_conv2d_onehot below",
                 "at": dt + " inputs",
                 "design": (
-                    "a 4x16 tile a block: G = g w^T on "
+                    "a 4x16 tile a block, each (pixel, tap)'s corners "
+                    "once a tile into a table from which every step's "
+                    "walk rebuilds its weights; per warpgroup G = g w^T on "
                     + ("bf16 wgmma" if low else "3xTF32 wgmma")
-                    + ", the tile's box of every needed corner copied by "
-                      "cp.async, m hat_k G added into grad x per corner by "
-                      "red.global.add.v4.f32, the corners gathered from "
-                      "global memory where the box does not fit, K splits "
-                      "by waves"
+                    + " issued a step ahead under the walk from two weight "
+                      "slots (one bulk copy a step on mbarriers), its "
+                      "share of the tile's box of every needed corner "
+                      "copied by cp.async (the next chunk's into a second "
+                      "window slot during the walk where two fit), one "
+                      "warpgroup barrier a step; m hat_k G added into grad "
+                      "x per corner by red.global.add.v4.f32, the corners "
+                      "gathered from global memory where the box does not "
+                      "fit, K splits by waves"
                     if kind == "data" else
                     "output channels as the wgmma M: g^T from registers "
                     "(wgmma's register A, " + (

@@ -131,24 +131,66 @@ def _box(used, rows, cols, sl, taps=slice(None)):
 
 # --- the plans -------------------------------------------------------------
 
+def _data_design():
+    """The data kernel's constants as csrc/dcn_exact_bwd.cu states them:
+    the barrier bytes (DBAR_B), a table entry's bytes (DENT_B), the
+    widest G piece (MAX_KC) and the (chunk, warpgroups) each dtype's
+    launcher takes (launch_data's plan check, bf16 first)."""
+    src = _source("dcn_exact_bwd.cu")
+    body = src[src.index("int launch_data("):src.index("// ---- the weight")]
+    pairs = [tuple(map(int, m)) for m in re.findall(
+        r"chunk == (\d+) && warpgroups == (\d+)", body)]
+    const = lambda name: int(re.search(
+        rf"constexpr int {name} = (\d+);", src).group(1))
+    return {"barrier_bytes": const("DBAR_B"), "entry_bytes": const("DENT_B"),
+            "max_k": const("MAX_KC"),
+            "chunks": {"bfloat16": tuple(pairs[:2]),
+                       "float32": tuple(pairs[2:])}}
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_data_plan_fits_and_covers(dtype, shape):
-    """Shared memory within 227 KB and as the kernel computes it, a
-    window of 1 to EXACT_BOX_MAX pixels, the output grad's K pieces
+    """Shared memory within 227 KB and as the kernel computes it (the
+    barriers, the output-grad tile, two weight slots, the corner table of
+    9 x 64 entries, the window slots; the planner's constants equal the
+    source's), one or two window slots (two only where the tile has more
+    than one chunk) of 1 to EXACT_BOX_MAX pixels each and of at least
+    EXACT_DATA_BOX_MIN at every neck shape, the output grad's K pieces
     covering Cout (each a multiple of the wgmma K, at most
-    EXACT_DATA_MAX_K), the K splits covering the steps in order, the
-    blocks, the resident blocks by shared memory and threads, and the
-    scratch: the partials, the split weight (float32) or grad x's
-    float32 accumulator (bf16). Any width has a plan."""
+    EXACT_DATA_MAX_K), the K splits covering the steps in order (by
+    the wave rule, a block's prologue counted as two steps, one block an
+    SM the least), the blocks, the resident blocks by shared memory and
+    threads, and the scratch: the partials, the weight slices laid out
+    for the slots
+    (float32: TF32 hi and lo) and (bf16) grad x's float32 accumulator.
+    Any width has a plan."""
     b, h, w, cin, cout = shape
     p = DATA_PLANS[dtype](b, h, w, cin, cout)
+    design = _data_design()
+    assert dcn.EXACT_DATA_BARRIER_BYTES == design["barrier_bytes"]
+    assert dcn.EXACT_DATA_TABLE_BYTES == 9 * 64 * design["entry_bytes"]
+    assert dcn.EXACT_DATA_MAX_K == design["max_k"]
+    assert dcn.EXACT_DATA_CHUNKS[dtype] == design["chunks"][dtype]
     assert p["tile"] == dcn.TILE
     assert (p["chunk"], p["warpgroups"]) in dcn.EXACT_DATA_CHUNKS[dtype]
     assert p["smem_bytes"] <= dcn.SMEM_LIMIT
-    assert p["smem_bytes"] == dcn._exact_data_smem(
-        dtype, p["k_tile"], p["chunk"], p["box_capacity"])
+    size, parts = (4, 2) if dtype == "float32" else (2, 1)
+    assert p["smem_bytes"] == (
+        design["barrier_bytes"]
+        + parts * (64 + 2 * p["chunk"]) * p["k_tile"] * size
+        + 9 * 64 * design["entry_bytes"]
+        + p["window_slots"] * p["box_capacity"] * (p["chunk"] * size + 16)
+    ) == dcn._exact_data_smem(dtype, p["k_tile"], p["chunk"],
+                              p["window_slots"], p["box_capacity"])
+    assert p["window_slots"] in (1, 2)
+    assert p["window_slots"] == 1 or cin > p["chunk"]
     assert 0 < p["box_capacity"] <= dcn.EXACT_BOX_MAX
+    neck = (b, h, w, cin, cout) in {(bb, hh, ww, ci, co) for bb in (
+        1, chip_smoke.EXACT_BATCH, chip_smoke.TRAIN_B)
+        for _, hh, ww, ci, co, _, _ in chip_smoke.NECK_SHAPES}
+    if neck:
+        assert p["box_capacity"] >= dcn.EXACT_DATA_BOX_MIN == 256
     ka = 8 if dtype == "float32" else 16
     assert p["k_tile"] % ka == 0 and p["k_tile"] <= dcn.EXACT_DATA_MAX_K
     assert p["pieces"] * p["k_tile"] >= cout > (p["pieces"] - 1) * p[
@@ -163,15 +205,18 @@ def test_data_plan_fits_and_covers(dtype, shape):
     assert p["blocks"] == p["tiles"] * p["splits"]
     assert p["resident"] == dcn._resident(p["smem_bytes"],
                                           128 * p["warpgroups"])
-    assert p["splits"] == dcn._wave_splits(p["tiles"], p["steps"],
-                                           p["resident"])
+    assert p["splits"] == dcn._wave_splits(
+        p["tiles"], p["steps"], p["resident"], flush=1,
+        least_blocks=dcn.SMS * p["resident"])
     npix = b * h * w
     assert p["scratch"] == (p["splits"] * npix * 27 if p["splits"] > 1
                             else 0)
+    layout = parts * p["steps"] * p["chunk"] * p["pieces"] * p["k_tile"]
+    assert p["weight_layout"] * 4 == layout * size
     if dtype == "float32":
-        assert p["weight_split"] == 2 * 9 * cin * p["pieces"] * p["k_tile"]
+        assert "grad_acc" not in p
     else:
-        assert p["grad_acc"] == npix * cin and "weight_split" not in p
+        assert p["grad_acc"] == npix * cin
 
 
 def _weight_design():
@@ -288,26 +333,33 @@ def test_weight_plan_fits_and_covers(dtype, shape):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plans_take_the_first_fit_with_room(dtype):
-    """The data plan takes the widest chunk whose window still holds
-    EXACT_DATA_BOX_MIN pixels, at two resident blocks an SM where each
-    window still does, else at one with the whole room left; the weight
-    plan the first (rows, slots) whose slots hold EXACT_WEIGHT_BOX_MIN
-    pixels."""
+    """The data plan takes the widest chunk and, for it, the first fit of
+    EXACT_DATA_FITS (two resident blocks an SM before one, two window
+    slots before one where the tile has more than one chunk) at which
+    each window slot still holds EXACT_DATA_BOX_MIN pixels, with the
+    whole room of that fit; the weight plan the first (rows, slots) whose
+    slots hold EXACT_WEIGHT_BOX_MIN pixels."""
     size = 4 if dtype == "float32" else 2
-    for cout in (64, 128, 256):
-        p = DATA_PLANS[dtype].__wrapped__(1, 34, 60, 256, cout)
+    for cin, cout in ((64, 64), (256, 64), (256, 128), (256, 256)):
+        p = DATA_PLANS[dtype].__wrapped__(1, 34, 60, cin, cout)
         for chunk, _ in dcn.EXACT_DATA_CHUNKS[dtype]:
-            base = dcn._exact_data_smem(dtype, p["k_tile"], chunk, 0)
-            two = (dcn.SMEM_PER_SM // 2 - 1024 - base) // (chunk * size + 16)
-            one = (dcn.SMEM_LIMIT - base) // (chunk * size + 16)
-            cap = min(dcn.EXACT_BOX_MAX,
-                      two if two >= dcn.EXACT_DATA_BOX_MIN else one)
+            base = dcn._exact_data_smem(dtype, p["k_tile"], chunk, 0, 0)
+            fits = []
+            for blocks, slots in dcn.EXACT_DATA_FITS:
+                if slots == 2 and cin <= chunk:
+                    continue
+                room = (dcn.SMEM_PER_SM // 2 - 1024 if blocks == 2
+                        else dcn.SMEM_LIMIT) - base
+                cap = min(dcn.EXACT_BOX_MAX,
+                          room // (slots * (chunk * size + 16)))
+                if cap >= dcn.EXACT_DATA_BOX_MIN:
+                    fits.append((blocks, slots, cap))
             if chunk == p["chunk"]:
-                assert p["box_capacity"] == cap >= dcn.EXACT_DATA_BOX_MIN
-                assert p["resident"] == (2 if two >= dcn.EXACT_DATA_BOX_MIN
-                                         else 1)
+                blocks, slots, cap = fits[0]
+                assert (p["window_slots"], p["box_capacity"]) == (slots, cap)
+                assert p["resident"] == blocks
                 break
-            assert cap < dcn.EXACT_DATA_BOX_MIN
+            assert not fits
         q = WEIGHT_PLANS[dtype].__wrapped__(1, 34, 60, 256, cout)
         assert q["box_capacity"] >= dcn.EXACT_WEIGHT_BOX_MIN
     assert DATA_PLANS[dtype](1, 136, 240, 64, 64)["resident"] == 2
@@ -425,49 +477,170 @@ def test_weight_routes_are_per_tile_and_tap_group(kind, th, taps):
 
 # --- the data kernel's decomposition against JAX ----------------------------
 
-def _emulate_data(x, off, mask, weight, g, cap, low=False):
-    """(grad x, grad offset, grad mask) as the data kernel computes them:
-    G_t = g w[t]^T in float32; per 4 x 16 tile its data box, and where the
-    box's area is within ``cap`` x read from a copy of the box (positions
+def _table(off, mask, h, w):
+    """The data kernel's corner table for every (b, y, x, tap), as
+    dcn_exact.cuh ``grad_position`` fills it: the top-left corner (iy,
+    ix), the fractions (fy, fx) of the clipped position, the mask and the
+    clip's slope codes (2 inside, 1 at exactly -1 or the size, 0
+    outside), in numpy float32."""
+    ti = np.arange(9)
+    uy = (np.arange(h, dtype=F32)[None, :, None, None]
+          + (ti // 3 - 1).astype(F32)) + off[..., 0::2]
+    ux = (np.arange(w, dtype=F32)[None, None, :, None]
+          + (ti % 3 - 1).astype(F32)) + off[..., 1::2]
+    py = np.minimum(np.maximum(uy, F32(-1)), F32(h))
+    px = np.minimum(np.maximum(ux, F32(-1)), F32(w))
+    y0, x0 = np.floor(py), np.floor(px)
+
+    def code(u, size):
+        return np.where((u > -1) & (u < size), 2,
+                        np.where((u == -1) | (u == size), 1, 0))
+
+    return (y0.astype(np.int64), x0.astype(np.int64), py - y0, px - x0,
+            mask, code(uy, h), code(ux, w))
+
+
+def _rebuild(fy, fx, m, sy, sx):
+    """dcn_exact.cuh ``grad_weights``: the hats and the derivative weights
+    of dy and dx rebuilt from a table entry's (fy, fx, m) and slope
+    codes, in numpy float32 (the walk's arithmetic)."""
+    ry, rx = F32(1) - fy, F32(1) - fx
+    slope = np.array([0, 0.5, 1], F32)
+    cy, cx = slope[sy] * m, slope[sx] * m
+    hat = np.stack([ry * rx, ry * fx, fy * rx, fy * fx], -1)
+    gy = np.stack([-(rx * cy), -(fx * cy), rx * cy, fx * cy], -1)
+    gx = np.stack([-(ry * cx), ry * cx, -(fy * cx), fy * cx], -1)
+    return hat, gy, gx
+
+
+def _emulate_data(x, off, mask, weight, g, cap, low=False, ranges=None):
+    """(grad x, grad offset, grad mask) as the data kernel computes them,
+    by its plan (``exact_bwd_data_*_plan``: chunk, warpgroups, K splits;
+    ``ranges`` replaces the plan's split ranges): per 4 x 16 tile the
+    corner table once (``_table``), the weights of every walk rebuilt
+    from it (``_rebuild``), the data box of the needed corners and, where
+    its area is within ``cap``, x read from a copy of the box (positions
     relative to it; an index outside it fails), else from the image; per
-    (pixel, tap) d_k = sum_c G x_k weighed by the hats and the derivative
-    weights, and m hat_k G added into grad x at the corner. ``low``: the
-    inputs are bf16 values, everything runs in float32, and each gradient
-    is rounded to bf16 once."""
+    split the steps (Cin chunk, tap) in order, each step's G = g w[t]^T
+    (float32) taken before the step before it is walked, as the
+    pipelined kernel issues it; per warpgroup its share of the chunk's
+    channels, d_k = sum_c G x_k over them weighed by the hats and the
+    derivative weights, the sums of grad mask, dy and dx kept per
+    warpgroup over the split's steps and added warpgroup 0 + 1 at its
+    end, the splits' partials in split order; m hat_k G added into grad
+    x at the corner. ``low``: the inputs are bf16 values, everything
+    runs in float32, and each gradient is rounded to bf16 once."""
     b, h, w, cin = x.shape
     cout = weight.shape[3]
-    hat, gy, gx, rows, cols, needed, _ = _grad_corners(off, mask, h, w)
+    plan = DATA_PLANS["bfloat16" if low else "float32"](b, h, w, cin, cout)
+    ck, nwg = plan["chunk"], plan["warpgroups"]
+    nw = ck // nwg
+    ranges = plan["k_ranges"] if ranges is None else ranges
+    iy, ix, fy, fx, m, sy, sx = _table(off, mask, h, w)
+    hat, gy, gx = _rebuild(fy, fx, m, sy, sx)
+    rows = iy[..., None] + np.array([0, 0, 1, 1])
+    cols = ix[..., None] + np.array([0, 1, 0, 1])
+    inside = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    needed = inside & ((hat != 0) | (gy != 0) | (gx != 0))
+    wts = np.stack([hat, gy, gx], -2)   # (..., 3, 4)
     G = np.einsum("bhwo,tco->bhwtc", g, weight.reshape(9, cin, cout),
                   dtype=F32)
     grad_x = np.zeros_like(x)
-    sums = np.zeros((3, b, h, w, 9), F32)
-    for t in _tiles(b, h, w):
-        bi, ys, xs = t
-        r0, c0, bh, bw = _box(needed, rows, cols, t)
+    out = np.zeros((b, h, w, 9, 3), F32)
+    for tl in _tiles(b, h, w):
+        bi, ys, xs = tl
+        r0, c0, bh, bw = _box(needed, rows, cols, tl)
         window = bh * bw <= cap
         win = x[bi, r0:r0 + bh, c0:c0 + bw].copy()
-        for y in range(ys.start, min(ys.stop, h)):
-            for xx in range(xs.start, min(xs.stop, w)):
-                for tap in range(9):
-                    Gp = G[bi, y, xx, tap]
-                    m = mask[bi, y, xx, tap]
-                    for k in range(4):
-                        if not needed[bi, y, xx, tap, k]:
-                            continue
-                        r, c = rows[bi, y, xx, tap, k], cols[bi, y, xx, tap, k]
-                        if window:
-                            assert 0 <= r - r0 < bh and 0 <= c - c0 < bw
-                            xv = win[r - r0, c - c0]
-                        else:
-                            xv = x[bi, r, c]
-                        d = F32(np.dot(Gp, xv))
-                        sums[:, bi, y, xx, tap] += np.array(
-                            [hat[bi, y, xx, tap, k], gy[bi, y, xx, tap, k],
-                             gx[bi, y, xx, tap, k]], F32) * d
-                        grad_x[bi, r, c] += (hat[bi, y, xx, tap, k] * m) * Gp
-    grad_off = np.stack([sums[1], sums[2]], -1).reshape(b, h, w, 18)
-    out = [grad_x, grad_off, sums[0]]
-    return [_bf16(a) for a in out] if low else out
+        pix = [(y, xx) for y in range(ys.start, min(ys.stop, h))
+               for xx in range(xs.start, min(xs.stop, w))]
+        total = {p: np.zeros((9, 3), F32) for p in pix}
+        for s0, s1 in ranges:
+            sums = [{p: np.zeros((9, 3), F32) for p in pix}
+                    for _ in range(nwg)]
+            for st in range(s0, s1):
+                chunk, tap = divmod(st, 9)
+                for wg in range(nwg):
+                    chs = slice(chunk * ck + wg * nw,
+                                min(chunk * ck + (wg + 1) * nw, cin))
+                    if chs.start >= cin:
+                        continue
+                    for y, xx in pix:
+                        Gp = G[bi, y, xx, tap, chs]
+                        for k in np.flatnonzero(needed[bi, y, xx, tap]):
+                            r, c = rows[bi, y, xx, tap, k], cols[
+                                bi, y, xx, tap, k]
+                            if window:
+                                assert 0 <= r - r0 < bh and 0 <= c - c0 < bw
+                                xv = win[r - r0, c - c0, chs]
+                            else:
+                                xv = x[bi, r, c, chs]
+                            d = F32(np.dot(Gp, xv))
+                            sums[wg][y, xx][tap] += wts[
+                                bi, y, xx, tap, :, k] * d
+                            grad_x[bi, r, c, chs] += (
+                                hat[bi, y, xx, tap, k] * m[bi, y, xx, tap]
+                            ) * Gp
+            for p in pix:
+                part = sums[0][p]
+                for wg in range(1, nwg):
+                    part = part + sums[wg][p]
+                total[p] = total[p] + part
+        for (y, xx), v in total.items():
+            out[bi, y, xx] = v
+    grad_off = np.stack([out[..., 1], out[..., 2]], -1).reshape(b, h, w, 18)
+    res = [grad_x, grad_off, out[..., 0]]
+    return [_bf16(a) for a in res] if low else res
+
+
+def test_corner_table_rebuilds_grad_corners_bit_for_bit():
+    """The table's stored values (fy, fx, m and the slope codes) rebuild
+    the hats and both derivative weights bit for bit as
+    ``grad_corners`` computes them from the offsets, at every offset
+    kind and on bf16 values."""
+    for kind in KINDS:
+        for low in (False, True):
+            x, off, mask, _, _ = _case(12, kind)
+            if low:
+                off, mask = _bf16(off), _bf16(mask)
+            h, w = x.shape[1:3]
+            ref = _grad_corners(off, mask, h, w)
+            iy, ix, fy, fx, m, sy, sx = _table(off, mask, h, w)
+            for got, want in zip(_rebuild(fy, fx, m, sy, sx), ref[:3]):
+                assert got.dtype == F32
+                np.testing.assert_array_equal(got, want)
+            assert (iy[..., None] + np.array([0, 0, 1, 1]) == ref[3]).all()
+            assert (ix[..., None] + np.array([0, 1, 0, 1]) == ref[4]).all()
+
+
+@pytest.mark.parametrize("kc", [64, 256])
+def test_two_wgmma_3xtf32_keeps_float32_precision(kc):
+    """The float32 data kernel's G in two wgmma a K step (csrc
+    dcn_exact_bwd.cu ``g_product``): per K step of 8, a_hi [b_hi | b_lo]
+    into both halves and a_lo b_hi into the first, float32 sums, G the
+    sum of the halves (``g_sum``), within 1e-5 of max|G| of the float64
+    product, as the three products it replaced (a_lo b_hi + a_hi b_lo +
+    a_hi b_hi a K step); one TF32 product alone is 10x past that."""
+    rng = np.random.RandomState(kc)
+    g = rng.randn(64, kc).astype(F32)
+    w = (rng.randn(kc, 16) * 0.2).astype(F32)
+    ref = g.astype(np.float64) @ w.astype(np.float64)
+    g_hi, w_hi = _tf32(g), _tf32(w)
+    g_lo, w_lo = _tf32(g - g_hi), _tf32(w - w_hi)
+    both = np.zeros((64, 32), F32)
+    three = np.zeros((64, 16), F32)
+    for k in range(0, kc, 8):
+        ks = slice(k, k + 8)
+        both += g_hi[:, ks] @ np.concatenate([w_hi[ks], w_lo[ks]], 1)
+        both[:, :16] += g_lo[:, ks] @ w_hi[ks]
+        three += g_lo[:, ks] @ w_hi[ks]
+        three += g_hi[:, ks] @ w_lo[ks]
+        three += g_hi[:, ks] @ w_hi[ks]
+    two = both[:, :16] + both[:, 16:]
+    scale = np.abs(ref).max()
+    assert np.abs(two - ref).max() <= 1e-5 * scale
+    assert np.abs(three - ref).max() <= 1e-5 * scale
+    assert np.abs(g_hi @ w_hi - ref).max() > 1e-4 * scale
 
 
 def _jax_grads(args, g, dtype=jnp.float32):
@@ -476,32 +649,41 @@ def _jax_grads(args, g, dtype=jnp.float32):
     return [np.asarray(r, F32) for r in vjp(jnp.asarray(g, dtype))]
 
 
+@pytest.mark.parametrize("cin", [5, 40])
 @pytest.mark.parametrize("cap", [40, 10 ** 6])
 @pytest.mark.parametrize("kind", KINDS)
-def test_emulated_data_kernel_matches_jax_vjp(kind, cap):
+def test_emulated_data_kernel_matches_jax_vjp(kind, cap, cin):
     """float32: the emulated kernel's grad x, offset and mask against
     ``jax.vjp`` of JAX's ``deform_conv2d`` (default dispatch), each within
-    1e-5 of max|JAX grad| (the summation orders differ); capacity 40 puts
-    most tiles on the gather route, 10^6 every tile on the window route."""
-    x, off, mask, weight, g = _case(7, kind, b=1, h=9, w=21, cin=5, cout=6)
+    1e-5 of max|JAX grad| (the summation orders differ), by the plan's K
+    splits (one step each at this size) and by one block walking every
+    step; capacity 40 puts most tiles on the gather route, 10^6 every
+    tile on the window route; Cin 40 takes two chunks of 32 (two window
+    slots in the plan)."""
+    x, off, mask, weight, g = _case(7, kind, b=1, h=9, w=21, cin=cin,
+                                    cout=6)
     bias = np.zeros(6, F32)
     ref = _jax_grads((x, off, mask, weight, bias), g)[:3]
-    got = _emulate_data(x, off, mask, weight, g, cap)
-    for name, a, r in zip(("x", "offset", "mask"), got, ref):
-        assert np.abs(a - r).max() <= 1e-5 * np.abs(r).max(), name
+    steps = 9 * -(-cin // 32)
+    for ranges in (None, ((0, steps),)):
+        got = _emulate_data(x, off, mask, weight, g, cap, ranges=ranges)
+        for name, a, r in zip(("x", "offset", "mask"), got, ref):
+            assert np.abs(a - r).max() <= 1e-5 * np.abs(r).max(), name
 
 
+@pytest.mark.parametrize("cin", [5, 40])
 @pytest.mark.parametrize("kind", KINDS)
-def test_emulated_bf16_data_kernel_rounds_once(kind):
-    """bf16: on bf16 inputs the emulated kernel (float32 inside, each
-    gradient rounded once) against the float32 ``jax.vjp`` of JAX's op on
-    the same bf16 values, rounded to bf16: every element within one bf16
-    ulp of the larger of the two + 1e-5 max|JAX| (the float32 sums in
-    another order, then one rounding), and against autograd of the plain
-    bf16 version (whose sample rounding passes the gradient through)
-    within the same bound. JAX's own bf16 vjp rounds at every bf16 op,
-    so it is not the reference here."""
-    args = [_bf16(a) for a in _case(8, kind, b=1, h=9, w=21, cin=5,
+def test_emulated_bf16_data_kernel_rounds_once(kind, cin):
+    """bf16: on bf16 inputs the emulated kernel (float32 inside, by the
+    bf16 plan: chunks of 64, two warpgroups, one step a split at this
+    size; each gradient rounded once) against the float32 ``jax.vjp`` of
+    JAX's op on the same bf16 values, rounded to bf16: every element
+    within one bf16 ulp of the larger of the two + 1e-5 max|JAX| (the
+    float32 sums in another order, then one rounding), and against
+    autograd of the plain bf16 version (whose sample rounding passes the
+    gradient through) within the same bound. JAX's own bf16 vjp rounds
+    at every bf16 op, so it is not the reference here."""
+    args = [_bf16(a) for a in _case(8, kind, b=1, h=9, w=21, cin=cin,
                                     cout=6)]
     x, off, mask, weight, g = args
     got = _emulate_data(x, off, mask, weight, g, 10 ** 6, low=True)
@@ -748,10 +930,11 @@ COUNTERS = [c for _, _, c in LAUNCHERS.values()]
 def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
                                                          dtype):
     """Each launcher calls its own symbol with the inputs' pointers, the
-    outputs and scratches the plan sizes (the route counter's pointer
-    last, then the data launchers' reduction counter's), then B, H, W,
-    Cin, Cout and the plan's ints (tile, chunk,
-    then the data plan's warpgroups, K piece, capacity, splits or the
+    outputs and scratches the plan sizes (the data launchers' weight
+    layout just before the route counter's pointer, then their
+    reduction counter's; the weight launchers' route counter last), then
+    B, H, W, Cin, Cout and the plan's ints (tile, chunk, then the data
+    plan's warpgroups, K piece, window slots, capacity, splits or the
     weight plan's N tile, taps, window slots, capacity, splits; then
     shared memory), counts one launch of its own kernel only, returns
     outputs of the inputs' dtype and shapes, and raises on a failed
@@ -772,7 +955,8 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
     if kind == "data":
         out = getattr(dcn, fn)(x, off, mask, weight, g, counts, reduced)
         plan = DATA_PLANS[dname](b, h, w, cin, cout)
-        keys = ("warpgroups", "k_tile", "box_capacity", "splits")
+        keys = ("warpgroups", "k_tile", "window_slots", "box_capacity",
+                "splits")
         assert [t.shape for t in out] == [x.shape, off.shape, mask.shape]
         assert all(t.dtype == dtype for t in out)
     else:
@@ -788,6 +972,7 @@ def test_launcher_passes_pointers_sizes_plan_and_counter(monkeypatch, kind,
     if kind == "data":
         assert argv[n_ptr - 2:n_ptr] == (counts.data_ptr(),
                                          reduced.data_ptr())
+        assert n_ptr == (13 if low else 12) and argv[n_ptr - 3] > 0
     else:
         assert n_ptr == 7
         assert argv[4] == out.data_ptr()
@@ -876,21 +1061,71 @@ def _source(name):
         return f.read()
 
 
+def _data_kernel_body():
+    src = _source("dcn_exact_bwd.cu")
+    return src[src.index("dcn_exact_bwd_data_kernel("):
+               src.index("dcn_exact_bwd_data_reduce_kernel(")]
+
+
 def test_phase_tool_names_every_data_kernel_mark():
     """``tools/dcn_phases``' names of the exact data kernel's phases are
-    the slots its source marks, and the reductions' slot closes each
-    per-corner reduction into grad x, the walk's slot opening it."""
+    exactly the slots its source marks: its one recorded role, the
+    walker (every warpgroup walks; thread 0 is recorded), from its
+    DATA_ROLE_SLOTS on; the reductions' slot closes each per-corner
+    reduction into grad x (one per run of GC channels), the walk's slot
+    opening it."""
     from centertrack_tpu_torch.tools import dcn_phases
-    src = _source("dcn_exact_bwd.cu")
-    body = src[src.index("dcn_exact_bwd_data_kernel("):
-               src.index("dcn_exact_bwd_data_reduce_kernel(")]
-    slots = {int(k) for k in re.findall(r"DCN_PHASE\((\d)\)", body)}
-    assert slots == set(range(len(dcn_phases.EXACT_DATA_PHASES)))
-    assert dcn_phases.EXACT_DATA_PHASES[4] == "reductions"
-    scatters = re.findall(r"(DCN_PHASE\(\d\));\s*scatter<CPT>[^;]*;\s*"
+    body = _data_kernel_body()
+    names = dcn_phases.EXACT_DATA_PHASES
+    assert set(names) == set(dcn_phases.DATA_ROLE_SLOTS) == {"walker"}
+    slots = {int(k) for k in re.findall(r"DCN_PHASE\((\d+)\)", body)}
+    first = dcn_phases.DATA_ROLE_SLOTS["walker"]
+    assert slots == {first + k for k in range(len(names["walker"]))}
+    assert max(slots) < dcn_phases.SLOTS
+    assert names["walker"][6] == "reductions"
+    assert names["walker"][5] == "walk"
+    scatters = re.findall(r"(DCN_PHASE\(\d\));\s*#pragma unroll\s*"
+                          r"for \([^)]*\)\s*scatter<GC>[^;]*;\s*"
                           r"(DCN_PHASE\(\d\))", body)
-    assert scatters == [("DCN_PHASE(2)", "DCN_PHASE(4)")]
-    assert body.count("scatter<CPT>") == 1
+    assert scatters == [("DCN_PHASE(5)", "DCN_PHASE(6)")]
+    assert body.count("scatter<GC>") == 1
+    assert body.count("DCN_PHASES_END;") == 1
+
+
+def test_data_kernel_step_loop_has_no_block_barrier():
+    """The data kernel's step loop holds no barrier of the whole block:
+    a step's one barrier is its warpgroup's own (``bar_sync(1 + wg,
+    128)``; a second only where one window slot is reloaded), the next
+    step's G is issued, unconditionally, before the walk and waited for
+    after it in the same turn of the loop (no wgmma wait between the
+    issue and the walk), and the weights come by one bulk copy a step
+    on the slots' mbarriers. The block-wide barriers of an output grad
+    wider than one G piece are ``stage_piece``'s, called only on that
+    (serial, FAST false) path; the corners come from the table, not
+    from ``grad_position``, inside the loop."""
+    body = _data_kernel_body()
+    assert "constexpr bool fast = FAST;" in body
+    loop = body[body.index("for (int r = 0; r < n; ++r) {"):
+                body.index("reduced += __shfl_xor_sync")]
+    assert "__syncthreads" not in loop
+    assert loop.count("hopper::bar_sync(1 + wg, 128)") == 2
+    at = loop.index("if (fast) {")
+    fast = loop[at:loop.index("} else if (r + 1 < n) {", at)]
+    assert "g_product<T, NW>(Gn" in fast
+    assert "wgmma_wait" not in fast and "stage_piece" not in fast
+    assert loop.count("stage_piece(") == 1
+    walk = loop.index("scatter<GC>")
+    serial = loop[loop.index("} else if (r + 1 < n) {", at):
+                  loop.index("if (fast && r + 2 < n")]
+    assert "wgmma_wait" not in loop[at:walk].replace(serial, "")
+    assert loop.rindex("hopper::wgmma_wait_all();") > walk
+    assert "grad_position" not in loop and "s_tab[e]" in loop
+    assert "load_w(s + 2, r + 2)" in loop
+    assert body.count("hopper::bulk_copy(") == 1
+    assert body.count("hopper::mbar_arrive_expect_tx(") == 1
+    stage = body[body.index("const auto stage_piece"):
+                 body.index("if (window) load_window(c_first, 0);")]
+    assert stage.count("__syncthreads()") == 3
 
 
 def test_phase_tool_names_every_weight_kernel_mark():
