@@ -1,8 +1,9 @@
-"""Tracking-task configuration: the subset of the JAX package's
-``Config``, ``parse_task`` and ``set_heads`` that the fused serving path
-and the trainer read (reference: src/lib/opts.py:257-388; JAX:
+"""Tracking- and detection-task configuration: the subset of the JAX
+package's ``Config``, ``parse_task``, ``set_heads`` and ``finalize``
+that the fused serving path, the trainer, the data pipeline and the
+checkpoint loader read (reference: src/lib/opts.py:257-388; JAX:
 centertrack_tpu/config.py), plus the MOT17 dataset meta the serving
-benchmark uses.
+benchmark uses. Every field keeps the JAX default.
 """
 
 from __future__ import annotations
@@ -25,9 +26,23 @@ def _freeze_dict(d: Dict) -> Tuple[Tuple, ...]:
 @dataclasses.dataclass(frozen=True)
 class Config:
     task: str = ""
+    dataset: str = "coco"          # data/datasets.get_dataset's name
+    # checkpoint to start from (engine/trainer.Trainer.start, through
+    # models/model.load_model: merged onto the fresh init, optimizer
+    # state included; engine/fused.FusedDetector without params)
+    load_model: str = ""
+    # backbone-only pretrain merged onto the fresh init before training
+    # (Trainer.start, through models/model.load_backbone)
+    load_backbone: str = ""
+    # without load_model, Trainer.start resumes from its save_dir's
+    # model_last.ckpt
+    resume: bool = False
 
     # --- system ----------------------------------------------------------
     seed: int = 317                # seeds create_model's initialisation
+    num_workers: int = 4           # data/loader.DataLoader workers
+    # fork-based loader workers instead of threads (tools/selftest.train)
+    process_workers: bool = False
 
     # --- model -----------------------------------------------------------
     # dtype of the network's compute: 'float32' or 'bfloat16' (parameters
@@ -53,6 +68,7 @@ class Config:
     # --- input (-1: the dataset's default resolution) ---------------------
     input_h: int = -1
     input_w: int = -1
+    dataset_version: str = ""
 
     # --- test ------------------------------------------------------------
     K: int = 100
@@ -61,9 +77,14 @@ class Config:
     # --- tracking --------------------------------------------------------
     tracking: bool = False
     pre_hm: bool = False
+    same_aug_pre: bool = False
+    hm_disturb: float = 0.0
+    lost_disturb: float = 0.0
+    fp_disturb: float = 0.0
     pre_thresh: float = -1.0
     track_thresh: float = 0.3
     new_thresh: float = 0.3
+    max_frame_dist: int = 3
     max_age: int = -1
     max_tracks: int = 256          # capacity of the on-device track state
 
@@ -77,12 +98,36 @@ class Config:
     # batch_size / N; gradients sum in fp32, BN statistics advance once
     # per micro-batch
     grad_accum: int = 1
+    # epochs Trainer.fit saves as model_<epoch>.ckpt (with a save_dir)
+    save_point: Tuple[int, ...] = (90,)
+    # checkpoint shape drift in Trainer.resume's load_model (reference:
+    # model.py:46-71):
+    # reset_hm re-initialises hm heads loaded from an 80- or 1-class
+    # pretrain; reuse_hm copies the overlapping class channels
+    reset_hm: bool = False
+    reuse_hm: bool = False
+    dense_reg: int = 1
+    kitti_split: str = "3dop"
+
+    # --- dataset augmentation (JAX config.py:145-153) ----------------------
+    not_rand_crop: bool = False
+    not_max_crop: bool = False
+    shift: float = 0.0
+    scale: float = 0.0
+    aug_rot: float = 0.0
+    rotate: float = 0.0
+    flip: float = 0.5
+    no_color_aug: bool = False
 
     # --- loss weights (JAX config.py:173-188) ------------------------------
     tracking_weight: float = 1.0
     hm_weight: float = 1.0
     off_weight: float = 1.0
     wh_weight: float = 0.1
+
+    # --- custom dataset (data/datasets.CustomDataset) ----------------------
+    custom_dataset_img_path: str = ""
+    custom_dataset_ann_path: str = ""
 
     # --- derived (filled by parse_task / set_heads) -----------------------
     pre_img: bool = False
@@ -124,10 +169,11 @@ def parse_task(cfg: Config) -> Config:
 
 
 def set_heads(cfg: Config, dataset_meta) -> Config:
-    """Input/output resolution and the head dict of a tracking task
-    (reference: src/lib/opts.py:329-388). ``dataset_meta`` needs
-    ``num_categories`` and ``default_resolution``."""
-    extra = [t for t in cfg.task.split(",") if t not in ("tracking", "")]
+    """Input/output resolution and the head dict of a tracking or
+    detection task (reference: src/lib/opts.py:329-388). ``dataset_meta``
+    needs ``num_categories`` and ``default_resolution``."""
+    extra = [t for t in cfg.task.split(",")
+             if t not in ("tracking", "ctdet", "")]
     if extra:
         raise NotImplementedError(
             f"tasks {extra} are not ported yet (ROADMAP: ddd/pose extras)")
@@ -158,6 +204,16 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
         weights=_freeze_dict(weights),
         head_conv=head_conv,
     )
+
+
+def finalize(cfg: Config, dataset_meta=None) -> Config:
+    """parse_task + set_heads in one call; without ``dataset_meta`` the
+    meta is the class of ``cfg.dataset`` (JAX config.py:327-334)."""
+    cfg = parse_task(cfg)
+    if dataset_meta is None:
+        from centertrack_tpu_torch.data.registry import get_dataset_meta
+        dataset_meta = get_dataset_meta(cfg.dataset, cfg)
+    return set_heads(cfg, dataset_meta)
 
 
 class MOT_META:

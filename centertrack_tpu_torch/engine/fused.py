@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from centertrack_tpu_torch.engine import device_tracker as dt
-from centertrack_tpu_torch.models.model import (create_model,
+from centertrack_tpu_torch.data.registry import get_dataset_meta
+from centertrack_tpu_torch.models.model import (create_model, load_model,
                                                 params_from_jax,
                                                 set_dcn_plain)
 from centertrack_tpu_torch.ops.affine import (get_affine_transform,
@@ -165,7 +166,10 @@ class _Engine:
     ``MultiStreamDetector`` share.
 
     ``params``/``batch_stats`` are the JAX package's trees (as read by
-    utils.checkpoint.load_jax_ckpt). ``cfg.compute_dtype`` sets the
+    utils.checkpoint.load_jax_ckpt). Without ``params`` the net keeps its
+    initialisation, or takes ``cfg.load_model``'s checkpoint merged onto
+    it (JAX engine/fused.py:142-148); without ``dataset_meta`` the meta is
+    ``cfg.dataset``'s. ``cfg.compute_dtype`` sets the
     network's dtype; at float32 the step runs in full float32
     (``utils.precision.full_float32``: cuDNN and cuBLAS without TF32, the
     caller's flags restored after), so a graph captured from it keeps
@@ -185,8 +189,13 @@ class _Engine:
         self.streams = int(streams)
         self.device = torch.device(device)
         self.model = create_model(cfg, self.device)
-        self.model.load_state_dict(params_from_jax(params, batch_stats),
-                                   strict=True)
+        if params is not None:
+            self.model.load_state_dict(params_from_jax(params, batch_stats),
+                                       strict=True)
+        elif cfg.load_model:
+            load_model(cfg.load_model, self.model)
+        if dataset_meta is None:
+            dataset_meta = get_dataset_meta(cfg.dataset, cfg)
         set_dcn_plain(self.model, plain_dcn)
         self.mean = torch.as_tensor(
             np.asarray(dataset_meta.mean, np.float32).reshape(3),
@@ -410,8 +419,8 @@ class FusedDetector(_Engine):
     smoke's reference path). ``track_state`` is (1, T, ...) and
     ``pre_images`` (1, H, W, 3) or None before the first frame."""
 
-    def __init__(self, cfg, params, batch_stats, dataset_meta,
-                 device="cuda", plain_dcn: bool = False):
+    def __init__(self, cfg, params=None, batch_stats=None,
+                 dataset_meta=None, device="cuda", plain_dcn: bool = False):
         super().__init__(cfg, 1, params, batch_stats, dataset_meta, device,
                          plain_dcn)
 
@@ -452,8 +461,8 @@ class MultiStreamDetector(_Engine):
     ``run(images)`` advances every stream by one frame and returns the
     (S, K, 13) rows; ``reset_stream(i)`` starts stream i over."""
 
-    def __init__(self, cfg, streams, params, batch_stats, dataset_meta,
-                 device="cuda"):
+    def __init__(self, cfg, streams, params=None, batch_stats=None,
+                 dataset_meta=None, device="cuda"):
         super().__init__(cfg, streams, params, batch_stats, dataset_meta,
                          device)
 

@@ -26,12 +26,16 @@ and per-head targets and masks).
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from centertrack_tpu_torch.data.render import render_batch
+from centertrack_tpu_torch.engine.checkpoint import CheckpointManager
+from centertrack_tpu_torch.models.model import (load_backbone, load_model,
+                                                save_model)
 from centertrack_tpu_torch.ops.losses import generic_loss
 from centertrack_tpu_torch.utils.precision import full_float32
 
@@ -70,7 +74,10 @@ class Trainer:
     (reference: trainer.py:102-317).
 
     ``train_step`` leaves the step's gradients in ``param.grad`` until
-    the next step.
+    the next step. ``save`` and ``resume`` write and read the parameters,
+    running statistics and optimizer state in JAX's checkpoint format;
+    ``start`` loads what the cfg names (load_backbone, load_model,
+    resume) and ``fit`` runs the epoch loop from a resumed epoch on.
     """
 
     def __init__(self, cfg, model, device="cuda"):
@@ -84,6 +91,8 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.lr_for_epoch = make_lr_schedule(cfg)
         self.accum = max(1, int(cfg.grad_accum))
+        self.steps = 0          # optimiser steps taken (optax's count)
+        self.epoch_times: Dict[str, float] = {}
         self.loss_order = [k for k in LOSS_ORDER if k in cfg.heads_dict]
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -131,6 +140,7 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+        self.steps += 1
         return {k: v / self.accum for k, v in agg.items()}
 
     @torch.no_grad()
@@ -145,7 +155,9 @@ class Trainer:
     def run_epoch(self, phase: str, epoch: int, loader, num_iters: int = -1,
                   log_every: int = 20):
         """One pass of ``loader`` in phase 'train' or 'val'; returns the
-        mean of each loss and the minutes taken."""
+        mean of each loss and the minutes taken. ``epoch_times`` keeps
+        the pass's seconds waiting for batches and inside the steps, and
+        its iterations."""
         lr = self.lr_for_epoch(epoch)
         agg: Dict[str, float] = {}
         n = 0
@@ -173,11 +185,83 @@ class Trainer:
             t_prev = time.time()
         ret = {k: v / max(n, 1) for k, v in agg.items()}
         ret["time"] = (time.time() - t0) / 60.0
+        self.epoch_times = {"data_s": data_t, "step_s": step_t, "iters": n}
         return ret
 
     def train(self, epoch: int, loader, num_iters: int = -1,
               log_every: int = 20):
         return self.run_epoch("train", epoch, loader, num_iters, log_every)
+
+    # ---- checkpoints and resume (JAX cli/main.py:39-60, :79-100) ------
+    def save(self, path: str, epoch: int, optimizer: bool = True) -> None:
+        """The model (and the optimizer state) at the end of ``epoch``."""
+        save_model(path, epoch, self.model,
+                   self.optimizer if optimizer else None, self.steps)
+
+    def resume(self, source=None, step: Optional[int] = None) -> int:
+        """Load a checkpoint's parameters, running statistics and
+        optimizer state (where it has one) into this trainer, with
+        ``cfg.reset_hm`` and ``cfg.reuse_hm``; returns its epoch, after
+        which training continues. ``source`` is a checkpoint file, a
+        ``CheckpointManager`` (its checkpoint ``step``, the latest by
+        default) or None for ``cfg.load_model``."""
+        kw = dict(reset_hm=self.cfg.reset_hm, reuse_hm=self.cfg.reuse_hm)
+        if isinstance(source, CheckpointManager):
+            restored = source.restore(step, self.model, self.optimizer, **kw)
+            if restored is None:
+                raise FileNotFoundError(f"no checkpoint in "
+                                        f"{source.directory}")
+            ckpt = restored[1]
+        else:
+            ckpt = load_model(source or self.cfg.load_model, self.model,
+                              self.optimizer, **kw)
+        self.steps = ckpt.get("steps", self.steps)
+        return ckpt["epoch"]
+
+    def start(self, save_dir: str = "") -> int:
+        """The run's starting point from its cfg: ``cfg.load_backbone``
+        merged onto the fresh init unless a checkpoint is loaded; then
+        ``cfg.load_model`` (or, with ``cfg.resume`` and no load_model,
+        ``save_dir``'s ``model_last.ckpt``), where it exists, through
+        ``resume``. Returns the epoch training continues after, 0 for a
+        fresh run."""
+        cfg = self.cfg
+        path = cfg.load_model
+        if cfg.resume and not path and save_dir:
+            path = os.path.join(save_dir, "model_last.ckpt")
+        if cfg.load_backbone and not (cfg.resume or cfg.load_model):
+            load_backbone(cfg.load_backbone, self.model)
+            print(f"initialized backbone from {cfg.load_backbone}")
+        if path and os.path.exists(path):
+            epoch = self.resume(path)
+            print(f"resumed from {path} at epoch {epoch}")
+            return epoch
+        return 0
+
+    def fit(self, loader, num_epochs: Optional[int] = None,
+            start_epoch: int = 0, on_epoch=None, num_iters: int = -1,
+            log_every: int = 20, save_dir: str = ""):
+        """Epochs ``start_epoch + 1 .. num_epochs`` (``cfg.num_epochs`` by
+        default), each at its absolute epoch's learning rate
+        (``make_lr_schedule``); ``on_epoch(epoch, stats)`` after each.
+        With ``save_dir``, each epoch ends in ``model_last.ckpt`` (the
+        optimizer state included) and each epoch of ``cfg.save_point`` in
+        ``model_<epoch>.ckpt`` (without it). Returns the last stats."""
+        if num_epochs is None:
+            num_epochs = self.cfg.num_epochs
+        if save_dir:
+            os.makedirs(save_dir, exist_ok=True)
+        stats = {}
+        for epoch in range(start_epoch + 1, num_epochs + 1):
+            stats = self.train(epoch, loader, num_iters, log_every)
+            if save_dir:
+                self.save(os.path.join(save_dir, "model_last.ckpt"), epoch)
+                if epoch in self.cfg.save_point:
+                    self.save(os.path.join(save_dir, f"model_{epoch}.ckpt"),
+                              epoch, optimizer=False)
+            if on_epoch is not None:
+                on_epoch(epoch, stats)
+        return stats
 
     def val(self, epoch: int, loader, num_iters: int = -1,
             log_every: int = 20):

@@ -1,6 +1,6 @@
-"""Network assembly and the weight bridge to and from the JAX
-package's parameter trees (reference: src/lib/model/model.py;
-JAX: centertrack_tpu/models/model.py).
+"""Network assembly, the weight bridge to and from the JAX package's
+parameter trees, and checkpoints in JAX's format (reference:
+src/lib/model/model.py; JAX: centertrack_tpu/models/model.py).
 
 ``CenterTrackNet.forward(x, pre_img, pre_hm)`` takes NHWC inputs and
 returns ``[dict head -> NHWC float32 map]``, the JAX model's contract.
@@ -14,6 +14,8 @@ fold them into their running statistics as flax does.
 from __future__ import annotations
 
 import math
+import os
+import pickle
 from typing import Dict, Tuple
 
 import numpy as np
@@ -205,11 +207,10 @@ def params_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def params_to_jax(model: nn.Module) -> Tuple[Dict, Dict]:
-    """The inverse of ``params_from_jax``: the model's state as the JAX
-    package's (params, batch_stats) trees of float32 numpy arrays, the
-    payload ``centertrack_tpu.models.model.save_model`` writes.
-    ``num_batches_tracked`` has no JAX counterpart and is left out."""
+def _to_jax_trees(model: nn.Module, tensors) -> Tuple[Dict, Dict]:
+    """(key, tensor) pairs named as ``model.state_dict()`` names them ->
+    the JAX (params, batch_stats) trees of float32 numpy arrays, each
+    tensor laid out as JAX lays out the leaf of its key."""
     params: Dict = {}
     batch_stats: Dict = {}
 
@@ -221,7 +222,7 @@ def params_to_jax(model: nn.Module) -> Tuple[Dict, Dict]:
             raise ValueError(f"two tensors map to {'/'.join(path)}/{leaf}")
         node[leaf] = np.ascontiguousarray(value, dtype=np.float32)
 
-    for key, t in model.state_dict().items():
+    for key, t in tensors:
         *path, leaf = key.split(".")
         a = t.detach().cpu().numpy()
         owner = model.get_submodule(".".join(path))
@@ -244,3 +245,221 @@ def params_to_jax(model: nn.Module) -> Tuple[Dict, Dict]:
         else:
             raise ValueError(f"no JAX counterpart for {key}")
     return params, batch_stats
+
+
+def params_to_jax(model: nn.Module) -> Tuple[Dict, Dict]:
+    """The inverse of ``params_from_jax``: the model's state as the JAX
+    package's (params, batch_stats) trees of float32 numpy arrays, the
+    payload ``centertrack_tpu.models.model.save_model`` writes.
+    ``num_batches_tracked`` has no JAX counterpart and is left out."""
+    return _to_jax_trees(model, model.state_dict().items())
+
+
+# ---- optimizer state in optax's layout --------------------------------
+# JAX's make_optimizer (engine/trainer.py:49-58) is
+# optax.inject_hyperparams(adam | sgd(momentum=0.9)); its state, through
+# flax.serialization.to_state_dict, is
+#   {"count", "hyperparams": {...}, "hyperparams_states": {},
+#    "inner_state": {"0": adam {"count", "mu", "nu"} | sgd {"trace"},
+#                    "1": {}}}
+# with mu, nu and trace trees of the parameters' layout. torch keeps per
+# parameter Adam's step, exp_avg, exp_avg_sq, and SGD's momentum_buffer.
+_MOMENTS = {"adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+            "sgd": {"trace": "momentum_buffer"}}
+
+
+def _optim_kind(optimizer) -> str:
+    if isinstance(optimizer, torch.optim.Adam):
+        return "adam"
+    if isinstance(optimizer, torch.optim.SGD):
+        return "sgd"
+    raise ValueError(f"no optax layout for {type(optimizer).__name__}")
+
+
+def optimizer_to_jax(model: nn.Module, optimizer, steps: int = 0) -> Dict:
+    """``optimizer``'s state over ``model``'s parameters as the state
+    dict of JAX's optax optimizer (float32 moments, int32 counts). An
+    optimizer that has not stepped gives optax's initial state. torch's
+    SGD keeps no step count: ``steps`` gives it."""
+    kind = _optim_kind(optimizer)
+    named = list(model.named_parameters())
+    state = [optimizer.state.get(p, {}) for _, p in named]
+    inner: Dict = {}
+    if kind == "adam":
+        # parameters that never had a gradient (DLA's unused projections)
+        # have no state
+        steps = max((int(st["step"]) for st in state if st), default=0)
+        inner["count"] = np.asarray(steps, np.int32)
+    for jax_name, torch_name in _MOMENTS[kind].items():
+        tensors = [(k, st[torch_name] if torch_name in st
+                    else torch.zeros_like(p))
+                   for (k, p), st in zip(named, state)]
+        inner[jax_name] = _to_jax_trees(model, tensors)[0]
+    group = optimizer.param_groups[0]
+    hyper = {"learning_rate": group["lr"]}
+    if kind == "adam":
+        hyper.update(b1=group["betas"][0], b2=group["betas"][1],
+                     eps=group["eps"], eps_root=0.0)
+    else:
+        hyper["momentum"] = group["momentum"]
+    return {"count": np.asarray(steps, np.int32),
+            "hyperparams": {k: np.asarray(v, np.float32)
+                            for k, v in hyper.items()},
+            "hyperparams_states": {},
+            "inner_state": {"0": inner, "1": {}}}
+
+
+def optimizer_from_jax(model: nn.Module, optimizer, opt_state) -> None:
+    """Load JAX's optax state dict (``optimizer_to_jax``'s layout) into
+    ``optimizer`` over ``model``'s parameters. The learning rate is not
+    taken: the trainer sets it per epoch."""
+    kind = _optim_kind(optimizer)
+    inner = opt_state["inner_state"]["0"]
+    moments = {torch_name: params_from_jax(inner[jax_name], {})
+               for jax_name, torch_name in _MOMENTS[kind].items()}
+    step = float(np.asarray(inner["count"] if kind == "adam"
+                            else opt_state["count"]))
+    sd = optimizer.state_dict()
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    sd["state"] = {}
+    for key, p in model.named_parameters():
+        st = {name: m[key].to(p.dtype) for name, m in moments.items()}
+        if any(t.shape != p.shape for t in st.values()):
+            raise ValueError(f"optimizer state of {key} does not have its "
+                             f"shape {tuple(p.shape)}")
+        if kind == "adam":
+            st["step"] = torch.tensor(step, dtype=torch.float32)
+        sd["state"][index[id(p)]] = st
+    optimizer.load_state_dict(sd)
+
+
+# ---- checkpoints (JAX models/model.py:135-244) ------------------------
+def model_payload(epoch: int, model: nn.Module, optimizer=None,
+                  steps: int = 0) -> Dict:
+    """JAX's save_model payload {epoch, params, batch_stats, opt_state}
+    (reference: model.py:92-101) as host copies: float32 numpy trees in
+    JAX's layout, the optimizer state as optax's (``steps``: SGD's
+    count), so that either package reads the other's files."""
+    params, batch_stats = params_to_jax(model)
+    payload = {"epoch": int(epoch), "params": params,
+               "batch_stats": batch_stats}
+    if optimizer is not None:
+        payload["opt_state"] = optimizer_to_jax(model, optimizer, steps)
+    return payload
+
+
+def write_payload(path: str, payload: Dict) -> None:
+    """Pickle ``payload`` to ``path`` whole or not at all: a temporary
+    file beside it, then ``os.replace``."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def save_model(path: str, epoch: int, model: nn.Module,
+               optimizer=None, steps: int = 0) -> None:
+    """Write ``model_payload`` to ``path`` atomically (JAX
+    models/model.py:135)."""
+    write_payload(path, model_payload(epoch, model, optimizer, steps))
+
+
+def _out_axis(path: Tuple[str, ...], arr) -> int:
+    """Axis holding output channels: last for conv kernels, 0 for
+    bias/scale/BN-stat vectors."""
+    return arr.ndim - 1 if path and path[-1] == "kernel" else 0
+
+
+def _is_hm_head(path: Tuple[str, ...]) -> bool:
+    """Heads whose name starts with 'hm' (hm, hm_hp): the reference
+    gates reset_hm on flat names 'hm*' (reference: model.py:49-50)."""
+    return len(path) >= 2 and path[0] == "heads" and \
+        path[1].startswith("hm")
+
+
+def _merge_tree(tmpl, loaded, reset_hm: bool, reuse_hm: bool,
+                log: list, path: Tuple[str, ...] = ()):
+    """Checkpoint tree -> template tree with the reference's shape-drift
+    tolerance (reference: model.py:46-71; JAX models/model.py:163):
+    mismatched (or reset_hm'd generic-pretrain hm) leaves keep the
+    template's, or with reuse_hm the overlapping class channels are
+    copied; every decision is logged in JAX's words."""
+    if not isinstance(tmpl, dict):
+        want = np.asarray(tmpl)
+        got = np.asarray(loaded)
+        axis = _out_axis(path, want)
+        force_reset = (reset_hm and _is_hm_head(path) and
+                       got.shape[axis] in (80, 1))
+        if got.shape == want.shape and not force_reset:
+            return got.astype(want.dtype)
+        if reuse_hm and got.shape[:axis] == want.shape[:axis] and \
+                got.shape[axis + 1:] == want.shape[axis + 1:]:
+            n = min(got.shape[axis], want.shape[axis])
+            out = np.array(want)
+            sl = tuple(slice(None) if a != axis else slice(0, n)
+                       for a in range(want.ndim))
+            out[sl] = got[sl]
+            log.append(f"Reusing parameter {'/'.join(path)}: "
+                       f"loaded {got.shape} -> required {want.shape}")
+            return out.astype(want.dtype)
+        log.append(f"Skip loading parameter {'/'.join(path)}: "
+                   f"loaded {got.shape}, required {want.shape}")
+        return np.asarray(want)
+    out = {}
+    for k, v in tmpl.items():
+        if not isinstance(loaded, dict) or k not in loaded:
+            log.append(f"No param {'/'.join(path + (k,))}")
+            out[k] = v
+        else:
+            out[k] = _merge_tree(v, loaded[k], reset_hm, reuse_hm, log,
+                                 path + (k,))
+    if isinstance(loaded, dict):
+        for k in loaded:
+            if k not in tmpl:
+                log.append(f"Drop parameter {'/'.join(path + (k,))}")
+    return out
+
+
+def load_model(path: str, model: nn.Module = None, optimizer=None,
+               reset_hm: bool = False, reuse_hm: bool = False,
+               verbose: bool = True) -> Dict:
+    """Read a checkpoint that either package's save_model wrote
+    (float16 or float32 trees). Without ``model``, returns the raw
+    payload. With it, merges the trees onto the model's own state by
+    ``_merge_tree`` (leaves missing from the file keep the model's,
+    mismatched shapes are skipped, ``reuse_hm`` copies the overlapping
+    class channels, ``reset_hm`` keeps the model's hm heads where the file
+    has an 80- or 1-class one), loads the result, and with ``optimizer``
+    and an ``opt_state`` in the file loads that too. Returns {"epoch",
+    "log"} ("steps" too where the optimizer state was loaded) and prints
+    the log unless ``verbose`` is False (JAX models/model.py:207)."""
+    from centertrack_tpu_torch.utils.checkpoint import read_payload
+
+    payload = read_payload(path)
+    if model is None:
+        return payload
+    log: list = []
+    p_tmpl, b_tmpl = params_to_jax(model)
+    params = _merge_tree(p_tmpl, payload["params"], reset_hm, reuse_hm, log)
+    batch_stats = _merge_tree(b_tmpl, payload["batch_stats"], reset_hm,
+                              reuse_hm, log)
+    device = next(model.parameters()).device
+    model.load_state_dict(
+        {k: v.to(device) for k, v in
+         params_from_jax(params, batch_stats).items()}, strict=True)
+    if verbose:
+        for line in log:
+            print(line)
+    out = {"epoch": payload.get("epoch", 0), "log": log}
+    if optimizer is not None and "opt_state" in payload:
+        optimizer_from_jax(model, optimizer, payload["opt_state"])
+        out["steps"] = int(np.asarray(payload["opt_state"]["count"]))
+    return out
+
+
+def load_backbone(path: str, model: nn.Module) -> None:
+    """Merge a backbone-only checkpoint (e.g. an ImageNet pretrain) onto
+    ``model``, keeping the fresh neck and heads where the file has none
+    (JAX cli/main.py:44-50; reference: dla.py:318-329)."""
+    load_model(path, model, verbose=False)

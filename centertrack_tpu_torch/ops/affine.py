@@ -1,6 +1,6 @@
-"""Affine transform construction (host-side numpy), the geometry of
-the reference (reference: src/lib/utils/image.py:29-102), with the
-3-point solve done in numpy instead of cv2."""
+"""Affine transform construction and application (host-side numpy),
+the geometry of the reference (reference: src/lib/utils/image.py:29-102),
+with the 3-point solve done in numpy instead of cv2."""
 
 from __future__ import annotations
 
@@ -63,3 +63,9 @@ def invert_affine(trans: np.ndarray) -> np.ndarray:
     m = np.eye(3, dtype=np.float64)
     m[:2, :] = trans
     return np.linalg.inv(m)[:2, :]
+
+
+def affine_transform(pt, t):
+    """A 2x3 affine applied to one point (reference: image.py:73-76)."""
+    new_pt = np.array([pt[0], pt[1], 1.0], dtype=np.float32)
+    return (t @ new_pt)[:2]

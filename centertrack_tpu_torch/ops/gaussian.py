@@ -30,6 +30,8 @@ _SIGNATURES = {"splat_pre_hm": (5, 5)}
 # caps the radius
 PATCH = 256
 MAX_RADIUS = PATCH // 2 - 1
+# maps of at most this many pixels render densely, without the kernel
+DENSE_MAX_PIXELS = 128 * 128
 
 
 def _kernel(symbol: str):
@@ -107,7 +109,7 @@ def render_pre_hm(height: int, width: int, cts_int: torch.Tensor,
     not change the result.
     """
     dev = cts_int.device
-    if height * width <= 128 * 128:
+    if height * width <= DENSE_MAX_PIXELS:
         ys = torch.arange(height, dtype=torch.float32, device=dev)
         xs = torch.arange(width, dtype=torch.float32, device=dev)
         dx = xs[None, None, None, :] - cts_int[..., 0].float()[..., None, None]

@@ -183,14 +183,32 @@ Phases, each printing one JSON line with its elapsed seconds:
            dtypes: a falling finite loss, the launches of every step, each
            launch of a 13th step and of the B=1 step against the plain
            version, the B=1 step's gradients against a plain-DCN step's
+  mota     the port's MOTA on the card: FusedDetector at float32 over
+           synth_clip's 30 frames (1080p warped to 544x960) with the
+           committed checkpoints at dla_node "dcn_local1" and "dcn", the
+           active tracks scored by the port's eval/mot_metrics against
+           the clip's boxes; MOTA and IDF1 within MOTA_TOL of JAX's
+           FusedDetector on the same frames and weights (MOTA_REFERENCE,
+           from tests/mota_reference.py on the CPU); a counted run of
+           replays gives the device launches
+  selftest the port's tools/selftest end to end: the hard selftest
+           domain written as PNG, DLA-34 dcn float32 trained 30 epochs at
+           B=8 through the port's DataLoader (thread workers), saved
+           through CheckpointManager after epoch 15 and resumed into a
+           fresh model and Trainer with its optimizer state, then every
+           training video tracked by FusedDetector and scored; overall
+           MOTA >= SELFTEST_MOTA_FLOOR; each exact kernel launches 16
+           times a step; train and eval seconds, the loader's ms per
+           batch on the host; then 10 steps on one batch timed alone
   kernels  one JSON line: the port's kernel table
 
 `--profile N` adds a phase after `path`, `path_bf16`, the three exact
 paths, `chunk` and
-`chunk_bf16` and one after the timed steps of every train phase:
-torch.profiler over N frames (graph replays) of each path, N chunk
-replays and N B=8 steps of each train phase, device time by kernel,
-kernels per frame and the device's idle share.
+`chunk_bf16`, one after the timed steps of every train phase and one
+after the selftest's steps timed alone: torch.profiler over N frames
+(graph replays) of each path, N chunk replays and N B=8 steps of each
+train phase and of the selftest, device time by kernel, kernels per
+frame and the device's idle share.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and
 the exit code is not 0. The whole run has a wall-clock budget.
@@ -358,6 +376,41 @@ TRAIN_MAX_OBJS = 16
 PLAIN_GRAD_L2_TOL = 1e-2
 PLAIN_GRAD_TENSOR_RTOL = 0.1
 PLAIN_GRAD_FLOOR = 1e-5
+# mota: the port's FusedDetector on synth_clip's frames (1080p warped to
+# 544x960) with the committed checkpoints at float32, scored by the
+# port's CLEAR-MOT against the clip's boxes (object index = track id),
+# active tracks only. MOTA_REFERENCE is JAX's FusedDetector on the same
+# frames and weights on the CPU, printed by
+#   JAX_PLATFORMS=cpu python3 tests/mota_reference.py --frames 30
+# MOTA and IDF1 must lie within MOTA_TOL of it (one event of 300
+# ground-truth boxes is 0.0033).
+MOTA_FRAMES = 30
+MOTA_TOL = 0.01
+MOTA_NODES = (("dcn_local1", CKPT), ("dcn", CKPT_DCN))
+MOTA_REFERENCE = {
+    "dcn_local1": {"mota": 0.94, "idf1": 0.9505962521294719,
+                   "num_false_positives": 2, "num_misses": 15,
+                   "num_switches": 1, "num_objects": 300,
+                   "num_matches": 285},
+    "dcn": {"mota": 0.8566666666666667, "idf1": 0.9191919191919192,
+            "num_false_positives": 18, "num_misses": 24, "num_switches": 1,
+            "num_objects": 300, "num_matches": 276}}
+MOT_COUNTS = ("num_objects", "num_matches", "num_false_positives",
+              "num_misses", "num_switches", "num_fragmentations")
+# selftest: the port's tools/selftest end to end, the protocol of
+# docs/parity_mota.json (hard domain, seed 0, 6 videos x 24 frames at
+# 96x160, PNG; dla_node dcn float32, B=8, Adam 5e-4, 30 epochs through the
+# port's DataLoader with thread workers), saved through CheckpointManager
+# after epoch SELFTEST_RESUME_AT and resumed into a fresh model and
+# Trainer; the overall MOTA over the training videos must reach
+# SELFTEST_MOTA_FLOOR (JAX's dcn seeds: 0.8957-0.9167 on JPEG frames)
+SELFTEST_EPOCHS = 30
+SELFTEST_RESUME_AT = 15
+SELFTEST_MOTA_FLOOR = 0.85
+SELFTEST_WORKERS = 4
+SELFTEST_NODE = "dcn"
+# steps the selftest's step is timed alone (selftest_step_profile)
+SELFTEST_ALONE_STEPS = 10
 # bf16: the B=1 kernel step against the plain bf16 step. Both are bf16
 # steps that differ only in where the DCN layers' float32 sums fall
 # before their roundings, so each lies about as far from the plain
@@ -3154,7 +3207,7 @@ def _profile(run_once, n, phase, unit):
     template builds, the share of the wall time the device was busy, and
     the host operators with the most self CPU time (inflated by the
     profiler's own cost, but in the same proportion for both dtypes),
-    per ``unit``."""
+    per ``unit``; emits them and returns them."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3178,22 +3231,21 @@ def _profile(run_once, n, phase, unit):
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:12]
-    emit(phase, **{unit + "s": n, f"wall_ms_per_{unit}": wall_ms / n,
-                   f"device_busy_ms_per_{unit}": busy_ms / n,
-                   "device_idle_share": 1 - busy_ms / wall_ms,
-                   f"device_kernels_per_{unit}": sum(e.count
-                                                     for e in events) / n,
-                   "top": [{"name": e.key[:80],
-                            f"calls_per_{unit}": e.count / n,
-                            f"ms_per_{unit}":
-                                e.self_device_time_total / 1e3 / n}
-                           for e in top],
-                   "port_kernels": port_kernels,
-                   "host_top": [{"name": e.key[:80],
-                                 f"calls_per_{unit}": e.count / n,
-                                 f"self_cpu_ms_per_{unit}":
-                                     e.self_cpu_time_total / 1e3 / n}
-                                for e in host]})
+    row = {unit + "s": n, f"wall_ms_per_{unit}": wall_ms / n,
+           f"device_busy_ms_per_{unit}": busy_ms / n,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           f"device_kernels_per_{unit}": sum(e.count for e in events) / n,
+           "top": [{"name": e.key[:80], f"calls_per_{unit}": e.count / n,
+                    f"ms_per_{unit}": e.self_device_time_total / 1e3 / n}
+                   for e in top],
+           "port_kernels": port_kernels,
+           "host_top": [{"name": e.key[:80],
+                         f"calls_per_{unit}": e.count / n,
+                         f"self_cpu_ms_per_{unit}":
+                             e.self_cpu_time_total / 1e3 / n}
+                        for e in host]}
+    emit(phase, **row)
+    return row
 
 
 def phase_profile(det, frames, cfg, n, phase="profile"):
@@ -3604,6 +3656,206 @@ def phase_train(n_profile=0, dtype="float32", node="dcn_local1",
     return row
 
 
+def _active_boxes(rows):
+    """The active rows of a fetched frame as (track ids, x, y, w, h)."""
+    rows = [r for r in rows if r["active"]]
+    boxes = np.array([[*r["bbox"][:2], r["bbox"][2] - r["bbox"][0],
+                       r["bbox"][3] - r["bbox"][1]] for r in rows],
+                     np.float64).reshape(-1, 4)
+    return [r["tracking_id"] for r in rows], boxes
+
+
+def phase_mota():
+    """The port's MOTA on synth_clip against JAX's (MOTA_REFERENCE), at
+    each node of MOTA_NODES: a float32 FusedDetector over MOTA_FRAMES
+    frames (graph replays), the active tracks scored against the clip's
+    boxes by the port's mot_metrics; then the counted run (the same frames
+    from a fresh state, all replays, under torch.profiler, bit for bit the
+    scored run) gives the path's device launches."""
+    from centertrack_tpu_torch.eval.mot_metrics import MOTAccumulator
+
+    t0 = time.perf_counter()
+    frames, boxes = synth_clip(MOTA_FRAMES, seed=0)
+    gt = np.concatenate([boxes[..., :2], boxes[..., 2:] - boxes[..., :2]],
+                        -1)
+    out = {}
+    for node, ckpt in MOTA_NODES:
+        kernels = PATH_KERNELS[node, "float32"]
+        cfg = set_heads(parse_task(Config(
+            task="tracking", pre_hm=True, track_thresh=0.3, new_thresh=0.3,
+            max_age=3, dla_node=node, compute_dtype="float32")), MOT_META)
+        det = FusedDetector(cfg, *load_jax_ckpt(ckpt), MOT_META,
+                            device="cuda")
+        acc = MOTAccumulator()
+        packed = []
+        for f, frame in enumerate(frames):
+            res = det.run(frame)
+            ids, hyp = _active_boxes(FusedDetector.fetch(res, cfg.out_thresh))
+            packed.append(res.cpu().numpy())
+            acc.update(list(range(len(gt[f]))), gt[f], ids, hyp)
+        m = acc.metrics()
+
+        def replay_all():
+            det.reset_tracking()
+            return [det.run(f).cpu().numpy() for f in frames]
+        launches = counted_replays(
+            f"mota_{node}", replay_all, tuple(kernels) + TRACKER_KERNELS,
+            {**{k: n * MOTA_FRAMES for k, n in kernels.items()},
+             **dict.fromkeys(TRACKER_KERNELS, MOTA_FRAMES)}, packed)
+        ref = MOTA_REFERENCE[node]
+        row = {"node": node, "frames": MOTA_FRAMES,
+               "mota": m["mota"], "idf1": m["idf1"],
+               **{k: m[k] for k in MOT_COUNTS},
+               "jax": ref, "mota_minus_jax": m["mota"] - ref["mota"],
+               "idf1_minus_jax": m["idf1"] - ref["idf1"],
+               "tol": MOTA_TOL, "launches": launches}
+        emit(f"mota_{node}", **row)
+        if (abs(m["mota"] - ref["mota"]) > MOTA_TOL or
+                abs(m["idf1"] - ref["idf1"]) > MOTA_TOL):
+            raise RuntimeError(f"mota at {node}: MOTA {m['mota']:.4f} IDF1 "
+                               f"{m['idf1']:.4f}, JAX's {ref['mota']:.4f} / "
+                               f"{ref['idf1']:.4f}: past {MOTA_TOL}")
+        out[node] = row
+        del det
+        torch.cuda.empty_cache()
+    emit("mota", seconds=time.perf_counter() - t0)
+    return out
+
+
+def phase_selftest(n_profile=0):
+    """tools/selftest end to end on the card (SELFTEST_* above): the
+    dataset written as PNG, training with a save and resume through
+    CheckpointManager, then evaluate over the training videos. Every
+    launch count is set to 0 just before training and read just after:
+    each exact kernel of dla_node dcn at float32 launches 16 times a
+    step and nothing else launches. Evaluation runs twice on one
+    FusedDetector: the scored run, then the counted run (all replays,
+    under torch.profiler), whose rows must equal the scored run's bit
+    for bit and whose metrics must equal its metrics. Last, the training
+    step timed alone (``selftest_step_profile``; profiled with
+    ``n_profile``)."""
+    import shutil
+
+    from centertrack_tpu_torch.models.model import params_to_jax
+    from centertrack_tpu_torch.tools import selftest
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "selftest")
+    shutil.rmtree(root, ignore_errors=True)
+    ann, img_dir = selftest.make_dataset(root, hard=True, seed=0)
+    t_data = time.perf_counter() - t0
+    cfg = selftest.build_cfg(ann, img_dir, dla_node=SELFTEST_NODE,
+                             compute_dtype="float32", batch_size=TRAIN_B,
+                             lr=5e-4, epochs=SELFTEST_EPOCHS,
+                             num_workers=SELFTEST_WORKERS)
+    per_step = TRAIN_KERNELS[SELFTEST_NODE, "float32"]
+    _reset_launches()
+    log = []
+    model, info = selftest.train(
+        cfg, log=log.append, device="cuda", resume_at=SELFTEST_RESUME_AT,
+        ckpt_dir=os.path.join(root, "ckpt"))
+    train_launches = {k: v for k, v in {**_launches(),
+                                        **_tracker_launches()}.items() if v}
+    want = {k: n * info["steps"] for k, n in per_step.items()}
+    if train_launches != want:
+        raise RuntimeError(f"selftest training launched {train_launches}, "
+                           f"expected {want} over {info['steps']} steps")
+    if not np.isfinite(info["last_epoch"]["tot"]):
+        raise RuntimeError(f"selftest: loss {info['last_epoch']}")
+    t1 = time.perf_counter()
+    det = FusedDetector(cfg, *params_to_jax(model),
+                        selftest.selftest_meta(cfg), device="cuda")
+    scored_rows = []
+    overall = selftest.evaluate(cfg, None, None, ann, img_dir,
+                                log=log.append, detector=det,
+                                rows=scored_rows)
+    t_eval = time.perf_counter() - t1
+    with open(ann) as f:
+        n_frames = len(json.load(f)["images"])
+    again = {}
+    eval_kernels = PATH_KERNELS[SELFTEST_NODE, "float32"]
+
+    def replay_all():
+        rows = []
+        again.update(selftest.evaluate(cfg, None, None, ann, img_dir,
+                                       log=lambda line: None, detector=det,
+                                       rows=rows))
+        return rows
+    # at 96x160 the pre_hm renders densely, without splat_pre_hm
+    from centertrack_tpu_torch.ops.gaussian import DENSE_MAX_PIXELS
+    splat = cfg.input_h * cfg.input_w > DENSE_MAX_PIXELS
+    eval_launches = counted_replays(
+        "selftest_eval", replay_all, tuple(eval_kernels) + TRACKER_KERNELS,
+        {**{k: n * n_frames for k, n in eval_kernels.items()},
+         "greedy_assign": n_frames, "splat_pre_hm": n_frames * splat},
+        scored_rows)
+    if {k: again[k] for k in MOT_COUNTS} != {k: overall[k]
+                                             for k in MOT_COUNTS}:
+        raise RuntimeError("selftest: the counted evaluation scored "
+                           f"{again}, the first {overall}")
+    del det
+    step = selftest_step_profile(cfg, model, n_profile)
+    row = {"node": SELFTEST_NODE, "compute_dtype": "float32",
+           "epochs": SELFTEST_EPOCHS, "resumed_at": info["resumed_at"],
+           "steps": info["steps"], "batch": TRAIN_B, "frames": n_frames,
+           "mota": overall["mota"], "idf1": overall["idf1"],
+           **{k: overall[k] for k in MOT_COUNTS},
+           "mota_floor": SELFTEST_MOTA_FLOOR,
+           "jax_dcn_mota_seeds": [0.8957, 0.9058, 0.9167],
+           "dataset_s": t_data, "train_s": info["seconds"],
+           "eval_s": t_eval, "seconds": time.perf_counter() - t0,
+           "loader_ms_per_batch": info["loader_ms_per_batch"],
+           "loader_workers": SELFTEST_WORKERS,
+           "wait_ms_per_step": info["wait_ms_per_step"],
+           "step_ms": info["step_ms"],
+           "alone_ms_per_step": step["alone_ms_per_step"],
+           "device_busy_ms_per_step": step["device_busy_ms_per_step"],
+           "device_idle_share": step["device_idle_share"],
+           "last_epoch": info["last_epoch"],
+           "launches_per_step": {k: v // info["steps"]
+                                 for k, v in train_launches.items()},
+           "train_launches": train_launches,
+           "eval_launches": eval_launches, "log": log}
+    emit("selftest", **row)
+    if not overall["mota"] >= SELFTEST_MOTA_FLOOR:
+        raise RuntimeError(f"selftest: MOTA {overall['mota']:.4f} below "
+                           f"{SELFTEST_MOTA_FLOOR}")
+    return row
+
+
+def selftest_step_profile(cfg, model, n_profile=0):
+    """Where the selftest's training step goes: SELFTEST_ALONE_STEPS
+    steps of the trained model (a fresh Adam) on one loader batch, with
+    no loader running, timed alone (wall ms a step, each step ending on
+    the host as in ``Trainer.run_epoch``); with ``n_profile``, n_profile
+    more under torch.profiler (``_profile``: device busy ms a step and
+    idle share). The training run's own step (``step_ms``, loader
+    threads beside it) against these says how much of it is the device,
+    the step's own host work and the loader's company."""
+    from centertrack_tpu_torch.data.datasets import CustomDataset
+    from centertrack_tpu_torch.data.loader import DataLoader
+
+    loader = DataLoader(CustomDataset(cfg, "train"), cfg.batch_size,
+                        shuffle=True, num_workers=cfg.num_workers,
+                        seed=cfg.seed)
+    batch = next(iter(loader))
+    trainer = Trainer(cfg, model, "cuda")
+
+    def one():
+        float(trainer.train_step(batch, cfg.lr)["tot"])
+    for _ in range(3):
+        one()
+    t = time.perf_counter()
+    for _ in range(SELFTEST_ALONE_STEPS):
+        one()
+    row = {"alone_ms_per_step":
+           1e3 * (time.perf_counter() - t) / SELFTEST_ALONE_STEPS,
+           "device_busy_ms_per_step": None, "device_idle_share": None}
+    if n_profile:
+        row.update(_profile(one, n_profile, "selftest_profile", "step"))
+    return row
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke exceeded its {BUDGET_S} s budget")
 
@@ -3663,6 +3915,9 @@ def main(argv):
     train_bf16 = phase_train(n_profile, "bfloat16")
     train_exact = {phase: phase_train(n_profile, dtype, node, phase)
                    for phase, node, dtype in EXACT_TRAINS}
+    torch.cuda.empty_cache()
+    mota = phase_mota()
+    selftest = phase_selftest(n_profile)
 
     neck = [r for r in rows if r["launches_per_frame"] and r["batch"] == 1]
     neck8 = [r for r in rows
@@ -3706,7 +3961,11 @@ def main(argv):
         **{phase: (r["dcn_launches"] if name in r["dcn_launches"] else
                    r["tracker_launches"])[name]
            for phase, r in train_exact.items()},
-        "probes": probe_dcn_launches.get(name, 0)}
+        "probes": probe_dcn_launches.get(name, 0),
+        **{"mota_" + node: r["launches"].get(name, 0)
+           for node, r in mota.items()},
+        "selftest_train": selftest["train_launches"].get(name, 0),
+        "selftest_eval": selftest["eval_launches"].get(name, 0)}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "
                      "cp.async haloed window, pixel splits by waves")

@@ -30,7 +30,7 @@ from centertrack_tpu_torch.engine.trainer import (Trainer, make_lr_schedule,
 from centertrack_tpu_torch.models.layers import BatchNorm
 from centertrack_tpu_torch.models.model import (create_model,
                                                 params_from_jax,
-                                                params_to_jax)
+                                                params_to_jax, save_model)
 from centertrack_tpu_torch.ops import gaussian, losses
 from centertrack_tpu_torch.utils import checkpoint
 
@@ -567,13 +567,13 @@ def test_params_to_jax_inverts_params_from_jax(ckpt):
 
 
 def test_saved_checkpoint_loads_in_jax_and_the_port(ckpt, tmp_path):
-    """A port-trained model (one step) written by save_jax_ckpt and read
+    """A port-trained model (one step) written by save_model and read
     back by JAX load_model onto its templates and by load_jax_ckpt."""
     cfg, jcfg = _cfgs(32)
     model = _port_model(cfg, ckpt)
     Trainer(cfg, model, device="cpu").train_step(_batch(size=32), 1e-3)
     path = str(tmp_path / "port.ckpt")
-    checkpoint.save_jax_ckpt(path, 3, model)
+    save_model(path, 3, model)
     params, batch_stats = params_to_jax(model)
     loaded = jload_model(path, ckpt[0], ckpt[1], verbose=False)
     assert loaded["epoch"] == 3
