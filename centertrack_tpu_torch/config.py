@@ -87,6 +87,14 @@ class Config:
     max_frame_dist: int = 3
     max_age: int = -1
     max_tracks: int = 256          # capacity of the on-device track state
+    # box heads (JAX config.py:119-120, 164-165): ltrb regresses the
+    # clipped box's sides from the peak, ltrb_amodal the unclipped box's,
+    # whose boxes then replace wh's in decode and tracking (MOT17's and
+    # CrowdHuman's recipe)
+    ltrb: bool = False
+    ltrb_weight: float = 0.1
+    ltrb_amodal: bool = False
+    ltrb_amodal_weight: float = 0.1
 
     # --- train (JAX config.py:104-121) ------------------------------------
     optim: str = "adam"            # adam | sgd
@@ -186,10 +194,16 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
     heads = {"hm": num_classes, "reg": 2, "wh": 2}
     if "tracking" in cfg.task:
         heads["tracking"] = 2
+    if cfg.ltrb:
+        heads["ltrb"] = 4
+    if cfg.ltrb_amodal:
+        heads["ltrb_amodal"] = 4
     # loss weight per head; a head weighted 0 is dropped (JAX
     # config.py:292-303)
     weight_of = {"hm": cfg.hm_weight, "wh": cfg.wh_weight,
-                 "reg": cfg.off_weight, "tracking": cfg.tracking_weight}
+                 "reg": cfg.off_weight, "tracking": cfg.tracking_weight,
+                 "ltrb": cfg.ltrb_weight,
+                 "ltrb_amodal": cfg.ltrb_amodal_weight}
     heads = {h: c for h, c in heads.items() if weight_of[h] != 0}
     weights = {h: weight_of[h] for h in heads}
     head_conv = cfg.head_conv if cfg.head_conv > 0 else (

@@ -7,7 +7,8 @@ splat descriptors (integer centers, radii, classes); the train step
 renders the dense heatmaps from them on the device
 (``data/render.render_batch``). Every output array has a fixed capacity.
 
-Without OpenCV: images are read by ``utils/image_io`` (PNG), the input
+Without OpenCV: images are read by ``utils/image_io`` (JPEG and PNG,
+as ``cv2.imread`` reads them), the input
 warp is a numpy bilinear with a zero border (``warp_affine``, within one
 level of ``cv2.warpAffine``), and ``color_aug``'s gray is 0.114 B +
 0.587 G + 0.299 R in float32, as ``cv2.cvtColor(BGR2GRAY)``.
@@ -37,8 +38,11 @@ from centertrack_tpu_torch.utils import image_io
 
 # heads whose targets are the ddd and pose extras (ROADMAP A9)
 _EXTRA_HEADS = ("hps", "hm_hp", "hp_offset", "rot", "dep", "dim",
-                "amodel_offset", "ltrb", "ltrb_amodal", "nuscenes_att",
-                "velocity")
+                "amodel_offset", "nuscenes_att", "velocity")
+# the per-object regression targets and their widths, in JAX's order
+# (data/generic.py:431)
+_REGRESSION_DIMS = (("reg", 2), ("wh", 2), ("tracking", 2), ("ltrb", 4),
+                    ("ltrb_amodal", 4))
 
 
 def _extras_not_ported(what: str):
@@ -447,7 +451,7 @@ class GenericDataset:
         ret["ignore_cat"] = np.zeros((self.max_ignore_regions,), np.int32)
         ret["ignore_valid"] = np.zeros((self.max_ignore_regions,), bool)
         self._num_ignore = 0
-        for head, dim in (("reg", 2), ("wh", 2), ("tracking", 2)):
+        for head, dim in _REGRESSION_DIMS:
             if head in heads:
                 ret[head] = np.zeros((max_objs, dim), np.float32)
                 ret[head + "_mask"] = np.zeros((max_objs, dim), np.float32)
@@ -536,6 +540,15 @@ class GenericDataset:
         ret["hm_cts"][live] = ct_int
         ret["hm_radii"][live] = radii
         ret["hm_valid"][live] = True
+
+        # box sides from the integer peak: the clipped box (ltrb) and the
+        # unclipped one (ltrb_amodal)
+        if "ltrb" in heads:
+            ret["ltrb"][live] = box - np.tile(ct_int, 2)
+            ret["ltrb_mask"][live] = 1
+        if "ltrb_amodal" in heads:
+            ret["ltrb_amodal"][live] = amodal[live] - np.tile(ct_int, 2)
+            ret["ltrb_amodal_mask"][live] = 1
 
         if "tracking" in heads and track_ids:
             pre_ct_of = {tid: pc for tid, pc in zip(track_ids, pre_cts)}

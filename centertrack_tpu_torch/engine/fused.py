@@ -6,7 +6,8 @@ Per frame and stream, on the device:
   uint8 frame -> separable affine warp + normalize
               -> pre_hm rendered from the device track state
               -> DLA-34 + DLAUp/IDAUp neck (clamped-DCN nodes) + heads
-              -> sigmoid + top-K decode
+              -> sigmoid + top-K decode (boxes from wh, ltrb or
+                 ltrb_amodal)
               -> inverse affine to image coordinates
               -> greedy association (engine/device_tracker.py)
               -> one packed (K, 13) float32 result row
@@ -325,6 +326,9 @@ class _Engine:
         cts_img = _affine_pts(cts_out, inv_trans_output)
         tracking_img = _affine_pts(dets["tracking"] + cts_out,
                                    inv_trans_output) - cts_img
+        # the amodal boxes where the net has ltrb_amodal (decode puts them
+        # in "bboxes"), so the tracks and the next frame's pre_hm are
+        # drawn from them (JAX engine/fused.py:254, :623)
         bb = dets["bboxes"]
         bboxes_img = torch.cat([_affine_pts(bb[..., 0:2], inv_trans_output),
                                 _affine_pts(bb[..., 2:4], inv_trans_output)],

@@ -70,14 +70,25 @@ def topk(scores: torch.Tensor, k: int):
             gather(topk_xs))
 
 
+def _sides(fmap: torch.Tensor, inds, xs0, ys0) -> torch.Tensor:
+    """(x1, y1, x2, y2) from a head of box sides at each peak, measured
+    from the peak itself (no ``reg``)."""
+    d = gather_feat_nhwc(fmap, inds)
+    x0, y0 = xs0[:, :, None], ys0[:, :, None]
+    return torch.cat([x0 + d[..., 0:1], y0 + d[..., 1:2],
+                      x0 + d[..., 2:3], y0 + d[..., 3:4]], dim=2)
+
+
 def generic_decode(output: Dict[str, torch.Tensor], k: int = 100,
                    num_classes: int = 1) -> Dict[str, torch.Tensor]:
-    """NHWC tracking head maps (hm, and any of reg, wh, tracking) ->
-    top-K detections, each (B, K, ...) (reference: decode.py:83-182;
-    JAX ops/decode.py:145-192). Without ``reg`` the centre is the peak
-    + 0.5; without ``wh`` there are no ``bboxes``; a ``wh`` of
-    2 * num_classes channels (num_classes > 1) is read at each
-    detection's class."""
+    """NHWC tracking head maps (hm, and any of reg, wh, tracking, ltrb,
+    ltrb_amodal) -> top-K detections, each (B, K, ...) (reference:
+    decode.py:83-182; JAX ops/decode.py:145-216). Without ``reg`` the
+    centre is the peak + 0.5; a ``wh`` of 2 * num_classes channels
+    (num_classes > 1) is read at each detection's class. ``bboxes`` come
+    from ``wh``, then from ``ltrb`` where the net has it, then from
+    ``ltrb_amodal`` (also ``bboxes_amodal``), the last one present
+    winning, as in JAX; without any of the three there are none."""
     scores, inds, clses, ys0, xs0 = topk(nms_heat(output["hm"]), k)
     ret = {"scores": scores, "clses": clses.float(), "xs": xs0, "ys": ys0,
            "cts": torch.stack([xs0, ys0], dim=2), "inds": inds}
@@ -100,8 +111,13 @@ def generic_decode(output: Dict[str, torch.Tensor], k: int = 100,
         ret["bboxes"] = torch.cat(
             [xs - wh[..., 0:1] / 2, ys - wh[..., 1:2] / 2,
              xs + wh[..., 0:1] / 2, ys + wh[..., 1:2] / 2], dim=2)
+    if "ltrb" in output:
+        ret["bboxes"] = _sides(output["ltrb"], inds, xs0, ys0)
     if "tracking" in output:
         ret["tracking"] = gather_feat_nhwc(output["tracking"], inds)
+    if "ltrb_amodal" in output:
+        ret["bboxes_amodal"] = _sides(output["ltrb_amodal"], inds, xs0, ys0)
+        ret["bboxes"] = ret["bboxes_amodal"]
     return ret
 
 

@@ -3,7 +3,7 @@ synthetic tracking dataset written to disk (JAX: tools/selftest.py).
 
 Generates the JAX selftest's dataset (moving coloured boxes with a white
 center dot; ``hard=True`` is the discriminative domain of
-docs/parity_mota.json) as PNG files, trains DLA-34 from scratch through
+docs/parity_mota.json) as the same JPEG files, byte for byte, trains DLA-34 from scratch through
 the port's data pipeline and ``Trainer`` (optionally saving at an epoch
 through ``CheckpointManager`` and resuming into a fresh model and
 trainer), tracks every video with ``FusedDetector`` and scores the
@@ -67,9 +67,9 @@ def draw_circle(img, center, radius, color):
 
 def make_dataset(root, num_videos=6, frames=24, width=160, height=96,
                  seed=0, scale=1.0, max_objs=3, hard=False):
-    """The JAX selftest's dataset, its draws on the same stream, as PNG
-    files: the annotations equal JAX's but for the file names' extension.
-    ``scale`` multiplies object size, velocity and margins; ``hard=True``
+    """The JAX selftest's dataset, its draws on the same stream: the
+    annotations equal JAX's and each ``v{v}_f{f}.jpg`` holds the bytes of
+    JAX's ``cv2.imwrite`` (``image_io.write``, quality 95). ``scale`` multiplies object size, velocity and margins; ``hard=True``
     is the discriminative domain (8-12 objects on crossing paths in fixed
     z-order, births and deaths, size drift). Returns (ann_path,
     img_dir)."""
@@ -110,7 +110,7 @@ def make_dataset(root, num_videos=6, frames=24, width=160, height=96,
         colors = rng.randint(40, 220, (n_obj, 3))
         for f in range(frames):
             img_id += 1
-            fn = f"v{v + 1}_f{f + 1}.png"
+            fn = f"v{v + 1}_f{f + 1}.jpg"
             img = rng.randint(180, 220, (height, width, 3), np.uint8)
             images.append({
                 "id": img_id, "file_name": fn, "width": width,

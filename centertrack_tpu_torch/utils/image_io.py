@@ -1,15 +1,18 @@
 """Image files without OpenCV: the port's stand-in for ``cv2.imread``
 and ``cv2.imwrite`` (JAX: data/generic.py:195, tools/selftest.py).
 
-PNG only, through ``zlib`` and numpy: 8-bit gray, gray + alpha, RGB
-and RGBA, not interlaced, every filter type on reading. ``read`` returns
-a BGR ``uint8`` (H, W, 3) array, as ``cv2.imread`` does (gray is
-replicated, alpha dropped), because the pipeline's mean and std are in
-BGR order. ``write`` takes BGR (H, W, 3) or gray (H, W) ``uint8`` and
-filters each row with whichever of types 0-2 (none, sub, up) leaves the
-smallest sum of absolute bytes, so that every row decodes without a
-per-pixel loop. Any other format (JPEG first) raises
-``NotImplementedError``: JPEG decoding is ROADMAP A6b.
+``read`` returns a BGR ``uint8`` (H, W, 3) array, as ``cv2.imread``
+does, bit for bit (gray is replicated, alpha dropped), because the
+pipeline's mean and std are in BGR order. It routes by content, not by
+extension: a JPEG (SOI ``FF D8``) goes to the port's C codec
+(``utils/jpeg``: baseline Huffman JPEG, libjpeg-turbo's arithmetic), a
+PNG to ``zlib`` and the codec's row unfilter (8-bit gray, gray + alpha,
+RGB and RGBA, not interlaced, every filter type). ``write`` takes BGR
+(H, W, 3) or gray (H, W) ``uint8``: a ``.jpg`` or ``.jpeg`` path gets
+the bytes ``cv2.imwrite`` writes (quality 95 unless given), a ``.png``
+path each row filtered with whichever of types 0-2 (none, sub, up)
+leaves the smallest sum of absolute bytes. Any other format raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,15 +23,19 @@ import zlib
 
 import numpy as np
 
+from centertrack_tpu_torch.utils import jpeg
+
+JPEG_SOI = b"\xff\xd8"
+JPEG_EXTENSIONS = (".jpg", ".jpeg")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
-def _not_png(path: str):
+def _not_supported(path: str):
     return NotImplementedError(
-        f"{path}: only PNG images are read and written by the port; "
-        f"JPEG and other formats wait for ROADMAP A6b (JPEG decoding)")
+        f"{path}: only JPEG and PNG images are read and written by the "
+        f"port")
 
 
 def _chunks(data: bytes):
@@ -43,54 +50,10 @@ def _chunks(data: bytes):
         pos += 12 + length
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
-def _unfilter(raw: np.ndarray, height: int, stride: int,
-              bpp: int) -> np.ndarray:
-    """PNG's five row filters undone (PNG spec 9.2): None, Sub and Up in
-    numpy, Average and Paeth byte by byte."""
-    rows = raw.reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind, line = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:
-            # sub: a running sum mod 256 over each byte position of a pixel
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif kind == 2:
-            cur = line + prior
-        elif kind in (3, 4):
-            cur = bytearray(stride)
-            up = prior.tolist()
-            for i, v in enumerate(line.tolist()):
-                left = cur[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    pred = (left + up[i]) >> 1
-                else:
-                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp
-                                  else 0)
-                cur[i] = (v + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG filter type {kind} does not exist")
-        out[y] = cur
-        prior = out[y]
-    return out
-
-
 def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """PNG bytes -> BGR uint8 (H, W, 3)."""
     if not data.startswith(PNG_SIGNATURE):
-        raise _not_png(path)
+        raise _not_supported(path)
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -107,7 +70,8 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
             f"RGB and RGBA, not interlaced")
     channels = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    pixels = _unfilter(raw, height, width * channels, channels).reshape(
+    pixels = jpeg.png_unfilter(raw, height, width * channels,
+                               channels).reshape(
         height, width, channels)
     if channels <= 2:
         return np.repeat(pixels[..., :1], 3, axis=2)
@@ -115,9 +79,11 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
 
 
 def read(path: str) -> np.ndarray:
-    """``cv2.imread(path)`` for a PNG file: BGR uint8 (H, W, 3)."""
+    """``cv2.imread(path)`` for a JPEG or PNG file: BGR uint8 (H, W, 3)."""
     with open(path, "rb") as f:
         data = f.read()
+    if data.startswith(JPEG_SOI):
+        return jpeg.decode(data, path)
     return decode_png(data, path)
 
 
@@ -156,9 +122,15 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
             _chunk(b"IEND", b""))
 
 
-def write(path: str, img: np.ndarray) -> None:
-    """``cv2.imwrite(path, img)`` for a ``.png`` path."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise _not_png(path)
+def write(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """``cv2.imwrite(path, img)`` for a ``.jpg``, ``.jpeg`` (at
+    ``quality``, cv2's ``IMWRITE_JPEG_QUALITY``) or ``.png`` path."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in JPEG_EXTENSIONS:
+        data = jpeg.encode(img, quality)
+    elif ext == ".png":
+        data = encode_png(img)
+    else:
+        raise _not_supported(path)
     with open(path, "wb") as f:
-        f.write(encode_png(img))
+        f.write(data)

@@ -10,6 +10,14 @@ Phases, each printing one JSON line with its elapsed seconds:
            csrc/dcn_local_bwd_bf16.cu, csrc/dcn_exact.cu,
            csrc/dcn_exact_bwd.cu, csrc/probes.cu, csrc/tracker.cu) into
            build/, all started together
+  codec    the port's host image codec (csrc/image_codec.c, built with cc
+           at first use): the bench's 1080p frames, 1080p noise, a gray
+           frame and odd-sized noise (codec_inputs) encoded as JPEG and
+           decoded, the SHA-256 of each file's bytes and of each decode's
+           pixels against cv2's (CODEC_GOLDEN, recomputed by
+           tests/test_torch_port_codec.py); a 1920x1080 PNG whose rows
+           alternate Average and Paeth decoding to its source; host ms a
+           1080p JPEG decode and encode and a 1080p PNG decode
   probes   the 13 toolchain-probe kernels of csrc/probes.cu (the JAX
            package's tools/pallas_probe.py P0-P6 and pallas_probe2.py
            P10-P15) against their plain versions on seeded and on
@@ -191,8 +199,21 @@ Phases, each printing one JSON line with its elapsed seconds:
            FusedDetector on the same frames and weights (MOTA_REFERENCE,
            from tests/mota_reference.py on the CPU); a counted run of
            replays gives the device launches
+  mot17_recipe  MOT17's own recipe (experiments/mot17_half.sh): a clip
+           of MOT's geometry (tools/selftest's generator at 1920x1080,
+           scale 2, 2 videos x 16 JPEG frames), 12 training steps at
+           544x960, B=8, bf16, dla_node dcn_local with ltrb_amodal and the
+           recipe's flags through DataLoader and Trainer from the
+           committed checkpoint, its ltrb_amodal head carried over from
+           its wh head (each bf16 clamped kernel 16 launches a
+           step, nothing else; the loss must fall), then the trained
+           weights served by FusedDetector (graph replays) at the test
+           flags (track_thresh 0.4, pre_thresh 0.5), its boxes the amodal
+           head's: rows against the plain-DCN path by path_bf16's rule,
+           a counted run of replays with CLEAR-MOT; step, loader, read
+           and serving ms
   selftest the port's tools/selftest end to end: the hard selftest
-           domain written as PNG, DLA-34 dcn float32 trained 30 epochs at
+           domain written as JAX's JPEG files, DLA-34 dcn float32 trained 30 epochs at
            B=8 through the port's DataLoader (thread workers), saved
            through CheckpointManager after epoch 15 and resumed into a
            fresh model and Trainer with its optimizer state, then every
@@ -399,7 +420,7 @@ MOT_COUNTS = ("num_objects", "num_matches", "num_false_positives",
               "num_misses", "num_switches", "num_fragmentations")
 # selftest: the port's tools/selftest end to end, the protocol of
 # docs/parity_mota.json (hard domain, seed 0, 6 videos x 24 frames at
-# 96x160, PNG; dla_node dcn float32, B=8, Adam 5e-4, 30 epochs through the
+# 96x160, JPEG; dla_node dcn float32, B=8, Adam 5e-4, 30 epochs through the
 # port's DataLoader with thread workers), saved through CheckpointManager
 # after epoch SELFTEST_RESUME_AT and resumed into a fresh model and
 # Trainer; the overall MOTA over the training videos must reach
@@ -418,6 +439,50 @@ SELFTEST_ALONE_STEPS = 10
 # two such steps with independent rounding errors are about sqrt(2) d
 # apart. Tolerance: relative L2 over all gradients <= 2 d.
 BF16_GRAD_L2_OF_FP32_DIST = 2.0
+# codec: the port's host JPEG codec (csrc/image_codec.c) and PNG unfilter
+# on seeded inputs (codec_inputs), each case (input, quality) encoded and
+# the file decoded; CODEC_GOLDEN holds the SHA-256 of the file's bytes and
+# of the decoded pixels as cv2.imencode / cv2.imdecode give them
+# (tests/test_torch_port_codec.py recomputes both with cv2)
+CODEC_SEED = 5
+CODEC_CASES = (("synth_0", 95), ("synth_0", 75), ("synth_1", 95),
+               ("noise", 95), ("gray", 95), ("noise_17x33", 95))
+CODEC_GOLDEN = {
+    "synth_0@95": (
+        "cc92d92e7dd343df26284564bde8a327cc6f5dc6789438bb442787c235487c52",
+        "4852172bcbb4312587eedc78f13105ebea59dfa716a966ab1e36bb7edffb516f"),
+    "synth_0@75": (
+        "1f818319875550e5af1cdeec5f1ef55cabd3cb43baefee651476ec1f7e1eb125",
+        "330a64f2e3cb0a19e7d82c2571625c636a7fd55f0f2ef83191194bc058aabbed"),
+    "synth_1@95": (
+        "60ed258b06a1068759b8288b6cbe4cebba57052f3af8d3b5aa303ec528889a0d",
+        "b5341eac76855189d8b59c3ebf52bc8d88958c4770f165731a755ed3381f0356"),
+    "noise@95": (
+        "43154878719408c8fa4cb78a93192a114ed223793a7a7218ca2d27fe5317c000",
+        "fbf2808aa5c48fba87e7656a852e8fdaddd3e9921aa331bc945eee34d5f1978d"),
+    "gray@95": (
+        "9029dc203721f8ee66080057c6ad49302fd5525933a3d4747b0b531f58f1f644",
+        "dfa1015ae929ae3d4a21182403ad13087f9a636652c32437f41ed843ba980952"),
+    "noise_17x33@95": (
+        "d79e9cb646e4b19ee95df9da7e5416e09b4ece38886180f1f020a0dabbf76303",
+        "f8663bed73de72b205d54b5f81ce8ed0593908066e013290697f717de12e9404")}
+CODEC_TIMED = 5
+# mot17_recipe: MOT17's own recipe (experiments/mot17_half.sh:3-6) on a
+# clip of MOT's geometry: tools/selftest's generator at 1920x1080 with
+# scale 2 (16-30 px objects at the 544x960 input), the hard domain,
+# RECIPE_VIDEOS x RECIPE_FRAMES JPEG frames. Training starts from the
+# committed local1 checkpoint (load_model, the recipe's finetune; the
+# ltrb_amodal head carried over from its wh head) and takes RECIPE_STEPS
+# steps of B=8 through DataLoader (RECIPE_WORKERS threads) and Trainer;
+# serving uses
+# the trained weights at the recipe's test flags (mot17_half.sh:11)
+RECIPE_VIDEOS, RECIPE_FRAMES, RECIPE_STEPS = 2, 16, 12
+RECIPE_FRAME_HW, RECIPE_INPUT_HW = (1080, 1920), (544, 960)
+RECIPE_WORKERS = 8
+RECIPE_TRAIN = dict(pre_hm=True, ltrb_amodal=True, same_aug_pre=True,
+                    hm_disturb=0.05, lost_disturb=0.4, fp_disturb=0.1,
+                    dla_node="dcn_local", compute_dtype="bfloat16")
+RECIPE_TEST = dict(track_thresh=0.4, pre_thresh=0.5)
 
 
 def emit(phase, **kw):
@@ -459,6 +524,54 @@ def synth_clip(n, height=1080, width=1920, n_obj=10, seed=0):
 def synth_frames(n, height=1080, width=1920, n_obj=10, seed=0):
     """The frames of ``synth_clip``."""
     return synth_clip(n, height, width, n_obj, seed)[0]
+
+
+def codec_inputs():
+    """The codec phase's inputs by name: two of the bench's 1080p frames,
+    1080p noise, the first frame's green channel as a gray image and
+    noise at an odd size, from numpy seeds."""
+    frames = synth_frames(2, seed=CODEC_SEED)
+    rng = np.random.RandomState(CODEC_SEED)
+    return {"synth_0": frames[0], "synth_1": frames[1],
+            "noise": rng.randint(0, 256, (1080, 1920, 3)).astype(np.uint8),
+            "gray": np.ascontiguousarray(frames[0][..., 1]),
+            "noise_17x33": rng.randint(0, 256, (17, 33, 3)).astype(np.uint8)}
+
+
+def sha256(data):
+    import hashlib
+    return hashlib.sha256(bytes(data)).hexdigest()
+
+
+def png_filtered(img, kinds):
+    """An RGB PNG of ``img`` (BGR uint8) whose row y is filtered with PNG
+    filter ``kinds[y % len(kinds)]`` (3 Average, 4 Paeth; PNG spec 9.2),
+    in numpy: the predictors read the unfiltered rows."""
+    import struct
+    import zlib
+    rgb = img[..., ::-1].reshape(img.shape[0], -1).astype(np.int32)
+    left = np.zeros_like(rgb)
+    left[:, 3:] = rgb[:, :-3]
+    up = np.zeros_like(rgb)
+    up[1:] = rgb[:-1]
+    upleft = np.zeros_like(rgb)
+    upleft[1:, 3:] = rgb[:-1, :-3]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    kind = np.array([kinds[y % len(kinds)] for y in range(img.shape[0])])
+    pred = np.where((kind == 3)[:, None], (left + up) // 2, paeth)
+    body = np.concatenate([kind[:, None], (rgb - pred) % 256], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data +
+                struct.pack(">I", zlib.crc32(tag + data)))
+    header = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8, 2, 0, 0,
+                         0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) +
+            chunk(b"IDAT", zlib.compress(body.astype(np.uint8).tobytes())) +
+            chunk(b"IEND", b""))
 
 
 def time_ms(fn, warmup, iters):
@@ -3724,7 +3837,7 @@ def phase_mota():
 
 def phase_selftest(n_profile=0):
     """tools/selftest end to end on the card (SELFTEST_* above): the
-    dataset written as PNG, training with a save and resume through
+    dataset written as JAX's JPEG files, training with a save and resume through
     CheckpointManager, then evaluate over the training videos. Every
     launch count is set to 0 just before training and read just after:
     each exact kernel of dla_node dcn at float32 launches 16 times a
@@ -3823,6 +3936,247 @@ def phase_selftest(n_profile=0):
     return row
 
 
+def phase_codec():
+    """The host codec (csrc/image_codec.c, built with cc at first use) on
+    the card's machine: each of CODEC_CASES encoded and the file decoded,
+    the SHA-256 of both against CODEC_GOLDEN (cv2's bytes and pixels); a
+    1920x1080 PNG whose rows alternate Average and Paeth (png_filtered)
+    decoding to its source; ms a 1080p JPEG decode and encode and a 1080p
+    PNG decode (the median of CODEC_TIMED calls, on the host)."""
+    from centertrack_tpu_torch.utils import image_io, jpeg
+
+    t0 = time.perf_counter()
+    jpeg.decode(jpeg.encode(np.zeros((8, 8), np.uint8)))    # builds it
+    build = _build.build_info["image_codec"]
+    inputs = codec_inputs()
+    cases, wrong = {}, []
+    for name, quality in CODEC_CASES:
+        key = f"{name}@{quality}"
+        data = jpeg.encode(inputs[name], quality)
+        pixels = jpeg.decode(data, key)
+        got = (sha256(data), sha256(np.ascontiguousarray(pixels)))
+        cases[key] = {"bytes": len(data), "shape": list(pixels.shape),
+                      "jpeg_sha256": got[0], "pixels_sha256": got[1]}
+        if got != CODEC_GOLDEN[key]:
+            wrong.append(key)
+    png = png_filtered(inputs["synth_0"], (3, 4))
+    png_equal = bool(np.array_equal(image_io.decode_png(png),
+                                    inputs["synth_0"]))
+    frame = inputs["synth_0"]
+    data = jpeg.encode(frame)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(CODEC_TIMED):
+            t = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+    row = {"cc_seconds": build["seconds"], "cases": cases,
+           "cases_against_golden": {k: k not in wrong for k in cases},
+           "png_avg_paeth_1080p_equal": png_equal,
+           "jpeg_decode_ms_1080p": median_ms(lambda: jpeg.decode(data)),
+           "jpeg_encode_ms_1080p": median_ms(lambda: jpeg.encode(frame)),
+           "png_decode_ms_1080p_avg_paeth":
+               median_ms(lambda: image_io.decode_png(png)),
+           "png_bytes": len(png), "jpeg_bytes_1080p_q95": len(data),
+           "timed_calls": CODEC_TIMED, "clock": "host wall",
+           "seconds": time.perf_counter() - t0}
+    emit("codec", **row)
+    if wrong or not png_equal:
+        raise RuntimeError(f"codec: {wrong} differ from cv2's goldens; "
+                           f"PNG Average/Paeth decoded equal: {png_equal}")
+    return row
+
+
+def carry_wh_to_ltrb_amodal(model):
+    """The recipe finetunes a checkpoint that has an ltrb_amodal head
+    (CrowdHuman's, mot17_half.sh:1-3); the committed one has none, and a
+    fresh head's sides move about 0.2 output pixels in 12 steps, so every
+    box would be a point. The head starts instead as the checkpoint's wh
+    head read as sides: its first conv, and (-wh/2, -wh/2, wh/2, wh/2)
+    around the peak + 0.5 (tests/test_torch_port_ltrb.py builds the
+    same)."""
+    from centertrack_tpu_torch.models.model import (params_from_jax,
+                                                    params_to_jax)
+    params, batch_stats = params_to_jax(model)
+    wh = params["heads"]["wh"]
+    kernel = np.asarray(wh["out"]["kernel"], np.float32)
+    bias = np.asarray(wh["out"]["bias"], np.float32)
+    params["heads"]["ltrb_amodal"] = {
+        "conv_0": {k: np.array(v) for k, v in wh["conv_0"].items()},
+        "out": {"kernel": np.concatenate([-0.5 * kernel, 0.5 * kernel], 3),
+                "bias": np.concatenate([-0.5 * bias, 0.5 * bias]) + 0.5}}
+    device = next(model.parameters()).device
+    model.load_state_dict({k: v.to(device) for k, v in params_from_jax(
+        params, batch_stats).items()}, strict=True)
+
+
+def phase_mot17_recipe():
+    """MOT17's own recipe on the card (RECIPE_* above): the MOT-geometry
+    clip written as JPEG, RECIPE_STEPS bf16 dcn_local steps with
+    ltrb_amodal from the committed checkpoint (the head carried over from
+    its wh head, carry_wh_to_ltrb_amodal) through DataLoader and
+    Trainer (every launch count set to 0 just before and read just after:
+    each bf16 clamped kernel launches 16 times a step, splat_pre_hm once a
+    sample, nothing else; the loss must fall: the mean of the last 3 steps below the
+    first 3's), then the trained weights served by FusedDetector (graph
+    replays) over both videos at the test flags, its boxes the amodal
+    head's; the first PLAIN_FRAMES frames against the plain-DCN path by
+    phase_path's bf16 rule (each frame from the kernel path's state
+    before it), then the counted run (CLEAR-MOT of the active tracks, all
+    replays, bit for bit the first run's rows)."""
+    import shutil
+
+    from centertrack_tpu_torch.data.datasets import CustomDataset
+    from centertrack_tpu_torch.data.loader import DataLoader
+    from centertrack_tpu_torch.models.model import params_to_jax
+    from centertrack_tpu_torch.tools import selftest
+    from centertrack_tpu_torch.utils import image_io
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "mot17_recipe")
+    shutil.rmtree(root, ignore_errors=True)
+    ann, img_dir = selftest.make_dataset(
+        root, num_videos=RECIPE_VIDEOS, frames=RECIPE_FRAMES,
+        width=RECIPE_FRAME_HW[1], height=RECIPE_FRAME_HW[0], scale=2,
+        hard=True, seed=0)
+    t_data = time.perf_counter() - t0
+    meta = type("Meta", (), {"num_categories": 1,
+                             "default_resolution": RECIPE_INPUT_HW,
+                             "num_joints": 17})
+
+    def recipe_cfg(**kw):
+        return set_heads(parse_task(Config(
+            task="tracking", dataset="custom", num_classes=1,
+            custom_dataset_ann_path=ann, custom_dataset_img_path=img_dir,
+            batch_size=TRAIN_B, load_model=CKPT,
+            num_workers=RECIPE_WORKERS, **RECIPE_TRAIN, **kw)), meta)
+    cfg = recipe_cfg()
+    trainer = Trainer(cfg, create_model(cfg, "cuda"), "cuda")
+    trainer.start()
+    carry_wh_to_ltrb_amodal(trainer.model)
+    loader = DataLoader(CustomDataset(cfg, "train"), cfg.batch_size,
+                        shuffle=True, num_workers=cfg.num_workers,
+                        seed=cfg.seed)
+    _reset_launches()
+    step_ms, wait_ms, losses = [], [], []
+    t_train = time.perf_counter()
+    while len(step_ms) < RECIPE_STEPS:
+        t_wait = time.perf_counter()
+        for batch in loader:
+            t = time.perf_counter()
+            wait_ms.append(1e3 * (t - t_wait))
+            out = trainer.train_step(batch, cfg.lr)
+            losses.append({k: float(v) for k, v in out.items()})
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            if len(step_ms) == RECIPE_STEPS:
+                break
+            t_wait = time.perf_counter()
+    t_train = time.perf_counter() - t_train
+    train_launches = {k: v for k, v in {**_launches(),
+                                        **_tracker_launches()}.items() if v}
+    # the pre_hm of each sample is splatted on the device (544x960 is past
+    # ops/gaussian.DENSE_MAX_PIXELS)
+    want = {**{k: 16 * RECIPE_STEPS for k in _LOCAL["bfloat16"]},
+            "splat_pre_hm": TRAIN_B * RECIPE_STEPS}
+    if train_launches != want:
+        raise RuntimeError(f"mot17_recipe training launched "
+                           f"{train_launches}, expected {want}")
+    tot = [x["tot"] for x in losses]
+    falls = bool(np.isfinite(tot).all() and
+                 np.mean(tot[-3:]) < np.mean(tot[:3]))
+
+    # serving: the test flags, the trained weights
+    scfg = recipe_cfg(**RECIPE_TEST)
+    params, batch_stats = params_to_jax(trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+    smeta = selftest.selftest_meta(scfg)
+    with open(ann) as f:
+        images = sorted(json.load(f)["images"],
+                        key=lambda im: (im["video_id"], im["frame_id"]))
+    t = time.perf_counter()
+    frames = [image_io.read(os.path.join(img_dir, im["file_name"]))
+              for im in images]
+    read_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+    det = FusedDetector(scfg, params, batch_stats, smeta, device="cuda")
+    _reset_launches()
+    times, packed, states = [], [], []
+    for i, (im, frame) in enumerate(zip(images, frames)):
+        if im["frame_id"] == 1:
+            det.reset_tracking()
+        if i < PLAIN_FRAMES:
+            states.append((det.track_state, det.pre_images))
+        t = time.perf_counter()
+        res = det.run(frame)
+        FusedDetector.fetch(res, scfg.out_thresh)
+        times.append(1e3 * (time.perf_counter() - t))
+        packed.append(res.cpu().numpy())
+        if not torch.isfinite(res).all():
+            raise RuntimeError("mot17_recipe: a non-finite packed row")
+    wrapper_calls = {k: v for k, v in {**_launches(),
+                                       **_tracker_launches()}.items() if v}
+    plain = FusedDetector(scfg, params, batch_stats, smeta, device="cuda",
+                          plain_dcn=True)
+    plain_packed = []
+    for i in range(PLAIN_FRAMES):
+        plain.track_state, plain.pre_images = states[i]
+        plain_packed.append(plain.run(frames[i]).cpu().numpy())
+    del plain
+    tol = PLAIN_SCORE_TOL["bfloat16"]
+    vs_plain = rows_against(packed[:PLAIN_FRAMES], plain_packed,
+                            scfg.out_thresh, tol, collapse_ties=True)
+    if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or (
+            vs_plain["pairs_same_track_id"]
+            + vs_plain["pairs_swapped_on_exact_tie"] != vs_plain["pairs"]
+            ) or vs_plain["max_score_diff"] > tol:
+        raise RuntimeError(f"mot17_recipe: the kernel and plain-DCN paths "
+                           f"differ: {vs_plain}")
+    scored = {}
+
+    def replay_all():
+        rows = []
+        scored.update(selftest.evaluate(scfg, None, None, ann, img_dir,
+                                        log=lambda line: None, detector=det,
+                                        rows=rows))
+        return rows
+    n = len(frames)
+    serve_launches = counted_replays(
+        "mot17_recipe_serve", replay_all,
+        ("dcn_local_fwd_bf16",) + TRACKER_KERNELS,
+        {"dcn_local_fwd_bf16": 16 * n, **dict.fromkeys(TRACKER_KERNELS, n)},
+        packed)
+    row = {"videos": RECIPE_VIDEOS, "frames": n,
+           "frame": list(RECIPE_FRAME_HW), "input": list(RECIPE_INPUT_HW),
+           "flags": {**RECIPE_TRAIN, **RECIPE_TEST},
+           "heads": scfg.heads_dict, "batch": TRAIN_B, "steps": len(step_ms),
+           "lr": cfg.lr, "load_model": os.path.relpath(CKPT, ROOT),
+           "step_ms": step_ms,
+           "step_ms_median_3_12": statistics.median(step_ms[TRAIN_TIMED]),
+           "wait_ms_per_step": wait_ms,
+           "loader_ms_per_batch": 1e3 * float(np.mean(loader.batch_seconds)),
+           "loader_workers": RECIPE_WORKERS, "train_s": t_train,
+           "loss_tot": tot, "loss_last": losses[-1], "loss_falls": falls,
+           "train_launches": train_launches,
+           "dataset_s": t_data, "jpeg_read_ms_per_frame": read_ms,
+           "serve_ms_per_frame_median": statistics.median(
+               times[PATH_WARMUP:]),
+           "serve_ms_first_call_with_capture": times[0],
+           "serve_wrapper_calls": wrapper_calls,
+           "serve_launches": serve_launches,
+           "plain_vs_kernel": vs_plain,
+           "mota": scored.get("mota"), "idf1": scored.get("idf1"),
+           **{k: scored.get(k) for k in MOT_COUNTS},
+           "seconds": time.perf_counter() - t0}
+    emit("mot17_recipe", **row)
+    del det
+    torch.cuda.empty_cache()
+    if not falls:
+        raise RuntimeError(f"mot17_recipe: the loss did not fall: {tot}")
+    return row
+
+
 def selftest_step_profile(cfg, model, n_profile=0):
     """Where the selftest's training step goes: SELFTEST_ALONE_STEPS
     steps of the trained model (a fresh Adam) on one loader batch, with
@@ -3869,6 +4223,7 @@ def main(argv):
     signal.alarm(BUDGET_S)
     dev = phase_device()
     phase_build()
+    phase_codec()
     phase_precision()
     # the kernel phases hold the kernels against their plain versions, so
     # they run in full float32 (cuBLAS without TF32 for the plain
@@ -3917,6 +4272,7 @@ def main(argv):
                    for phase, node, dtype in EXACT_TRAINS}
     torch.cuda.empty_cache()
     mota = phase_mota()
+    recipe = phase_mot17_recipe()
     selftest = phase_selftest(n_profile)
 
     neck = [r for r in rows if r["launches_per_frame"] and r["batch"] == 1]
@@ -3965,7 +4321,9 @@ def main(argv):
         **{"mota_" + node: r["launches"].get(name, 0)
            for node, r in mota.items()},
         "selftest_train": selftest["train_launches"].get(name, 0),
-        "selftest_eval": selftest["eval_launches"].get(name, 0)}
+        "selftest_eval": selftest["eval_launches"].get(name, 0),
+        "mot17_recipe_train": recipe["train_launches"].get(name, 0),
+        "mot17_recipe_serve": recipe["serve_launches"].get(name, 0)}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "
                      "cp.async haloed window, pixel splits by waves")

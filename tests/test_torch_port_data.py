@@ -4,7 +4,8 @@ evaluation (eval.mot_metrics, eval.mot_eval) against the JAX package
 and OpenCV on the CPU.
 
 Tolerances:
-- PNG reading: bit for bit with ``cv2.imread``;
+- PNG reading: bit for bit with ``cv2.imread`` (JPEG:
+  tests/test_torch_port_codec.py);
 - the warp: the uint8 result within 1 level of ``cv2.warpAffine``, at
   most 1% of elements differing;
 - dataset items: every key but ``image`` and ``pre_img`` exactly; those
@@ -155,16 +156,6 @@ def test_own_png_reads_back_in_cv2_and_the_port(shape, tmp_path):
     np.testing.assert_array_equal(image_io.read(path), want)
 
 
-def test_jpeg_raises_naming_a6b(tmp_path):
-    img = np.zeros((8, 8, 3), np.uint8)
-    path = str(tmp_path / "a.jpg")
-    cv2.imwrite(path, img)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        image_io.read(path)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        image_io.write(path, img)
-
-
 # ---- COCO API ---------------------------------------------------------
 def _coco_fixture():
     rng = np.random.RandomState(3)
@@ -234,11 +225,13 @@ def test_gray_matches_cv2():
 H, W = 48, 80
 
 
-@pytest.fixture(scope="module")
-def tiny_dataset(tmp_path_factory):
-    """Two 4-frame videos of boxes at 60x100 (written by cv2), a crowd box
-    and an object leaving the frame."""
-    root = tmp_path_factory.mktemp("tiny")
+@pytest.fixture(scope="module", params=["png", "jpg"])
+def tiny_dataset(request, tmp_path_factory):
+    """Two 4-frame videos of boxes at 60x100 written by cv2 as PNG, and
+    again as JPEG (cv2.imwrite's defaults, as JAX's own fixtures are
+    written), a crowd box and an object leaving the frame."""
+    ext = request.param
+    root = tmp_path_factory.mktemp("tiny_" + ext)
     rng = np.random.RandomState(11)
     images, anns = [], []
     for v in range(2):
@@ -247,7 +240,7 @@ def tiny_dataset(tmp_path_factory):
         for f in range(4):
             iid = v * 4 + f + 1
             img = rng.randint(150, 230, (60, 100, 3)).astype(np.uint8)
-            images.append({"id": iid, "file_name": f"{iid}.png",
+            images.append({"id": iid, "file_name": f"{iid}.{ext}",
                            "width": 100, "height": 60, "video_id": v + 1,
                            "frame_id": f + 1})
             for o in range(4):
@@ -260,7 +253,7 @@ def tiny_dataset(tmp_path_factory):
                                                         float(w), float(h)],
                              "iscrowd": int(o == 3 and f == 2),
                              "track_id": o + 1})
-            cv2.imwrite(str(root / f"{iid}.png"), img)
+            cv2.imwrite(str(root / f"{iid}.{ext}"), img)
     ann = {"images": images, "annotations": anns,
            "videos": [{"id": 1, "file_name": "a"}, {"id": 2, "file_name": "b"}],
            "categories": [{"id": 1, "name": "box"}]}

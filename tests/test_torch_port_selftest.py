@@ -2,9 +2,9 @@
 the JAX package's on the CPU: the dataset it writes, its drawing, its
 CLEAR-MOT evaluation of a tracked video, and its main end to end.
 
-Tolerances: annotations equal exactly (file names but for the
-extension); drawn pixels equal exactly to cv2's drawing of the same
-objects (0 circle-edge pixels allowed to differ); MOTA counts equal.
+Tolerances: annotations and the JPEG files equal exactly; drawn pixels
+equal exactly to cv2's drawing of the same objects (0 circle-edge pixels
+allowed to differ); MOTA counts equal.
 """
 
 import json
@@ -31,32 +31,42 @@ CIRCLE_EDGE_PIXELS = 0
 
 @pytest.mark.parametrize("hard", [True, False])
 def test_make_dataset_equals_jax(hard, tmp_path, monkeypatch):
-    """The port's PNG dataset against JAX's: the annotations equal but for
-    '.png' in place of '.jpg', and every image equal to the array JAX
-    handed cv2.imwrite (before its JPEG encoding)."""
-    drawn = {}
+    """The port's dataset against JAX's: the annotations equal, every
+    array drawn equal to the one JAX handed cv2.imwrite, every JPEG file
+    equal to JAX's byte for byte and read back as cv2.imread reads it."""
+    drawn = {"jax": {}, "port": {}}
 
-    def capture(path, img):
-        drawn[os.path.basename(path)] = img.copy()
-        return True
-    monkeypatch.setattr(jselftest.cv2, "imwrite", capture)
-    jann, _ = jselftest.make_dataset(str(tmp_path / "jax"), hard=hard)
-    monkeypatch.undo()
+    def capturing(kind, write):
+        def capture(path, img):
+            drawn[kind][os.path.basename(path)] = img.copy()
+            return write(path, img)
+        return capture
+    monkeypatch.setattr(jselftest.cv2, "imwrite",
+                        capturing("jax", jselftest.cv2.imwrite))
+    monkeypatch.setattr(selftest.image_io, "write",
+                        capturing("port", selftest.image_io.write))
+    jann, jimg_dir = jselftest.make_dataset(str(tmp_path / "jax"), hard=hard)
     ann, img_dir = selftest.make_dataset(str(tmp_path / "port"), hard=hard)
+    monkeypatch.undo()
     with open(ann) as f:
         got = json.load(f)
     with open(jann) as f:
         want = json.load(f)
-    for im in want["images"]:
-        assert im["file_name"].endswith(".jpg")
-        im["file_name"] = im["file_name"][:-4] + ".png"
     assert got == want
-    assert len(drawn) == len(got["images"]) == 144
+    assert len(drawn["port"]) == len(got["images"]) == 144
     differ = 0
     for im in got["images"]:
-        ours = image_io.read(os.path.join(img_dir, im["file_name"]))
-        differ += int((ours != drawn[im["file_name"][:-4] + ".jpg"]).any(
+        name = im["file_name"]
+        assert name.endswith(".jpg")
+        differ += int((drawn["port"][name] != drawn["jax"][name]).any(
             axis=2).sum())
+        with open(os.path.join(img_dir, name), "rb") as f:
+            ours = f.read()
+        with open(os.path.join(jimg_dir, name), "rb") as f:
+            assert ours == f.read(), name
+        np.testing.assert_array_equal(
+            image_io.read(os.path.join(img_dir, name)),
+            cv2.imread(os.path.join(jimg_dir, name)))
     assert differ <= CIRCLE_EDGE_PIXELS
 
 
@@ -86,7 +96,7 @@ COUNTS = ("num_objects", "num_matches", "num_false_positives", "num_misses",
 
 def test_evaluate_matches_jax(tmp_path):
     """One 6-frame video of the selftest domain at 96x160 (the committed
-    local1 checkpoint's training size), PNG frames read by both: the
+    local1 checkpoint's training size), JPEG frames read by both: the
     port's evaluate (FusedDetector) against JAX's (its host Detector),
     equal CLEAR-MOT counts. JAX's device tracker keeps an aged copy of a
     track matched from slot 0 (ROADMAP C3), but evaluate scores active
