@@ -1,9 +1,10 @@
 """Tracking- and detection-task configuration: the subset of the JAX
 package's ``Config``, ``parse_task``, ``set_heads`` and ``finalize``
-that the fused serving path, the trainer, the data pipeline and the
-checkpoint loader read (reference: src/lib/opts.py:257-388; JAX:
-centertrack_tpu/config.py), plus the MOT17 dataset meta the serving
-benchmark uses. Every field keeps the JAX default.
+that the fused serving path, the host Detector, the trainer, the CLI,
+the data pipeline and the checkpoint loader read (reference:
+src/lib/opts.py:257-388; JAX: centertrack_tpu/config.py), plus the MOT17
+dataset meta the serving benchmark uses. Every field keeps the JAX
+default.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ def _freeze_dict(d: Dict) -> Tuple[Tuple, ...]:
 class Config:
     task: str = ""
     dataset: str = "coco"          # data/datasets.get_dataset's name
+    # the dataset cli/test.py evaluates on; "" takes ``dataset``
+    # (parse_task)
+    test_dataset: str = ""
+    # the run's directory is exp/<task>/<exp_id> (cli/main.py, cli/test.py)
+    exp_id: str = "default"
     # checkpoint to start from (engine/trainer.Trainer.start, through
     # models/model.load_model: merged onto the fresh init, optimizer
     # state included; engine/fused.FusedDetector without params)
@@ -66,12 +72,29 @@ class Config:
     prior_bias: float = -4.6       # initial bias of the hm head's out conv
 
     # --- input (-1: the dataset's default resolution) ---------------------
+    # both sides of the input, unless input_h / input_w say otherwise;
+    # set_heads writes max(input_h, input_w) back
+    input_res: int = -1
     input_h: int = -1
     input_w: int = -1
     dataset_version: str = ""
 
-    # --- test ------------------------------------------------------------
+    # --- test (the host Detector, engine/detector.py; JAX config.py:
+    # 129-140) -------------------------------------------------------------
+    # average each frame's maps with its mirror's (a batch of 2)
+    flip_test: bool = False
+    # one scale only: the Detector asserts it, as JAX's does
+    test_scales: Tuple[float, ...] = (1.0,)
+    # greedy IoU suppression of the decoded boxes (ops/nms.py)
+    nms: bool = False
     K: int = 100
+    # short side of the input (the long side rounded up to 64); overrides
+    # fix_res and keep_res
+    fix_short: int = -1
+    # keep each frame's own size: each side n becomes (n | pad) + 1
+    keep_res: bool = False
+    # cli/test.py evaluates the test split instead of val
+    trainval: bool = False
     out_thresh: float = -1.0
 
     # --- tracking --------------------------------------------------------
@@ -87,6 +110,17 @@ class Config:
     max_frame_dist: int = 3
     max_age: int = -1
     max_tracks: int = 256          # capacity of the on-device track state
+    # the host tracker births tracks only at the public detections
+    # (meta["cur_dets"]) and seeds the first frame from meta["pre_dets"]
+    public_det: bool = False
+    # the host tracker matches by scipy's linear_sum_assignment
+    hungarian: bool = False
+    # zero the pre_hm input / the tracking offsets (ablations; both the
+    # host Detector and the fused step read them)
+    zero_pre_hm: bool = False
+    zero_tracking: bool = False
+    # no previous-frame image input (pre_img is its negation)
+    no_pre_img: bool = False
     # box heads (JAX config.py:119-120, 164-165): ltrb regresses the
     # clipped box's sides from the peak, ltrb_amodal the unclipped box's,
     # whose boxes then replace wh's in decode and tracking (MOT17's and
@@ -102,6 +136,11 @@ class Config:
     lr_step: Tuple[int, ...] = (60,)
     num_epochs: int = 70
     batch_size: int = 32
+    # iterations an epoch (train) or frames a test, -1 for all
+    num_iters: int = -1
+    # cli/main.py validates and saves model_<epoch>.ckpt every this many
+    # epochs
+    val_intervals: int = 10000
     # split each optimizer step into N sequential micro-batches of
     # batch_size / N; gradients sum in fp32, BN statistics advance once
     # per micro-batch
@@ -139,6 +178,8 @@ class Config:
 
     # --- derived (filled by parse_task / set_heads) -----------------------
     pre_img: bool = False
+    fix_res: bool = True           # not keep_res
+    pad: int = 31                  # keep_res's padding mask
     output_h: int = -1
     output_w: int = -1
     heads: Tuple[Tuple[str, int], ...] = ()
@@ -163,16 +204,21 @@ class Config:
 
 
 def parse_task(cfg: Config) -> Config:
-    """Task-derived settings (reference: src/lib/opts.py:257-326)."""
+    """Task-derived settings (reference: src/lib/opts.py:257-326; JAX
+    config.py:236-253)."""
     updates = {}
+    if cfg.test_dataset == "":
+        updates["test_dataset"] = cfg.dataset
     if "tracking" in cfg.task:
         updates["tracking"] = True
         updates["out_thresh"] = max(cfg.track_thresh, cfg.out_thresh)
         updates["pre_thresh"] = max(cfg.track_thresh, cfg.pre_thresh)
         updates["new_thresh"] = max(cfg.track_thresh, cfg.new_thresh)
-        updates["pre_img"] = True
+        updates["pre_img"] = not cfg.no_pre_img
+    updates["fix_res"] = not cfg.keep_res
     if cfg.head_conv == -1:
         updates["head_conv"] = 256 if "dla" in cfg.arch else 64
+    updates["pad"] = 127 if "hourglass" in cfg.arch else 31
     return dataclasses.replace(cfg, **updates)
 
 
@@ -188,6 +234,8 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
     num_classes = (dataset_meta.num_categories
                    if cfg.num_classes < 0 else cfg.num_classes)
     input_h, input_w = dataset_meta.default_resolution
+    input_h = cfg.input_res if cfg.input_res > 0 else input_h
+    input_w = cfg.input_res if cfg.input_res > 0 else input_w
     input_h = cfg.input_h if cfg.input_h > 0 else input_h
     input_w = cfg.input_w if cfg.input_w > 0 else input_w
 
@@ -212,6 +260,7 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
         cfg,
         num_classes=num_classes,
         input_h=input_h, input_w=input_w,
+        input_res=max(input_h, input_w),
         output_h=input_h // cfg.down_ratio,
         output_w=input_w // cfg.down_ratio,
         heads=_freeze_dict(heads),

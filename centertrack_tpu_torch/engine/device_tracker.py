@@ -145,3 +145,43 @@ def step(state: TrackState, det_scores: torch.Tensor,
     out = {"tracking_id": det_ids * has_track.to(i32), "age": det_age,
            "active": det_active}
     return new, out
+
+
+def init_from_dets(capacity: int, det_scores: torch.Tensor,
+                   det_classes: torch.Tensor, det_cts: torch.Tensor,
+                   det_bboxes: torch.Tensor, new_thresh: float,
+                   device="cuda") -> TrackState:
+    """Tracks seeded from detections (reference: tracker.py:11-22; JAX
+    ``jax.vmap(device_tracker.init_from_dets)``, :168-192): of (S, K, ...)
+    detections, those scoring above ``new_thresh`` fill each stream's
+    first slots in detection order with ids 1, 2, ..., age 1 and active
+    1; rows past ``capacity`` are dropped, but ``id_count`` counts
+    them."""
+    device = torch.device(device)
+    det_scores, det_classes, det_cts, det_bboxes = (
+        torch.as_tensor(x, device=device)
+        for x in (det_scores, det_classes, det_cts, det_bboxes))
+    streams = det_scores.shape[0]
+    state = init_state(capacity, streams, device)
+    keep = det_scores > new_thresh
+    pos = torch.cumsum(keep.to(torch.int32), 1, dtype=torch.int32) - 1
+    slot = torch.where(keep & (pos < capacity), pos, capacity).long()
+    ones = torch.ones_like(det_classes, dtype=torch.int32)
+
+    def scatter(init, src):
+        # slot ``capacity`` is a sink for the rows not kept
+        sink = torch.cat([init, init[:, :1]], dim=1)
+        idx = slot.reshape(slot.shape + (1,) * (init.dim() - 2))
+        sink.scatter_(1, idx.expand(src.shape), src.to(init.dtype))
+        return sink[:, :capacity]
+
+    return TrackState(
+        ids=scatter(state.ids, pos + 1),
+        cts=scatter(state.cts, det_cts),
+        bboxes=scatter(state.bboxes, det_bboxes),
+        classes=scatter(state.classes, det_classes),
+        scores=scatter(state.scores, det_scores),
+        ages=scatter(state.ages, ones),
+        active=scatter(state.active, ones),
+        valid=scatter(state.valid, keep),
+        id_count=keep.sum(1, dtype=torch.int32))

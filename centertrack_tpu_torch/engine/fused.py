@@ -314,10 +314,13 @@ class _Engine:
             for f in frames])
         pre_in = torch.where(fresh[:, None, None, None], images, pre)
         pre_hm = self._pre_hm(state, trans_input)
+        if cfg.zero_pre_hm:
+            pre_hm = pre_hm * 0
 
         out = self.model(images, pre_in if cfg.pre_img else None,
                          pre_hm if cfg.pre_hm else None)[-1]
-        dets = generic_decode(sigmoid_output(out), cfg.K, cfg.num_classes)
+        dets = generic_decode(sigmoid_output(out), cfg.K, cfg.num_classes,
+                              cfg.zero_tracking)
 
         # output grid -> image coordinates
         scores = dets["scores"]

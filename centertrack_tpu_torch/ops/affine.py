@@ -58,6 +58,14 @@ def get_affine_transform(center, scale, rot, output_size,
     return _solve_affine(src, dst)
 
 
+def transform_preds_with_trans(coords, trans):
+    """A 2x3 affine applied to an (N, 2) array (reference:
+    image.py:20-26): float32 points, the product in ``trans``' dtype."""
+    target = np.ones((coords.shape[0], 3), np.float32)
+    target[:, :2] = coords
+    return (trans @ target.T).T[:, :2]
+
+
 def invert_affine(trans: np.ndarray) -> np.ndarray:
     """Invert a 2x3 affine transform."""
     m = np.eye(3, dtype=np.float64)

@@ -80,7 +80,8 @@ def _sides(fmap: torch.Tensor, inds, xs0, ys0) -> torch.Tensor:
 
 
 def generic_decode(output: Dict[str, torch.Tensor], k: int = 100,
-                   num_classes: int = 1) -> Dict[str, torch.Tensor]:
+                   num_classes: int = 1,
+                   zero_tracking: bool = False) -> Dict[str, torch.Tensor]:
     """NHWC tracking head maps (hm, and any of reg, wh, tracking, ltrb,
     ltrb_amodal) -> top-K detections, each (B, K, ...) (reference:
     decode.py:83-182; JAX ops/decode.py:145-216). Without ``reg`` the
@@ -88,7 +89,12 @@ def generic_decode(output: Dict[str, torch.Tensor], k: int = 100,
     (num_classes > 1) is read at each detection's class. ``bboxes`` come
     from ``wh``, then from ``ltrb`` where the net has it, then from
     ``ltrb_amodal`` (also ``bboxes_amodal``), the last one present
-    winning, as in JAX; without any of the three there are none."""
+    winning, as in JAX; without any of the three there are none.
+    ``zero_tracking`` multiplies the tracking map by 0 first (JAX
+    ops/decode.py:157-158)."""
+    if zero_tracking and "tracking" in output:
+        output = dict(output)
+        output["tracking"] = output["tracking"] * 0
     scores, inds, clses, ys0, xs0 = topk(nms_heat(output["hm"]), k)
     ret = {"scores": scores, "clses": clses.float(), "xs": xs0, "ys": ys0,
            "cts": torch.stack([xs0, ys0], dim=2), "inds": inds}

@@ -199,6 +199,13 @@ Phases, each printing one JSON line with its elapsed seconds:
            FusedDetector on the same frames and weights (MOTA_REFERENCE,
            from tests/mota_reference.py on the CPU); a counted run of
            replays gives the device launches
+  nms      nms_keep (csrc/nms.cu, the host Detector's --nms) alone on
+           seeded boxes (some scores -inf), boxes whose IoU lies within an
+           ulp of the threshold, all boxes equal, zero-area boxes and two
+           classes, at S=1 and 6 images and K=100 and 1024: the keep mask
+           equal to the plain version's bit for bit, one launch counted a
+           call, one kernel on the device a call; device and plain times,
+           the bound and the chain bound (runs after tracker)
   mot17_recipe  MOT17's own recipe (experiments/mot17_half.sh): a clip
            of MOT's geometry (tools/selftest's generator at 1920x1080,
            scale 2, 2 videos x 16 JPEG frames), 12 training steps at
@@ -212,6 +219,25 @@ Phases, each printing one JSON line with its elapsed seconds:
            head's: rows against the plain-DCN path by path_bf16's rule,
            a counted run of replays with CLEAR-MOT; step, loader, read
            and serving ms
+  detector the port's host Detector (engine/detector.py) over mota's 30
+           frames, fp32 dcn_local1, in four variants (private, hungarian,
+           public detections, flip_test with nms): MOTA, IDF1, FP, FN and
+           IDSW within MOTA_TOL of JAX's host Detector on the same frames
+           (DETECTOR_REFERENCE, tests/detector_reference.py), private's
+           tracks against mota's FusedDetector rows, exactly 16
+           dcn_local_fwd, 1 splat_pre_hm, 0 greedy_assign and (with nms)
+           1 nms_keep launch a frame; then keep_res, 8 frames at
+           1088x1952 against plain DCN; ms a frame, the stage split
+  cli      MOT17's recipe through the port's CLI in subprocesses on a
+           synthetic MOT17 layout: cli.main (2 epochs of 6 bf16
+           dcn_local steps), cli.test --resume,
+           tools.convert_mot_det_to_results, cli.test --public_det
+           --load_results; each exits 0 with exactly its launches,
+           counted in its own process (16 of each bf16 clamped kernel a
+           step, 16 dcn_local_fwd_bf16 and 1 splat_pre_hm a tracked
+           frame); cli.test's tracks against FusedDetector's on the same
+           weights and frames (rows, MOTA and IDF1); MOTA and IDF1 above
+           0, every val image in the saved results; seconds a command
   selftest the port's tools/selftest end to end: the hard selftest
            domain written as JAX's JPEG files, DLA-34 dcn float32 trained 30 epochs at
            B=8 through the port's DataLoader (thread workers), saved
@@ -222,6 +248,9 @@ Phases, each printing one JSON line with its elapsed seconds:
            times a step; train and eval seconds, the loader's ms per
            batch on the host; then 10 steps on one batch timed alone
   kernels  one JSON line: the port's kernel table
+
+`--cli-hard` runs only device, build and cli, the last on the selftest
+generator's hard domain, MOTA reported and not held above 0.
 
 `--profile N` adds a phase after `path`, `path_bf16`, the three exact
 paths, `chunk` and
@@ -237,6 +266,7 @@ the exit code is not 0. The whole run has a wall-clock budget.
 
 import collections
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -306,7 +336,7 @@ PATH_WARMUP = 5
 PLAIN_FRAMES = 3
 SOURCES = ("dcn_local", "dcn_local_bwd", "dcn_local_bf16",
            "dcn_local_bwd_bf16", "dcn_exact", "dcn_exact_bwd", "probes",
-           "tracker")
+           "tracker", "nms")
 # the DCN kernels a serving path launches per frame, by (dla_node, compute
 # dtype): dcn_mix's 5 exact nodes run on the stride-16 and -32 maps, its
 # 11 clamped ones (R=2) on the stride-4 and -8 maps
@@ -366,7 +396,8 @@ KERNEL_NAMES = {"dcn_local_fwd": r"dcn_local_fwd_kernel\b",
                 "dcn_exact_fwd": r"dcn_exact_fwd_kernel\b",
                 "dcn_exact_fwd_bf16": r"dcn_exact_fwd_bf16_kernel\b",
                 "greedy_assign": r"greedy_assign_kernel\b",
-                "splat_pre_hm": r"splat_pre_hm_kernel\b"}
+                "splat_pre_hm": r"splat_pre_hm_kernel\b",
+                "nms_keep": r"nms_keep_kernel\b"}
 # bench.py's protocols (timed_tracking, timed_tracking_chunked and the
 # 6-stream leg): lag-4 fetches over 60 frames after 5, chunks of 4
 # fetched one chunk behind over 20 chunks after 3, six bf16 streams
@@ -418,6 +449,46 @@ MOTA_REFERENCE = {
             "num_objects": 300, "num_matches": 276}}
 MOT_COUNTS = ("num_objects", "num_matches", "num_false_positives",
               "num_misses", "num_switches", "num_fragmentations")
+# detector: the port's host Detector (engine/detector.py, the reference's
+# per-frame protocol) on synth_clip's frames with the committed local1
+# checkpoint at float32, in each variant of DETECTOR_VARIANTS, the active
+# tracks scored as in mota. DETECTOR_REFERENCE is JAX's host Detector on
+# the same frames, weights and detections on the CPU, printed by
+#   JAX_PLATFORMS=cpu python3 tests/detector_reference.py
+# MOTA and IDF1 must lie within MOTA_TOL of it, and so must FP, FN and
+# IDSW as shares of the ground-truth boxes. The public variant's
+# detections are the clip's boxes jittered by ~N(0, PUBLIC_JITTER_PX),
+# one in PUBLIC_DROP left out (public_dets), seeding the first frame
+# (pre_dets) and given every frame (cur_dets), as cli/test.py gives them.
+DETECTOR_FRAMES = MOTA_FRAMES
+DETECTOR_FLAGS = dict(task="tracking", pre_hm=True, track_thresh=0.3,
+                      new_thresh=0.3, max_age=3, dla_node="dcn_local1",
+                      compute_dtype="float32")
+DETECTOR_VARIANTS = {"private": {}, "hungarian": {"hungarian": True},
+                     "public": {"public_det": True},
+                     "flip_nms": {"flip_test": True, "nms": True}}
+DETECTOR_REFERENCE = {
+    "private": {"mota": 0.94, "idf1": 0.9505962521294719,
+                "num_false_positives": 2, "num_misses": 15,
+                "num_switches": 1, "num_objects": 300, "num_matches": 285},
+    "hungarian": {"mota": 0.94, "idf1": 0.9505962521294719,
+                  "num_false_positives": 2, "num_misses": 15,
+                  "num_switches": 1, "num_objects": 300,
+                  "num_matches": 285},
+    "public": {"mota": 0.9333333333333333, "idf1": 0.9500860585197934,
+               "num_false_positives": 0, "num_misses": 19,
+               "num_switches": 1, "num_objects": 300, "num_matches": 281},
+    "flip_nms": {"mota": 0.92, "idf1": 0.9593220338983051,
+                 "num_false_positives": 7, "num_misses": 17,
+                 "num_switches": 0, "num_objects": 300,
+                 "num_matches": 283}}
+DETECTOR_COUNTS = ("num_false_positives", "num_misses", "num_switches")
+PUBLIC_SEED, PUBLIC_JITTER_PX, PUBLIC_DROP = 1, 2.0, 0.2
+# keep_res: the first frames at the input keep_res gives a 1080p frame
+# (each side to the next multiple of pad + 1 = 32 above it: 1088x1952),
+# against the same Detector on plain DCN
+KEEP_RES_INPUT = (1088, 1952)
+KEEP_RES_FRAMES = 8
 # selftest: the port's tools/selftest end to end, the protocol of
 # docs/parity_mota.json (hard domain, seed 0, 6 videos x 24 frames at
 # 96x160, JPEG; dla_node dcn float32, B=8, Adam 5e-4, 30 epochs through the
@@ -519,6 +590,39 @@ def synth_clip(n, height=1080, width=1920, n_obj=10, seed=0):
             img[max(0, cy - 3):cy + 3, max(0, cx - 3):cx + 3] = 255
         frames.append(img)
     return frames, boxes
+
+
+def public_dets(boxes, seed=PUBLIC_SEED):
+    """Public detections of synth_clip's boxes (n, n_obj, 4): per frame a
+    list of dicts (bbox, ct, score, class 1), each box jittered by
+    ~N(0, PUBLIC_JITTER_PX) per side, one in PUBLIC_DROP left out."""
+    rng = np.random.RandomState(seed)
+    frames = []
+    for frame_boxes in boxes:
+        dets = []
+        for box in frame_boxes:
+            jitter = rng.randn(4) * PUBLIC_JITTER_PX
+            score = float(rng.uniform(0.5, 1.0))
+            if rng.rand() < PUBLIC_DROP:
+                continue
+            b = [float(v) for v in np.asarray(box, np.float64) + jitter]
+            dets.append({"bbox": b, "ct": [(b[0] + b[2]) / 2,
+                                           (b[1] + b[3]) / 2],
+                         "score": score, "class": 1})
+        frames.append(dets)
+    return frames
+
+
+def detector_metas(variant, boxes):
+    """Each frame's ``meta`` for the host Detector: the public variant's
+    detections, as cli/test.py injects them (pre_dets at the first frame,
+    cur_dets at every frame); None for the other variants."""
+    if not DETECTOR_VARIANTS[variant].get("public_det"):
+        return [None] * len(boxes)
+    pub = public_dets(boxes)
+    metas = [{"cur_dets": dets} for dets in pub]
+    metas[0]["pre_dets"] = pub[0]
+    return metas
 
 
 def synth_frames(n, height=1080, width=1920, n_obj=10, seed=0):
@@ -871,6 +975,10 @@ def _reset_launches():
     dcn.EXACT_BWD_WEIGHT_LAUNCHES = dcn.EXACT_BWD_WEIGHT_BF16_LAUNCHES = 0
     for name, module in _tracker_modules().items():
         module.LAUNCHES[name] = 0
+    try:
+        _nms_module().LAUNCHES["nms_keep"] = 0
+    except ImportError:     # an earlier checkout's package
+        pass
 
 
 def phase_device():
@@ -3784,14 +3892,15 @@ def phase_mota():
     frames (graph replays), the active tracks scored against the clip's
     boxes by the port's mot_metrics; then the counted run (the same frames
     from a fresh state, all replays, under torch.profiler, bit for bit the
-    scored run) gives the path's device launches."""
+    scored run) gives the path's device launches. Returns the rows by
+    node and each node's packed rows."""
     from centertrack_tpu_torch.eval.mot_metrics import MOTAccumulator
 
     t0 = time.perf_counter()
     frames, boxes = synth_clip(MOTA_FRAMES, seed=0)
     gt = np.concatenate([boxes[..., :2], boxes[..., 2:] - boxes[..., :2]],
                         -1)
-    out = {}
+    out, rows_by_node = {}, {}
     for node, ckpt in MOTA_NODES:
         kernels = PATH_KERNELS[node, "float32"]
         cfg = set_heads(parse_task(Config(
@@ -3829,10 +3938,620 @@ def phase_mota():
                                f"{m['idf1']:.4f}, JAX's {ref['mota']:.4f} / "
                                f"{ref['idf1']:.4f}: past {MOTA_TOL}")
         out[node] = row
+        rows_by_node[node] = packed
         del det
         torch.cuda.empty_cache()
     emit("mota", seconds=time.perf_counter() - t0)
+    return out, rows_by_node
+
+
+# ---- nms_keep, the host Detector and the CLI (MOT17's test protocol) ----
+# nms: nms_keep (csrc/nms.cu) alone on NMS_CASES at each of NMS_STREAMS x
+# NMS_K, the keep mask bit for bit its plain version's (on the CPU)
+NMS_STREAMS = (1, 6)
+NMS_K = (100, 1024)
+NMS_CASES = ("seeded", "ulp", "equal", "zero_area", "two_classes")
+# float32 operations of one IoU and its test (4 max/min, 2 subtractions,
+# 2 max with 0, a product, a sum, a subtraction, the test, the division,
+# the threshold test)
+NMS_IOU_OPS = 14
+
+
+def _nms_module():
+    """ops.nms, imported where used (an earlier checkout may lack it)."""
+    from centertrack_tpu_torch.ops import nms
+    return nms
+
+
+def nms_case(name, s, k, seed):
+    """(boxes (S, K, 4), scores (S, K), classes (S, K) or None) on the card
+    of one case, from a numpy seed, score-sorted: ``seeded`` boxes 4-80 px
+    over a map where many overlap, the last 3 scores -inf; ``ulp`` pairs
+    whose IoU is 0.5 exactly and pairs one ulp of a side away from it;
+    ``equal`` every box the same; ``zero_area`` half the boxes of zero or
+    negative width or height; ``two_classes`` crowded boxes of two
+    classes."""
+    rng = np.random.RandomState(seed)
+    span = 960.0 if k > 200 else 240.0
+    xy = rng.uniform(0, span, (s, k, 2)).astype(np.float32)
+    wh = rng.uniform(4, 80, (s, k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    scores = -np.sort(-rng.rand(s, k).astype(np.float32), 1)
+    classes = None
+    if name == "seeded":
+        scores[:, -3:] = -np.inf
+    elif name == "ulp":
+        # rows 2i and 2i+1: a box and its left half (IoU 0.5 exactly with
+        # integer sides), every third pair's half one ulp wider or narrower
+        w = rng.randint(2, 40, (s, k // 2)).astype(np.float32) * 2
+        boxes[:, 1::2][..., :2] = boxes[:, 0::2][..., :2]
+        boxes[:, 0::2, 2] = boxes[:, 0::2, 0] + w
+        boxes[:, 1::2, 2] = boxes[:, 0::2, 0] + w / 2
+        boxes[:, 1::2, 3] = boxes[:, 0::2, 3]
+        half = boxes[:, 1::2, 2]
+        half[:, 0::3] = np.nextafter(half[:, 0::3], np.float32(np.inf))
+        half[:, 1::3] = np.nextafter(half[:, 1::3], np.float32(-np.inf))
+        boxes[:, 1::2, 2] = half
+    elif name == "equal":
+        boxes[:] = boxes[:1, :1]
+    elif name == "zero_area":
+        flat = rng.rand(s, k) < 0.5
+        boxes[..., 2] = np.where(flat & (rng.rand(s, k) < 0.5),
+                                 boxes[..., 0] - rng.randint(0, 3, (s, k)),
+                                 boxes[..., 2])
+        boxes[..., 3] = np.where(flat, boxes[..., 1], boxes[..., 3])
+    elif name == "two_classes":
+        boxes[..., :2] = rng.uniform(0, span / 8, (s, k, 2))
+        boxes[..., 2:] = boxes[..., :2] + wh
+        classes = rng.randint(0, 2, (s, k)).astype(np.float32)
+    out = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+           for a in (boxes, scores)]
+    return (*out, None if classes is None else
+            torch.from_numpy(classes).cuda())
+
+
+def nms_bound_ms(s, k, classes):
+    """Least H100 time of one nms_keep call: each input read once and the
+    mask written once, against NMS_IOU_OPS float32 operations for each
+    of the S K (K - 1) / 2 pairs (the class shift's 5 a box besides)."""
+    nbytes = s * k * (16 + 4 + (4 if classes else 0) + 1)
+    ops = NMS_IOU_OPS * s * k * (k - 1) / 2 + (5 * s * k if classes else 0)
+    return _bound_ms(ops, nbytes)
+
+
+def phase_nms():
+    """nms_keep alone (NMS_* above): each case at each S and K through the
+    launcher with the counts set to 0 just before, one launch counted a
+    call, the keep mask equal to the plain version's on the same inputs
+    (on the CPU) bit for bit; one call is one kernel on the device and
+    nothing else; device time a call (spin-queued), host-clock ms, the
+    plain version's ms on the card, the bound and the chain bound (K rows
+    x one shared-memory round trip). Returns the rows."""
+    nms = _nms_module()
+    t0 = time.perf_counter()
+    rows = []
+    for ci, name in enumerate(NMS_CASES):
+        for s in NMS_STREAMS:
+            for k in NMS_K:
+                boxes, scores, classes = nms_case(name, s, k,
+                                                  31 * ci + s + k)
+                nms.LAUNCHES["nms_keep"] = 0
+                got = nms.launch_nms_keep(boxes, scores, classes, 0.5)
+                torch.cuda.synchronize()
+                if nms.LAUNCHES["nms_keep"] != 1:
+                    raise RuntimeError(f"nms {name}: {nms.LAUNCHES} after "
+                                       f"one call")
+                ref = nms.nms_keep_plain(
+                    boxes.cpu(), scores.cpu(),
+                    None if classes is None else classes.cpu(), 0.5)
+                mismatches = int((got.cpu() != ref).sum())
+                err = float((got.cpu().float() - ref.float()).abs().max())
+                if mismatches or got.dtype != ref.dtype:
+                    raise RuntimeError(
+                        f"nms_keep {name} S={s} K={k}: {got.dtype} mask "
+                        f"differs from its plain version at {mismatches} "
+                        f"rows")
+                kernel = lambda: nms.launch_nms_keep(boxes, scores, classes,
+                                                     0.5)
+                if ci == 0:
+                    _one_node("nms_keep", kernel)
+                bound, by = nms_bound_ms(s, k, classes is not None)
+                row = {"kernel": "nms_keep", "case": name, "shape": [s, k],
+                       "kept": int(ref.sum()), "mismatches": mismatches,
+                       "max_abs_err": err,
+                       "ms": time_ms(kernel, 5, 30),
+                       "device_ms": queued_us(kernel, 30) / 1e3,
+                       # the plain loop takes ~0.1 s at K = 1024: once
+                       "plain_ms": time_ms(lambda: nms.nms_keep_plain(
+                           boxes, scores, classes, 0.5),
+                           *((1, 3) if k <= 128 else (0, 1))),
+                       "bound_ms": bound, "bound_by": by,
+                       "chain_bound_ms": k * SMEM_ROUND_TRIP_NS / 1e6}
+                rows.append(row)
+                emit("nms", **row)
+    emit("nms", seconds=time.perf_counter() - t0)
+    return rows
+
+
+def _host_rows(results, k):
+    """The host Detector's active tracks of one frame as (K, 13) rows in
+    FusedDetector's packed layout, so that rows_against compares them."""
+    rows = np.zeros((k, 13), np.float32)
+    active = [d for d in results if d["active"] > 0]
+    for i, d in enumerate(active[:k]):
+        rows[i] = [d["score"], d["class"], *d["ct"],
+                   *d.get("tracking", (0.0, 0.0)), *d["bbox"],
+                   d["tracking_id"], d["age"], d["active"]]
+    return rows
+
+
+def _detector_run(det, frames, metas, k):
+    """Each frame through ``det.run``: the packed rows of its active
+    tracks, the wall ms a frame, and the Detector's own stage ms."""
+    packed, wall = [], []
+    stages = collections.defaultdict(list)
+    for frame, meta in zip(frames, metas):
+        t = time.perf_counter()
+        ret = det.run(frame, copy.deepcopy(meta))
+        wall.append(1e3 * (time.perf_counter() - t))
+        packed.append(_host_rows(copy.deepcopy(ret["results"]), k))
+        for key in ("pre", "net", "post", "track"):
+            stages[key].append(1e3 * ret[key])
+    return packed, wall, stages
+
+
+def _score_rows(packed, gt, out_thresh):
+    from centertrack_tpu_torch.eval.mot_metrics import MOTAccumulator
+    acc = MOTAccumulator()
+    for f, rows in enumerate(packed):
+        ids, hyp = _active_boxes(FusedDetector.fetch(torch.from_numpy(rows),
+                                                     out_thresh))
+        acc.update(list(range(len(gt[f]))), gt[f], ids, hyp)
+    return acc.metrics()
+
+
+def _all_launches():
+    return {k: v for k, v in {**_launches(), **_tracker_launches(),
+                              **_nms_module().LAUNCHES}.items() if v}
+
+
+def phase_detector(fused_packed):
+    """The port's host Detector (engine/detector.py) over synth_clip's
+    DETECTOR_FRAMES frames, fp32 dcn_local1 from the committed checkpoint,
+    in each of DETECTOR_VARIANTS, every launch count set to 0 just before
+    and read just after: exactly 16 dcn_local_fwd, 1 splat_pre_hm, no
+    greedy_assign (the association is the host's) and, under nms, 1
+    nms_keep a frame, nothing else; MOTA and IDF1 (and FP, FN, IDSW as
+    shares of the ground truth) within MOTA_TOL of JAX's
+    (DETECTOR_REFERENCE); private's active tracks against the mota phase's
+    FusedDetector rows by rows_against (no row unpaired, the same track
+    ids but pairs swapped on an exact tie, scores within 1e-3 and boxes
+    within 5e-2 px + 1e-3 of the coordinate, JAX's
+    test_engine_equivalence tolerances). Then keep_res: KEEP_RES_FRAMES
+    frames at 1088x1952 against the same Detector on plain DCN from a
+    fresh state, by phase_path's float32 rule (KEEP_RES_INPUT). Median ms
+    a frame and the
+    Detector's pre / net / post / track split."""
+    from centertrack_tpu_torch.engine.detector import Detector
+
+    t0 = time.perf_counter()
+    frames, boxes = synth_clip(DETECTOR_FRAMES, seed=0)
+    gt = np.concatenate([boxes[..., :2], boxes[..., 2:] - boxes[..., :2]],
+                        -1)
+    params, batch_stats = load_jax_ckpt(CKPT)
+    n = len(frames)
+    out = {}
+    for name, kw in DETECTOR_VARIANTS.items():
+        cfg = set_heads(parse_task(Config(**DETECTOR_FLAGS, **kw)), MOT_META)
+        det = Detector(cfg, params, batch_stats, MOT_META, device="cuda")
+        _reset_launches()
+        packed, wall, stages = _detector_run(
+            det, frames, detector_metas(name, boxes), cfg.K)
+        launches = _all_launches()
+        want = {"dcn_local_fwd": 16 * n, "splat_pre_hm": n}
+        if cfg.nms:
+            want["nms_keep"] = n
+        if launches != want:
+            raise RuntimeError(f"detector {name}: launches {launches} over "
+                               f"{n} frames, expected {want}")
+        m = _score_rows(packed, gt, cfg.out_thresh)
+        ref = DETECTOR_REFERENCE[name]
+        diffs = {k: m[k] - ref[k] for k in ("mota", "idf1")}
+        diffs.update({k: (m[k] - ref[k]) / ref["num_objects"]
+                      for k in DETECTOR_COUNTS})
+        row = {"variant": name, "flags": kw, "frames": n,
+               "mota": m["mota"], "idf1": m["idf1"],
+               **{k: m[k] for k in MOT_COUNTS}, "jax": ref,
+               "minus_jax": diffs, "tol": MOTA_TOL, "launches": launches,
+               "ms_per_frame_median": statistics.median(wall[PATH_WARMUP:]),
+               "stage_ms_median": {k: statistics.median(v[PATH_WARMUP:])
+                                   for k, v in stages.items()}}
+        if name == "private":
+            vs = rows_against(packed, fused_packed, cfg.out_thresh)
+            row["vs_fused"] = vs
+            if vs["rows_unpaired"] or not vs["pairs"] or (
+                    vs["pairs_same_track_id"]
+                    + vs["pairs_swapped_on_exact_tie"] != vs["pairs"]) or (
+                    vs["max_score_diff"] > 1e-3 or
+                    vs["max_bbox_diff_px"] > 5e-2 + 1e-3 * 1920):
+                raise RuntimeError(f"detector private against the fused "
+                                   f"engine's rows: {vs}")
+        emit(f"detector_{name}", **row)
+        if any(abs(v) > MOTA_TOL for v in diffs.values()):
+            raise RuntimeError(f"detector {name}: {m} against JAX's {ref}: "
+                               f"past {MOTA_TOL}")
+        out[name] = row
+        del det
+    torch.cuda.empty_cache()
+
+    # keep_res: each 1080p frame at its own size, padded
+    cfg = set_heads(parse_task(Config(**DETECTOR_FLAGS, keep_res=True)),
+                    MOT_META)
+    few = frames[:KEEP_RES_FRAMES]
+    det = Detector(cfg, params, batch_stats, MOT_META, device="cuda")
+    _reset_launches()
+    packed, wall, _ = _detector_run(det, few, [None] * len(few), cfg.K)
+    launches = _all_launches()
+    shape = tuple(det.pre_images.shape)
+    if shape != (1, *KEEP_RES_INPUT, 3) or launches != {
+            "dcn_local_fwd": 16 * len(few), "splat_pre_hm": len(few)}:
+        raise RuntimeError(f"detector keep_res: input {shape}, launches "
+                           f"{launches}")
+    set_dcn_plain(det.model, True)
+    det.reset_tracking()
+    before = _launches()
+    plain, plain_wall, _ = _detector_run(det, few, [None] * len(few), cfg.K)
+    if _launches() != before:
+        raise RuntimeError("detector keep_res: the plain-DCN run launched "
+                           "a kernel")
+    vs = rows_against(packed, plain, cfg.out_thresh)
+    if vs["rows_unpaired"] or not vs["pairs"] or (
+            vs["pairs_same_track_id"] != vs["pairs"]) or (
+            vs["max_score_diff"] > PLAIN_SCORE_TOL["float32"]):
+        raise RuntimeError(f"detector keep_res: the kernel and plain-DCN "
+                           f"rows differ: {vs}")
+    out["keep_res"] = {"frames": len(few), "input": list(shape[1:3]),
+                       "launches": launches, "plain_vs_kernel": vs,
+                       "ms_per_frame_median": statistics.median(wall[1:]),
+                       "plain_ms_per_frame_median": statistics.median(
+                           plain_wall[1:])}
+    emit("detector_keep_res", **out["keep_res"])
+    del det
+    torch.cuda.empty_cache()
+    emit("detector", seconds=time.perf_counter() - t0)
     return out
+
+
+# cli: MOT17's recipe (experiments/mot17_half.sh:4-17) through the port's
+# CLI in subprocesses, on MOT17's layout under build/cli_mot17/data
+# ($CENTERTRACK_DATA_DIR): CLI_VIDEOS sequences of CLI_FRAMES 1080p JPEG
+# frames of tools/selftest's generator (scale 2: objects at the committed
+# checkpoint's training size at the 544x960 input), each split in halves
+# as train_half / val_half with gt_val_half.txt and a det_val_half.txt of
+# the boxes jittered (public_dets' rule). 24 frames a half make 6 batches
+# of 8; CLI_EPOCHS epochs of --num_iters CLI_ITERS train 12 steps (on an
+# H100 one epoch scored MOTA 0.075 and 0.10 in two runs, too near 0 to
+# check). The recipe's flags but --num_devices 2 (ROADMAP A10), at the
+# recipe's bf16 dcn_local, from the committed checkpoint (trained at
+# dcn_local1) with its ltrb_amodal head carried from wh
+# (carry_wh_to_ltrb_amodal), written as an epoch-0 file. The generator's
+# default domain (2-3 objects a video): on its hard one (8-12 crossing
+# objects, many smaller than the checkpoint's) these weights score MOTA
+# below 0 (PERF.md §6; `python3 chip_smoke.py --cli-hard` runs this phase
+# alone there, where the FusedDetector on the same weights and frames is
+# the second witness)
+CLI_VIDEOS, CLI_FRAMES = 2, 48
+CLI_EPOCHS, CLI_ITERS, CLI_BATCH = 2, 6, 8
+CLI_TIMEOUT_S = 300
+CLI_RECIPE = ["--exp_id", "mot17_half", "--dataset", "mot", "--pre_hm",
+              "--ltrb_amodal", "--compute_dtype", "bfloat16",
+              "--dla_node", "dcn_local"]
+CLI_TRAIN = ["--dataset_version", "17halftrain", "--same_aug_pre",
+             "--hm_disturb", "0.05", "--lost_disturb", "0.4",
+             "--fp_disturb", "0.1", "--num_epochs", str(CLI_EPOCHS),
+             "--num_iters", str(CLI_ITERS), "--batch_size", str(CLI_BATCH),
+             "--num_workers", "8"]
+CLI_TEST = ["--dataset_version", "17halfval", "--track_thresh", "0.4",
+            "--pre_thresh", "0.5", "--resume", "--save_results"]
+# each command runs as `python -c CLI_CHILD <module> <flags>`: what
+# `python -m <module> <flags>` runs (runpy), then the launch counts of its
+# process, set to 0 just before, as its last line after CLI_LAUNCHES
+CLI_CHILD = ("import sys, chip_smoke; "
+             "chip_smoke.cli_child(sys.argv[1], sys.argv[2:])")
+CLI_LAUNCHES = "cli launches: "
+
+
+def write_mot17(root, hard=False):
+    """MOT17's layout (data/datasets.MOT, eval/mot_eval) under
+    ``root``/mot17 from tools/selftest's clip (its hard domain with
+    ``hard``): train/<seq>/img1/*.jpg, gt/gt_{train,val}_half.txt,
+    det/det_{train,val}_half.txt and annotations/{train,val}_half.json,
+    each half's frames numbered from 1 as MOT's converter numbers them.
+    Returns the val half's image ids."""
+    from centertrack_tpu_torch.tools import selftest
+
+    src = os.path.join(root, "selftest")
+    ann, img_dir = selftest.make_dataset(
+        src, num_videos=CLI_VIDEOS, frames=CLI_FRAMES, width=1920,
+        height=1080, scale=2, hard=hard, seed=1)
+    with open(ann) as f:
+        data = json.load(f)
+    mot = os.path.join(root, "mot17")
+    by_image = collections.defaultdict(list)
+    for a in data["annotations"]:
+        by_image[a["image_id"]].append(a)
+    halves = {h: {"images": [], "annotations": [], "videos": [],
+                  "categories": [{"id": 1, "name": "pedestrian"}]}
+              for h in ("train_half", "val_half")}
+    for video in data["videos"]:
+        seq = f"MOT17-{video['id']:02d}-SYN"
+        for sub in ("img1", "gt", "det"):
+            os.makedirs(os.path.join(mot, "train", seq, sub), exist_ok=True)
+        imgs = sorted((im for im in data["images"]
+                       if im["video_id"] == video["id"]),
+                      key=lambda im: im["frame_id"])
+        cut = len(imgs) // 2
+        for half, part in (("train_half", imgs[:cut]),
+                           ("val_half", imgs[cut:])):
+            halves[half]["videos"].append({"id": video["id"],
+                                           "file_name": seq})
+            gt_rows, boxes = [], []
+            for frame, im in enumerate(part, 1):
+                name = f"{seq}/img1/{im['frame_id']:06d}.jpg"
+                os.replace(os.path.join(img_dir, im["file_name"]),
+                           os.path.join(mot, "train", name))
+                halves[half]["images"].append(dict(im, file_name=name,
+                                                   frame_id=frame))
+                anns = by_image[im["id"]]
+                halves[half]["annotations"] += anns
+                gt_rows += [[frame, a["track_id"], *a["bbox"], 1, 1, 1]
+                            for a in anns]
+                boxes.append([[a["bbox"][0], a["bbox"][1],
+                               a["bbox"][0] + a["bbox"][2],
+                               a["bbox"][1] + a["bbox"][3]] for a in anns])
+            det_rows = [[frame, -1, d["bbox"][0], d["bbox"][1],
+                         d["bbox"][2] - d["bbox"][0],
+                         d["bbox"][3] - d["bbox"][1], d["score"], -1, -1, -1]
+                        for frame, dets in enumerate(public_dets(boxes), 1)
+                        for d in dets]
+            for kind, rows in (("gt", gt_rows), ("det", det_rows)):
+                np.savetxt(os.path.join(mot, "train", seq, kind,
+                                        f"{kind}_{half}.txt"), rows,
+                           delimiter=",", fmt="%.6g")
+    os.makedirs(os.path.join(mot, "annotations"), exist_ok=True)
+    for half, content in halves.items():
+        with open(os.path.join(mot, "annotations", half + ".json"),
+                  "w") as f:
+            json.dump(content, f)
+    return [im["id"] for im in halves["val_half"]["images"]]
+
+
+def cli_child(module, args):
+    """One command of the recipe, in the process CLI_CHILD starts: every
+    launch count set to 0, ``module`` run as ``python -m`` runs it, then
+    the process's launch counts printed as the last line."""
+    import runpy
+
+    _reset_launches()
+    sys.argv = [module, *args]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    print(CLI_LAUNCHES + json.dumps(_all_launches()), flush=True)
+
+
+def _cli(args, cwd, env, log):
+    """One command of the recipe in a subprocess of its own (CLI_CHILD):
+    raises unless it exits 0 within CLI_TIMEOUT_S; returns its seconds
+    and its launch counts."""
+    t = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *args],
+                              cwd=cwd, env=env, stdout=f,
+                              stderr=subprocess.STDOUT,
+                              timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli: {' '.join(args[:1])} exited "
+                           f"{proc.returncode}:\n{text[-3000:]}")
+    last = [ln for ln in text.splitlines() if ln.startswith(CLI_LAUNCHES)]
+    if not last:
+        raise RuntimeError(f"cli: {args[0]} printed no launch counts")
+    return seconds, json.loads(last[-1][len(CLI_LAUNCHES):])
+
+
+def _cli_want(command, frames):
+    """The launches of each command: 16 of each bf16 clamped kernel a
+    training step and splat_pre_hm once a sample (544x960 is past
+    ops/gaussian.DENSE_MAX_PIXELS); 16 dcn_local_fwd_bf16 and 1
+    splat_pre_hm a tracked frame; none for the converter."""
+    steps = CLI_EPOCHS * CLI_ITERS
+    if command == "train":
+        return {**{k: 16 * steps for k in _LOCAL["bfloat16"]},
+                "splat_pre_hm": CLI_BATCH * steps}
+    if command == "convert":
+        return {}
+    return {"dcn_local_fwd_bf16": 16 * frames, "splat_pre_hm": frames}
+
+
+def _cli_scored(root, val_ids, save_dir):
+    """MOTA and IDF1 of a cli.test run from its MOTChallenge files
+    (eval/mot_eval.evaluate_mot_dir), whether its saved results cover
+    every val image, and the saved results."""
+    from centertrack_tpu_torch.eval.mot_eval import evaluate_mot_dir
+    with open(os.path.join(save_dir, "save_results_mot17halfval.json")) as f:
+        saved = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = evaluate_mot_dir(
+            os.path.join(root, "data", "mot17", "train"),
+            os.path.join(save_dir, "results_mot17halfval"),
+            gt_type="_val_half")
+    overall = summary["OVERALL"]
+    return {"mota": overall["mota"], "idf1": overall["idf1"],
+            **{k: overall[k] for k in MOT_COUNTS},
+            "images_saved": len(saved),
+            "covers_every_image": sorted(map(int, saved)) == sorted(val_ids),
+            "tracked_rows": sum(1 for v in saved.values() for d in v
+                                if d.get("active", 0) > 0)}, saved
+
+
+def _cli_fused(root, save_dir, saved):
+    """The second witness of ``cli.test``: the run's model_last.ckpt
+    served by FusedDetector (graph replays) at the test command's flags
+    over the same val frames, tracking reset at each video's first
+    frame, as cli.test runs them. Its MOTA and IDF1 through the MOT
+    class's own writer and evaluate_mot_dir, and cli.test's saved active
+    tracks against its rows by rows_against at bf16 (scores within
+    PLAIN_SCORE_TOL of each other and rows that near the threshold left
+    out, pairs swapped on an exact tie counted apart)."""
+    from centertrack_tpu_torch.cli.opts import args_to_config, build_parser
+    from centertrack_tpu_torch.config import finalize
+    from centertrack_tpu_torch.data.datasets import get_dataset
+    from centertrack_tpu_torch.eval.mot_eval import evaluate_mot_dir
+    from centertrack_tpu_torch.utils import image_io
+
+    data_dir = os.path.join(root, "data")
+    argv = ["tracking", *CLI_RECIPE,
+            *[a for a in CLI_TEST if a not in ("--resume", "--save_results")],
+            "--load_model", os.path.join(save_dir, "model_last.ckpt")]
+    before = os.environ.get("CENTERTRACK_DATA_DIR")
+    os.environ["CENTERTRACK_DATA_DIR"] = data_dir
+    try:
+        cfg = args_to_config(build_parser().parse_args(argv))
+        dataset_cls = get_dataset(cfg.dataset)
+        cfg = finalize(cfg, dataset_cls)
+        dataset = dataset_cls(cfg, "val")
+        det = FusedDetector(cfg, *load_jax_ckpt(cfg.load_model), dataset_cls,
+                            device="cuda")
+        packed, host, results = [], [], {}
+        for img_id in dataset.images:
+            info = dataset.coco.loadImgs([img_id])[0]
+            if info["frame_id"] == 1:
+                det.reset_tracking()
+            res = det.run(image_io.read(os.path.join(dataset.img_dir,
+                                                     info["file_name"])))
+            packed.append(res.cpu().numpy())
+            results[img_id] = FusedDetector.fetch(res, cfg.out_thresh)
+            host.append(_host_rows(saved[str(img_id)], cfg.K))
+        del det
+        torch.cuda.empty_cache()
+        fused_dir = os.path.join(root, "fused")
+        results_dir = dataset.save_results(results, fused_dir)
+        with contextlib.redirect_stdout(io.StringIO()):
+            overall = evaluate_mot_dir(
+                os.path.join(data_dir, "mot17", "train"), results_dir,
+                gt_type="_val_half")["OVERALL"]
+    finally:
+        if before is None:
+            os.environ.pop("CENTERTRACK_DATA_DIR")
+        else:
+            os.environ["CENTERTRACK_DATA_DIR"] = before
+    tol = PLAIN_SCORE_TOL["bfloat16"]
+    vs = rows_against(host, packed, cfg.out_thresh, tol, collapse_ties=True)
+    return {"mota": overall["mota"], "idf1": overall["idf1"],
+            **{k: overall[k] for k in MOT_COUNTS}, "host_vs_fused": vs,
+            "score_tol": tol}
+
+
+def phase_cli(hard=False):
+    """MOT17's recipe through the port's own entry points (CLI_* above):
+    ``python -m centertrack_tpu_torch.cli.main`` (train), ``cli.test
+    --resume`` (the run's model_last.ckpt), ``tools.
+    convert_mot_det_to_results`` and ``cli.test --public_det
+    --load_results``, each in a subprocess that must exit 0 with exactly
+    the launches of _cli_want, counted in its own process; each test's
+    saved results must cover every val image. ``cli.test``'s tracks must
+    agree with FusedDetector's on the same weights and frames
+    (_cli_fused: no row unpaired, the same track ids but pairs swapped
+    on an exact tie, scores within PLAIN_SCORE_TOL and boxes within
+    5e-2 px + 1e-3 of the coordinate, the two MOTAs and IDF1s within
+    MOTA_TOL). On the default domain each test's MOTA and IDF1 from
+    evaluate_mot_dir must be above 0; ``hard`` (selftest's hard domain)
+    reports them. Seconds and launches for each command."""
+    import shutil
+
+    from centertrack_tpu_torch.models.model import load_model, save_model
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "cli_mot17")
+    shutil.rmtree(root, ignore_errors=True)
+    val_ids = write_mot17(os.path.join(root, "data"), hard)
+    t_data = time.perf_counter() - t0
+    cfg = set_heads(parse_task(Config(task="tracking", pre_hm=True,
+                                      ltrb_amodal=True,
+                                      dla_node="dcn_local")), MOT_META)
+    model = create_model(cfg, "cuda")
+    load_model(CKPT, model, verbose=False)
+    carry_wh_to_ltrb_amodal(model)
+    start = os.path.join(root, "start.ckpt")
+    save_model(start, 0, model)
+    del model
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CENTERTRACK_DATA_DIR=os.path.join(root, "data"),
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            ""))
+    save_dir = os.path.join(root, "exp", "tracking", "mot17_half")
+    public = os.path.join(root, "data", "mot17", "results",
+                          "val_half_det.json")
+    os.makedirs(os.path.dirname(public))
+    seconds, launches, scores = {}, {}, {}
+
+    def run(command, args):
+        seconds[command], launches[command] = _cli(
+            args, root, env, os.path.join(root, command + ".log"))
+        want = _cli_want(command, len(val_ids))
+        if launches[command] != want:
+            raise RuntimeError(f"cli {command}: launches "
+                               f"{launches[command]}, expected {want}")
+    run("train", ["centertrack_tpu_torch.cli.main", "tracking", *CLI_RECIPE,
+                  *CLI_TRAIN, "--load_model", start])
+    if not os.path.exists(os.path.join(save_dir, "model_last.ckpt")):
+        raise RuntimeError("cli: training wrote no model_last.ckpt")
+    run("test", ["centertrack_tpu_torch.cli.test", "tracking", *CLI_RECIPE,
+                 *CLI_TEST])
+    scores["test"], saved = _cli_scored(root, val_ids, save_dir)
+    t = time.perf_counter()
+    fused = _cli_fused(root, save_dir, saved)
+    seconds["fused_witness"] = time.perf_counter() - t
+    run("convert", ["centertrack_tpu_torch.tools.convert_mot_det_to_results",
+                    "--ann_path", os.path.join(root, "data", "mot17",
+                                               "annotations",
+                                               "val_half.json"),
+                    "--data_path", os.path.join(root, "data", "mot17",
+                                                "train"),
+                    "--split", "val_half", "--out", public])
+    run("test_public", ["centertrack_tpu_torch.cli.test", "tracking",
+                        *CLI_RECIPE, *CLI_TEST, "--public_det",
+                        "--load_results", public])
+    scores["test_public"], _ = _cli_scored(root, val_ids, save_dir)
+    with open(os.path.join(root, "train.log")) as f:
+        epoch_line = [ln for ln in f if ln.startswith("train e1 it")]
+    row = {"domain": "hard" if hard else "default", "videos": CLI_VIDEOS,
+           "frames_per_video": CLI_FRAMES,
+           "val_images": len(val_ids), "dataset_s": t_data,
+           "seconds": seconds, "launches": launches, "scores": scores,
+           "fused": fused,
+           "train_log_first_iteration": epoch_line[:1],
+           "commands": {"train": CLI_RECIPE + CLI_TRAIN,
+                        "test": CLI_RECIPE + CLI_TEST,
+                        "test_public": CLI_RECIPE + CLI_TEST + [
+                            "--public_det", "--load_results"]}}
+    emit("cli", **row, total_s=time.perf_counter() - t0)
+    vs = fused["host_vs_fused"]
+    if vs["rows_unpaired"] or not vs["pairs"] or (
+            vs["pairs_same_track_id"] + vs["pairs_swapped_on_exact_tie"]
+            != vs["pairs"]) or vs["max_score_diff"] > fused["score_tol"] or (
+            vs["max_bbox_diff_px"] > 5e-2 + 1e-3 * 1920) or any(
+            abs(fused[k] - scores["test"][k]) > MOTA_TOL
+            for k in ("mota", "idf1")):
+        raise RuntimeError(f"cli test against FusedDetector on the same "
+                           f"weights and frames: {fused}, "
+                           f"cli.test's {scores['test']}")
+    for name, s in scores.items():
+        if not s["covers_every_image"] or not hard and not (
+                s["mota"] > 0 and s["idf1"] > 0):
+            raise RuntimeError(f"cli {name}: {s}")
+    return row
 
 
 def phase_selftest(n_profile=0):
@@ -4216,13 +4935,19 @@ def _out_of_time(signum, frame):
 
 def main(argv):
     """``--profile N`` adds torch.profiler passes over N frames and N
-    training steps."""
+    training steps; ``--cli-hard`` runs the cli phase alone on the
+    selftest generator's hard domain, its MOTA reported, not held above
+    0."""
     n_profile = int(argv[argv.index("--profile") + 1]) \
         if "--profile" in argv else 0
     signal.signal(signal.SIGALRM, _out_of_time)
     signal.alarm(BUDGET_S)
     dev = phase_device()
     phase_build()
+    if "--cli-hard" in argv:
+        phase_cli(hard=True)
+        signal.alarm(0)
+        return
     phase_codec()
     phase_precision()
     # the kernel phases hold the kernels against their plain versions, so
@@ -4232,6 +4957,7 @@ def main(argv):
     with full_float32("float32"):
         probe_rows, probe_launches, probe_dcn_launches = phase_probes()
         tracker_rows = phase_tracker()
+        nms_rows = phase_nms()
         rows = phase_kernel()
         bf16_rows = phase_kernel_bf16()
         grad_rows = phase_grad()
@@ -4271,8 +4997,11 @@ def main(argv):
     train_exact = {phase: phase_train(n_profile, dtype, node, phase)
                    for phase, node, dtype in EXACT_TRAINS}
     torch.cuda.empty_cache()
-    mota = phase_mota()
+    mota, mota_packed = phase_mota()
     recipe = phase_mot17_recipe()
+    detector = phase_detector(mota_packed["dcn_local1"])
+    del mota_packed
+    cli = phase_cli()
     selftest = phase_selftest(n_profile)
 
     neck = [r for r in rows if r["launches_per_frame"] and r["batch"] == 1]
@@ -4323,7 +5052,10 @@ def main(argv):
         "selftest_train": selftest["train_launches"].get(name, 0),
         "selftest_eval": selftest["eval_launches"].get(name, 0),
         "mot17_recipe_train": recipe["train_launches"].get(name, 0),
-        "mot17_recipe_serve": recipe["serve_launches"].get(name, 0)}
+        "mot17_recipe_serve": recipe["serve_launches"].get(name, 0),
+        **{"detector_" + v: r["launches"].get(name, 0)
+           for v, r in detector.items()},
+        **{"cli_" + c: n.get(name, 0) for c, n in cli["launches"].items()}}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "
                      "cp.async haloed window, pixel splits by waves")
@@ -4633,6 +5365,37 @@ def main(argv):
                         x["device_ms"] for x in greedy_path}}
                if name == "greedy_assign" else {}),
             "library_ms": None})
+    nms_path = [r for r in nms_rows if r["case"] == "seeded"
+                and r["shape"] == [1, 100]][0]
+    kernels.append({
+        "name": "nms_keep", "route": "cuda",
+        "source": "centertrack_tpu_torch/csrc/nms.cu",
+        "replaces": "centertrack_tpu/ops/nms.py:29",
+        "replaces_kind": "nms_suppress under jax.vmap (batched_nms), an "
+                         "XLA fori_loop inside the host Detector's jitted "
+                         "step (no pl.pallas_call)",
+        "design": "one block per image: the K boxes in shared memory, "
+                  "each (row, 32-column word) of the rows above it by one "
+                  "ballot of 32 IoUs, then one warp sweeps the rows, the "
+                  "keep mask a word a lane",
+        "launches": detector["flip_nms"]["launches"]["nms_keep"],
+        "launches_by_path": {
+            **{"detector_" + v: r["launches"].get("nms_keep", 0)
+               for v, r in detector.items()},
+            **{"cli_" + c: n.get("nms_keep", 0)
+               for c, n in cli["launches"].items()}},
+        "max_abs_err": max(r["max_abs_err"] for r in nms_rows),
+        "mismatched_rows": sum(r["mismatches"] for r in nms_rows),
+        "per": "one call at the path's shape: one 544x960 frame's K=100 "
+               "boxes (S=1)",
+        "ms": nms_path["ms"], "device_ms": nms_path["device_ms"],
+        "plain_ms": nms_path["plain_ms"], "bound_ms": nms_path["bound_ms"],
+        "bound_by": nms_path["bound_by"],
+        "chain_bound_ms": nms_path["chain_bound_ms"],
+        "device_ms_by_case_s_k": {
+            f"{r['case']}/S{r['shape'][0]}/K{r['shape'][1]}": r["device_ms"]
+            for r in nms_rows},
+        "library_ms": None})
     for name, r in probe_rows.items():
         kernels.append({
             "name": r["kernel"], "route": "cuda",
