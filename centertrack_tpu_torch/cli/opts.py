@@ -34,13 +34,6 @@ _DERIVED = {"pre_img", "fix_res", "num_stacks", "output_h", "output_w",
 # schedule of JAX's clamped DCN; the port's planners choose its kernels'
 # routes, so it parses and is ignored.
 UNPORTED = {
-    **{name: ("A9", default) for name, default in (
-        ("hp_weight", 1.0), ("hm_hp_weight", 1.0),
-        ("amodel_offset_weight", 1.0), ("dep_weight", 1.0),
-        ("dim_weight", 1.0), ("rot_weight", 1.0), ("nuscenes_att", False),
-        ("nuscenes_att_weight", 1.0), ("velocity", False),
-        ("velocity_weight", 1.0), ("depth_scale", 1.0),
-        ("test_focal_length", -1))},
     "num_devices": ("A10", 1),
     **{name: ("A11", default) for name, default in (
         ("grad_checkpoint", False), ("debug", 0), ("vis_thresh", 0.3))},
@@ -54,6 +47,29 @@ UNPORTED = {
         ("custom_input_w", -1))},
 }
 IGNORED = {"local_impl": "auto"}
+
+# help of the Config fields that have one (the ddd and pose tasks'; JAX
+# cli/opts.py generates its flags without help)
+HELP = {
+    "hp_weight": "loss weight of the keypoint offset head hps "
+                 "(multi_pose); 0 drops the head",
+    "hm_hp_weight": "loss weight of the keypoint heatmap head hm_hp "
+                    "(multi_pose); 0 drops the head",
+    "amodel_offset_weight": "loss weight of the amodal-centre offset head "
+                            "(ddd); 0 drops the head",
+    "dep_weight": "loss weight of the depth head (ddd); 0 drops the head",
+    "dim_weight": "loss weight of the 3D size head (ddd); 0 drops the head",
+    "rot_weight": "loss weight of the 8-bin orientation head (ddd); 0 "
+                  "drops the head",
+    "nuscenes_att": "add the 8-class nuScenes attribute head",
+    "nuscenes_att_weight": "loss weight of the nuScenes attribute head",
+    "velocity": "add the 3D velocity head",
+    "velocity_weight": "loss weight of the velocity head",
+    "depth_scale": "multiplies the decoded depth, 1 / sigmoid(dep) - 1",
+    "test_focal_length": "focal length in pixels of the default camera of "
+                         "the ddd lift (a frame without calib); -1 takes "
+                         "the dataset's rest_focal_length",
+}
 
 
 def _add_flag(parser, name, default, help=None):
@@ -75,10 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="centertrack-tpu-torch")
     parser.add_argument(
         "task", default="", nargs="?",
-        help="ctdet | tracking, or combined with ','")
+        help="ctdet | ddd | multi_pose | tracking, or combined with ','")
     parser.add_argument("--demo", default="",
-                        help="path to image/folder/video or 'webcam' "
-                             "(the demo is not ported yet: ROADMAP A14)")
+                        help="path to an image or a folder of images "
+                             "(cli/demo.py; video and webcam: ROADMAP "
+                             "A14)")
     parser.add_argument("--save_video", action="store_true")
     parser.add_argument("--save_results", action="store_true")
     parser.add_argument("--save_framerate", type=int, default=30)
@@ -101,7 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
     for f in dataclasses.fields(Config):
         if f.name in _DERIVED or f.name == "task":
             continue
-        _add_flag(parser, f.name, f.default)
+        _add_flag(parser, f.name, f.default, help=HELP.get(f.name))
     for name, (item, default) in UNPORTED.items():
         _add_flag(parser, name, default,
                   help=f"not ported yet (ROADMAP {item}): only JAX's "

@@ -4,7 +4,8 @@ that the fused serving path, the host Detector, the trainer, the CLI,
 the data pipeline and the checkpoint loader read (reference:
 src/lib/opts.py:257-388; JAX: centertrack_tpu/config.py), plus the MOT17
 dataset meta the serving benchmark uses. Every field keeps the JAX
-default.
+default. The tasks are ``tracking`` and ``ctdet``, each optionally with
+``ddd`` (monocular 3D) or ``multi_pose`` (keypoints) beside it.
 """
 
 from __future__ import annotations
@@ -93,6 +94,11 @@ class Config:
     fix_short: int = -1
     # keep each frame's own size: each side n becomes (n | pad) + 1
     keep_res: bool = False
+    # multiplies the decoded depth (ops/decode.sigmoid_output)
+    depth_scale: float = 1.0
+    # focal length of the default camera of the ddd lift, in pixels;
+    # -1 takes the dataset's rest_focal_length
+    test_focal_length: int = -1
     # cli/test.py evaluates the test split instead of val
     trainval: bool = False
     out_thresh: float = -1.0
@@ -171,6 +177,22 @@ class Config:
     hm_weight: float = 1.0
     off_weight: float = 1.0
     wh_weight: float = 0.1
+    # the pose heads: keypoint offsets from the centre (hps), the
+    # keypoint heatmaps (hm_hp); hp_offset takes off_weight
+    hp_weight: float = 1.0
+    hm_hp_weight: float = 1.0
+    # the ddd heads: amodal-centre offset, depth, 3D size, 8-bin
+    # orientation
+    amodel_offset_weight: float = 1.0
+    dep_weight: float = 1.0
+    dim_weight: float = 1.0
+    rot_weight: float = 1.0
+    # nuScenes attribute (8 classes) and velocity (3) heads, off unless
+    # set
+    nuscenes_att: bool = False
+    nuscenes_att_weight: float = 1.0
+    velocity: bool = False
+    velocity_weight: float = 1.0
 
     # --- custom dataset (data/datasets.CustomDataset) ----------------------
     custom_dataset_img_path: str = ""
@@ -223,14 +245,14 @@ def parse_task(cfg: Config) -> Config:
 
 
 def set_heads(cfg: Config, dataset_meta) -> Config:
-    """Input/output resolution and the head dict of a tracking or
-    detection task (reference: src/lib/opts.py:329-388). ``dataset_meta``
-    needs ``num_categories`` and ``default_resolution``."""
+    """Input/output resolution and the head dict of the task
+    (reference: src/lib/opts.py:329-388; JAX config.py:254-324).
+    ``dataset_meta`` needs ``num_categories`` and ``default_resolution``,
+    and ``num_joints`` for ``multi_pose``."""
     extra = [t for t in cfg.task.split(",")
-             if t not in ("tracking", "ctdet", "")]
+             if t not in ("tracking", "ctdet", "ddd", "multi_pose", "")]
     if extra:
-        raise NotImplementedError(
-            f"tasks {extra} are not ported yet (ROADMAP: ddd/pose extras)")
+        raise NotImplementedError(f"tasks {extra} are not ported")
     num_classes = (dataset_meta.num_categories
                    if cfg.num_classes < 0 else cfg.num_classes)
     input_h, input_w = dataset_meta.default_resolution
@@ -242,16 +264,31 @@ def set_heads(cfg: Config, dataset_meta) -> Config:
     heads = {"hm": num_classes, "reg": 2, "wh": 2}
     if "tracking" in cfg.task:
         heads["tracking"] = 2
+    if "ddd" in cfg.task:
+        heads.update({"dep": 1, "rot": 8, "dim": 3, "amodel_offset": 2})
+    if "multi_pose" in cfg.task:
+        heads.update({"hps": dataset_meta.num_joints * 2,
+                      "hm_hp": dataset_meta.num_joints, "hp_offset": 2})
     if cfg.ltrb:
         heads["ltrb"] = 4
     if cfg.ltrb_amodal:
         heads["ltrb_amodal"] = 4
+    if cfg.nuscenes_att:
+        heads["nuscenes_att"] = 8
+    if cfg.velocity:
+        heads["velocity"] = 3
     # loss weight per head; a head weighted 0 is dropped (JAX
     # config.py:292-303)
     weight_of = {"hm": cfg.hm_weight, "wh": cfg.wh_weight,
                  "reg": cfg.off_weight, "tracking": cfg.tracking_weight,
+                 "hps": cfg.hp_weight, "hm_hp": cfg.hm_hp_weight,
+                 "hp_offset": cfg.off_weight, "dep": cfg.dep_weight,
+                 "rot": cfg.rot_weight, "dim": cfg.dim_weight,
+                 "amodel_offset": cfg.amodel_offset_weight,
                  "ltrb": cfg.ltrb_weight,
-                 "ltrb_amodal": cfg.ltrb_amodal_weight}
+                 "ltrb_amodal": cfg.ltrb_amodal_weight,
+                 "nuscenes_att": cfg.nuscenes_att_weight,
+                 "velocity": cfg.velocity_weight}
     heads = {h: c for h, c in heads.items() if weight_of[h] != 0}
     weights = {h: weight_of[h] for h in heads}
     head_conv = cfg.head_conv if cfg.head_conv > 0 else (

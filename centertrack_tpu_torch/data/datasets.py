@@ -5,7 +5,9 @@ centertrack_tpu/data/datasets.py).
 ``run_eval`` uses this package's own evaluators: ``MOT`` writes
 MOTChallenge txt files and scores them with ``eval/mot_eval``, and
 ``CustomDataset`` evaluates nothing. The COCO, KITTI and CrowdHuman
-evaluators are the rest of ROADMAP A7 and raise; nuScenes is A9.
+evaluators are the rest of ROADMAP A7 and raise. ``NuScenes`` and
+``COCOHP`` carry their metas (what serving reads) and raise when loaded
+or evaluated: their loaders, targets and evaluators are A9c.
 """
 
 from __future__ import annotations
@@ -64,6 +66,49 @@ class COCODet(GenericDataset):
 
     def run_eval(self, results, save_dir):
         raise _eval_not_ported("COCO evaluation (eval/coco_eval)")
+
+
+def _a9c_not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A9c: the "
+                               f"ddd / pose targets, data and evaluators)")
+
+
+class COCOHP(COCODet):
+    """COCO person keypoints (reference: datasets/coco_hp.py; JAX
+    data/datasets.py:91-100): the meta; loading raises."""
+    num_categories = 1
+    class_name = ['']
+    num_joints = 17
+    default_resolution = [512, 512]
+    max_objs = 32
+    cat_ids = {1: 1}
+    _valid_ids = [1]
+
+    def __init__(self, cfg, split):
+        raise _a9c_not_ported("the COCO keypoints dataset")
+
+    def run_eval(self, results, save_dir):
+        raise _a9c_not_ported("COCO keypoint evaluation")
+
+
+class NuScenes(GenericDataset):
+    """nuScenes monocular 3D (reference: datasets/nuscenes.py; JAX
+    data/nuscenes.py:57-79): the meta; loading raises."""
+    default_resolution = [448, 800]
+    num_categories = 10
+    class_name = [
+        'car', 'truck', 'bus', 'trailer',
+        'construction_vehicle', 'pedestrian', 'motorcycle', 'bicycle',
+        'traffic_cone', 'barrier']
+    cat_ids = {i + 1: i + 1 for i in range(10)}
+    focal_length = 1200
+    max_objs = 128
+
+    def __init__(self, cfg, split):
+        raise _a9c_not_ported("the nuScenes dataset")
+
+    def run_eval(self, results, save_dir):
+        raise _a9c_not_ported("nuScenes evaluation")
 
 
 class MOT(GenericDataset):
@@ -248,15 +293,11 @@ dataset_factory = {
     "crowdhuman": CrowdHuman,
     "kitti": KITTI,
     "kitti_tracking": KITTITracking,
+    "coco_hp": COCOHP,
+    "nuscenes": NuScenes,
 }
 
 
 def get_dataset(name: str):
     """(reference: dataset_factory.py:20-33)"""
-    if name == "nuscenes":
-        raise NotImplementedError("the nuScenes dataset is not ported yet "
-                                  "(ROADMAP A9)")
-    if name == "coco_hp":
-        raise NotImplementedError("the COCO keypoints dataset is not "
-                                  "ported yet (ROADMAP A9)")
     return dataset_factory[name]

@@ -36,8 +36,9 @@ from centertrack_tpu_torch.ops.affine import (affine_transform,
                                               get_affine_transform)
 from centertrack_tpu_torch.utils import image_io
 
-# heads whose targets are the ddd and pose extras (ROADMAP A9)
-_EXTRA_HEADS = ("hps", "hm_hp", "hp_offset", "rot", "dep", "dim",
+# heads whose targets are the ddd and pose extras (ROADMAP A9c); the
+# Trainer refuses them
+EXTRA_HEADS = ("hps", "hm_hp", "hp_offset", "rot", "dep", "dim",
                 "amodel_offset", "nuscenes_att", "velocity")
 # the per-object regression targets and their widths, in JAX's order
 # (data/generic.py:431)
@@ -45,9 +46,16 @@ _REGRESSION_DIMS = (("reg", 2), ("wh", 2), ("tracking", 2), ("ltrb", 4),
                     ("ltrb_amodal", 4))
 
 
-def _extras_not_ported(what: str):
-    return NotImplementedError(f"{what}: the ddd and pose targets are not "
-                               f"ported yet (ROADMAP A9)")
+def refuse_extra_heads(heads, what: str):
+    """Raises where a training path (the Trainer, this dataset,
+    render_batch) is given a ddd or pose head: their losses are ported
+    (ops/losses.py), their targets and the hm_hp render are not."""
+    extra = [h for h in heads if h in EXTRA_HEADS]
+    if extra:
+        raise NotImplementedError(
+            f"{what}: the heads {extra} need the ddd and pose targets and "
+            f"the hm_hp render, which are not ported yet (ROADMAP A9c); the "
+            f"port serves these tasks (engine/fused.py, engine/detector.py)")
 
 
 def gaussian_radius(det_size, min_overlap: float = 0.7) -> float:
@@ -152,6 +160,10 @@ class GenericDataset:
     max_objs: Optional[int] = None
     rest_focal_length = 1200
     num_joints = 17
+    # left/right keypoint pairs that a horizontal flip swaps (the host
+    # Detector's flip test)
+    flip_idx = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10],
+                [11, 12], [13, 14], [15, 16]]
     mean = np.array([0.40789654, 0.44719302, 0.47026115],
                     dtype=np.float32).reshape(1, 1, 3)
     std = np.array([0.28863828, 0.27408164, 0.27809835],
@@ -169,9 +181,7 @@ class GenericDataset:
         if cfg is not None and split is not None:
             self.split = split
             self.cfg = cfg
-            extra = [h for h in cfg.heads_dict if h in _EXTRA_HEADS]
-            if extra:
-                raise _extras_not_ported(f"heads {extra}")
+            refuse_extra_heads(cfg.heads_dict, "GenericDataset")
             # the draws JAX takes from np.random, and its _data_rng
             self.rng = np.random.RandomState(cfg.seed)
             self._data_rng = np.random.RandomState(123)
@@ -557,12 +567,6 @@ class GenericDataset:
                 if pre_ct is not None:
                     ret["tracking_mask"][k] = 1
                     ret["tracking"][k] = pre_ct - ct_int[i]
-
-    def _add_hps(self, *args):
-        raise _extras_not_ported("_add_hps (keypoint targets)")
-
-    def _add_rot(self, *args):
-        raise _extras_not_ported("_add_rot (orientation targets)")
 
     def fake_video_data(self):
         """Each still image as a 1-frame video, so that the tracking

@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from centertrack_tpu_torch.data.generic import refuse_extra_heads
 from centertrack_tpu_torch.ops.gaussian import render_gaussians, render_pre_hm
 
 
@@ -65,10 +66,7 @@ def render_single(sample: Dict[str, torch.Tensor], output_h: int,
 def render_batch(batch: Dict[str, torch.Tensor], cfg) -> Dict[str, torch.Tensor]:
     """The batch dict with 'hm' (B, oh, ow, C) and, when ``cfg.pre_hm``,
     'pre_hm' (B, H, W, 1) rendered per sample and stacked."""
-    if "hm_hp" in cfg.heads_dict:
-        raise NotImplementedError(
-            "the hm_hp target (pose) is not ported yet (ROADMAP: pose "
-            "extras)")
+    refuse_extra_heads(cfg.heads_dict, "render_batch")
     n = batch["hm_cts"].shape[0]
     rendered = [render_single({k: v[i] for k, v in batch.items()},
                               cfg.output_h, cfg.output_w, cfg.num_classes,

@@ -140,8 +140,10 @@ class Detector:
         self.std = torch.as_tensor(
             np.asarray(dataset_meta.std, np.float32).reshape(3),
             device=self.device)
-        self.rest_focal_length = getattr(dataset_meta, "rest_focal_length",
-                                         1200)
+        # the default camera's focal length (JAX detector.py:93-95)
+        self.rest_focal_length = (
+            getattr(dataset_meta, "rest_focal_length", 1200)
+            if cfg.test_focal_length < 0 else cfg.test_focal_length)
         self.flip_idx = tuple(tuple(p) for p in
                               getattr(dataset_meta, "flip_idx", ()))
 
@@ -201,7 +203,7 @@ class Detector:
                     pre_hm = hm
                 out = self.model(images, pre_images if use_pre_img else None,
                                  pre_hm)[-1]
-                out = sigmoid_output(out)
+                out = sigmoid_output(out, cfg.depth_scale)
                 if cfg.flip_test:
                     out = flip_merge(out, self.flip_idx)
                 dets = generic_decode(out, cfg.K, cfg.num_classes,

@@ -10,7 +10,18 @@ Per frame and stream, on the device:
                  ltrb_amodal)
               -> inverse affine to image coordinates
               -> greedy association (engine/device_tracker.py)
-              -> one packed (K, 13) float32 result row
+              -> one packed (K, 13 + E) float32 result row
+
+The first 13 columns are the 2D tracking row of every task. The task's
+extras follow (``_extras_spec``; JAX engine/fused.py:65-124): with the
+ddd heads (E = 11) the 3D lift runs in the step, alpha from the 8-bin
+rot head and the amodal centre unprojected through the camera matrix to
+(loc, rot_y); with the pose heads (E = 2J + 1) the hm_hp-snapped
+keypoints go to image coordinates beside their score. ``fetch_full`` /
+``fetch_chunk_full`` / ``fetch_all_full`` parse them; ``fetch`` and its
+kin parse the 13 columns only. The camera matrix is a static device
+buffer per frame size that the step reads and ``set_calib`` writes in
+place, so a replay sees the matrix of its call.
 
 The step reads nothing back to the host (the association and the pre_hm
 splat are kernels: ops/tracker.greedy_assign and
@@ -31,7 +42,7 @@ host memory is started at once, as JAX's ``copy_to_host_async``;
 ``fetch`` / ``fetch_chunk`` wait for that copy only, and take only the
 tensor that ``run`` / ``run_chunk`` returned (or a CPU tensor). Host frames reach
 the card through a ring of pinned staging buffers by a non-blocking
-copy. Private-detection 2D tracking only.
+copy. Private detections only.
 """
 
 from __future__ import annotations
@@ -99,7 +110,7 @@ class _Carried(NamedTuple):
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     frames: torch.Tensor   # (F, S, h, w, 3) uint8, read by every replay
-    out: torch.Tensor      # (F, S, K, 13) float32, written by every replay
+    out: torch.Tensor      # (F, S, K, 13 + E) float32, written by replays
 
 
 class _Staging:
@@ -206,6 +217,14 @@ class _Engine:
             device=self.device)
         self.warp_precision = warp_precision_for(cfg)
         self.capacity = cfg.max_tracks
+        # the task's extra packed columns (ddd lift, pose keypoints)
+        self._extras = _extras_spec(cfg)
+        self.width = PACK_COLS + sum(w for _, w in self._extras)
+        self.rest_focal_length = (
+            getattr(dataset_meta, "rest_focal_length", 1200)
+            if cfg.test_focal_length < 0 else cfg.test_focal_length)
+        self._calib = None       # the host (3, 4) override, else default
+        self._calibs: Dict[tuple, torch.Tensor] = {}   # (S, 3, 4) a size
         self._trans = {}
         self._graphs: Dict[tuple, _Graph] = {}
         self._staging: Dict[tuple, _Staging] = {}
@@ -257,6 +276,39 @@ class _Engine:
             self._carried.fresh.fill_(False)
             self._fresh_host[:] = False
 
+    # ---- the camera of the ddd lift ---------------------------------
+    def _calib_value(self, height, width) -> np.ndarray:
+        c = self._calib
+        if c is None:
+            f = float(self.rest_focal_length)
+            c = np.array([[f, 0, width / 2, 0],
+                          [0, f, height / 2, 0],
+                          [0, 0, 1, 0]], np.float32)
+        return np.broadcast_to(c, (self.streams, 3, 4))
+
+    def set_calib(self, calib):
+        """The (3, 4) camera matrix of the ddd lift, in original-image
+        pixels, for every stream; None restores the default, built from
+        the rest focal length and the frame size (JAX
+        engine/fused.py:169-176). Written in place into the buffers the
+        captured steps read, so it holds from the next call on."""
+        self._calib = (None if calib is None
+                       else np.asarray(calib, np.float32).reshape(3, 4))
+        for (height, width), buf in self._calibs.items():
+            buf.copy_(torch.from_numpy(np.array(
+                self._calib_value(height, width))))
+
+    def _calib_for(self, height, width) -> torch.Tensor:
+        """The (S, 3, 4) device buffer of a frame size, made at first
+        use."""
+        key = (height, width)
+        buf = self._calibs.get(key)
+        if buf is None:
+            buf = self._calibs[key] = torch.as_tensor(
+                np.array(self._calib_value(height, width)),
+                device=self.device)
+        return buf
+
     # ---- the step ---------------------------------------------------
     def _transforms(self, height, width):
         """Device copies of (inv_trans_input, trans_input,
@@ -302,9 +354,9 @@ class _Engine:
                              torch.ones_like(radius, dtype=torch.float32),
                              use_track)
 
-    def _one(self, frames, carried, trans):
+    def _one(self, frames, carried, trans, calib):
         """One frame of every stream: (S, h, w, 3) uint8 -> the packed
-        (S, K, 13) rows; writes the carried buffers in place."""
+        (S, K, 13 + E) rows; writes the carried buffers in place."""
         cfg = self.cfg
         inv_trans_input, trans_input, inv_trans_output = trans
         state, pre, fresh = carried
@@ -319,8 +371,8 @@ class _Engine:
 
         out = self.model(images, pre_in if cfg.pre_img else None,
                          pre_hm if cfg.pre_hm else None)[-1]
-        dets = generic_decode(sigmoid_output(out), cfg.K, cfg.num_classes,
-                              cfg.zero_tracking)
+        dets = generic_decode(sigmoid_output(out, cfg.depth_scale), cfg.K,
+                              cfg.num_classes, cfg.zero_tracking)
 
         # output grid -> image coordinates
         scores = dets["scores"]
@@ -344,17 +396,18 @@ class _Engine:
             dst.copy_(src)
         pre.copy_(images)
         fresh.fill_(False)
+        extras = _device_extras(cfg, dets, bb, inv_trans_output, calib)
         return _pack_results(scores, clses, cts_img, tracking_img,
-                             bboxes_img, assoc)
+                             bboxes_img, assoc, extras)
 
     @torch.no_grad()
-    def _step(self, frames, carried, out, trans):
+    def _step(self, frames, carried, out, trans, calib):
         """The eager step, the one function a graph captures: F frames
-        (F, S, h, w, 3) uint8 in order -> ``out`` (F, S, K, 13); advances
-        ``carried`` in place."""
+        (F, S, h, w, 3) uint8 in order -> ``out`` (F, S, K, 13 + E);
+        advances ``carried`` in place."""
         with full_float32(self.cfg.compute_dtype):
             for f in range(frames.shape[0]):
-                out[f].copy_(self._one(frames[f], carried, trans))
+                out[f].copy_(self._one(frames[f], carried, trans, calib))
 
     def _graph(self, shape) -> _Graph:
         """The graph of (F, S, h, w, 3) frames, captured at first use."""
@@ -362,28 +415,31 @@ class _Engine:
         if g is not None:
             return g
         trans = self._transforms(*shape[2:4])
+        calib = self._calib_for(*shape[2:4])
         frames = torch.zeros(shape, dtype=torch.uint8, device=self.device)
-        out = torch.empty(shape[:2] + (self.cfg.K, 13), device=self.device)
+        out = torch.empty(shape[:2] + (self.cfg.K, self.width),
+                          device=self.device)
         # warm-up on copies of the carried buffers, on the device's warm-up
         # stream
         scratch = self._carried.clone()
         side = warmup_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._step(frames, scratch, out, trans)
+            self._step(frames, scratch, out, trans, calib)
         torch.cuda.current_stream(self.device).wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
-            self._step(frames, self._carried, out, trans)
+            self._step(frames, self._carried, out, trans, calib)
         g = self._graphs[shape] = _Graph(graph, frames, out)
         return g
 
     def _advance(self, frames, lead) -> torch.Tensor:
         """``frames``: an array or tensor of F * S frames of one shape
         (``lead`` = (F, S)), stacked or as a sequence, on the host or the
-        device. Runs them in order and returns the (F, S, K, 13) rows."""
+        device. Runs them in order and returns the (F, S, K, 13 + E)
+        rows."""
         seq = frames if isinstance(frames, (list, tuple)) else None
         first = seq[0] if seq is not None else frames
         shape = tuple(lead) + tuple(first.shape[-3:])
@@ -396,9 +452,10 @@ class _Engine:
             items = seq if seq is not None else [frames]
             host = torch.stack([torch.as_tensor(np.asarray(x)).reshape(
                 (-1,) + shape[2:]) for x in items]).reshape(shape)
-            out = torch.empty(shape[:2] + (self.cfg.K, 13))
-            self._step(host, self._carried, out, self._transforms(
-                *shape[2:4]))
+            out = torch.empty(shape[:2] + (self.cfg.K, self.width))
+            self._step(host, self._carried, out,
+                       self._transforms(*shape[2:4]),
+                       self._calib_for(*shape[2:4]))
         else:
             g = self._graph(shape)
             if torch.is_tensor(first) and first.device.type == "cuda":
@@ -419,8 +476,9 @@ class _Engine:
 
 class FusedDetector(_Engine):
     """One stream. ``run(frame)`` enqueues one frame and returns its
-    packed (K, 13) result on the device, its host copy started;
-    ``fetch`` turns that into the host dict list. ``run_chunk`` advances
+    packed (K, 13 + E) result on the device, its host copy started;
+    ``fetch`` turns that into the host dict list, ``fetch_full`` with
+    the task's extras. ``run_chunk`` advances
     F frames in one graph replay. ``plain_dcn=True`` runs the DCN layers
     through their plain PyTorch version instead of the kernel (the
     smoke's reference path). ``track_state`` is (1, T, ...) and
@@ -433,18 +491,18 @@ class FusedDetector(_Engine):
 
     def run(self, image) -> torch.Tensor:
         """Enqueue one uint8 (H, W, 3) frame (numpy or tensor); returns
-        the packed (K, 13) float32 rows on the device."""
+        the packed (K, 13 + E) float32 rows on the device."""
         out = self._advance([image], (1, 1))
-        return _with_host_copy(out.view(self.cfg.K, 13))
+        return _with_host_copy(out.view(self.cfg.K, self.width))
 
     def run_chunk(self, frames) -> torch.Tensor:
         """Advance over F consecutive uint8 frames, a stacked (F, H, W, 3)
         array or tensor or a list of same-shaped frames, host or device,
-        in one replay (JAX: a ``lax.scan``); returns the (F, K, 13) rows,
-        equal to F ``run`` calls, their host copy started."""
+        in one replay (JAX: a ``lax.scan``); returns the (F, K, 13 + E)
+        rows, equal to F ``run`` calls, their host copy started."""
         n = len(frames)
         out = self._advance(frames, (n, 1))
-        return _with_host_copy(out.view(n, self.cfg.K, 13))
+        return _with_host_copy(out.view(n, self.cfg.K, self.width))
 
     @staticmethod
     def fetch(results: torch.Tensor, out_thresh: float) -> List[Dict]:
@@ -460,13 +518,26 @@ class FusedDetector(_Engine):
         host = _host(results)
         return [_fetch_one(frame, out_thresh) for frame in host]
 
+    def fetch_full(self, results: torch.Tensor,
+                   out_thresh: float) -> List[Dict]:
+        """``fetch`` plus the task's extras (ddd: dep, alpha, dim, loc,
+        rot_y, and 'ct' the amodal centre; pose: hps, kps_score)."""
+        return _fetch_one(_host(results), out_thresh, self._extras)
+
+    def fetch_chunk_full(self, results: torch.Tensor,
+                         out_thresh: float) -> List[List[Dict]]:
+        """``fetch_chunk`` plus the task's extras."""
+        return [_fetch_one(frame, out_thresh, self._extras)
+                for frame in _host(results)]
+
 
 class MultiStreamDetector(_Engine):
     """S independent streams in one batched step (JAX
-    ``MultiStreamDetector``, 2D tracking): the network runs at batch S,
-    the tracker over an (S, T, ...) state; streams never interact.
-    ``run(images)`` advances every stream by one frame and returns the
-    (S, K, 13) rows; ``reset_stream(i)`` starts stream i over."""
+    ``MultiStreamDetector``): the network runs at batch S, the tracker
+    over an (S, T, ...) state; streams never interact. ``run(images)``
+    advances every stream by one frame and returns the (S, K, 13 + E)
+    rows; ``reset_stream(i)`` starts stream i over; ``set_calib`` sets
+    one camera for every stream."""
 
     def __init__(self, cfg, streams, params=None, batch_stats=None,
                  dataset_meta=None, device="cuda"):
@@ -483,10 +554,11 @@ class MultiStreamDetector(_Engine):
 
     def run(self, images) -> torch.Tensor:
         """S same-shaped uint8 frames (a sequence, or stacked (S, H, W,
-        3)), host or device -> the (S, K, 13) rows on the device, their
-        host copy started."""
+        3)), host or device -> the (S, K, 13 + E) rows on the device,
+        their host copy started."""
         out = self._advance(images, (1, self.streams))
-        return _with_host_copy(out.view(self.streams, self.cfg.K, 13))
+        return _with_host_copy(out.view(self.streams, self.cfg.K,
+                                        self.width))
 
     @staticmethod
     def fetch_stream(results: torch.Tensor, stream: int,
@@ -500,35 +572,104 @@ class MultiStreamDetector(_Engine):
         """Every stream's rows: one wait, one host array."""
         return [_fetch_one(rows, out_thresh) for rows in _host(results)]
 
-    def fetch_all_full(self, results, out_thresh):
-        _device_extras()
+    def fetch_all_full(self, results: torch.Tensor,
+                       out_thresh: float) -> List[List[Dict]]:
+        """``fetch_all`` plus the task's extras (see
+        ``FusedDetector.fetch_full``)."""
+        return [_fetch_one(rows, out_thresh, self._extras)
+                for rows in _host(results)]
 
-    def set_calib(self, calib):
-        _device_extras()
+
+def _extras_spec(cfg):
+    """The packed row's columns past the 13 of 2D tracking, from the
+    task's heads: [(name, width), ...] (JAX engine/fused.py:65-76)."""
+    heads = cfg.heads_dict
+    spec = []
+    if {"dep", "rot", "dim"} <= set(heads):
+        spec += [("dep", 1), ("alpha", 1), ("dim", 3), ("loc", 3),
+                 ("rot_y", 1), ("amodel_ct", 2)]
+    if "hps" in heads:
+        spec += [("hps", heads["hps"]), ("kps_score", 1)]
+    return spec
 
 
-def _device_extras(*args):
-    """The ddd/pose columns of the packed row: not ported."""
-    raise NotImplementedError("the ddd/pose extras of the serving engine "
-                              "(set_calib, fetch_all_full, _device_extras) "
-                              "are not ported yet (ROADMAP A9)")
+def _device_extras(cfg, dets, bb, inv_trans_output, calib):
+    """The extra columns of ``_extras_spec(cfg)``, computed in the step
+    (JAX engine/fused.py:79-123, batched over the S streams): ``dets``
+    the (S, K, ...) decode, ``bb`` its (S, K, 4) output-grid boxes,
+    ``calib`` the (S, 3, 4) camera matrices in image pixels. Returns a
+    list of (S, K, w) float32 tensors."""
+    heads = cfg.heads_dict
+    cols = []
+    if {"dep", "rot", "dim"} <= set(heads):
+        dep = dets["dep"][..., 0].to(torch.float32)
+        rot = dets["rot"].to(torch.float32)
+        dim = dets["dim"].to(torch.float32)
+        # 8-bin rot -> alpha (engine/post_process.get_alpha)
+        alpha1 = torch.atan2(rot[..., 2], rot[..., 3]) - 0.5 * np.pi
+        alpha2 = torch.atan2(rot[..., 6], rot[..., 7]) + 0.5 * np.pi
+        alpha = torch.where(rot[..., 1] > rot[..., 5], alpha1, alpha2)
+        # the lift at the amodal centre where predicted, else the box's
+        # (reference: post_process.py:65-77)
+        bbox_ct = (bb[..., 0:2] + bb[..., 2:4]) / 2
+        if "amodel_offset" in heads:
+            bbox_ct = bbox_ct + dets["amodel_offset"]
+        ct3d = _affine_pts(bbox_ct, inv_trans_output)
+        # unproject + yaw (utils/ddd.ddd2locrot_batch)
+        p = calib[:, None]                            # (S, 1, 3, 4)
+        z = dep - p[..., 2, 3]
+        x3 = (ct3d[..., 0] * dep - p[..., 0, 3] - p[..., 0, 2] * z
+              ) / p[..., 0, 0]
+        y3 = (ct3d[..., 1] * dep - p[..., 1, 3] - p[..., 1, 2] * z
+              ) / p[..., 1, 1] + dim[..., 0] / 2
+        rot_y = alpha + torch.atan2(ct3d[..., 0] - p[..., 0, 2],
+                                    p[..., 0, 0])
+        rot_y = torch.where(rot_y > np.pi, rot_y - 2 * np.pi, rot_y)
+        rot_y = torch.where(rot_y < -np.pi, rot_y + 2 * np.pi, rot_y)
+        cols += [dep[..., None], alpha[..., None], dim,
+                 torch.stack([x3, y3, z], dim=-1), rot_y[..., None], ct3d]
+    if "hps" in heads:
+        kps = dets["hps"].to(torch.float32)           # (S, K, 2J) grid
+        kps_img = _affine_pts(kps.reshape(kps.shape[:2] + (-1, 2)),
+                              inv_trans_output).reshape(kps.shape)
+        cols += [kps_img, dets["kps_score"].to(torch.float32)[..., None]]
+    return cols
 
 
 # Packed per-candidate row (fp32): [score, class, ct_x, ct_y, track_dx,
-# track_dy, x1, y1, x2, y2, tracking_id, age, active]. fp32 holds ids,
-# ages and classes exactly up to 2^24.
-def _pack_results(scores, clses, cts_img, tracking_img, bboxes_img, assoc):
+# track_dy, x1, y1, x2, y2, tracking_id, age, active], then the task's
+# extras (_extras_spec). fp32 holds ids, ages and classes exactly up to
+# 2^24.
+PACK_COLS = 13
+
+
+def _pack_results(scores, clses, cts_img, tracking_img, bboxes_img, assoc,
+                  extras=()):
     def f32(a):
         return a.to(torch.float32)[..., None]
     return torch.cat(
         [scores[..., None], f32(clses), cts_img, tracking_img, bboxes_img,
          f32(assoc["tracking_id"]), f32(assoc["age"]),
-         f32(assoc["active"])], dim=-1)
+         f32(assoc["active"])] + list(extras), dim=-1)
 
 
-def _fetch_one(packed: np.ndarray, out_thresh: float) -> List[Dict]:
+def _fetch_one(packed: np.ndarray, out_thresh: float,
+               extras=()) -> List[Dict]:
     keep = packed[(packed[:, 0] > out_thresh) & (packed[:, 10] > 0)]
-    return [{"score": float(row[0]), "class": int(row[1]), "ct": row[2:4],
-             "tracking": row[4:6], "bbox": row[6:10],
-             "tracking_id": int(row[10]), "age": int(row[11]),
-             "active": int(row[12])} for row in keep]
+    out = []
+    for row in keep:
+        item = {"score": float(row[0]), "class": int(row[1]),
+                "ct": row[2:4], "tracking": row[4:6], "bbox": row[6:10],
+                "tracking_id": int(row[10]), "age": int(row[11]),
+                "active": int(row[12])}
+        col = PACK_COLS
+        for name, width in extras:
+            item[name] = (float(row[col]) if width == 1
+                          else row[col:col + width])
+            col += width
+        if "amodel_ct" in item:
+            # the ddd contract: 'ct' is the amodal centre in image
+            # coordinates (engine/post_process.py)
+            item["ct"] = item.pop("amodel_ct")
+        out.append(item)
+    return out

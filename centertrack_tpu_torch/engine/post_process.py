@@ -8,13 +8,14 @@ work instead of a per-detection loop:
   2. stack every 2-D point the heads produced (centers, tracking
      endpoints, bbox corners, keypoints, amodal centers) into ONE
      (P, 2) array and push it through the inverse affine once;
-  3. assemble the per-detection dicts from the transformed slabs.
+  3. lift all 3D boxes with one batched unprojection (utils/ddd.py);
+  4. assemble the per-detection dicts from the transformed slabs.
 
 The dict-list output contract (score/class/ct/tracking/bbox/hps/dep/
-dim/alpha/nuscenes_att/velocity per detection) matches the reference's
-so downstream tracker/eval code is drop-in. The 3D lift of the ddd heads
-(loc, rot_y through utils/ddd.py) is not ported yet and raises (ROADMAP
-A9).
+dim/alpha/loc/rot_y/nuscenes_att/velocity per detection) matches the
+reference's so downstream tracker/eval code is drop-in; with the ddd
+heads 'ct' is the centre the box was lifted at (the amodal one where
+the net predicts it).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 
 from centertrack_tpu_torch.ops.affine import (get_affine_transform,
                                               transform_preds_with_trans)
+from centertrack_tpu_torch.utils.ddd import ddd2locrot_batch
 
 
 def get_alpha(rot: np.ndarray) -> np.ndarray:
@@ -86,11 +88,16 @@ def _image_post_process(cfg, dets: Dict[str, np.ndarray], i: int,
         fields["alpha"] = get_alpha(
             np.asarray(dets["rot"][i][:n]).reshape(n, -1))
     if has_ddd:
-        # the 3D lift at the amodal or bbox center (reference:
-        # post_process.py:65-77) needs utils/ddd.py
-        raise NotImplementedError("the ddd post-process (loc, rot_y through "
-                                  "utils/ddd.py) is not ported yet "
-                                  "(ROADMAP A9)")
+        # 3D lift at the amodal center when predicted, else the bbox
+        # center (reference: post_process.py:65-77)
+        ct3d = (fields["amodel_ct"] if use_amodel else
+                fields["bbox"].reshape(n, 2, 2).mean(axis=1))
+        fields["ct"] = ct3d
+        locs, rot_ys = ddd2locrot_batch(
+            ct3d, fields["alpha"],
+            np.asarray(dets["dim"][i][:n]).reshape(n, -1),
+            np.asarray(dets["dep"][i][:n]).reshape(n, -1)[:, 0], calib)
+        fields["loc"], fields["rot_y"] = locs, rot_ys
     fields.pop("amodel_ct", None)
 
     passthrough = [k for k in ("dep", "dim", "nuscenes_att", "velocity")

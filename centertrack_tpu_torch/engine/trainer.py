@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from centertrack_tpu_torch.data.generic import refuse_extra_heads
 from centertrack_tpu_torch.data.render import render_batch
 from centertrack_tpu_torch.engine.checkpoint import CheckpointManager
 from centertrack_tpu_torch.models.model import (load_backbone, load_model,
@@ -81,6 +82,7 @@ class Trainer:
     """
 
     def __init__(self, cfg, model, device="cuda"):
+        refuse_extra_heads(cfg.heads_dict, "Trainer")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' asked for but no GPU is "

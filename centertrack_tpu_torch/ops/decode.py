@@ -79,19 +79,84 @@ def _sides(fmap: torch.Tensor, inds, xs0, ys0) -> torch.Tensor:
                       x0 + d[..., 2:3], y0 + d[..., 3:4]], dim=2)
 
 
+def _update_kps_with_hm(kps, output, num_joints: int, k: int, bboxes,
+                        scores, thresh: float = 0.2):
+    """Snap the regressed keypoints (B, K, 2J) to nearby hm_hp peaks,
+    gated by each detection's box (reference: decode.py:11-81; JAX
+    ops/decode.py:82-148): per joint the K strongest peaks, each
+    keypoint's nearest one (the first of equal distances), kept where it
+    scores ``thresh`` and lies in the box. Dense (B, J, K, K) distances;
+    returns (kps, kps_score)."""
+    if "hm_hp" not in output:
+        return kps, kps
+    hm_hp = nms_heat(output["hm_hp"])
+    b = kps.shape[0]
+    kps = kps.reshape(b, k, num_joints, 2).transpose(1, 2)   # B,J,K,2
+    reg_kps = kps[:, :, :, None, :]
+    hm_score, hm_inds, hm_ys, hm_xs = topk_channel(hm_hp, k)  # B,J,K
+    hp_offset_map = output.get("hp_offset", output.get("reg"))
+    if hp_offset_map is not None:
+        hp_offset = gather_feat_nhwc(hp_offset_map, hm_inds.reshape(b, -1))
+        hp_offset = hp_offset.reshape(b, num_joints, k, 2)
+        hm_xs = hm_xs + hp_offset[..., 0]
+        hm_ys = hm_ys + hp_offset[..., 1]
+    else:
+        hm_xs = hm_xs + 0.5
+        hm_ys = hm_ys + 0.5
+
+    mask = (hm_score > thresh).to(torch.float32)
+    hm_score = (1 - mask) * -1 + mask * hm_score
+    hm_ys = (1 - mask) * (-10000) + mask * hm_ys
+    hm_xs = (1 - mask) * (-10000) + mask * hm_xs
+    hm_kps = torch.stack([hm_xs, hm_ys], dim=-1)[:, :, None]  # B,J,1,K,2
+    dist = torch.sqrt(((reg_kps - hm_kps) ** 2).sum(dim=4))   # B,J,K,K
+    min_ind = dist.argmin(dim=3)                              # B,J,K
+    hm_score = torch.gather(hm_score, 2, min_ind)[..., None]
+    hm_kps = torch.gather(hm_kps[:, :, 0], 2,
+                          min_ind[..., None].expand(-1, -1, -1, 2))
+    mask = hm_score < thresh
+    if bboxes is not None:
+        l = bboxes[:, None, :, 0:1]
+        t = bboxes[:, None, :, 1:2]
+        r = bboxes[:, None, :, 2:3]
+        bb = bboxes[:, None, :, 3:4]
+    else:
+        l = kps[..., 0:1].amin(dim=1, keepdim=True)
+        t = kps[..., 1:2].amin(dim=1, keepdim=True)
+        r = kps[..., 0:1].amax(dim=1, keepdim=True)
+        bb = kps[..., 1:2].amax(dim=1, keepdim=True)
+        margin = 0.25
+        l = l - (r - l) * margin
+        r = r + (r - l) * margin
+        t = t - (bb - t) * margin
+        bb = bb + (bb - t) * margin
+    mask = ((hm_kps[..., 0:1] < l) | (hm_kps[..., 0:1] > r) |
+            (hm_kps[..., 1:2] < t) | (hm_kps[..., 1:2] > bb) | mask)
+    mask = mask.to(torch.float32)
+    kps_score = (1 - mask) * hm_score + mask * scores[:, None, :, None]
+    kps_score = scores * kps_score.mean(dim=1).reshape(b, k)
+    mask2 = mask.repeat_interleave(2, dim=-1)
+    kps = (1 - mask2) * hm_kps + mask2 * kps
+    kps = kps.transpose(1, 2).reshape(b, k, num_joints * 2)
+    return kps, kps_score
+
+
 def generic_decode(output: Dict[str, torch.Tensor], k: int = 100,
                    num_classes: int = 1,
                    zero_tracking: bool = False) -> Dict[str, torch.Tensor]:
-    """NHWC tracking head maps (hm, and any of reg, wh, tracking, ltrb,
-    ltrb_amodal) -> top-K detections, each (B, K, ...) (reference:
-    decode.py:83-182; JAX ops/decode.py:145-216). Without ``reg`` the
-    centre is the peak + 0.5; a ``wh`` of 2 * num_classes channels
+    """NHWC head maps (hm, and any of reg, wh, tracking, ltrb,
+    ltrb_amodal, the ddd heads, the pose heads) -> top-K detections,
+    each (B, K, ...) (reference: decode.py:83-182; JAX
+    ops/decode.py:151-236). Without ``reg`` the centre is the peak +
+    0.5; a ``wh`` of 2 * num_classes channels
     (num_classes > 1) is read at each detection's class. ``bboxes`` come
     from ``wh``, then from ``ltrb`` where the net has it, then from
     ``ltrb_amodal`` (also ``bboxes_amodal``), the last one present
     winning, as in JAX; without any of the three there are none.
     ``zero_tracking`` multiplies the tracking map by 0 first (JAX
-    ops/decode.py:157-158)."""
+    ops/decode.py:157-158). With ``hps`` the keypoints are snapped to
+    the hm_hp peaks (``_update_kps_with_hm``) and scored
+    (``kps_score``)."""
     if zero_tracking and "tracking" in output:
         output = dict(output)
         output["tracking"] = output["tracking"] * 0
@@ -119,16 +184,35 @@ def generic_decode(output: Dict[str, torch.Tensor], k: int = 100,
              xs + wh[..., 0:1] / 2, ys + wh[..., 1:2] / 2], dim=2)
     if "ltrb" in output:
         ret["bboxes"] = _sides(output["ltrb"], inds, xs0, ys0)
-    if "tracking" in output:
-        ret["tracking"] = gather_feat_nhwc(output["tracking"], inds)
+    for head in ("tracking", "dep", "rot", "dim", "amodel_offset",
+                 "nuscenes_att", "velocity"):
+        if head in output:
+            ret[head] = gather_feat_nhwc(output[head], inds)
     if "ltrb_amodal" in output:
         ret["bboxes_amodal"] = _sides(output["ltrb_amodal"], inds, xs0, ys0)
         ret["bboxes"] = ret["bboxes_amodal"]
+    if "hps" in output:
+        kps = gather_feat_nhwc(output["hps"], inds)   # B,K,2J
+        b = kps.shape[0]
+        num_joints = kps.shape[2] // 2
+        kps = (kps.reshape(b, k, num_joints, 2) +
+               torch.stack([xs0, ys0], dim=-1)[:, :, None, :])
+        ret["hps"], ret["kps_score"] = _update_kps_with_hm(
+            kps.reshape(b, k, num_joints * 2), output, num_joints, k,
+            ret.get("bboxes"), scores)
     return ret
 
 
-def sigmoid_output(output: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Sigmoid on the heatmap (reference: src/lib/detector.py:300-308)."""
+def sigmoid_output(output: Dict[str, torch.Tensor],
+                   depth_scale: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Sigmoid on the heatmaps, and depth as 1 / sigmoid(x) - 1 times
+    ``depth_scale`` (reference: src/lib/detector.py:300-308; JAX
+    ops/decode.py:240-252)."""
     output = dict(output)
     output["hm"] = torch.sigmoid(output["hm"])
+    if "hm_hp" in output:
+        output["hm_hp"] = torch.sigmoid(output["hm_hp"])
+    if "dep" in output:
+        output["dep"] = (1.0 / (torch.sigmoid(output["dep"]) + 1e-6)
+                         - 1.0) * depth_scale
     return output

@@ -8,7 +8,10 @@ the port's data pipeline and ``Trainer`` (optionally saving at an epoch
 through ``CheckpointManager`` and resuming into a fresh model and
 trainer), tracks every video with ``FusedDetector`` and scores the
 active tracks with ``eval/mot_metrics``. The boxes and dots are drawn as
-``cv2.rectangle`` and ``cv2.circle`` draw them filled.
+``cv2.rectangle`` and ``cv2.circle`` draw them filled. The clips of the
+ddd and pose checkpoints (``make_dataset_ddd``, ``make_dataset_pose``)
+are JAX's too; serving them is what the port does with those tasks (their
+training is ROADMAP A9c).
 
 Usage (the card by default; ``--device cpu`` on the CPU):
   python -m centertrack_tpu_torch.tools.selftest [--epochs 30]
@@ -142,6 +145,182 @@ def make_dataset(root, num_videos=6, frames=24, width=160, height=96,
            "videos": videos,
            "categories": [{"id": 1, "name": "box"}]}
     ann_path = os.path.join(root, "annotations.json")
+    with open(ann_path, "w") as f:
+        json.dump(ann, f)
+    return ann_path, img_dir
+
+
+def make_dataset_ddd(root, num_videos=6, frames=24, width=1600,
+                     height=900, focal=1200.0, seed=0, max_objs=8):
+    """The JAX selftest's monocular-3D clip (its tools/selftest.py:
+    122-228), its draws on the same stream: car-like cuboids on the
+    ground plane seen by a pinhole camera at the image centre (the
+    nuScenes camera's 1600x900), drawn far to near as filled silhouettes
+    (``utils/draw``, OpenCV's hull and convex fill), the +l/2 face
+    brightened, a white dot at the projected 3D centre. Annotations hold
+    bbox, depth, dim, rotation_y, alpha and amodel_center; the JPEGs are
+    JAX's bytes. Returns (ann_path, img_dir)."""
+    from centertrack_tpu_torch.utils.ddd import (compute_box_3d,
+                                                 project_to_image,
+                                                 rot_y2alpha)
+    from centertrack_tpu_torch.utils.draw import (convex_hull,
+                                                  fill_convex_poly)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    calib = np.array([[focal, 0, width / 2, 0],
+                      [0, focal, height / 2, 0],
+                      [0, 0, 1, 0]], np.float32)
+    images, annotations, videos = [], [], []
+    img_id = ann_id = 0
+    rng = np.random.RandomState(seed)
+    for v in range(num_videos):
+        videos.append({"id": v + 1, "file_name": f"video{v + 1}"})
+        n_obj = rng.randint(4, max_objs + 1)
+        # ground-plane states: x lateral [m], z forward [m], yaw
+        x = rng.uniform(-14, 14, n_obj)
+        z = rng.uniform(10, 45, n_obj)
+        yaw = rng.uniform(-np.pi, np.pi, n_obj)
+        vx = rng.uniform(-0.5, 0.5, n_obj)
+        vz = rng.uniform(-0.8, 0.8, n_obj)
+        dims = np.stack([rng.uniform(1.4, 1.8, n_obj),      # h
+                         rng.uniform(1.6, 2.0, n_obj),      # w
+                         rng.uniform(3.6, 4.8, n_obj)], 1)  # l
+        colors = rng.randint(40, 200, (n_obj, 3))
+        for f in range(frames):
+            img_id += 1
+            fn = f"v{v + 1}_f{f + 1}.jpg"
+            img = rng.randint(180, 220, (height, width, 3), np.uint8)
+            images.append({
+                "id": img_id, "file_name": fn, "width": width,
+                "height": height, "video_id": v + 1, "frame_id": f + 1,
+                "calib": calib.tolist(),
+            })
+            xf = x + vx * f
+            zf = np.clip(z + vz * f, 6.0, 60.0)
+            for o in np.argsort(-zf):      # painter's order: far first
+                loc = np.array([xf[o], 1.5, zf[o]], np.float32)
+                pts = project_to_image(compute_box_3d(dims[o], loc, yaw[o]),
+                                       calib)
+                # the silhouette, then the front (+l/2) face
+                fill_convex_poly(img, convex_hull(pts.astype(np.int32)),
+                                 tuple(int(c) for c in colors[o]))
+                front = pts[[0, 1, 5, 4]].astype(np.int32)
+                fill_convex_poly(img, convex_hull(front), tuple(
+                    int(min(255, c + 60)) for c in colors[o]))
+                # the 3D box centre (loc is the bottom face's centre)
+                center3d = np.array(
+                    [loc[0], loc[1] - dims[o][0] / 2, loc[2]], np.float32)
+                amodel_ct = project_to_image(center3d[None], calib)[0]
+                ix = int(round(amodel_ct[0]))
+                iy = int(round(amodel_ct[1]))
+                if 0 <= ix < width and 0 <= iy < height:
+                    draw_circle(img, (ix, iy), 4, (255, 255, 255))
+                x1, y1 = pts.min(axis=0)
+                x2, y2 = pts.max(axis=0)
+                bx1 = float(np.clip(x1, 0, width - 1))
+                by1 = float(np.clip(y1, 0, height - 1))
+                bx2 = float(np.clip(x2, 0, width - 1))
+                by2 = float(np.clip(y2, 0, height - 1))
+                if bx2 - bx1 < 6 or by2 - by1 < 6:
+                    continue
+                ann_id += 1
+                annotations.append({
+                    "id": ann_id, "image_id": img_id, "category_id": 1,
+                    "bbox": [bx1, by1, bx2 - bx1, by2 - by1],
+                    "area": float((bx2 - bx1) * (by2 - by1)),
+                    "iscrowd": 0, "track_id": int(o) + 1,
+                    "depth": float(zf[o]),
+                    "dim": [float(d) for d in dims[o]],
+                    "rotation_y": float(yaw[o]),
+                    "alpha": float(rot_y2alpha(
+                        yaw[o], amodel_ct[0], calib[0, 2], calib[0, 0])),
+                    "amodel_center": [float(amodel_ct[0]),
+                                      float(amodel_ct[1])],
+                })
+            image_io.write(os.path.join(img_dir, fn), img)
+    ann = {"images": images, "annotations": annotations,
+           "videos": videos,
+           "categories": [{"id": 1, "name": "car"}]}
+    ann_path = os.path.join(root, "annotations_ddd.json")
+    with open(ann_path, "w") as f:
+        json.dump(ann, f)
+    return ann_path, img_dir
+
+
+# 17 COCO joints at fixed fractions (x, y) of a person's box: nose,
+# eyes, ears, shoulders, elbows, wrists, hips, knees, ankles (JAX
+# tools/selftest.py:231-242)
+POSE_LAYOUT = np.array([
+    [0.50, 0.08], [0.42, 0.05], [0.58, 0.05], [0.35, 0.07],
+    [0.65, 0.07], [0.30, 0.20], [0.70, 0.20], [0.20, 0.38],
+    [0.80, 0.38], [0.15, 0.55], [0.85, 0.55], [0.35, 0.55],
+    [0.65, 0.55], [0.35, 0.75], [0.65, 0.75], [0.35, 0.95],
+    [0.65, 0.95]], np.float32)
+
+# a fixed BGR colour per joint
+POSE_COLORS = [(int(40 + 210 * ((j * 5) % 17) / 16),
+                int(40 + 210 * ((j * 7) % 17) / 16),
+                int(40 + 210 * ((j * 11) % 17) / 16))
+               for j in range(17)]
+
+
+def make_dataset_pose(root, num_videos=6, frames=24, width=1280,
+                      height=720, seed=0, max_objs=5):
+    """The JAX selftest's pose clip (its tools/selftest.py:251-304), its
+    draws on the same stream: moving 'mannequins', filled rectangles
+    with a dot of its own colour at each of 17 joints (POSE_LAYOUT),
+    annotated with COCO keypoints [x, y, 2] * 17 and track ids; the
+    JPEGs are JAX's bytes. Returns (ann_path, img_dir)."""
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, annotations, videos = [], [], []
+    img_id = ann_id = 0
+    rng = np.random.RandomState(seed)
+    for v in range(num_videos):
+        videos.append({"id": v + 1, "file_name": f"video{v + 1}"})
+        n_obj = rng.randint(2, max_objs + 1)
+        hgt = rng.uniform(110, 220, n_obj)          # person height px
+        wdt = hgt * rng.uniform(0.38, 0.5, n_obj)
+        px = np.array([rng.uniform(10, width - w - 10) for w in wdt])
+        py = np.array([rng.uniform(10, height - h - 10) for h in hgt])
+        pos = np.stack([px, py], axis=1)
+        vel = rng.uniform(-5, 5, (n_obj, 2))
+        colors = rng.randint(60, 200, (n_obj, 3))
+        for f in range(frames):
+            img_id += 1
+            fn = f"v{v + 1}_f{f + 1}.jpg"
+            img = rng.randint(180, 220, (height, width, 3), np.uint8)
+            images.append({
+                "id": img_id, "file_name": fn, "width": width,
+                "height": height, "video_id": v + 1, "frame_id": f + 1,
+            })
+            for o in range(n_obj):
+                x, y = pos[o] + vel[o] * f
+                w, h = wdt[o], hgt[o]
+                x = float(np.clip(x, 0, width - w))
+                y = float(np.clip(y, 0, height - h))
+                draw_rectangle(img, (int(x), int(y)),
+                               (int(x + w), int(y + h)),
+                               tuple(int(c) for c in colors[o]))
+                kps = []
+                for j in range(17):
+                    jx = x + POSE_LAYOUT[j, 0] * w
+                    jy = y + POSE_LAYOUT[j, 1] * h
+                    draw_circle(img, (int(jx), int(jy)), 4, POSE_COLORS[j])
+                    kps += [float(jx), float(jy), 2]
+                ann_id += 1
+                annotations.append({
+                    "id": ann_id, "image_id": img_id, "category_id": 1,
+                    "bbox": [x, y, float(w), float(h)],
+                    "area": float(w * h), "iscrowd": 0,
+                    "track_id": o + 1, "keypoints": kps,
+                    "num_keypoints": 17,
+                })
+            image_io.write(os.path.join(img_dir, fn), img)
+    ann = {"images": images, "annotations": annotations,
+           "videos": videos,
+           "categories": [{"id": 1, "name": "person"}]}
+    ann_path = os.path.join(root, "annotations_pose.json")
     with open(ann_path, "w") as f:
         json.dump(ann, f)
     return ann_path, img_dir

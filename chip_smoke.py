@@ -67,8 +67,8 @@ Phases, each printing one JSON line with its elapsed seconds:
            plain version at one such max offset per dtype
   gather_routes  the forward and data kernels' gather routes at both
            dtypes (dcn_local_fwd_gather[_bf16],
-           dcn_local_bwd_data_gather[_bf16]) at R=5, 9 and 16 with Cout
-           384 (Cin 69) and 512 (Cin 64), and odd widths 69->37 at R=5,
+           dcn_local_bwd_data_gather[_bf16]) at R=5 and 9 with Cout 384
+           (Cin 69) and 512 (Cin 64), and odd widths 69->37 at R=5,
            B=2, 17x30: each call one launch of its kernel and nothing
            else (through the planner's route where it chooses the gather
            route), against the plain version at the kernel phases'
@@ -228,6 +228,25 @@ Phases, each printing one JSON line with its elapsed seconds:
            dcn_local_fwd, 1 splat_pre_hm, 0 greedy_assign and (with nms)
            1 nms_keep launch a frame; then keep_res, 8 frames at
            1088x1952 against plain DCN; ms a frame, the stage split
+  kernel   (besides) both forwards at the ddd and pose paths' neck shapes
+           at B=1: 112x200, 56x100, 28x50, 14x25 (448x800) and 128x128
+           ... 16x16 (512x512)
+  ddd, pose  nuScenes monocular 3D tracking (tracking,ddd, 448x800 from
+           1600x900, 10 classes) and COCO pose tracking
+           (tracking,multi_pose, 512x512 from 1280x720) from the
+           committed ddd and pose checkpoints on a held-out clip of
+           tools/selftest's make_dataset_ddd / make_dataset_pose (24
+           frames): float32 FusedDetector (set_calib, fetch_full) with
+           CLEAR-MOT within MOTA_TOL of JAX's and the 3D / keypoint
+           columns of the first 5 frames paired with JAX's
+           (TASK_REFERENCE, tests/task_reference.py), a counted run (16
+           dcn_local_fwd, 1 splat_pre_hm, 1 greedy_assign a frame),
+           set_calib under replay bit for bit the eager step, run_chunk
+           bit for bit run, MultiStreamDetector S=2 (set_calib,
+           fetch_all_full) against single streams, the host Detector
+           against the fused rows; then bf16 (counted, its rows and
+           scores against the plain-DCN bf16 path's, the ids reported);
+           ms a frame, lag-4 fps, peak MB
   cli      MOT17's recipe through the port's CLI in subprocesses on a
            synthetic MOT17 layout: cli.main (2 epochs of 6 bf16
            dcn_local steps), cli.test --resume,
@@ -1335,10 +1354,12 @@ def _conv3x3_ms(x, weight, bias):
 def phase_kernel():
     """dcn_local_fwd against the plain float32 version on the same
     inputs at ``_dcn_cases()``: every neck shape at B=1 and B=8, R=2 and
-    R=3, the ragged shape and the odd widths."""
+    R=3, the ragged shape and the odd widths; and the ddd and pose
+    paths' neck shapes at B=1 (``_task_neck_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, b, h, w, cin, cout, per_frame, layers, r in _dcn_cases():
+    for name, b, h, w, cin, cout, per_frame, layers, r in (
+            _dcn_cases() + _task_neck_cases()):
         x, offset, mask, weight, bias, _ = dcn_inputs(
             gen, b, h, w, cin, cout, r, torch.float32)
         out = dcn.deform_conv2d_local(x, offset, mask, weight, bias, r)
@@ -1399,6 +1420,19 @@ def _dcn_cases():
                ("odd", 1, 17, 30, 69, 37, 0, "odd widths check", 1)])
 
 
+def _task_neck_cases():
+    """The neck shapes of the ddd and pose paths (TASKS: 448x800 and
+    512x512) at B=1, R=1, as ``_dcn_cases`` gives its cases; their map is
+    named "<task> <stride map>" and their launches a 544x960 frame are 0
+    (the tasks' launches are their phases' counted runs)."""
+    stride = {"s4": 4, "s8": 8, "s16": 16, "s32": 32}
+    return [(f"{task} {n}", 1, spec["input"][0] // stride[n],
+             spec["input"][1] // stride[n], ci, co, 0,
+             f"{task} {spec['input'][0]}x{spec['input'][1]}: {lay}", 1)
+            for task, spec in TASKS.items()
+            for n, h, w, ci, co, k, lay in NECK_SHAPES]
+
+
 def dcn_inputs(gen, b, h, w, cin, cout, r, dtype=torch.bfloat16):
     """Seeded inputs of one DCN call on the card, in ``dtype``: x, offset
     (spread past +/-R, so the clamp and the kinks run), mask, weight,
@@ -1422,11 +1456,13 @@ def _plan_row(plan):
 def phase_kernel_bf16():
     """dcn_local_fwd_bf16 against the plain bf16 version on the same
     bf16 inputs, at the float32 kernel's cases, an R=3 case, every neck
-    shape at B=8, a ragged shape and odd widths."""
+    shape at B=8, a ragged shape and odd widths, and the ddd and pose
+    paths' neck shapes."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16 = torch.bfloat16
     rows = []
-    for name, b, h, w, cin, cout, per_frame, layers, r in _dcn_cases():
+    for name, b, h, w, cin, cout, per_frame, layers, r in (
+            _dcn_cases() + _task_neck_cases()):
         x, offset, mask, weight, bias, _ = dcn_inputs(
             gen, b, h, w, cin, cout, r)
         out = dcn.deform_conv2d_local(x, offset, mask, weight, bias, r)
@@ -2467,24 +2503,38 @@ def phase_lifetimes(check=True):
     return row
 
 
+def _collapse_ties(rows):
+    """``rows`` (score order) without each row whose score equals that of
+    an earlier kept row within 2 MATCH_PX of it (two neighbouring peaks
+    of one object that both passed the 3x3 NMS: one output pixel apart
+    plus their sub-pixel offsets), and the rows left out. Distinct
+    objects whose scores happen to be equal are both kept."""
+    kept, tied = [], []
+    for d in rows:
+        if any(k["score"] == d["score"] and float(np.abs(np.asarray(
+                k["ct"]) - np.asarray(d["ct"])).max()) <= 2 * MATCH_PX
+               for k in kept):
+            tied.append(d)
+        else:
+            kept.append(d)
+    return kept, tied
+
+
 def _kept_rows(packed, out_thresh, margin, collapse_ties):
     """The rows above ``out_thresh``, without those within ``margin`` of
-    it; with ``collapse_ties``, a row is left out whose score equals that
-    of an earlier kept row within 2 MATCH_PX of it (two neighbouring
-    peaks of one object that both passed the 3x3 NMS: one output pixel
-    apart plus their sub-pixel offsets). Distinct objects whose scores
-    happen to be equal are both kept."""
+    it, and with ``collapse_ties`` without tied neighbours
+    (``_collapse_ties``); and the tied rows left out."""
     rows = [d for d in FusedDetector.fetch(torch.from_numpy(packed),
                                            out_thresh)
             if abs(d["score"] - out_thresh) > margin]
-    if collapse_ties:
-        kept = []
-        for d in rows:
-            if not any(k["score"] == d["score"] and float(np.abs(
-                    k["ct"] - d["ct"]).max()) <= 2 * MATCH_PX for k in kept):
-                kept.append(d)
-        rows = kept
-    return rows
+    return _collapse_ties(rows) if collapse_ties else (rows, [])
+
+
+def _renumbered(tid, tied):
+    """A track id as the tracker would have numbered it without the tied
+    rows it numbered first: each new track takes the next id in score
+    order, so a tied neighbour born before it shifts it by one."""
+    return tid - sum(0 < t["tracking_id"] < tid for t in tied)
 
 
 def rows_against(packed, ref_packed, out_thresh, margin=0.0,
@@ -2498,18 +2548,28 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
     ``margin`` and ``collapse_ties`` as in ``_kept_rows``: at bf16 a
     score may land on either side of the threshold, and two
     neighbouring peaks whose bf16 logits tie exactly both pass the 3x3
-    max-pool NMS. With ``collapse_ties``, two pairs of a frame that swap
-    their track ids are also counted apart (``pairs_swapped_on_exact_tie``,
-    left out of the one-to-one map) where the two rows of one path have
-    exactly equal scores: such rows have no score order, so the order in
-    which the tracker numbered them is the decode's tie-break and not
-    the network's. ``unpaired_scores`` are the scores of the rows left
-    unpaired."""
+    max-pool NMS. With ``collapse_ties``, pairs whose track ids differ
+    only through such a tie are also counted apart
+    (``pairs_renumbered_on_exact_tie``, left out of the one-to-one map):
+    those whose ids are equal once each path's are renumbered without
+    the tied neighbours it left out (``_renumbered``: the tracker gave
+    the tied neighbour an id, shifting the tracks born after it), and
+    those of a frame whose ids are a permutation of each other (two that
+    swap, three in a cycle, ...) where one path scores all their rows
+    exactly equal (such rows have no score order, so the order in which
+    the tracker numbered them is the decode's tie-break and not the
+    network's). ``unpaired_scores`` are the scores of the rows left
+    unpaired, ``tied_left_out`` [frame, path (0 or 1), track id, score,
+    centre] of each tied neighbour left out."""
     counts, unpaired, pairs, same_ids, swapped = [], [], 0, 0, 0
-    score, box, id_map = 0.0, 0.0, {}
-    for a, b in zip(packed, ref_packed):
-        ra = _kept_rows(a, out_thresh, margin, collapse_ties)
-        rb = _kept_rows(b, out_thresh, margin, collapse_ties)
+    score, box, id_map, left_out = 0.0, 0.0, {}, []
+    for f, (a, b) in enumerate(zip(packed, ref_packed)):
+        ra, tied_a = _kept_rows(a, out_thresh, margin, collapse_ties)
+        rb, tied_b = _kept_rows(b, out_thresh, margin, collapse_ties)
+        left_out += [[f, side, t["tracking_id"], t["score"],
+                      [float(v) for v in t["ct"]]]
+                     for side, tied in enumerate((tied_a, tied_b))
+                     for t in tied]
         counts.append([len(ra), len(rb)])
         free = list(rb)
         differ = []
@@ -2530,14 +2590,20 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
             box = max(box, float(np.abs(da["bbox"] - db["bbox"]).max()))
         tied = set()
         if collapse_ties:
-            for i, (a1, b1) in enumerate(differ):
-                for j, (a2, b2) in enumerate(differ[:i]):
-                    if (a1["tracking_id"] == b2["tracking_id"]
-                            and a2["tracking_id"] == b1["tracking_id"]
-                            and (a1["score"] == a2["score"]
-                                 or b1["score"] == b2["score"])
-                            and not {i, j} & tied):
-                        tied |= {i, j}
+            tied = {i for i, (da, db) in enumerate(differ)
+                    if _renumbered(da["tracking_id"], tied_a)
+                    == _renumbered(db["tracking_id"], tied_b)}
+            for side in (0, 1):
+                groups = {}
+                for i, pair in enumerate(differ):
+                    if i not in tied:
+                        groups.setdefault(pair[side]["score"], []).append(i)
+                for group in groups.values():
+                    if len(group) > 1 and sorted(
+                            differ[i][0]["tracking_id"] for i in group) == \
+                            sorted(differ[i][1]["tracking_id"]
+                                   for i in group):
+                        tied |= set(group)
         swapped += len(tied)
         for i, (da, db) in enumerate(differ):
             if i not in tied:
@@ -2546,9 +2612,10 @@ def rows_against(packed, ref_packed, out_thresh, margin=0.0,
         unpaired += [db["score"] for db in free]
     mapped = [next(iter(v)) for v in id_map.values() if len(v) == 1]
     return {"rows_per_frame": counts, "rows_unpaired": len(unpaired),
-            "unpaired_scores": unpaired, "pairs": pairs,
+            "unpaired_scores": unpaired, "tied_left_out": left_out,
+            "pairs": pairs,
             "pairs_same_track_id": same_ids,
-            "pairs_swapped_on_exact_tie": swapped,
+            "pairs_renumbered_on_exact_tie": swapped,
             "track_ids_one_to_one": (len(mapped) == len(id_map) ==
                                      len(set(mapped))),
             "max_score_diff": score, "max_bbox_diff_px": box}
@@ -2671,7 +2738,8 @@ def _eager_rows(det, steps, records=()):
     """``steps`` (each a list of the detector's S frames) through its
     eager step (no graph) from a fresh state: the step a graph captures,
     run as it is. The context managers of ``records`` are active for the
-    first step. Returns the (S, K, 13) rows of each step on the host."""
+    first step. Returns the (S, K, 13 + E) rows of each step on the
+    host."""
     from centertrack_tpu_torch.engine import device_tracker as dt
     from centertrack_tpu_torch.engine.fused import _Carried
     n = det.streams
@@ -2680,7 +2748,8 @@ def _eager_rows(det, steps, records=()):
                        torch.ones(n, dtype=torch.bool, device=det.device))
     h, w = steps[0][0].shape[:2]
     trans = det._transforms(h, w)
-    out = torch.empty((1, n, det.cfg.K, 13), device=det.device)
+    calib = det._calib_for(h, w)
+    out = torch.empty((1, n, det.cfg.K, det.width), device=det.device)
     rows = []
     for i, step in enumerate(steps):
         frames = torch.as_tensor(np.stack(step), device=det.device)[None]
@@ -2688,7 +2757,7 @@ def _eager_rows(det, steps, records=()):
             if i == 0:
                 for r in records:
                     stack.enter_context(r)
-            det._step(frames, carried, out, trans)
+            det._step(frames, carried, out, trans, calib)
         rows.append(out[0].cpu().numpy().copy())
     return rows
 
@@ -2872,8 +2941,12 @@ def _device_kernels(fn):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # idle margins inside the window, as in device_kernel_counts: a
+        # call of splat_pre_hm alone once showed no device event at all
+        time.sleep(PROFILE_EDGE_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_EDGE_S)
     return {e.key: e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
@@ -3088,7 +3161,7 @@ def phase_path(dtype="float32", ref_packed=None, node="dcn_local1",
                             cfg.out_thresh, margin, collapse_ties=low)
     if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or (
             vs_plain["pairs_same_track_id"]
-            + vs_plain["pairs_swapped_on_exact_tie"] != vs_plain["pairs"]):
+            + vs_plain["pairs_renumbered_on_exact_tie"] != vs_plain["pairs"]):
         raise RuntimeError(f"rows or track ids differ between the kernel "
                            f"and the plain DCN at {dtype}: {vs_plain}")
     if vs_plain["max_score_diff"] > PLAIN_SCORE_TOL[dtype]:
@@ -3120,8 +3193,8 @@ def phase_path(dtype="float32", ref_packed=None, node="dcn_local1",
            "plain_vs_kernel_score_tol": PLAIN_SCORE_TOL[dtype],
            "plain_vs_kernel_rows": vs_plain["rows_per_frame"],
            "plain_vs_kernel_pairs": vs_plain["pairs"],
-           "plain_vs_kernel_pairs_swapped_on_exact_tie":
-               vs_plain["pairs_swapped_on_exact_tie"],
+           "plain_vs_kernel_pairs_renumbered_on_exact_tie":
+               vs_plain["pairs_renumbered_on_exact_tie"],
            "first_frame_launch_worst_rel_err": launch_worst,
            "max_memory_allocated_mb": peak_mb,
            "memory_allocated_mb_at_start": live_mb}
@@ -4171,7 +4244,7 @@ def phase_detector(fused_packed):
             row["vs_fused"] = vs
             if vs["rows_unpaired"] or not vs["pairs"] or (
                     vs["pairs_same_track_id"]
-                    + vs["pairs_swapped_on_exact_tie"] != vs["pairs"]) or (
+                    + vs["pairs_renumbered_on_exact_tie"] != vs["pairs"]) or (
                     vs["max_score_diff"] > 1e-3 or
                     vs["max_bbox_diff_px"] > 5e-2 + 1e-3 * 1920):
                 raise RuntimeError(f"detector private against the fused "
@@ -4219,6 +4292,992 @@ def phase_detector(fused_packed):
     del det
     torch.cuda.empty_cache()
     emit("detector", seconds=time.perf_counter() - t0)
+    return out
+
+
+# ---- ddd and pose: nuScenes monocular 3D and COCO pose tracking ------------
+# The ddd and pose checkpoints (trained at dcn_local1 on JAX's selftest
+# clips) served on each task's held-out clip (tools/selftest's
+# make_dataset_ddd / make_dataset_pose, one video of TASK_FRAMES frames,
+# seed TASK_SEED: bench.py:203-235), as bench.py:377-422 serves them:
+# tracking,ddd at 448x800 from 1600x900 with 10 classes and track_thresh
+# 0.1 (experiments/nuScenes_3Dtracking.sh:5), tracking,multi_pose at
+# 512x512 from 1280x720. TASK_REFERENCE is JAX's on the same frames and
+# weights at float32 on the CPU, printed by
+#   JAX_PLATFORMS=cpu python3 tests/task_reference.py
+# the CLEAR-MOT of its host Detector's active tracks (2D boxes), and its
+# FusedDetector's fetch_full rows above out_thresh of the first
+# TASK_ROW_FRAMES frames. JAX's FusedDetector's own CLEAR-MOT ("fused")
+# is not the reference: on the CPU its device tracker keeps an aged copy
+# of a track matched from slot 0 (ROADMAP C3), which hands a second
+# track's id to a new detection at the ddd clip's frame 13.
+CKPT_DDD = os.path.join(ROOT, "assets", "selftest_ddd_fp16.ckpt")
+CKPT_POSE = os.path.join(ROOT, "assets", "selftest_pose_fp16.ckpt")
+TASK_FRAMES = 24
+TASK_ROW_FRAMES = 5
+TASK_SEED = 99
+TASKS = {
+    "ddd": dict(task="tracking,ddd", classes=10, track_thresh=0.1,
+                input=(448, 800), ckpt=CKPT_DDD, make="make_dataset_ddd",
+                dataset="nuscenes"),
+    "pose": dict(task="tracking,multi_pose", classes=1, track_thresh=0.3,
+                 input=(512, 512), ckpt=CKPT_POSE, make="make_dataset_pose",
+                 dataset="coco_hp"),
+}
+# the paired rows' extras against JAX's: (relative, absolute) tolerance;
+# angles modulo 2 pi
+TASK_TOL = {"dep": (1e-3, 1e-3), "dim": (1e-3, 1e-3), "loc": (1e-3, 1e-3),
+            "alpha": (0.0, 1e-3), "rot_y": (0.0, 1e-3), "hps": (0.0, 0.05),
+            "kps_score": (0.0, 1e-3)}
+TASK_ANGLES = ("alpha", "rot_y")
+# the bf16 kernel path's extras against the plain-DCN bf16 path's from the
+# same state: a head's bf16 output may differ by an ulp or two (2^-7 of
+# its size each) where a launch flipped an ulp upstream; dep = exp(-x) of
+# its head's output x, so its relative error is x's absolute one, up to
+# about 3e-2 for |x| < 2; loc carries dep's; angles are atan2 of the rot
+# head's bf16 pairs; kps_score is an hm_hp score, held as the scores
+# are (PLAIN_SCORE_TOL); the keypoints take the box limit (phase_task)
+TASK_TOL_BF16 = {"dep": (3e-2, 3e-2), "dim": (3e-2, 3e-2),
+                 "loc": (3e-2, 3e-2), "alpha": (0.0, 3e-2),
+                 "rot_y": (0.0, 3e-2), "kps_score": (0.0, 1e-2)}
+# a keypoint past its tolerance snapped to another hm_hp peak than JAX's
+# (a near tie of distances, or a peak's score near the 0.2 threshold):
+# such flips are counted apart, their rows' kps_score left out, and at
+# most this share of the compared keypoints may flip
+TASK_MAX_FLIP_SHARE = 0.02
+# rows within this of out_thresh may be on either side of it
+TASK_MARGIN = 1e-3
+# the bench's lag-4 protocol on the clip, frames timed after the warm-up
+TASK_LAG_FRAMES = 48
+TASK_REFERENCE = {'ddd': {'frames': 24,
+             'input': [448, 800],
+             'out_thresh': 0.1,
+             'mota': 0.033333333333333326,
+             'idf1': 0.42424242424242425,
+             'num_false_positives': 52,
+             'num_misses': 61,
+             'num_switches': 3,
+             'num_objects': 120,
+             'num_matches': 59,
+             'fused': {'mota': -0.07499999999999996,
+                       'idf1': 0.38095238095238093,
+                       'num_false_positives': 59,
+                       'num_misses': 67,
+                       'num_switches': 3,
+                       'num_objects': 120,
+                       'num_matches': 53},
+             'rows': [[{'score': 0.30769661,
+                        'class': 1.0,
+                        'ct': [351.78427, 485.83585],
+                        'bbox': [274.67465, 451.89944, 419.70999, 518.05878],
+                        'tracking_id': 1.0,
+                        'active': 1.0,
+                        'dep': 30.601789,
+                        'alpha': -1.2082212,
+                        'dim': [1.6764306, 1.8325591, 4.4101038],
+                        'loc': [-11.430169, 1.7520828, 30.601789],
+                        'rot_y': -1.5656877},
+                       {'score': 0.24586676,
+                        'class': 1.0,
+                        'ct': [968.42737, 476.95462],
+                        'bbox': [888.36041, 445.55603, 1039.1605, 507.4071],
+                        'tracking_id': 2.0,
+                        'active': 1.0,
+                        'dep': 34.470631,
+                        'alpha': -1.5990907,
+                        'dim': [1.6808221, 1.8502524, 4.4137402],
+                        'loc': [4.8381639, 1.614696, 34.470631],
+                        'rot_y': -1.4596455},
+                       {'score': 0.2423981,
+                        'class': 1.0,
+                        'ct': [1175.8551, 477.80362],
+                        'bbox': [1087.7805, 445.65768, 1255.9548, 507.68997],
+                        'tracking_id': 3.0,
+                        'active': 1.0,
+                        'dep': 32.427902,
+                        'alpha': -2.7315226,
+                        'dim': [1.6964519, 1.8668749, 4.3578291],
+                        'loc': [10.156828, 1.59957, 32.427902],
+                        'rot_y': -2.4279885},
+                       {'score': 0.15260214,
+                        'class': 1.0,
+                        'ct': [1095.672, 478.39374],
+                        'bbox': [1013.3318, 446.92096, 1170.7485, 506.87073],
+                        'tracking_id': 4.0,
+                        'active': 1.0,
+                        'dep': 35.16383,
+                        'alpha': -1.7951257,
+                        'dim': [1.7224736, 1.899498, 4.3950205],
+                        'loc': [8.6641331, 1.6932642, 35.16383],
+                        'rot_y': -1.5535444}],
+                      [{'score': 0.40969974,
+                        'class': 1.0,
+                        'ct': [967.73346, 477.29544],
+                        'bbox': [886.54828, 444.57819, 1040.27, 508.57172],
+                        'tracking_id': 2.0,
+                        'active': 2.0,
+                        'dep': 33.334549,
+                        'alpha': -1.6786249,
+                        'dim': [1.6806893, 1.8387196, 4.3646531],
+                        'loc': [4.6594334, 1.5985794, 33.334549],
+                        'rot_y': -1.5397468},
+                       {'score': 0.36940706,
+                        'class': 1.0,
+                        'ct': [351.55743, 485.23352],
+                        'bbox': [269.96521, 450.03027, 424.42401, 519.52325],
+                        'tracking_id': 1.0,
+                        'active': 2.0,
+                        'dep': 29.838444,
+                        'alpha': -1.4503977,
+                        'dim': [1.6551161, 1.825323, 4.3271284],
+                        'loc': [-11.15069, 1.7036526, 29.838444],
+                        'rot_y': -1.8080301},
+                       {'score': 0.34926283,
+                        'class': 1.0,
+                        'ct': [1183.5095, 475.33606],
+                        'bbox': [1096.6918, 442.77887, 1262.1469, 508.6806],
+                        'tracking_id': 3.0,
+                        'active': 2.0,
+                        'dep': 33.10136,
+                        'alpha': -2.2448034,
+                        'dim': [1.6908019, 1.8695469, 4.32092],
+                        'loc': [10.578904, 1.5442829, 33.10136],
+                        'rot_y': -1.9354713},
+                       {'score': 0.34470758,
+                        'class': 1.0,
+                        'ct': [1095.3197, 476.11539],
+                        'bbox': [1017.0272, 446.43991, 1166.1639, 505.17831],
+                        'tracking_id': 4.0,
+                        'active': 2.0,
+                        'dep': 33.1478,
+                        'alpha': -1.8202696,
+                        'dim': [1.6678363, 1.8366649, 4.2906332],
+                        'loc': [8.1576643, 1.5553077, 33.1478],
+                        'rot_y': -1.5789651}],
+                      [{'score': 0.39025399,
+                        'class': 1.0,
+                        'ct': [967.63239, 476.83496],
+                        'bbox': [887.68774, 444.86392, 1039.1027, 507.69754],
+                        'tracking_id': 2.0,
+                        'active': 3.0,
+                        'dep': 32.967327,
+                        'alpha': -1.6929976,
+                        'dim': [1.6683614, 1.835212, 4.3582811],
+                        'loc': [4.6053267, 1.5714118, 32.967327],
+                        'rot_y': -1.5542021},
+                       {'score': 0.35766777,
+                        'class': 1.0,
+                        'ct': [351.54208, 485.20734],
+                        'bbox': [268.39719, 449.13736, 426.0715, 520.51617],
+                        'tracking_id': 1.0,
+                        'active': 3.0,
+                        'dep': 28.600985,
+                        'alpha': -1.5393604,
+                        'dim': [1.6653757, 1.8196636, 4.3325529],
+                        'loc': [-10.688615, 1.6718247, 28.600985],
+                        'rot_y': -1.8970039},
+                       {'score': 0.35666326,
+                        'class': 1.0,
+                        'ct': [1191.5715, 475.31973],
+                        'bbox': [1106.3235, 442.76547, 1268.4958, 508.74002],
+                        'tracking_id': 3.0,
+                        'active': 3.0,
+                        'dep': 33.886826,
+                        'alpha': -1.8905228,
+                        'dim': [1.6747712, 1.8595763, 4.330019],
+                        'loc': [11.057598, 1.5523903, 33.886826],
+                        'rot_y': -1.5751069},
+                       {'score': 0.34011436,
+                        'class': 1.0,
+                        'ct': [1095.4224, 474.79608],
+                        'bbox': [1014.2463, 444.78256, 1169.1902, 505.58401],
+                        'tracking_id': 4.0,
+                        'active': 3.0,
+                        'dep': 33.676266,
+                        'alpha': -2.1665645,
+                        'dim': [1.6903963, 1.8495312, 4.3282919],
+                        'loc': [8.2906017, 1.5410647, 33.676266],
+                        'rot_y': -1.9251794}],
+                      [{'score': 0.38881993,
+                        'class': 1.0,
+                        'ct': [967.6615, 476.73358],
+                        'bbox': [887.63922, 444.86484, 1039.2393, 507.61362],
+                        'tracking_id': 2.0,
+                        'active': 4.0,
+                        'dep': 33.047005,
+                        'alpha': -1.7332183,
+                        'dim': [1.667099, 1.8342421, 4.3636522],
+                        'loc': [4.617259, 1.5697703, 33.047005],
+                        'rot_y': -1.594399},
+                       {'score': 0.36071023,
+                        'class': 1.0,
+                        'ct': [1095.3367, 475.48117],
+                        'bbox': [1013.885, 444.75525, 1169.4666, 506.3468],
+                        'tracking_id': 4.0,
+                        'active': 4.0,
+                        'dep': 33.453854,
+                        'alpha': -2.0783887,
+                        'dim': [1.6827559, 1.8448331, 4.3173556],
+                        'loc': [8.2334595, 1.5517476, 33.453854],
+                        'rot_y': -1.8370708},
+                       {'score': 0.35844672,
+                        'class': 1.0,
+                        'ct': [351.51401, 485.23853],
+                        'bbox': [269.09375, 449.49069, 425.28845, 520.14209],
+                        'tracking_id': 1.0,
+                        'active': 4.0,
+                        'dep': 28.861015,
+                        'alpha': -1.5142229,
+                        'dim': [1.662606, 1.8164101, 4.3301163],
+                        'loc': [-10.786469, 1.6788194, 28.861015],
+                        'rot_y': -1.871887},
+                       {'score': 0.35517535,
+                        'class': 1.0,
+                        'ct': [1191.4657, 474.92941],
+                        'bbox': [1107.0527, 442.98453, 1267.9333, 508.02817],
+                        'tracking_id': 3.0,
+                        'active': 4.0,
+                        'dep': 33.261375,
+                        'alpha': -1.8886099,
+                        'dim': [1.6710768, 1.864749, 4.3224039],
+                        'loc': [10.850574, 1.5265273, 33.261375],
+                        'rot_y': -1.5732737}],
+                      [{'score': 0.39253214,
+                        'class': 1.0,
+                        'ct': [967.70972, 476.32822],
+                        'bbox': [885.90997, 444.61566, 1041.1267, 507.52789],
+                        'tracking_id': 2.0,
+                        'active': 5.0,
+                        'dep': 33.473225,
+                        'alpha': -1.8582106,
+                        'dim': [1.6760867, 1.8456093, 4.3640652],
+                        'loc': [4.6781545, 1.5724518, 33.473225],
+                        'rot_y': -1.7193519},
+                       {'score': 0.36467636,
+                        'class': 1.0,
+                        'ct': [1095.3967, 475.30057],
+                        'bbox': [1011.2256, 443.90945, 1172.1221, 507.26022],
+                        'tracking_id': 4.0,
+                        'active': 5.0,
+                        'dep': 33.337021,
+                        'alpha': -2.3085206,
+                        'dim': [1.7018678, 1.8487333, 4.3170891],
+                        'loc': [8.2063704, 1.5538049, 33.337021],
+                        'rot_y': -2.0671556},
+                       {'score': 0.35461378,
+                        'class': 1.0,
+                        'ct': [351.43994, 485.47263],
+                        'bbox': [270.34369, 449.98837, 423.92798, 519.86194],
+                        'tracking_id': 1.0,
+                        'active': 5.0,
+                        'dep': 28.773006,
+                        'alpha': -1.4769456,
+                        'dim': [1.6602048, 1.8056269, 4.3121977],
+                        'loc': [-10.755352, 1.6806474, 28.773006],
+                        'rot_y': -1.8346639},
+                       {'score': 0.34518167,
+                        'class': 1.0,
+                        'ct': [1191.5455, 475.29431],
+                        'bbox': [1109.0787, 443.59277, 1265.9161, 507.9165],
+                        'tracking_id': 3.0,
+                        'active': 5.0,
+                        'dep': 33.449417,
+                        'alpha': -1.7562677,
+                        'dim': [1.6578655, 1.8473299, 4.2855368],
+                        'loc': [10.914143, 1.5339992, 33.449417],
+                        'rot_y': -1.4408712}]]},
+     'pose': {'frames': 24,
+              'input': [512, 512],
+              'out_thresh': 0.3,
+              'mota': 1.0,
+              'idf1': 1.0,
+              'num_false_positives': 0,
+              'num_misses': 0,
+              'num_switches': 0,
+              'num_objects': 72,
+              'num_matches': 72,
+              'fused': {'mota': 1.0,
+                        'idf1': 1.0,
+                        'num_false_positives': 0,
+                        'num_misses': 0,
+                        'num_switches': 0,
+                        'num_objects': 72,
+                        'num_matches': 72},
+              'rows': [[{'score': 0.8905834,
+                         'class': 1.0,
+                         'ct': [720.0, 290.0],
+                         'bbox': [677.52087, 197.28796, 775.61676, 394.76251],
+                         'tracking_id': 1.0,
+                         'active': 1.0,
+                         'hps': [734.29315, 212.46545, 724.71631, 213.53009,
+                                 734.29315, 212.46545, 724.71631, 213.53009,
+                                 742.92963, 215.11642, 713.27057, 234.91528,
+                                 748.44031, 234.63544, 704.61218, 265.32483,
+                                 757.07239, 268.46216, 694.1825, 305.39972,
+                                 761.36633, 305.03711, 711.99121, 306.46008,
+                                 742.70209, 306.03583, 713.21533, 346.61206,
+                                 742.45935, 344.47809, 713.44849, 385.5097,
+                                 742.7536, 386.02014],
+                         'kps_score': 0.56480974},
+                        {'score': 0.7960946,
+                         'class': 1.0,
+                         'ct': [1040.0, 430.0],
+                         'bbox': [1002.873, 335.96326, 1094.0002, 526.42883],
+                         'tracking_id': 2.0,
+                         'active': 1.0,
+                         'hps': [1044.4618, 350.91071, 1043.9747, 346.45459,
+                                 1055.6447, 345.90869, 1036.4476, 348.25983,
+                                 1062.4241, 348.14294, 1029.0427, 372.1709,
+                                 1066.3279, 373.89758, 1021.9888, 406.77002,
+                                 1077.8345, 408.10602, 1016.4371, 439.29724,
+                                 1082.6458, 439.04364, 1034.9427, 439.61737,
+                                 1062.9866, 439.6571, 1035.0624, 480.33484,
+                                 1063.1888, 477.46088, 1034.5542, 517.91937,
+                                 1064.2565, 519.45178],
+                         'kps_score': 0.67099732},
+                        {'score': 0.7076143,
+                         'class': 1.0,
+                         'ct': [650.0, 240.0],
+                         'bbox': [612.14789, 150.37048, 701.98145, 340.79211],
+                         'tracking_id': 3.0,
+                         'active': 1.0,
+                         'hps': [655.9021, 160.87976, 646.36292, 158.11646,
+                                 664.33569, 157.71814, 646.36292, 158.11646,
+                                 665.44934, 160.57224, 640.28235, 183.24323,
+                                 677.59839, 184.90149, 632.86932, 221.80835,
+                                 685.45776, 225.21301, 627.42896, 253.82294,
+                                 685.02655, 257.35602, 645.24072, 256.7085,
+                                 673.82593, 257.78009, 645.82916, 305.203,
+                                 671.79376, 291.70282, 645.73633, 337.79309,
+                                 671.81036, 328.24335],
+                         'kps_score': 0.45192808}],
+                       [{'score': 0.85561895,
+                         'class': 1.0,
+                         'ct': [1040.0, 430.0],
+                         'bbox': [1000.9692, 336.68384, 1095.5138, 528.78265],
+                         'tracking_id': 2.0,
+                         'active': 2.0,
+                         'hps': [1044.4075, 351.80487, 1044.3734, 346.81989,
+                                 1055.7839, 346.43591, 1035.9996, 348.4527,
+                                 1062.7966, 348.32458, 1028.5319, 373.13489,
+                                 1066.3394, 375.25586, 1017.8677, 407.3363,
+                                 1076.834, 410.40723, 1016.0916, 440.87634,
+                                 1083.637, 442.71497, 1035.5071, 441.39337,
+                                 1061.9871, 441.49786, 1035.7903, 481.53754,
+                                 1063.1243, 481.13562, 1038.1079, 520.56067,
+                                 1065.2532, 522.46759],
+                         'kps_score': 0.71338475},
+                        {'score': 0.82819957,
+                         'class': 1.0,
+                         'ct': [720.0, 290.0],
+                         'bbox': [677.93707, 194.86554, 777.14746, 394.91345],
+                         'tracking_id': 1.0,
+                         'active': 2.0,
+                         'hps': [735.02325, 212.22165, 735.02325, 212.22165,
+                                 735.02325, 212.22165, 723.70691, 212.80319,
+                                 743.1123, 213.69128, 723.75983, 235.27356,
+                                 751.0462, 235.34338, 703.8606, 265.02051,
+                                 757.84119, 268.59888, 693.02295, 305.12677,
+                                 760.94604, 304.01685, 711.69189, 305.73309,
+                                 742.27271, 304.97888, 713.35089, 345.08496,
+                                 742.83844, 344.45581, 713.45282, 384.7547,
+                                 742.883, 384.44397],
+                         'kps_score': 0.52349943},
+                        {'score': 0.67623204,
+                         'class': 1.0,
+                         'ct': [650.0, 240.0],
+                         'bbox': [615.44653, 152.23077, 700.64215, 334.27173],
+                         'tracking_id': 3.0,
+                         'active': 2.0,
+                         'hps': [654.18164, 155.34329, 654.18164, 155.34329,
+                                 666.29834, 155.26822, 647.56763, 156.82068,
+                                 666.29834, 155.26822, 643.87036, 183.02844,
+                                 678.5589, 183.61139, 634.53564, 218.0686,
+                                 685.84546, 223.12219, 632.89008, 252.46008,
+                                 685.10034, 256.54028, 644.54462, 253.69409,
+                                 673.30786, 256.1601, 653.82263, 298.46313,
+                                 670.45172, 287.11389, 643.37518, 323.88129,
+                                 671.85516, 323.26593],
+                         'kps_score': 0.46035054}],
+                       [{'score': 0.89990932,
+                         'class': 1.0,
+                         'ct': [1040.0, 430.0],
+                         'bbox': [1000.5392, 337.36816, 1094.4836, 529.20135],
+                         'tracking_id': 2.0,
+                         'active': 3.0,
+                         'hps': [1044.681, 353.0553, 1044.3081, 347.3205,
+                                 1055.486, 346.92255, 1036.2242, 348.60974,
+                                 1063.4526, 350.67102, 1028.5061, 374.50708,
+                                 1065.4827, 376.52539, 1018.1994, 410.89221,
+                                 1075.3954, 410.33173, 1015.1746, 442.67023,
+                                 1080.9181, 443.03253, 1034.7003, 441.6554,
+                                 1060.7897, 442.13873, 1034.2941, 483.14264,
+                                 1061.7458, 482.61597, 1036.2615, 520.84766,
+                                 1063.5933, 521.64221],
+                         'kps_score': 0.76603448},
+                        {'score': 0.82059228,
+                         'class': 1.0,
+                         'ct': [720.0, 290.0],
+                         'bbox': [677.25293, 193.48438, 776.44458, 393.56274],
+                         'tracking_id': 1.0,
+                         'active': 3.0,
+                         'hps': [735.1366, 212.1156, 735.1366, 212.1156,
+                                 735.1366, 212.1156, 723.5498, 212.31125,
+                                 742.63062, 213.45972, 724.33411, 234.57916,
+                                 748.69824, 233.57196, 703.8446, 264.86932,
+                                 756.94183, 267.78668, 693.94318, 304.51038,
+                                 757.72437, 301.42511, 712.12903, 304.81433,
+                                 741.51422, 303.26666, 713.37067, 344.02002,
+                                 741.42181, 343.62958, 712.90826, 384.09821,
+                                 737.82312, 382.76624],
+                         'kps_score': 0.47855565},
+                        {'score': 0.62884891,
+                         'class': 1.0,
+                         'ct': [660.0, 240.0],
+                         'bbox': [621.15295, 151.37488, 706.01105, 332.14136],
+                         'tracking_id': 3.0,
+                         'active': 3.0,
+                         'hps': [654.38605, 154.67221, 654.38605, 154.67221,
+                                 666.3797, 154.52765, 647.97827, 155.5011,
+                                 666.3797, 154.52765, 643.21564, 178.89337,
+                                 678.56982, 183.22119, 634.90143, 216.44318,
+                                 686.16577, 223.2576, 632.59711, 252.27728,
+                                 684.62463, 256.47107, 645.33014, 248.80963,
+                                 674.28857, 248.43109, 653.89526, 298.22656,
+                                 675.86853, 287.06329, 650.0705, 322.35175,
+                                 676.0647, 323.20795],
+                         'kps_score': 0.41947934}],
+                       [{'score': 0.93676406,
+                         'class': 1.0,
+                         'ct': [1040.0, 430.0],
+                         'bbox': [999.69904, 338.29468, 1092.4441, 531.76892],
+                         'tracking_id': 2.0,
+                         'active': 4.0,
+                         'hps': [1045.4021, 354.14386, 1044.903, 348.87262,
+                                 1054.7645, 348.36353, 1033.7439, 352.07373,
+                                 1055.8516, 352.06433, 1027.7723, 375.80927,
+                                 1064.6656, 377.05328, 1017.4493, 411.94995,
+                                 1073.4865, 411.22485, 1013.6201, 444.74133,
+                                 1078.8755, 445.36139, 1033.5222, 443.70447,
+                                 1060.1111, 443.67371, 1033.1327, 485.25574,
+                                 1060.9419, 484.26794, 1033.4001, 525.19421,
+                                 1061.8638, 525.05859],
+                         'kps_score': 0.81391859},
+                        {'score': 0.82891327,
+                         'class': 1.0,
+                         'ct': [720.0, 280.0],
+                         'bbox': [678.367, 188.18732, 774.81763, 386.11633],
+                         'tracking_id': 1.0,
+                         'active': 4.0,
+                         'hps': [736.05518, 212.11426, 720.03296, 199.06918,
+                                 733.99768, 206.06543, 723.62622, 212.29657,
+                                 742.85229, 213.34641, 724.375, 234.32104,
+                                 748.73523, 233.11963, 703.79053, 256.03174,
+                                 756.43182, 267.18146, 692.91895, 296.15491,
+                                 757.70172, 300.62933, 711.76239, 298.9021,
+                                 741.55182, 299.76984, 707.09741, 337.22467,
+                                 741.409, 342.78632, 712.74304, 382.21191,
+                                 737.53729, 380.42578],
+                         'kps_score': 0.49519101},
+                        {'score': 0.62616479,
+                         'class': 1.0,
+                         'ct': [660.0, 230.0],
+                         'bbox': [621.19196, 147.96625, 705.58478, 326.2121],
+                         'tracking_id': 3.0,
+                         'active': 4.0,
+                         'hps': [665.71094, 154.10641, 654.9198, 153.74515,
+                                 665.71094, 154.10641, 654.9198, 153.74515,
+                                 675.07471, 154.4538, 645.74774, 178.13239,
+                                 678.36035, 178.29016, 636.18359, 216.02899,
+                                 687.96252, 217.77713, 633.58344, 248.62134,
+                                 685.91895, 247.18781, 652.04663, 247.8855,
+                                 674.4068, 248.90942, 654.10675, 298.35016,
+                                 676.09619, 280.81592, 650.07904, 316.40314,
+                                 676.9176, 317.65814],
+                         'kps_score': 0.42054015}],
+                       [{'score': 0.93778902,
+                         'class': 1.0,
+                         'ct': [1040.0, 430.0],
+                         'bbox': [998.99542, 340.37958, 1092.1158, 533.13715],
+                         'tracking_id': 2.0,
+                         'active': 5.0,
+                         'hps': [1045.3535, 355.65497, 1033.2324, 354.40405,
+                                 1056.4489, 354.25238, 1033.2324, 354.40405,
+                                 1056.4489, 354.25238, 1026.1891, 377.92236,
+                                 1064.7291, 378.30145, 1016.712, 412.86035,
+                                 1073.1809, 412.36658, 1012.8356, 446.07269,
+                                 1078.9222, 446.26904, 1032.6422, 445.64813,
+                                 1059.8042, 445.9588, 1032.9894, 486.51422,
+                                 1059.6781, 484.80371, 1032.6956, 525.85657,
+                                 1062.1011, 525.41595],
+                         'kps_score': 0.81792706},
+                        {'score': 0.85268652,
+                         'class': 1.0,
+                         'ct': [720.0, 280.0],
+                         'bbox': [678.82812, 188.88562, 774.75757, 385.24414],
+                         'tracking_id': 1.0,
+                         'active': 5.0,
+                         'hps': [736.00464, 212.12982, 724.02045, 207.67703,
+                                 734.42712, 205.5629, 723.45386, 211.56619,
+                                 742.93005, 212.84534, 723.92358, 225.48511,
+                                 746.37732, 225.6384, 703.98962, 255.74933,
+                                 756.13068, 266.28662, 693.19727, 296.15344,
+                                 757.81213, 299.38837, 711.65778, 298.27209,
+                                 740.87659, 298.83508, 706.68835, 336.68317,
+                                 738.98138, 338.4754, 711.37518, 378.2511,
+                                 737.94702, 377.83667],
+                         'kps_score': 0.49419314},
+                        {'score': 0.61347347,
+                         'class': 1.0,
+                         'ct': [660.0, 230.0],
+                         'bbox': [621.39941, 147.36029, 705.5437, 326.5072],
+                         'tracking_id': 3.0,
+                         'active': 5.0,
+                         'hps': [665.64703, 153.42694, 655.20007, 148.94379,
+                                 665.64703, 153.42694, 655.91437, 152.73862,
+                                 675.56909, 153.31635, 646.08801, 176.9671,
+                                 678.78979, 177.52148, 636.12573, 214.84607,
+                                 688.18414, 217.03568, 633.34027, 247.98108,
+                                 685.73474, 247.34326, 652.27405, 247.83148,
+                                 674.32825, 248.84875, 654.42999, 297.79999,
+                                 676.11267, 280.68854, 649.84314, 316.02478,
+                                 677.13416, 317.66302],
+                         'kps_score': 0.40293199}]]}}
+
+
+def _task_meta(name):
+    """The task's dataset meta (data/datasets.NuScenes, COCOHP)."""
+    from centertrack_tpu_torch.data.registry import get_dataset_meta
+    meta = get_dataset_meta(TASKS[name]["dataset"])
+    assert (list(meta.default_resolution) == list(TASKS[name]["input"])
+            and meta.num_categories == TASKS[name]["classes"]), name
+    return meta
+
+
+def _task_cfg(name, dtype):
+    spec = TASKS[name]
+    return set_heads(parse_task(Config(
+        task=spec["task"], pre_hm=True, track_thresh=spec["track_thresh"],
+        new_thresh=spec["track_thresh"], max_age=3, dla_node="dcn_local1",
+        compute_dtype=dtype, num_classes=spec["classes"])), _task_meta(name))
+
+
+def task_clip(name):
+    """The task's held-out clip written under build/: (frames as read by
+    utils/image_io, the camera matrix or None, each frame's ground truth
+    as (track ids, (n, 4) x y w h))."""
+    import shutil
+
+    from centertrack_tpu_torch.tools import selftest
+    from centertrack_tpu_torch.utils import image_io
+    root = os.path.join(ROOT, "build", "task_" + name)
+    shutil.rmtree(root, ignore_errors=True)
+    ann, img_dir = getattr(selftest, TASKS[name]["make"])(
+        root, num_videos=1, frames=TASK_FRAMES, seed=TASK_SEED)
+    with open(ann) as f:
+        db = json.load(f)
+    images = sorted(db["images"], key=lambda im: im["frame_id"])
+    frames = [image_io.read(os.path.join(img_dir, im["file_name"]))
+              for im in images]
+    gt = []
+    for im in images:
+        anns = [a for a in db["annotations"] if a["image_id"] == im["id"]]
+        gt.append(([a["track_id"] for a in anns],
+                   np.array([a["bbox"] for a in anns],
+                            np.float64).reshape(-1, 4)))
+    calib = images[0].get("calib")
+    return frames, None if calib is None else np.float32(calib), gt
+
+
+def _score_task(rows, gt):
+    """CLEAR-MOT of the active rows' 2D boxes against the clip's boxes."""
+    from centertrack_tpu_torch.eval.mot_metrics import MOTAccumulator
+    acc = MOTAccumulator()
+    for items, (ids, boxes) in zip(rows, gt):
+        hyp_ids, hyp = _active_boxes(items)
+        acc.update(ids, boxes, hyp_ids, hyp)
+    return acc.metrics()
+
+
+def _extra_diff(key, a, b, tols=None):
+    """|a - b| as a share of its tolerance in ``tols`` (TASK_TOL by
+    default; <= 1 passes), per element; angles modulo 2 pi."""
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    d = np.abs(a - b)
+    if key in TASK_ANGLES:
+        d = np.abs(np.remainder(a - b + np.pi, 2 * np.pi) - np.pi)
+    rel, tol = (tols or TASK_TOL)[key]
+    return d / (rel * np.abs(b) + tol)
+
+
+def task_rows_against(rows, ref_rows, out_thresh, keys, tols=None,
+                      margin=TASK_MARGIN, collapse_ties=False):
+    """Per frame, the fetched rows of one run against another's (dict
+    lists with the task's extras), each paired with the nearest unpaired
+    row of the other within MATCH_PX of its 'ct', in score order. Returns
+    the rows left unpaired (and those of them farther than ``margin``
+    from out_thresh), the pairs, those of equal track ids and whether
+    the ids map one to one, the largest score and box differences, and
+    per extra of ``keys`` the largest difference as a share of its
+    tolerance in ``tols`` (TASK_TOL by default; with ``collapse_ties``,
+    tied neighbours are left out first, as in ``rows_against``);
+    keypoints past their tolerance are counted as snap flips
+    (``hps_flips`` of ``hps_compared``) and left out of the largest
+    share, as are their rows' kps_score."""
+    unpaired, far, pairs, same, ids = 0, 0, 0, 0, {}
+    score = box = 0.0
+    worst = dict.fromkeys(keys, 0.0)
+    flips = joints = 0
+    for ra, rb in zip(rows, ref_rows):
+        if collapse_ties:
+            ra, rb = _collapse_ties(ra)[0], _collapse_ties(rb)[0]
+        free = list(rb)
+        for da in ra:
+            dist = [float(np.abs(np.asarray(da["ct"]) - np.asarray(
+                db["ct"])).max()) for db in free]
+            if not dist or min(dist) > MATCH_PX:
+                unpaired += 1
+                far += abs(da["score"] - out_thresh) > margin
+                continue
+            db = free.pop(int(np.argmin(dist)))
+            pairs += 1
+            same += da["tracking_id"] == db["tracking_id"]
+            ids.setdefault(da["tracking_id"], set()).add(db["tracking_id"])
+            score = max(score, abs(da["score"] - db["score"]))
+            box = max(box, float(np.abs(np.asarray(da["bbox"]) - np.asarray(
+                db["bbox"])).max()))
+            flipped = False
+            for key in keys:
+                share = _extra_diff(key, da[key], db[key], tols)
+                if key == "hps":
+                    joint = share.reshape(-1, 2).max(1)
+                    flips += int((joint > 1).sum())
+                    joints += joint.size
+                    flipped = bool((joint > 1).any())
+                    share = joint[joint <= 1]
+                if key == "kps_score" and flipped:
+                    continue
+                if share.size:
+                    worst[key] = max(worst[key], float(share.max()))
+        unpaired += len(free)
+        far += sum(abs(db["score"] - out_thresh) > margin
+                   for db in free)
+    mapped = [next(iter(v)) for v in ids.values() if len(v) == 1]
+    return {"rows_per_frame": [[len(a), len(b)] for a, b in
+                               zip(rows, ref_rows)],
+            "rows_unpaired": unpaired, "rows_unpaired_past_margin": far,
+            "pairs": pairs, "pairs_same_track_id": same,
+            "track_ids_one_to_one": (len(mapped) == len(ids) ==
+                                     len(set(mapped))),
+            "max_score_diff": score, "max_bbox_diff_px": box,
+            "max_share_of_tol": worst, "hps_flips": flips,
+            "hps_compared": joints}
+
+
+def _check_pairs(kind, vs, score_tol, box_tol=None, ids="same"):
+    """Raises unless ``vs`` (task_rows_against) pairs every row but near
+    the threshold, every extra within its tolerance, the flips within
+    TASK_MAX_FLIP_SHARE, scores within ``score_tol`` and the track ids
+    as ``ids`` asks: "same" every pair's equal, "one_to_one" a map one
+    to one over the frames, None not held here."""
+    bad = (vs["rows_unpaired_past_margin"] or not vs["pairs"]
+           or vs["max_score_diff"] > score_tol
+           or any(v > 1 for v in vs["max_share_of_tol"].values())
+           or vs["hps_flips"] > TASK_MAX_FLIP_SHARE * max(
+               1, vs["hps_compared"])
+           or (ids == "same" and vs["pairs_same_track_id"] != vs["pairs"])
+           or (ids is not None and not vs["track_ids_one_to_one"])
+           or (box_tol is not None and vs["max_bbox_diff_px"] > box_tol))
+    if bad:
+        raise RuntimeError(f"{kind}: {vs}")
+
+
+def _task_run(det, frames, out_thresh, states=None):
+    """Every frame through ``det.run`` (the first captures, every later
+    one a replay under the sync-debug mode) and ``fetch_full``: the rows,
+    the packed rows, the ms a frame (run and fetch) and ``run`` alone;
+    with ``states``, the track state and previous input before each of
+    the first PLAIN_FRAMES frames are kept there."""
+    rows, packed, ms, run_ms = [], [], [], []
+    for i, f in enumerate(frames):
+        if states is not None and len(states) < PLAIN_FRAMES:
+            states.append((det.track_state, det.pre_images))
+        t = time.perf_counter()
+        with sync_errors() if i else contextlib.nullcontext():
+            res = det.run(f)
+        run_ms.append(1e3 * (time.perf_counter() - t))
+        rows.append(det.fetch_full(res, out_thresh))
+        ms.append(1e3 * (time.perf_counter() - t))
+        packed.append(res.cpu().numpy())
+        if res.shape != (det.cfg.K, det.width) or not torch.isfinite(
+                res).all():
+            raise RuntimeError(f"bad packed result {tuple(res.shape)}")
+    return rows, packed, ms, run_ms
+
+
+def phase_task(name):
+    """One task served on the card through every entry point (TASKS,
+    TASK_* above). float32: FusedDetector over the clip (replays, the
+    camera set by set_calib), its CLEAR-MOT within MOTA_TOL of JAX's
+    (FP, FN and IDSW as shares of the ground truth), the rows of the
+    first TASK_ROW_FRAMES frames paired with JAX's by task_rows_against
+    within TASK_TOL; the counted run (16 dcn_local_fwd, 1 splat_pre_hm
+    and 1 greedy_assign a frame, every count set to 0 just before);
+    set_calib under replay, bit for bit the eager step; run_chunk in
+    chunks of CHUNK bit for bit run's rows; MultiStreamDetector at S=2
+    (stream 1 MULTI_OFFSET frames ahead) with set_calib and
+    fetch_all_full against the single streams; the host Detector against
+    the fused rows (launches counted: 16 DCN and 1 splat a frame); the
+    bench's lag-4 protocol. bfloat16: the same clip through the graph
+    (the counted run), the lag-4 protocol, its MOTA reported and its
+    first PLAIN_FRAMES frames held against the plain-DCN bf16 path
+    (_task_bf16_against_plain)."""
+    t0 = time.perf_counter()
+    frames, calib, gt = task_clip(name)
+    n = len(frames)
+    meta = _task_meta(name)
+    ref = TASK_REFERENCE[name]
+    weights = load_jax_ckpt(TASKS[name]["ckpt"])
+    keys = (("dep", "alpha", "dim", "loc", "rot_y") if name == "ddd"
+            else ("hps", "kps_score"))
+    t_clip = time.perf_counter() - t0
+    out = {"task": TASKS[name]["task"], "frames": n,
+           "input": list(TASKS[name]["input"]),
+           "frame_hw": list(frames[0].shape[:2]), "clip_s": t_clip}
+    by_dtype = {}
+    for dtype in ("float32", "bfloat16"):
+        kname = "dcn_local_fwd" + ("_bf16" if dtype == "bfloat16" else "")
+        cfg = _task_cfg(name, dtype)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live_mb = torch.cuda.memory_allocated() / 2 ** 20
+        det = FusedDetector(cfg, *weights, meta, device="cuda")
+        if calib is not None:
+            det.set_calib(calib)
+        states = []
+        rows, packed, ms, run_ms = _task_run(det, frames, cfg.out_thresh,
+                                             states)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        m = _score_task(rows, gt)
+
+        def replay_all():
+            det.reset_tracking()
+            return [det.run(f).cpu().numpy() for f in frames]
+        launches = counted_replays(
+            f"{name}_{dtype}", replay_all, (kname,) + TRACKER_KERNELS,
+            {kname: 16 * n, **dict.fromkeys(TRACKER_KERNELS, n)}, packed)
+        dev_frames = [torch.as_tensor(f, device="cuda") for f in frames]
+        fps, live, host_ms = timed_lag(
+            det.run, lambda r: [det.fetch_full(r, cfg.out_thresh)],
+            dev_frames, TASK_LAG_FRAMES, LAG_WARMUP, LAG)
+        del dev_frames
+        row = {"compute_dtype": dtype, "kernel": kname,
+               "mota": m["mota"], "idf1": m["idf1"],
+               **{k: m[k] for k in MOT_COUNTS},
+               "ms_per_frame_median": statistics.median(ms[PATH_WARMUP:]),
+               "host_ms_per_run_median": statistics.median(
+                   run_ms[PATH_WARMUP:]),
+               "ms_first_call_with_capture": ms[0],
+               "lag4_fps": fps, "lag4_rows_per_frame": live,
+               "lag4_host_ms_per_run_median": host_ms,
+               "launches": launches,
+               "launches_per_frame": {k: v / n for k, v in launches.items()},
+               "max_memory_allocated_mb": peak_mb,
+               "memory_allocated_mb_at_start": live_mb,
+               "packed_columns": det.width}
+        if dtype == "float32":
+            diffs = {k: m[k] - ref[k] for k in ("mota", "idf1")}
+            diffs.update({k: (m[k] - ref[k]) / ref["num_objects"]
+                          for k in DETECTOR_COUNTS})
+            row.update(jax={k: v for k, v in ref.items() if k != "rows"},
+                       minus_jax=diffs, tol=MOTA_TOL)
+            vs_jax = task_rows_against(rows[:TASK_ROW_FRAMES], ref["rows"],
+                                       cfg.out_thresh, keys)
+            row["vs_jax"] = vs_jax
+            emit(f"{name}_{dtype}", **row)
+            if any(abs(v) > MOTA_TOL for v in diffs.values()):
+                raise RuntimeError(f"{name}: {m} against JAX's: past "
+                                   f"{MOTA_TOL}")
+            _check_pairs(f"{name} against JAX's rows", vs_jax,
+                         PLAIN_SCORE_TOL["float32"], ids="one_to_one")
+            entry = _task_entry_points(name, det, frames, rows, packed,
+                                       calib, cfg, weights, meta, keys)
+            emit(f"{name}_entry_points", **entry)
+            row.update(entry)
+        else:
+            emit(f"{name}_{dtype}", **row)
+            row.update(_task_bf16_against_plain(
+                name, cfg, weights, meta, calib, frames, gt, states, rows,
+                packed, by_dtype["float32"]["packed"], keys, m))
+        by_dtype[dtype] = {"packed": packed}
+        out[dtype] = row
+        del det
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(name, **{k: v for k, v in out.items()
+                  if k not in ("float32", "bfloat16")})
+    return out
+
+
+def _task_bf16_against_plain(name, cfg, weights, meta, calib, frames, gt,
+                             states, rows, packed, packed_fp32, keys, m):
+    """phase_task's bfloat16 checks: the first PLAIN_FRAMES frames on the
+    plain-DCN bf16 path, each from the kernel path's state before it, as
+    phase_path holds its bf16 rows (rows_against with collapse_ties:
+    every row paired, track ids equal but where an exact tie renumbered
+    them, scores within PLAIN_SCORE_TOL, boxes within 5e-2 + 1e-3 of the
+    frame's width in px), and the extras paired by task_rows_against
+    within TASK_TOL_BF16 (the keypoints within the box limit). The plain-DCN
+    path's CLEAR-MOT over the whole clip from a fresh state is reported
+    beside the kernel path's (a second witness of what bf16 does to the
+    tracks), with the kernel path against the float32 one."""
+    plain = FusedDetector(cfg, *weights, meta, device="cuda",
+                          plain_dcn=True)
+    if calib is not None:
+        plain.set_calib(calib)
+    plain_packed, plain_rows = [], []
+    before = _launches()
+    for i, f in enumerate(frames[:PLAIN_FRAMES]):
+        plain.track_state, plain.pre_images = states[i]
+        res = plain.run(f)
+        plain_rows.append(plain.fetch_full(res, cfg.out_thresh))
+        plain_packed.append(res.cpu().numpy())
+    plain.reset_tracking()
+    clip_rows = [plain.fetch_full(plain.run(f), cfg.out_thresh)
+                 for f in frames]
+    if _launches() != before:
+        raise RuntimeError(f"{name}: the plain-DCN run launched a DCN "
+                           f"kernel")
+    del plain
+    m_plain = _score_task(clip_rows, gt)
+    margin = PLAIN_SCORE_TOL["bfloat16"]
+    box_tol = 5e-2 + 1e-3 * frames[0].shape[1]
+    vs_plain = rows_against(packed[:PLAIN_FRAMES], plain_packed,
+                            cfg.out_thresh, margin, collapse_ties=True)
+    vs_extras = task_rows_against(rows[:PLAIN_FRAMES], plain_rows,
+                                  cfg.out_thresh, keys,
+                                  dict(TASK_TOL_BF16, hps=(0.0, box_tol)),
+                                  margin, collapse_ties=True)
+    out = {"vs_plain_dcn": vs_plain, "vs_plain_dcn_extras": vs_extras,
+           "box_tol_px": box_tol,
+           "plain_dcn_clip": {k: m_plain[k] for k in
+                              ("mota", "idf1") + MOT_COUNTS},
+           "minus_plain_dcn_clip": {k: m[k] - m_plain[k]
+                                    for k in ("mota", "idf1")},
+           "vs_float32": rows_against(packed, packed_fp32, cfg.out_thresh,
+                                      margin, collapse_ties=True)}
+    emit(f"{name}_bfloat16_vs_plain", **out)
+    if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or (
+            vs_plain["pairs_same_track_id"]
+            + vs_plain["pairs_renumbered_on_exact_tie"] != vs_plain["pairs"]
+            ) or vs_plain["max_score_diff"] > margin or (
+            vs_plain["max_bbox_diff_px"] > box_tol):
+        raise RuntimeError(f"{name} bf16 against the plain-DCN path: "
+                           f"{vs_plain}")
+    # the ids are held by rows_against above, which renumbers them
+    # around a tied neighbour
+    _check_pairs(f"{name} bf16 extras against the plain-DCN path",
+                 vs_extras, margin, box_tol, ids=None)
+    return out
+
+
+def _task_entry_points(name, det, frames, rows, packed, calib, cfg,
+                       weights, meta, keys):
+    """phase_task's float32 checks of set_calib under replay, run_chunk,
+    MultiStreamDetector and the host Detector, on ``det`` after its
+    counted run."""
+    from centertrack_tpu_torch.engine.detector import Detector
+    from centertrack_tpu_torch.engine.fused import MultiStreamDetector
+
+    n = len(frames)
+    out = {}
+    # set_calib between two replays: the rows of frame k under another
+    # camera, bit for bit the eager step's with that camera, and loc moved
+    k = 3
+    det.reset_tracking()
+    for f in frames[:k]:
+        det.run(f)
+    other = (np.float32([[1000, 0, 790, 0], [0, 1000, 460, 0],
+                         [0, 0, 1, 0]]) if calib is not None else None)
+    det.set_calib(other)
+    replay = det.run(frames[k]).cpu().numpy()
+    eager = _eager_rows(det, [[f] for f in frames[:k + 1]])[-1][0]
+    _bitwise(f"{name}: set_calib under replay against the eager step",
+             [replay], [eager])
+    # the columns the camera does not enter (all but loc, rot_y) as the
+    # first run's
+    same = [c for c in range(det.width) if not 18 <= c <= 21] \
+        if calib is not None else list(range(det.width))
+    _bitwise(f"{name}: set_calib's frame against the first run's",
+             [replay[:, same]], [packed[k][:, same]])
+    if calib is not None:
+        moved = not np.array_equal(replay[:, 18:21], packed[k][:, 18:21])
+        if not moved:
+            raise RuntimeError(f"{name}: set_calib left loc where it was")
+        out["set_calib_moved_loc"] = moved
+    det.set_calib(calib)
+
+    # run_chunk over the clip in chunks of CHUNK: run's rows bit for bit
+    det.reset_tracking()
+    chunked = []
+    for i in range(0, n, CHUNK):
+        res = det.run_chunk(frames[i:i + CHUNK])
+        det.fetch_chunk_full(res, cfg.out_thresh)
+        chunked += list(res.cpu().numpy())
+    _bitwise(f"{name}: run_chunk against run", chunked, packed)
+    out["chunk_bitwise_frames"] = n
+
+    # two streams with one camera against single streams
+    multi = MultiStreamDetector(cfg, 2, *weights, meta, device="cuda")
+    single = FusedDetector(cfg, *weights, meta, device="cuda")
+    for d in (multi, single):
+        if calib is not None:
+            d.set_calib(calib)
+    ahead = [frames[(i + MULTI_OFFSET) % n] for i in range(n)]
+    multi_rows = [[], []]
+    for a, b in zip(frames, ahead):
+        got = multi.fetch_all_full(multi.run([a, b]), cfg.out_thresh)
+        for s in range(2):
+            multi_rows[s].append(got[s])
+    single_rows = [single.fetch_full(single.run(f), cfg.out_thresh)
+                   for f in ahead]
+    del multi, single
+    vs = [task_rows_against(multi_rows[0], rows, cfg.out_thresh, keys),
+          task_rows_against(multi_rows[1], single_rows, cfg.out_thresh,
+                            keys)]
+    out["multistream_vs_single"] = vs
+    for s, v in enumerate(vs):
+        _check_pairs(f"{name}: stream {s} of 2 against a single stream", v,
+                     PLAIN_SCORE_TOL["float32"])
+
+    # the host Detector, every launch count set to 0 just before
+    host = Detector(cfg, *weights, meta, device="cuda")
+    _reset_launches()
+    host_rows, wall = [], []
+    for f in frames:
+        t = time.perf_counter()
+        ret = host.run(f, {} if calib is None else {"calib": calib})
+        wall.append(1e3 * (time.perf_counter() - t))
+        host_rows.append([r for r in copy.deepcopy(ret["results"])
+                          if r["active"] > 0])
+    launches = _all_launches()
+    del host
+    want = {"dcn_local_fwd": 16 * n, "splat_pre_hm": n}
+    if launches != want:
+        raise RuntimeError(f"{name} host Detector: launches {launches}, "
+                           f"expected {want}")
+    fused_active = [[r for r in frame if r["active"] > 0] for frame in rows]
+    vs = task_rows_against(host_rows, fused_active, cfg.out_thresh,
+                           tuple(k for k in keys if k != "kps_score"))
+    out["detector"] = {"launches": launches,
+                       "ms_per_frame_median": statistics.median(
+                           wall[PATH_WARMUP:]),
+                       "vs_fused": vs}
+    _check_pairs(f"{name}: the host Detector against the fused rows", vs,
+                 1e-3, 5e-2 + 1e-3 * frames[0].shape[1])
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4539,7 +5598,7 @@ def phase_cli(hard=False):
     emit("cli", **row, total_s=time.perf_counter() - t0)
     vs = fused["host_vs_fused"]
     if vs["rows_unpaired"] or not vs["pairs"] or (
-            vs["pairs_same_track_id"] + vs["pairs_swapped_on_exact_tie"]
+            vs["pairs_same_track_id"] + vs["pairs_renumbered_on_exact_tie"]
             != vs["pairs"]) or vs["max_score_diff"] > fused["score_tol"] or (
             vs["max_bbox_diff_px"] > 5e-2 + 1e-3 * 1920) or any(
             abs(fused[k] - scores["test"][k]) > MOTA_TOL
@@ -4848,7 +5907,7 @@ def phase_mot17_recipe():
                             scfg.out_thresh, tol, collapse_ties=True)
     if vs_plain["rows_unpaired"] or not vs_plain["pairs"] or (
             vs_plain["pairs_same_track_id"]
-            + vs_plain["pairs_swapped_on_exact_tie"] != vs_plain["pairs"]
+            + vs_plain["pairs_renumbered_on_exact_tie"] != vs_plain["pairs"]
             ) or vs_plain["max_score_diff"] > tol:
         raise RuntimeError(f"mot17_recipe: the kernel and plain-DCN paths "
                            f"differ: {vs_plain}")
@@ -5001,6 +6060,7 @@ def main(argv):
     recipe = phase_mot17_recipe()
     detector = phase_detector(mota_packed["dcn_local1"])
     del mota_packed
+    tasks = {name: phase_task(name) for name in TASKS}
     cli = phase_cli()
     selftest = phase_selftest(n_profile)
 
@@ -5055,6 +6115,11 @@ def main(argv):
         "mot17_recipe_serve": recipe["serve_launches"].get(name, 0),
         **{"detector_" + v: r["launches"].get(name, 0)
            for v, r in detector.items()},
+        **{t + ("" if dt == "float32" else "_bf16"): r[dt]["launches"].get(
+            name, 0) for t, r in tasks.items()
+           for dt in ("float32", "bfloat16")},
+        **{t + "_detector": r["float32"]["detector"]["launches"].get(name, 0)
+           for t, r in tasks.items()},
         **{"cli_" + c: n.get(name, 0) for c, n in cli["launches"].items()}}
     fp32_design = "3xTF32 wgmma, cp.async haloed window, K splits by waves"
     weight_design = ("wgmma over pixels (3xTF32 at float32), A_t from a "

@@ -397,9 +397,10 @@ def test_dataset_class_builds_as_jax(name, tiny_dataset, tmp_path,
 def test_custom_dataset_and_the_extras(tiny_dataset, tmp_path):
     cfg, _ = _cfgs(tiny_dataset)
     assert datasets.CustomDataset(cfg, "val").run_eval({}, "") is None
+    # the ddd and pose datasets give their metas; loading them raises
     for name in ("nuscenes", "coco_hp"):
         with pytest.raises(NotImplementedError, match="A9"):
-            datasets.get_dataset(name)
+            datasets.get_dataset(name)(cfg, "val")
 
 
 def test_mot_save_results_and_run_eval_match_jax(tiny_dataset, tmp_path,

@@ -270,7 +270,9 @@ def test_multistream_detector_matches_jax_with_a_stream_reset(frames):
     """Two streams, three steps, stream 1 reset before the third (a
     video boundary; both engines then condition it on its own frame and
     restart its ids): each stream's rows against JAX's
-    ``MultiStreamDetector``. The ddd/pose extras raise."""
+    ``MultiStreamDetector``. A 2D task has no extras: ``fetch_all_full``
+    gives ``fetch_all``'s rows, and ``set_calib`` is taken and read by
+    nothing."""
     cfg, jcfg = _cfgs()
     params, batch_stats = load_jax_ckpt(CKPT)
     det = MultiStreamDetector(cfg, 2, params, batch_stats, TrainMeta,
@@ -298,10 +300,15 @@ def test_multistream_detector_matches_jax_with_a_stream_reset(frames):
     for m in id_maps:
         assert len(set(m.values())) == len(m)
     assert n >= 8 and all(id_maps)
-    with pytest.raises(NotImplementedError, match="A9"):
-        det.set_calib(np.eye(3, 4))
-    with pytest.raises(NotImplementedError, match="A9"):
-        det.fetch_all_full(packed, cfg.out_thresh)
+    full = det.fetch_all_full(packed, cfg.out_thresh)
+    plain = MultiStreamDetector.fetch_all(packed, cfg.out_thresh)
+    assert len(full) == 2 and [[set(r) for r in s] for s in full] == [
+        [set(r) for r in s] for s in plain]
+    for fs, ps in zip(full, plain):
+        for f, p in zip(fs, ps):
+            assert all(np.array_equal(f[k], p[k]) for k in p)
+    det.set_calib(np.eye(3, 4))
+    assert packed.shape[-1] == 13 and det.width == 13
 
 
 # ---- the launchers' arguments -------------------------------------------

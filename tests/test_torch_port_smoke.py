@@ -399,7 +399,9 @@ def test_rows_against_counts_id_swaps_on_exact_ties_apart():
     equal (no score order: the tracker numbered them by the decode's
     tie-break), and they stay out of the one-to-one map; a swap of rows
     whose scores differ in both paths, and any swap without
-    ``collapse_ties``, still counts as differing ids."""
+    ``collapse_ties``, still counts as differing ids. So are cycles of
+    tied rows, and the ids shifted by a tied neighbour that one path's
+    tracker numbered."""
     def packed(rows):
         p = np.zeros((6, 13), np.float32)
         for i, (score, tid, x) in enumerate(rows):
@@ -412,14 +414,40 @@ def test_rows_against_counts_id_swaps_on_exact_ties_apart():
     tie = chip_smoke.rows_against([kernel, kernel], [plain, kernel], 0.3,
                                   1e-2, collapse_ties=True)
     assert tie["pairs"] == 6 and tie["pairs_same_track_id"] == 4
-    assert tie["pairs_swapped_on_exact_tie"] == 2
+    assert tie["pairs_renumbered_on_exact_tie"] == 2
     assert tie["track_ids_one_to_one"]
     strict = chip_smoke.rows_against([kernel], [plain], 0.3)
-    assert strict["pairs_swapped_on_exact_tie"] == 0
+    assert strict["pairs_renumbered_on_exact_tie"] == 0
     apart = packed([(0.9, 1, 100), (0.62, 8, 144), (0.615, 9, 1752)])
     untied = chip_smoke.rows_against([apart], [plain], 0.3, 1e-2, True)
     assert untied["pairs_same_track_id"] == 1
-    assert untied["pairs_swapped_on_exact_tie"] == 0
+    assert untied["pairs_renumbered_on_exact_tie"] == 0
+    # three rows born tied, numbered in a cycle: counted apart; the same
+    # cycle with one score apart in both paths is not
+    k3 = packed([(0.98, 1, 100), (0.98, 2, 400), (0.98, 3, 700)])
+    p3 = packed([(0.98, 2, 100), (0.98, 3, 400), (0.98, 1, 700)])
+    cycle = chip_smoke.rows_against([k3], [p3], 0.3, 1e-2, True)
+    assert cycle["pairs_renumbered_on_exact_tie"] == 3
+    assert cycle["track_ids_one_to_one"]
+    k3[0, 0] = p3[0, 0] = 0.99
+    open_cycle = chip_smoke.rows_against([k3], [p3], 0.3, 1e-2, True)
+    assert open_cycle["pairs_renumbered_on_exact_tie"] == 0
+    assert open_cycle["pairs_same_track_id"] == 0
+    # a tied neighbour of one path, numbered as a new track, shifts the
+    # ids of the tracks born after it: counted apart once renumbered; the
+    # same shift without the tie is not
+    k4 = packed([(0.91, 1, 352), (0.8, 2, 968), (0.7, 3, 1176),
+                 (0.6, 4, 1096)])
+    p5 = packed([(0.91, 1, 352), (0.91, 2, 359.6), (0.8, 3, 968),
+                 (0.7, 4, 1176), (0.6, 5, 1096)])
+    shift = chip_smoke.rows_against([k4], [p5], 0.3, 1e-2, True)
+    assert shift["pairs"] == 4 and shift["pairs_same_track_id"] == 1
+    assert shift["pairs_renumbered_on_exact_tie"] == 3
+    assert shift["track_ids_one_to_one"]
+    assert [t[:3] for t in shift["tied_left_out"]] == [[0, 1, 2]]
+    p5[1, 0] = 0.905
+    untied = chip_smoke.rows_against([k4], [p5], 0.3, 1e-2, True)
+    assert untied["pairs_renumbered_on_exact_tie"] == 0
 
 
 def test_dcn_bwd_bound_bf16_counts_tensor_and_fp32_work_against_bytes():
@@ -572,3 +600,83 @@ def test_record_launches_holds_the_exact_kernels(monkeypatch, wrong):
             "exact": 0.0, "exact_bf16": 0.0}
     with pytest.raises(RuntimeError, match="expected"):
         rec.check(1)
+
+
+@pytest.mark.parametrize("name", ["ddd", "pose"])
+def test_task_neck_cases_are_the_task_models_dcn_layers(name):
+    """The kernel phase's ddd and pose neck shapes are the DCN layers of
+    the task's network at its input (448x800, 512x512): the same
+    channels, 16 layers, every map size of the network's own."""
+    import torch
+    from collections import Counter
+    from centertrack_tpu_torch.models.layers import DCNLayer
+    from centertrack_tpu_torch.models.model import create_model
+    cfg = chip_smoke._task_cfg(name, "float32")
+    model = create_model(cfg, "cpu")
+    seen = Counter()
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: seen.update([(o.shape[2], o.shape[3],
+                                      m.weight.shape[2], m.weight.shape[3])]))
+        for m in model.modules() if isinstance(m, DCNLayer)]
+    h, w = chip_smoke.TASKS[name]["input"]
+    with torch.no_grad():
+        model(torch.zeros(1, h, w, 3), torch.zeros(1, h, w, 3),
+              torch.zeros(1, h, w, 1))
+    for hook in hooks:
+        hook.remove()
+    cases = [c for c in chip_smoke._task_neck_cases()
+             if c[0].startswith(name + " ")]
+    table = Counter()
+    for (_, _, ch, cw, cin, cout, *_), (*_, k, _) in zip(
+            cases, chip_smoke.NECK_SHAPES):
+        table[(ch, cw, cin, cout)] += k
+    assert seen == table and sum(table.values()) == 16
+
+
+def test_task_rows_against_pairs_extras_and_counts_snap_flips():
+    """task_rows_against on fetch_full-like rows: rows paired by centre,
+    each extra's largest difference as a share of its tolerance (angles
+    modulo 2 pi), a keypoint past its tolerance counted as a snap flip
+    and left out with its row's kps_score, rows near the threshold
+    allowed to go unpaired."""
+    rng = np.random.RandomState(0)
+
+    def row(ct, score, tid):
+        return {"ct": np.float32(ct), "score": score, "tracking_id": tid,
+                "bbox": np.float32([*ct, ct[0] + 9, ct[1] + 9]),
+                "rot_y": np.pi - 1e-4, "dep": 20.0,
+                "hps": rng.uniform(0, 100, 34).astype(np.float32),
+                "kps_score": 0.5}
+    ref = [[row([10, 10], 0.9, 1), row([50, 40], 0.5, 2),
+            row([30, 70], 0.4, 4)]]
+    got = [[dict(r) for r in ref[0]]]
+    got[0][0]["rot_y"] = -np.pi + 2e-4           # 3e-4 across the wrap
+    got[0][0]["dep"] = 20.0 + 0.5 * (1e-3 * 20 + 1e-3)
+    got[0][1]["hps"] = got[0][1]["hps"].copy()
+    got[0][1]["hps"][4] += 7.0                   # joint 2 snapped elsewhere
+    got[0][1]["kps_score"] = 0.9
+    got[0].append(row([80, 80], 0.1 + 5e-4, 3))  # near the threshold
+    vs = chip_smoke.task_rows_against(got, ref, 0.1,
+                                      ("rot_y", "dep", "hps", "kps_score"))
+    assert vs["pairs"] == 3 and vs["rows_unpaired"] == 1
+    assert vs["rows_unpaired_past_margin"] == 0
+    share = vs["max_share_of_tol"]
+    assert share["rot_y"] == pytest.approx(0.3, rel=1e-3)
+    assert share["dep"] == pytest.approx(0.5, rel=1e-3)
+    assert share["hps"] == 0 and share["kps_score"] == 0
+    assert (vs["hps_flips"], vs["hps_compared"]) == (1, 51)
+    chip_smoke._check_pairs("test", vs, 1e-3)
+    got[0][0]["dep"] = 25.0
+    with pytest.raises(RuntimeError):
+        chip_smoke._check_pairs("test", chip_smoke.task_rows_against(
+            got, ref, 0.1, ("dep",)), 1e-3)
+    # the ids are held as asked: two rows under one id fail "same" and
+    # "one_to_one" and pass where another check holds them (ids=None)
+    merged = [[dict(r) for r in ref[0]]]
+    merged[0][1]["tracking_id"] = 1
+    vs = chip_smoke.task_rows_against(merged, ref, 0.1, ("dep",))
+    assert not vs["track_ids_one_to_one"]
+    chip_smoke._check_pairs("test", vs, 1e-3, ids=None)
+    for ids in ("same", "one_to_one"):
+        with pytest.raises(RuntimeError):
+            chip_smoke._check_pairs("test", vs, 1e-3, ids=ids)

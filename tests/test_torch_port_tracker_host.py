@@ -258,14 +258,30 @@ def test_post_process_matches_jax(heads):
 
 
 def test_post_process_ddd_raises():
-    cfg, _ = _cfgs()
-    dets = _dets(np.random.RandomState(0))
-    dets.update(rot=np.zeros((2, 40, 8), np.float32),
-                dep=np.ones((2, 40, 1), np.float32),
+    """The ddd lift, once not ported and raising, now runs: the rows
+    with rot, dep and dim (no amodel_offset: the lift at the box centre)
+    against JAX's at the default camera."""
+    cfg, jcfg = _cfgs()
+    rng = np.random.RandomState(0)
+    dets = _dets(rng)
+    dets.update(rot=rng.randn(2, 40, 8).astype(np.float32),
+                dep=rng.uniform(1, 50, (2, 40, 1)).astype(np.float32),
                 dim=np.ones((2, 40, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="A9"):
-        post_process.generic_post_process(cfg, dets, [np.float32([8, 8])] * 2,
-                                          [16.0] * 2, 24, 40)
+    calib = np.array([[1200, 0, 8, 0], [0, 1200, 8, 0], [0, 0, 1, 0]],
+                     np.float32)
+    args = (dets, [np.float32([8, 8])] * 2, [16.0] * 2, 24, 40,
+            [calib] * 2)
+    got = post_process.generic_post_process(cfg, *args)
+    want = jpost.generic_post_process(jcfg, *args)
+    assert sum(map(len, got)) > 0
+    for gi, wi in zip(got, want):
+        assert len(gi) == len(wi)
+        for g, w in zip(gi, wi):
+            assert g.keys() == w.keys() and {"loc", "rot_y"} <= set(g)
+            for key in g:
+                np.testing.assert_allclose(np.asarray(g[key], np.float64),
+                                           np.asarray(w[key], np.float64),
+                                           rtol=1e-5, atol=1e-5, err_msg=key)
 
 
 # ---- the host tracker --------------------------------------------------------
